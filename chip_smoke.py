@@ -2,23 +2,39 @@
 """Smoke run of the PyTorch + CUDA port (`fseend_tpu_torch`) on one NVIDIA
 GPU: builds the CUDA kernels from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the production LS-EEND width,
-serves a few streams through the port's LS-EEND streaming server, and times
-the kernels and the server.
+drives the port's three LS-EEND inference paths (per-frame streaming server,
+blockwise streaming server, batch pass), and times the kernels and the
+servers.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            (--profile adds a torch.profiler window
+                                      over the blockwise server's process_block)
 
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
-  2. build: both frame-scan kernels with nvcc into build/
-  3. kernel vs plain: B=128 lanes, K=64 frames, C=10 slots, the full
-     LSEENDConfig(); random weights from a seed with non-trivial BatchNorm
-     statistics; non-zero incoming state; staggered per-lane clocks and
-     lanes that flush part-way; every output and state leaf compared
+  2. build: the four kernels with nvcc into build/, all started together
+  3. frame-scan kernels vs plain: B=128 lanes, K=64 frames, C=10 slots, the
+     full LSEENDConfig(); random weights from a seed with non-trivial
+     BatchNorm statistics; non-zero incoming state; staggered per-lane
+     clocks and lanes that flush part-way; every output and state leaf
   4. serve: 6 streams through ContinuousBatcher(block=64) over a
      128-lane StreamingServer on the kernel path, against the plain
      per-frame server; then two lanes are reset and one stream is served
      again, bit for bit; both kernels must have launched on the main path
-  5. times: CUDA events after warm-up at B=128, K=128 (and step(), K=1)
+  5. chunkwise kernels vs plain at production width, from a carried state:
+     chunk_retention at (BH 512, T 1000, L 500) and (BH 5120, T = L = 128),
+     gamma = 1 and gamma < 1; retention_layer at the encoder shape (128,
+     128, 256) and the decoder shape (1280, 128, 256), two calls in a row
+  6. blockwise serve: BlockStreamingServer(block=128) over 128 lanes on the
+     "fused" route, streams of four lengths with per-lane h_mask tails and
+     one flush, against the "plain" route and against the batch pass at
+     chunk_size = 128; two lanes reset and served again, bit for bit;
+     retention_layer launches counted, its largest call held against plain
+  7. batch: ls_test on 2 recordings of 2900 frames, chunk_size 500, on the
+     "core" route against the "plain" route; chunk_retention launches
+     counted, its largest call held against plain
+  8. times: CUDA events after warm-up: process_block of both servers at
+     B=128, K=128 (and step(), K=1), every kernel alone beside its plain
+     version and its bound
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
 the timing lines come before it.  Float32 throughout, TF32 off.
@@ -26,6 +42,7 @@ the timing lines come before it.  Float32 throughout, TF32 off.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,6 +54,10 @@ import torch
 SEED = 0
 LANES, SLOTS = 128, 10
 CHECK_K, TIME_K = 64, 128
+BLOCK = 128                                  # blockwise server's block, = its chunk
+BLOCK_LENS = (300, 77, 512, 130)             # lane i serves a stream of BLOCK_LENS[i % 4]
+BATCH_T, BATCH_LENS, BATCH_CHUNK = 2900, (2900, 2611), 500
+HEAD = {"CR_DK": 64, "CR_DV": 64}            # LSEENDConfig(): 256 units / 4 heads
 STREAM_LENS = (137, 5, 50, 512, 777, 1000)  # lane 0 gets the 137-frame stream
 # kernel vs plain: float32 with another summation order, over 64 frames of
 # 4 encoder / 2 decoder layers; a wrong gate or term shows at O(0.1)
@@ -70,7 +91,8 @@ def phase_device():
 def phase_build():
     from fseend_tpu_torch.kernels import _build
 
-    secs = _build.build([("enc_frame_scan", {}), ("dec_frame_scan", {"FS_NSLOTS": SLOTS})],
+    secs = _build.build([("enc_frame_scan", {}), ("dec_frame_scan", {"FS_NSLOTS": SLOTS}),
+                         ("chunk_retention", HEAD), ("retention_layer", HEAD)],
                         verbose=True)
     log(f"build: {secs:.1f} s")
 
@@ -90,12 +112,18 @@ def make_model(cfg, rng):
     return model
 
 
-def capture_kernel_inputs(fn):
-    """Run fn() with the two kernel wrappers wrapped so that each call's
-    arguments are cloned before the kernel updates the state in place."""
+def frame_scans():
     from fseend_tpu_torch.kernels import dec_frame_scan as DFS
     from fseend_tpu_torch.kernels import enc_frame_scan as EFS
 
+    return ((EFS, "enc_frame_scan"), (DFS, "dec_frame_scan"))
+
+
+def capture_kernel_inputs(fn, targets=None):
+    """Run fn() with the kernel wrappers `targets` ((module, name) pairs,
+    default the two frame scans) wrapped so that each call's arguments are
+    cloned before the kernel runs (the frame scans update their state in
+    place).  Keeps the last call of each wrapper."""
     got = {}
 
     def wrap(mod, name):
@@ -108,7 +136,7 @@ def capture_kernel_inputs(fn):
 
     saved = []
     try:
-        for mod, name in ((EFS, "enc_frame_scan"), (DFS, "dec_frame_scan")):
+        for mod, name in targets or frame_scans():
             orig, wrapped = wrap(mod, name)
             saved.append((mod, name, orig))
             setattr(mod, name, wrapped)
@@ -248,6 +276,193 @@ def phase_serve(cfg, model, rng):
     return launches
 
 
+def chunk_kernels():
+    from fseend_tpu_torch.kernels import chunk_retention as CR
+    from fseend_tpu_torch.kernels import retention_layer as RL
+
+    return {"chunk_retention": (CR, CR.chunk_retention, CR.chunk_retention_plain),
+            "retention_layer": (RL, RL.retention_layer, RL.retention_layer_plain)}
+
+
+def compare_chunk_kernel(name, args, label):
+    """One chunkwise kernel and its plain version on the same arguments
+    (neither writes to them) -> (max abs diff over out, kv and scale, the
+    plain version's results)."""
+    _, kern, plain = chunk_kernels()[name]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    return compare(f"{name}[{label}]", got, want, ("out", "kv", "scale")), want
+
+
+def with_route(model, kernel, **changes):
+    """The same weights under a config with another chunkwise route."""
+    from fseend_tpu_torch.models import ls_eend
+
+    return ls_eend.with_cfg(model, dataclasses.replace(model.cfg, kernel=kernel, **changes))
+
+
+def phase_chunk_kernels_vs_plain(cfg, model, rng):
+    """Both chunkwise kernels at production width, each case two calls in a
+    row, the second from the state the first left."""
+    from fseend_tpu_torch.kernels import retention_layer as RL
+    from fseend_tpu_torch.ops import retention as R
+
+    def randn(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device="cuda")
+
+    rc = cfg.ret_cfg
+    dk, dv, H = rc.key_dim, rc.head_dim, rc.num_heads
+    decay = R.decay_gammas(dataclasses.replace(rc, use_decay=True), "cuda")
+    errs = {"chunk_retention": 0.0, "retention_layer": 0.0}
+    for BH, T, L in ((512, 1000, 500), (5120, 128, 128)):
+        for glabel, gam in (("gamma=1", torch.ones(BH, device="cuda")),
+                            ("gamma<1", decay.repeat(BH // H))):
+            kv, sc = torch.zeros(BH, dk, dv, device="cuda"), torch.ones(BH, 1, 1, device="cuda")
+            for call in range(2):
+                args = (gam, randn(BH, T, dk), randn(BH, T, dk, scale=dk ** -0.5),
+                        randn(BH, T, dv), kv, sc, L)
+                err, (_, kv, sc) = compare_chunk_kernel(
+                    "chunk_retention", args, f"BH={BH} T={T} L={L} {glabel} call {call}")
+                errs["chunk_retention"] = max(errs["chunk_retention"], err)
+            log(f"  carried scale max {sc.max().item():.2f}")
+    for label, B, ret in (("encoder", LANES, model.enc.blocks[0].ret),
+                          ("decoder", LANES * SLOTS, model.dec.layers[0].time_ret)):
+        # four times the initial weights, so that the clamped renormalizers
+        # and the carried scale are above 1 as after training
+        w = RL.pack_retention(ret)
+        w = w._replace(wqkvg=w.wqkvg * 4)
+        for glabel, gam in (("gamma=1", torch.ones(H, device="cuda")), ("gamma<1", decay)):
+            st = R.chunk_state_init(rc, B, device="cuda")
+            kv, sc = st["kv"], st["scale"]
+            for call in range(2):
+                args = (gam, randn(B, BLOCK, cfg.n_units), w, kv, sc, BLOCK)
+                err, (_, kv, sc) = compare_chunk_kernel(
+                    "retention_layer", args, f"{label} B={B} T=L={BLOCK} {glabel} call {call}")
+                errs["retention_layer"] = max(errs["retention_layer"], err)
+            log(f"  carried scale max {sc.max().item():.2f}")
+    return errs
+
+
+def check_probs(label, got, want, lens, atol):
+    """Per-lane probabilities (lanes, T, slots-1) against a reference on each
+    lane's own length."""
+    worst = 0.0
+    for b, n in enumerate(lens):
+        g, w = got[b, :n], want[b, :n]
+        if g.shape != (n, SLOTS - 1) or not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: lane {b} probs {tuple(g.shape)} not finite / "
+                                 f"wrong shape")
+        worst = max(worst, (g - w).abs().max().item())
+    log(f"  {label}: {len(lens)} lanes, max abs diff {worst:.3e} (tol {atol:g})")
+    if not worst <= atol:
+        raise AssertionError(f"{label}: differs by {worst}")
+
+
+def phase_block_serve(cfg, model, rng):
+    """The blockwise server on the "fused" route over 128 lanes: lane i
+    serves a stream of BLOCK_LENS[i % 4] frames; the lanes share the blocks
+    and one flush, each with its own h_mask tail."""
+    from fseend_tpu_torch.kernels import retention_layer as RL
+    from fseend_tpu_torch.models import ls_eend
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer
+
+    lens = np.array([BLOCK_LENS[i % len(BLOCK_LENS)] for i in range(LANES)])
+    n_blocks = -(-int(lens.max()) // BLOCK)
+    xs = rng.standard_normal((LANES, n_blocks * BLOCK, cfg.in_size)).astype(np.float32)
+
+    def run(server):
+        outs = []
+        for st in range(0, n_blocks * BLOCK, BLOCK):
+            mask = np.arange(st, st + BLOCK)[None, :] < lens[:, None]
+            outs.append(server.process_block(xs[:, st:st + BLOCK], h_mask=mask))
+        outs.append(server.process_block(np.zeros_like(xs[:, :BLOCK]), flush=True))
+        return torch.cat(outs[1:], dim=1)        # a lane's first emission is warm-up
+
+    def make(kernel):
+        return BlockStreamingServer(kind="ls", cfg=dataclasses.replace(cfg, kernel=kernel),
+                                    model=model, n_lanes=LANES, n_slots=SLOTS, block=BLOCK,
+                                    device="cuda")
+
+    server = make("fused")
+    res = {}
+    RL.launches = 0
+    t0 = time.perf_counter()
+    captured = capture_kernel_inputs(lambda: res.update(probs=run(server)),
+                                     [(RL, "retention_layer")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = RL.launches
+    n_layers = cfg.enc_n_layers + cfg.dec_n_layers
+    log(f"block serve: {LANES} lanes x {n_blocks} blocks of {BLOCK} + 1 flush, "
+        f"{int(lens.sum())} frames in {secs:.2f} s; retention_layer launches {launches} "
+        f"({n_layers} per block, {cfg.dec_n_layers} on the flush)")
+    if launches != n_blocks * n_layers + cfg.dec_n_layers:
+        raise AssertionError(f"retention_layer launched {launches} times on the main path")
+    got = res["probs"]
+    check_probs("fused route vs plain route", got, run(make("plain")), lens, SERVE_ATOL)
+    if RL.launches != launches:
+        raise AssertionError("the plain route launched retention_layer")
+    # blockwise == the batch chunkwise pass at chunk_size = block (first 8 lanes)
+    batch = ls_eend.ls_forward(with_route(model, "plain", chunk_size=BLOCK),
+                               torch.as_tensor(xs[:8], device="cuda"),
+                               torch.as_tensor(lens[:8], device="cuda"), SLOTS)
+    check_probs("fused route vs batch pass", got[:8], torch.sigmoid(batch["logits"][..., 1:]),
+                lens[:8], SERVE_ATOL)
+    # lane reuse: after the flush, reset two lanes and serve the same blocks again
+    server.reset_lanes([0, 1])
+    again = run(server)
+    for b in (0, 1):
+        if not torch.equal(again[b, :lens[b]], got[b, :lens[b]]):
+            raise AssertionError(f"lane {b}: re-served stream differs after reset_lanes")
+    if torch.equal(again[2, :lens[2]], got[2, :lens[2]]):
+        raise AssertionError("lane 2 was not reset and yet repeats its first stream")
+    log("  lane reset: lanes 0 and 1 re-served bit for bit")
+    args, _ = captured["retention_layer"]
+    err, _ = compare_chunk_kernel("retention_layer", args, "last call of the main path")
+    return launches, err, args
+
+
+def phase_batch(cfg, model, rng):
+    """ls_test on two long recordings, the "core" route against "plain"."""
+    from fseend_tpu_torch.kernels import chunk_retention as CR
+    from fseend_tpu_torch.models import ls_eend
+
+    xs = torch.as_tensor(rng.standard_normal((len(BATCH_LENS), BATCH_T, cfg.in_size)),
+                         dtype=torch.float32, device="cuda")
+    lens = torch.as_tensor(BATCH_LENS, device="cuda")
+    res = {}
+    CR.launches = 0
+    t0 = time.perf_counter()
+    captured = capture_kernel_inputs(
+        lambda: res.update(ls_eend.ls_test(with_route(model, "core", chunk_size=BATCH_CHUNK),
+                                           xs, lens)),
+        [(CR, "chunk_retention")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = CR.launches
+    n_layers = cfg.enc_n_layers + cfg.dec_n_layers
+    log(f"batch: ls_test on {len(BATCH_LENS)} recordings of {BATCH_LENS} frames, chunk "
+        f"{BATCH_CHUNK}, in {secs:.2f} s; chunk_retention launches {launches}")
+    if launches != n_layers:
+        raise AssertionError(f"chunk_retention launched {launches} times on the main path")
+    ref = ls_eend.ls_test(with_route(model, "plain", chunk_size=BATCH_CHUNK), xs, lens)
+    for key in ("logits", "emb"):
+        a, b = res[key], ref[key]
+        if a.shape != b.shape or a.shape[:2] != (len(BATCH_LENS), BATCH_T) \
+                or not torch.isfinite(a).all():
+            raise AssertionError(f"batch {key}: shape {tuple(a.shape)} or non-finite values")
+        err = (a - b).abs().max().item()
+        log(f"  {key} {tuple(a.shape)}: core route vs plain route max abs diff {err:.3e} "
+            f"(tol {SERVE_ATOL:g})")
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"batch {key}: core route differs from plain by {err}")
+    args, _ = captured["chunk_retention"]
+    err, _ = compare_chunk_kernel("chunk_retention", args, "last call of the main path")
+    return launches, err, args
+
+
 def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -261,9 +476,11 @@ def cuda_ms(fn, reps):
 
 
 def kernel_bound(name, args, cfg):
-    """(bound_ms, bound_by): the larger of the bytes the call must move (each
-    input read once, each output written once) over HBM bandwidth and its
-    float32 operations over the FMA-pipe peak."""
+    """(bound_ms, bound_by, operations, bytes, design bytes): the bound is the
+    larger of the bytes the call must move (each input read once, each output
+    written once) over HBM bandwidth and its float32 operations (the matrix
+    products; the elementwise work is of lower order) over the FMA-pipe
+    peak.  Design bytes are what this kernel's design moves."""
     tensors = [a for a in args if torch.is_tensor(a)]
     weights = [t for a in args if isinstance(a, tuple) for t in a]
     nbytes = sum(t.numel() * t.element_size() for t in tensors + weights)
@@ -278,7 +495,7 @@ def kernel_bound(name, args, cfg):
         flops = B * K * L * per
         state = args[3:6]
         nbytes += args[0].numel() * 4 + sum(t.numel() * 4 for t in state)  # h out + state out
-    else:
+    elif name == "dec_frame_scan":
         B, K, _ = args[0].shape
         C = args[3].shape[0]
         L = args[5].shape[0]
@@ -287,19 +504,87 @@ def kernel_bound(name, args, cfg):
         flops = B * K * (L * C * per_row + 4 * C * D)
         state = args[5:7]
         nbytes += B * K * C * 4 + sum(t.numel() * 4 for t in state)  # logits + state out
+    elif name == "chunk_retention":
+        # per row and frame: the causal half of q k^T and of (q k^T) v,
+        # (L + 1)(dk + dv), the state read 2 dk dv and the state update 2 dk dv
+        _, q, _, v, kv0, s0, L = args
+        BH, T, dk = q.shape
+        dv = v.shape[-1]
+        flops = BH * T * ((L + 1) * (dk + dv) + 4 * dk * dv)
+        nbytes += (v.numel() + kv0.numel() + s0.numel()) * 4         # out + state out
+        tiles = -(-L // 64)                     # a k/v tile is read by every q tile after it
+        design = nbytes + BH * T * (dk + dv) * 4 * (tiles - 1) / 2
+    else:
+        # per frame: the four input projections 2 D (2D + 2F), the out
+        # projection 2 F D, and the core as above for each head
+        _, x, w, kv0, s0, L = args
+        B, T, _ = x.shape
+        Fv = w.wo.shape[1]
+        dv = Fv // H
+        flops = B * T * (2 * D * (2 * D + 2 * Fv) + 2 * Fv * D
+                         + H * ((L + 1) * (dk + dv) + 4 * dk * dv))
+        nbytes += (x.numel() + kv0.numel() + s0.numel()) * 4         # y + state out
+        # q | k | v | g written once and read once, g written again and read again
+        design = nbytes + B * T * (2 * (2 * D + 2 * Fv) + 2 * Fv) * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
-    # what this design moves: every weight once per lane-frame (from L2),
-    # the retention state read and written once per frame (device memory)
-    design = (sum(t.numel() * 4 for t in weights) * B * K + 2 * K * state[0].numel() * 4)
+    if name.endswith("frame_scan"):
+        # every weight once per lane-frame (from L2), the retention state read
+        # and written once per frame (device memory)
+        design = (sum(t.numel() * 4 for t in weights) * B * K + 2 * K * state[0].numel() * 4)
     return (max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), flops,
             nbytes, design)
 
 
-def phase_times(cfg, model, rng, card):
-    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
-    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
-    from fseend_tpu_torch.serving.runtime import StreamingServer
+def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1):
+    """One kernel beside its plain version and its bound; the frame scans
+    update their state in place, so each side runs on its own clones."""
+    a_k, a_p = clone_args(args), clone_args(args)
+    ms = cuda_ms(lambda: kern(*a_k, **kw), reps=5)
+    plain_ms = cuda_ms(lambda: plain(*a_p, **kw), reps=plain_reps)
+    bound_ms, bound_by, flops, nbytes, design = kernel_bound(name, args, cfg)
+    log(json.dumps({"timing": name, "shape": label, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
+                    "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
+                    "design_bytes": design, "design_tb_per_s": design / ms / 1e9,
+                    "card": card}))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def profile_window(fn, reps, card):
+    """`python3 chip_smoke.py --profile`: a torch.profiler trace of fn()
+    called 1 + reps times (the first call absorbs the tracer's start-up);
+    prints the device's busy share of a call and the device kernels that
+    take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    call_ms = start.elapsed_time(end) / reps
+    rows = [(e.key, e.self_device_time_total / 1e3 / (reps + 1), e.count / (reps + 1))
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(json.dumps({"profile": {"calls": reps, "ms_per_call": call_ms,
+                                "device_busy_ms_per_call": busy,
+                                "device_idle_share": 1 - busy / call_ms,
+                                "device_kernels_per_call": sum(r[2] for r in rows),
+                                "top": [{"kernel": k[:72], "ms_per_call": ms,
+                                         "launches_per_call": n} for k, ms, n in rows[:16]]},
+                    "card": card}))
+
+
+def phase_times(cfg, model, rng, card, main_path_args):
+    from fseend_tpu_torch.ops import retention as R
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
     B, K = LANES, TIME_K
     server = StreamingServer(kind="ls", cfg=cfg, model=model, n_lanes=B, n_slots=SLOTS,
@@ -313,32 +598,75 @@ def phase_times(cfg, model, rng, card):
     fps_ms = cuda_ms(lambda: server.process_block(xs), reps=5)
     peak = torch.cuda.max_memory_allocated()
     rows = {}
-    for name, kern, plain in (("enc_frame_scan", EFS.enc_frame_scan, EFS.enc_frame_scan_plain),
-                              ("dec_frame_scan", DFS.dec_frame_scan, DFS.dec_frame_scan_plain)):
+    for mod, name in frame_scans():
         args, kw = got[name]
-        a_k, a_p = clone_args(args), clone_args(args)
-        ms = cuda_ms(lambda: kern(*a_k, **kw), reps=5)
-        plain_ms = cuda_ms(lambda: plain(*a_p, **kw), reps=1)
-        bound_ms, bound_by, flops, nbytes, design = kernel_bound(name, args, cfg)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-        log(json.dumps({"timing": name, "B": B, "K": K, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
-                        "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
-                        "design_bytes": design, "design_tb_per_s": design / ms / 1e9,
-                        "card": card}))
+        rows[name] = time_kernel(name, f"B={B} K={K}", getattr(mod, name),
+                                 getattr(mod, name + "_plain"), args, kw, cfg, card)
     # frame latency of the single-frame path: step() is a K=1 block
     step_ms = cuda_ms(lambda: server.step(xs[:, 0]), reps=20)
     log(json.dumps({"step": {"lanes": B, "ms": step_ms, "frames_per_s": B / (step_ms / 1e3)},
                     "card": card}))
     fps = B * K / (fps_ms / 1e3)
     other_ms = fps_ms - rows["enc_frame_scan"]["ms"] - rows["dec_frame_scan"]["ms"]
-    log(json.dumps({"process_block": {"lanes": B, "K": K, "ms": fps_ms,
+    log(json.dumps({"process_block": {"server": "per-frame", "lanes": B, "K": K, "ms": fps_ms,
                                       "frames_per_s": fps, "outside_kernels_ms": other_ms,
                                       "max_memory_allocated": peak},
                     "card": card}))
-    log("library_ms: null for both kernels -- no single PyTorch call computes "
-        "either frame scan")
+    del server, got
+
+    # the chunkwise kernels: the main path's largest calls (these make the
+    # kernels line), then the other production shapes
+    for name, (_, kern, plain) in chunk_kernels().items():
+        args = main_path_args[name]
+        shape = tuple(args[1].shape) + (f"L={args[-1]}",)
+        rows[name] = time_kernel(name, f"main path {shape}", kern, plain, args, {}, cfg, card,
+                                 plain_reps=3)
+    rc = cfg.ret_cfg
+    dk, dv, H = rc.key_dim, rc.head_dim, rc.num_heads
+    _, kern, plain = chunk_kernels()["chunk_retention"]
+    for BH, T, L in ((LANES * H, 1000, 500), (LANES * H, BLOCK, BLOCK),
+                     (LANES * SLOTS * H, BLOCK, BLOCK)):
+        args = (torch.ones(BH, device="cuda"),
+                *(torch.as_tensor(rng.standard_normal((BH, T, d)) * s, dtype=torch.float32,
+                                  device="cuda")
+                  for d, s in ((dk, 1.0), (dk, dk ** -0.5), (dv, 1.0))),
+                torch.zeros(BH, dk, dv, device="cuda"), torch.ones(BH, 1, 1, device="cuda"), L)
+        time_kernel("chunk_retention", f"BH={BH} T={T} L={L}", kern, plain, args, {}, cfg,
+                    card, plain_reps=3)
+    dec_args = main_path_args["retention_layer"]
+    st = R.chunk_state_init(rc, LANES, device="cuda")
+    enc_args = (dec_args[0], dec_args[1][:LANES].contiguous(), dec_args[2], st["kv"],
+                st["scale"], BLOCK)
+    _, kern, plain = chunk_kernels()["retention_layer"]
+    enc_row = time_kernel("retention_layer", f"encoder B={LANES} T=L={BLOCK}", kern, plain,
+                          enc_args, {}, cfg, card, plain_reps=3)
+
+    # the blockwise server, "fused" route then "plain" route
+    blocks = {}
+    for kernel in ("fused", "plain"):
+        bsrv = BlockStreamingServer(kind="ls", cfg=dataclasses.replace(cfg, kernel=kernel),
+                                    model=model, n_lanes=B, n_slots=SLOTS, block=BLOCK,
+                                    device="cuda")
+        xb = xs[:, :BLOCK]
+        bsrv.process_block(xb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        blocks[kernel] = cuda_ms(lambda: bsrv.process_block(xb), reps=5)
+        peak = torch.cuda.max_memory_allocated()
+        line = {"server": f"blockwise, {kernel} route", "lanes": B, "K": BLOCK,
+                "ms": blocks[kernel], "frames_per_s": B * BLOCK / (blocks[kernel] / 1e3),
+                "max_memory_allocated": peak}
+        if kernel == "fused" and "--profile" in sys.argv[1:]:
+            profile_window(lambda: bsrv.process_block(xb), 3, card)
+        if kernel == "fused":
+            in_kernel = (cfg.enc_n_layers * enc_row["ms"]
+                         + cfg.dec_n_layers * rows["retention_layer"]["ms"])
+            line.update(retention_layer_ms=in_kernel,
+                        outside_kernels_ms=blocks[kernel] - in_kernel)
+        log(json.dumps({"process_block": line, "card": card}))
+        del bsrv
+    log("library_ms: null for all four kernels -- no single PyTorch call computes a frame "
+        "scan, the chunkwise core with its carried state, or the whole retention layer")
     return rows
 
 
@@ -358,12 +686,21 @@ def main() -> int:
     log(f"config: {cfg}")
     errs = phase_kernel_vs_plain(cfg, model, rng)
     launches = phase_serve(cfg, model, rng)
-    rows = phase_times(cfg, model, rng, card)
+    chunk_errs = phase_chunk_kernels_vs_plain(cfg, model, rng)
+    main_path_args = {}
+    for name, phase in (("retention_layer", phase_block_serve), ("chunk_retention", phase_batch)):
+        launches[name], err, main_path_args[name] = phase(cfg, model, rng)
+        errs[name] = max(chunk_errs[name], err)
+    rows = phase_times(cfg, model, rng, card, main_path_args)
     sources = {
         "enc_frame_scan": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
                            "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),
         "dec_frame_scan": ("fseend_tpu_torch/kernels/csrc/dec_frame_scan.cu",
                            "fseend_tpu/kernels/dec_frame_scan_pallas.py:186"),
+        "chunk_retention": ("fseend_tpu_torch/kernels/csrc/chunk_retention.cu",
+                            "fseend_tpu/kernels/retention_pallas.py:131"),
+        "retention_layer": ("fseend_tpu_torch/kernels/csrc/retention_layer.cu",
+                            "fseend_tpu/kernels/retention_layer_pallas.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name],

@@ -1,8 +1,8 @@
 """Core neural building blocks as plain functions on tensors, plus the small
 `nn.Module` parameter holders the models are built from.
 
-Port of the subset of `fseend_tpu/ops/nn.py` that the LS-EEND streaming path
-runs.  Numerics follow the JAX functions (and through them the torch modules
+Port of the subset of `fseend_tpu/ops/nn.py` that LS-EEND inference runs
+(batch, blockwise and per-frame).  Numerics follow the JAX functions (and through them the torch modules
 of the reference): layer norm is written out as mean / biased variance /
 rsqrt, the l2 norm has no eps, attention scales by 1/sqrt(head_dim) after the
 dot product.  Convolutions are written as matmuls over an unfolded window,
@@ -95,6 +95,25 @@ def lookahead_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    delay: int) -> torch.Tensor:
     """The k=2*delay+1, pad=delay smoothing conv between encoder and decoder."""
     return conv1d(x, weight, bias, padding=(delay, delay))
+
+
+def causal_depthwise_conv(x: torch.Tensor, weight: torch.Tensor,
+                          cache: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal depthwise convolution of (B, T, D) -> (B, T, D) with a torch
+    depthwise Conv1d weight (D, 1, k), as k shifted multiply-adds.  The k-1
+    frames before x are zeros (the batch form), or `cache` (B, k-1, D), the
+    history a block-by-block caller carries."""
+    k = weight.shape[-1]
+    T = x.shape[1]
+    if cache is None:
+        window = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        window = torch.cat([cache, x], dim=1)
+    taps = weight[:, 0, :]                           # (D, k)
+    y = window[:, :T] * taps[:, 0]
+    for j in range(1, k):
+        y = y + window[:, j:j + T] * taps[:, j]
+    return y
 
 
 def sinusoidal_table(max_len: int, d_model: int, device=None) -> torch.Tensor:

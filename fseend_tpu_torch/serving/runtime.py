@@ -1,6 +1,8 @@
 """Batched multi-stream streaming runtime for LS-EEND — the serving path.
 
-Port of `fseend_tpu/serving/runtime.py` for `kind="ls"`.  N independent
+Port of `fseend_tpu/serving/runtime.py` for `kind="ls"`: `StreamingServer`
+(per-frame semantics, frame-level latency) and `BlockStreamingServer`
+(blockwise chunkwise retention, the throughput mode).  N independent
 audio streams are served by one model whose stream state has a leading lane
 axis (`ls_eend.ls_stream_init`); a block of K frames advances every lane at
 once, each lane with its own clock and flush schedule; lanes are reset one
@@ -152,10 +154,92 @@ def stream_file(server: StreamingServer, feats: np.ndarray, block: int = 128):
     return np.concatenate(probs, axis=0)[delay:]
 
 
+@dataclasses.dataclass
 class BlockStreamingServer:
-    """Blockwise (chunkwise-retention) streaming: not ported yet."""
+    """Blockwise streaming server: consumes fixed-size K-frame blocks per
+    lane and emits the previous block's probabilities (one-block lag; see
+    the blockwise section of models/ls_eend.py).  The highest-throughput
+    serving mode; `StreamingServer` is the one with frame-level latency.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BlockStreamingServer is not ported yet (ROADMAP A7, LS blockwise "
-            "streaming with the fused retention-layer kernel)")
+    Lanes carry O(1) chunkwise-retention state, and the result equals the
+    batch chunkwise pass with chunk_size = block.  `cfg.kernel` picks the
+    retention route; with "fused" (the default) every retention layer of a
+    block is one `kernels/retention_layer.py` call, a CUDA kernel on the
+    card."""
+
+    kind: str                 # "ls" ("fs": ROADMAP A9)
+    cfg: ls_eend.LSEENDConfig
+    model: ls_eend.LSEEND
+    n_lanes: int
+    n_slots: int
+    block: int = 100
+    dtype: Any = torch.float32
+    device: Any = None        # None: the card ("cuda"); "cpu" for the tests
+
+    def __post_init__(self):
+        if self.kind != "ls":
+            raise NotImplementedError(
+                "BlockStreamingServer(kind='fs') is not ported yet (ROADMAP A9, "
+                "FS-EEND)")
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                "the port serves float32 only so far (ROADMAP B: bf16 serving)")
+        self.device = ls_eend.resolve_device(self.device)
+        # the server's config decides the route, whatever config the model came with
+        self.model = ls_eend.with_cfg(self.model.to(self.device).eval(), self.cfg)
+        self.state = self.fresh_state()
+        self._packed = (ls_eend.pack_block_weights(self.model)
+                        if self.cfg.kernel == "fused" else None)
+
+    def fresh_state(self) -> dict:
+        """A pristine per-stream state (what reset_all installs)."""
+        return ls_eend.ls_blockstream_init(self.cfg, self.n_lanes, self.n_slots,
+                                           self.block, self.dtype, self.device)
+
+    @torch.no_grad()
+    def process_block(self, frames, flush: bool = False, h_mask=None) -> torch.Tensor:
+        """frames: (n_lanes, block, in_size) -> probabilities of the PREVIOUS
+        block (n_lanes, block, n_slots-1), a tensor on the server's device.
+        A lane's first output is warm-up garbage; with flush=True a
+        zero-embedding block drains the tail.  h_mask, (block,) for all lanes
+        or (n_lanes, block) per lane, marks the valid frames: pass it on a
+        zero-padded final partial block for exact parity with the batch
+        pass."""
+        if isinstance(frames, torch.Tensor):
+            xs = frames.to(self.device, self.dtype)
+        else:
+            xs = torch.as_tensor(np.ascontiguousarray(frames), dtype=self.dtype,
+                                 device=self.device)
+        if tuple(xs.shape[:2]) != (self.n_lanes, self.block):
+            raise ValueError(f"frames {tuple(xs.shape)}: expected "
+                             f"({self.n_lanes}, {self.block}, in_size)")
+        if h_mask is not None:
+            h_mask = torch.as_tensor(np.asarray(h_mask, bool), device=self.device)
+        self.state, logits = ls_eend.ls_blockstream_step(
+            self.model, self.state, xs, self.n_slots, enc_bypass=bool(flush),
+            h_mask=h_mask, packed=self._packed)
+        return torch.sigmoid(logits[..., 1:])       # the silence slot dropped
+
+    def blocks_consumed(self) -> int:
+        return int(self.state["m"].max())
+
+    def reset_all(self) -> None:
+        """Fresh state for every lane."""
+        self.state = self.fresh_state()
+
+    def reset_lanes(self, lanes) -> None:
+        """Reset the given lanes to fresh-stream state (gamma = 1 retention
+        state does not depend on the position, so a per-lane reset is
+        exact): zeros, ones for the retention scales, over both the lane
+        axis and the lanes x slots axis of the decoder.  The lane's block
+        counter returns to 0, so its next block is gated as a warm-up block
+        again."""
+        idx = torch.as_tensor(np.asarray(lanes, np.int64).reshape(-1), device=self.device)
+        slots = (idx[:, None] * self.n_slots
+                 + torch.arange(self.n_slots, device=self.device)).reshape(-1)
+        for key, t in self.state.items():
+            fill = 1 if key.endswith("_scale") else 0
+            if key in ("m", "h_prev", "h_tail2"):
+                t.index_fill_(0, idx, fill)
+            else:
+                t.index_fill_(1, slots if key.startswith("dec_") else idx, fill)

@@ -1,9 +1,10 @@
-"""Weights and stream state between the JAX package and the port.
+"""Weights and stream states between the JAX package and the port.
 
 The JAX package keeps its parameters as a nested dict pytree with linear
 kernels in (in, out) layout, convolution kernels as (width, in/groups, out)
 and the BatchNorm running statistics in a separate `model_state`; its
-stream state is a nested dict with per-layer lists.  These functions take
+stream states (per-frame and blockwise) are nested dicts with per-layer
+lists.  These functions take
 those trees as numpy arrays (`jax.tree.map(np.asarray, tree)`) and return
 the port's `LSEEND` module / flat state dict, and back.  No JAX import.
 """
@@ -104,5 +105,40 @@ def ls_state_to_numpy(state: dict) -> dict:
         "enc": [{"ret": {"kv": kv, "scale": sc}, "conv": cv}
                 for kv, sc, cv in zip(n["enc_kv"], n["enc_scale"], n["enc_conv"])],
         "cnn_buf": n["cnn_buf"],
+        "dec": [{"kv": kv, "scale": sc} for kv, sc in zip(n["dec_kv"], n["dec_scale"])],
+    }
+
+
+def ls_blockstate_from_jax(state_np: dict, device=None) -> dict:
+    """The port's flat blockwise state from the JAX nested one:
+    {"enc": [{"ret": {"kv", "scale"}, "conv"}], "h_prev", "h_tail2", "m",
+     "dec": [{"kv", "scale"}]}."""
+    device = ls_eend.resolve_device(device)
+
+    def st(xs):
+        return torch.as_tensor(np.stack([np.asarray(x) for x in xs])).to(device)
+
+    enc, dec = state_np["enc"], state_np["dec"]
+    return {
+        "m": torch.as_tensor(np.array(state_np["m"], np.int32)).to(device),
+        "enc_kv": st([e["ret"]["kv"] for e in enc]),
+        "enc_scale": st([e["ret"]["scale"] for e in enc]),
+        "enc_conv": st([e["conv"] for e in enc]),
+        "h_prev": torch.as_tensor(np.array(state_np["h_prev"])).to(device),
+        "h_tail2": torch.as_tensor(np.array(state_np["h_tail2"])).to(device),
+        "dec_kv": st([d["kv"] for d in dec]),
+        "dec_scale": st([d["scale"] for d in dec]),
+    }
+
+
+def ls_blockstate_to_numpy(state: dict) -> dict:
+    """The JAX package's nested blockwise state (numpy leaves) from the port's."""
+    n = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    return {
+        "enc": [{"ret": {"kv": kv, "scale": sc}, "conv": cv}
+                for kv, sc, cv in zip(n["enc_kv"], n["enc_scale"], n["enc_conv"])],
+        "h_prev": n["h_prev"],
+        "h_tail2": n["h_tail2"],
+        "m": n["m"],
         "dec": [{"kv": kv, "scale": sc} for kv, sc in zip(n["dec_kv"], n["dec_scale"])],
     }

@@ -201,10 +201,12 @@ def test_port_imports_without_jax():
             importlib.import_module(n)
         bad = [m for m in sys.modules if m == "fseend_tpu" or m.startswith("fseend_tpu.")]
         assert not bad, bad
-        assert "fseend_tpu_torch.serving.runtime" in names, names
+        for n in ("serving.runtime", "kernels.chunk_retention", "kernels.retention_layer",
+                  "utils.checkpoint", "ops.retention", "models.ls_eend"):
+            assert "fseend_tpu_torch." + n in names, (n, names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 15

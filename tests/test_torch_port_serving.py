@@ -29,7 +29,8 @@ JCFG = J.LSEENDConfig(
     conv_kernel_size=4, dec_dim_feedforward=48, conv_delay=2, max_nspks=3,
     dropout=0.0)
 TCFG = T.LSEENDConfig(**{f.name: getattr(JCFG, f.name)
-                         for f in dataclasses.fields(T.LSEENDConfig)})
+                         for f in dataclasses.fields(T.LSEENDConfig)
+                         if hasattr(JCFG, f.name)})
 C = 3
 ATOL = 2e-4
 LENS = [7, 15, 1, 4, 11]          # the 1-frame stream is shorter than conv_delay
@@ -122,7 +123,13 @@ def test_unported_modes_say_where_they_are_queued(setup):
     with pytest.raises(NotImplementedError, match="A9"):
         RT.StreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        RT.BlockStreamingServer(TCFG, model)
+    with pytest.raises(NotImplementedError, match="A9"):
+        RT.BlockStreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        T.ls_forward(model, torch.zeros(1, 4, JCFG.in_size), torch.tensor([4]), C,
+                     train=True)
+    with pytest.raises(NotImplementedError, match="A6"):
+        dataclasses.replace(TCFG, use_fused_dec=True)
     with pytest.raises(NotImplementedError, match="bf16"):
         _server(model, dtype=torch.bfloat16)
