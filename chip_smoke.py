@@ -3,15 +3,15 @@
 GPU: builds the CUDA kernels from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the production LS-EEND width,
 drives the port's three LS-EEND inference paths (per-frame streaming server,
-blockwise streaming server, batch pass), and times the kernels and the
-servers.
+blockwise streaming server, batch pass) and its training path (the train
+step and the epoch loop), and times the kernels, the servers and the step.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block)
 
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
-  2. build: the four kernels with nvcc into build/, all started together
+  2. build: the six kernels with nvcc into build/, all started together
   3. frame-scan kernels vs plain: B=128 lanes, K=64 frames, C=10 slots, the
      full LSEENDConfig(); random weights from a seed with non-trivial
      BatchNorm statistics; non-zero incoming state; staggered per-lane
@@ -32,7 +32,27 @@ Phases (any failure raises; the script exits non-zero and prints no result):
   7. batch: ls_test on 2 recordings of 2900 frames, chunk_size 500, on the
      "core" route against the "plain" route; chunk_retention launches
      counted, its largest call held against plain
-  8. times: CUDA events after warm-up: process_block of both servers at
+  8. T1, fusion-layer kernels vs plain: the training forward and backward
+     of one decoder layer at production width (D 256, H 4, F 2048, C 10),
+     B 2, T 256, L 128, dropout 0 and 0.1: forward y, kvs, ss within 1e-3;
+     backward dx within 1e-3 and every weight gradient within 2e-3 of its
+     leaf max; at rate 0 the plain backward against torch autograd of the
+     plain forward
+  9. T2, the reference's production-shape gradients
+     (tests/goldens/ls_train_prod.npz: B 4, T 1000-1500, chunk 500, dropout
+     0) through the port's converter, compute_loss and backward, with the
+     fused decoder (internal chunk = chunk_size) and the plain one: losses
+     rtol 1e-4, each gradient leaf within max(2e-3 leaf max, 5e-6)
+ 10. T3, training: LSEENDConfig() with dropout 0.1, the fused decoder at
+     chunk 128, Noam-Adam (lr 1, warm-up 100000, clip 5), run_training for
+     one epoch of 4 steps at batch 8 x 1000 frames x 8 speakers (a synthetic
+     in-memory dataset from the seed) and one validation batch; the
+     fusion-layer launches counted (2 forward + 2 backward per step, 2
+     forward for validation); the last checkpoint reloaded bit for bit;
+     then ms per step, frames/s and peak memory on the fused and the plain
+     decoder route, the fused step's parts, and a torch.profiler window
+     over two fused steps (device idle share, top kernels)
+ 11. times: CUDA events after warm-up: process_block of both servers at
      B=128, K=128 (and step(), K=1), every kernel alone beside its plain
      version and its bound
 
@@ -47,6 +67,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,6 +79,15 @@ BLOCK = 128                                  # blockwise server's block, = its c
 BLOCK_LENS = (300, 77, 512, 130)             # lane i serves a stream of BLOCK_LENS[i % 4]
 BATCH_T, BATCH_LENS, BATCH_CHUNK = 2900, (2900, 2611), 500
 HEAD = {"CR_DK": 64, "CR_DV": 64}            # LSEENDConfig(): 256 units / 4 heads
+DTF = dict(HEAD, DTF_D=256)                  # the fusion-layer kernels at that width
+DEC_SEED, DEC_B, DEC_T, DEC_L = 1234, 2, 256, 128   # T1
+TRAIN_B, TRAIN_T, TRAIN_SPK, TRAIN_STEPS = 8, 1000, 8, 4   # T3; ls_simu.yaml trains at batch 32
+TRAIN_L = 128                                # fused_dec_chunk of every LS train config
+# kernel vs plain over the fusion layer's forward and backward: float32, weight
+# gradients summed over 5120+ rows with atomics in another order
+GRAD_RTOL = 2e-3
+# the reference's production-shape gradients (tests/test_train_parity.py:151-163)
+GOLDEN_RTOL, GOLDEN_ATOL = 2e-3, 5e-6
 STREAM_LENS = (137, 5, 50, 512, 777, 1000)  # lane 0 gets the 137-frame stream
 # kernel vs plain: float32 with another summation order, over 64 frames of
 # 4 encoder / 2 decoder layers; a wrong gate or term shows at O(0.1)
@@ -92,7 +122,8 @@ def phase_build():
     from fseend_tpu_torch.kernels import _build
 
     secs = _build.build([("enc_frame_scan", {}), ("dec_frame_scan", {"FS_NSLOTS": SLOTS}),
-                         ("chunk_retention", HEAD), ("retention_layer", HEAD)],
+                         ("chunk_retention", HEAD), ("retention_layer", HEAD),
+                         ("dec_train_fusion_fwd", DTF), ("dec_train_fusion_bwd", DTF)],
                         verbose=True)
     log(f"build: {secs:.1f} s")
 
@@ -145,6 +176,11 @@ def capture_kernel_inputs(fn, targets=None):
         for mod, name, orig in saved:
             setattr(mod, name, orig)
     return got
+
+
+def randn(rng, *shape, scale=1.0):
+    return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                           device="cuda")
 
 
 def clone_args(args):
@@ -308,10 +344,6 @@ def phase_chunk_kernels_vs_plain(cfg, model, rng):
     from fseend_tpu_torch.kernels import retention_layer as RL
     from fseend_tpu_torch.ops import retention as R
 
-    def randn(*shape, scale=1.0):
-        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
-                               device="cuda")
-
     rc = cfg.ret_cfg
     dk, dv, H = rc.key_dim, rc.head_dim, rc.num_heads
     decay = R.decay_gammas(dataclasses.replace(rc, use_decay=True), "cuda")
@@ -321,8 +353,8 @@ def phase_chunk_kernels_vs_plain(cfg, model, rng):
                             ("gamma<1", decay.repeat(BH // H))):
             kv, sc = torch.zeros(BH, dk, dv, device="cuda"), torch.ones(BH, 1, 1, device="cuda")
             for call in range(2):
-                args = (gam, randn(BH, T, dk), randn(BH, T, dk, scale=dk ** -0.5),
-                        randn(BH, T, dv), kv, sc, L)
+                args = (gam, randn(rng, BH, T, dk), randn(rng, BH, T, dk, scale=dk ** -0.5),
+                        randn(rng, BH, T, dv), kv, sc, L)
                 err, (_, kv, sc) = compare_chunk_kernel(
                     "chunk_retention", args, f"BH={BH} T={T} L={L} {glabel} call {call}")
                 errs["chunk_retention"] = max(errs["chunk_retention"], err)
@@ -337,7 +369,7 @@ def phase_chunk_kernels_vs_plain(cfg, model, rng):
             st = R.chunk_state_init(rc, B, device="cuda")
             kv, sc = st["kv"], st["scale"]
             for call in range(2):
-                args = (gam, randn(B, BLOCK, cfg.n_units), w, kv, sc, BLOCK)
+                args = (gam, randn(rng, B, BLOCK, cfg.n_units), w, kv, sc, BLOCK)
                 err, (_, kv, sc) = compare_chunk_kernel(
                     "retention_layer", args, f"{label} B={B} T=L={BLOCK} {glabel} call {call}")
                 errs["retention_layer"] = max(errs["retention_layer"], err)
@@ -463,6 +495,285 @@ def phase_batch(cfg, model, rng):
     return launches, err, args
 
 
+# ---------------------------------------------------------------------------
+# training: T1 the fusion-layer kernels, T2 the reference's gradients, T3 the loop
+# ---------------------------------------------------------------------------
+
+
+def kink_free(w, seed):
+    """`w` with the FFN's first bias at +-5 (a random sign per hidden unit),
+    for comparing gradients: no hidden unit then lies within float32
+    rounding of the ReLU's kink (|x2 W1^T| stays below 4 at these widths).
+    Where one does, two summation orders can put it on either side, and
+    that unit's whole gradient (dy-sized, O(1) against leaf maxima of
+    O(10-100) here) appears in one result and not in the other: a property
+    of ReLU, not of either implementation."""
+    g = torch.Generator(device=w.bf1.device).manual_seed(seed)
+    sign = torch.randint(0, 2, w.bf1.shape, generator=g, device=w.bf1.device) * 2 - 1
+    return w._replace(bf1=sign.to(w.bf1.dtype) * 5.0)
+
+
+def dec_layer_weights(model):
+    """Decoder layer 0's packed weights with the q | k | v | g rows four
+    times their initial size, so that the row sums and the carried scales
+    are above 1 as after training, and `kink_free`."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
+    with torch.no_grad():
+        w = DT.FusionWeights(*(t.detach().clone() for t in DT.pack_fusion(model.dec.layers[0])))
+    return kink_free(w._replace(wqkvg=w.wqkvg * 4), SEED)
+
+
+def compare_grads(label, got, want):
+    """(dx, weight gradients) against a reference: dx within KERNEL_ATOL,
+    each weight gradient within GRAD_RTOL of its leaf max.  Returns the
+    largest absolute difference."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
+    (dx, dw), (dx_r, dw_r) = got, want
+    worst = compare(label, [dx], [dx_r], ("dx",))
+    for name, g, r in zip(DT.FusionWeights._fields, dw, dw_r):
+        err, tol = (g - r).abs().max().item(), GRAD_RTOL * r.abs().max().item()
+        worst = max(worst, err)
+        if not (torch.isfinite(g).all() and err <= tol):
+            raise AssertionError(f"{label}.{name}: differs by {err} > {tol}")
+    log(f"  {label}: 14 weight gradients within {GRAD_RTOL:g} of their leaf max "
+        f"(largest abs diff {worst:.3e})")
+    return worst
+
+
+def phase_dec_train_vs_plain(cfg, model, rng):
+    """T1: the fusion layer's forward and backward kernels against their
+    plain versions at production width, dropout off and on."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
+    w = dec_layer_weights(model)
+    H = cfg.n_heads
+    x = randn(rng, DEC_B, SLOTS, DEC_T, cfg.n_units)
+    dy = randn(rng, DEC_B, SLOTS, DEC_T, cfg.n_units)
+    errs = {"dec_train_fusion_fwd": 0.0, "dec_train_fusion_bwd": 0.0}
+    for rate in (0.0, 0.1):
+        args = (w, DEC_SEED, H, DEC_L, rate)
+        got = DT.fusion_layer_fwd(x, *args)
+        torch.cuda.synchronize()
+        want = DT.fusion_layer_fwd_plain(x, *args)
+        errs["dec_train_fusion_fwd"] = max(errs["dec_train_fusion_fwd"], compare(
+            f"dec_train_fusion_fwd[rate={rate}]", got, want, ("y", "kvs", "ss")))
+        log(f"  carried scale max {want[2].max().item():.2f}")
+        kvs, ss = want[1], want[2]
+        got = DT.fusion_layer_bwd(x, dy, kvs, ss, *args)
+        torch.cuda.synchronize()
+        plain = DT.fusion_layer_bwd_plain(x, dy, kvs, ss, *args)
+        errs["dec_train_fusion_bwd"] = max(errs["dec_train_fusion_bwd"], compare_grads(
+            f"dec_train_fusion_bwd[rate={rate}]", got, plain))
+        if rate == 0.0:
+            xa = x.clone().requires_grad_(True)
+            wa = DT.FusionWeights(*(t.clone().requires_grad_(True) for t in w))
+            ya, _, _ = DT.fusion_layer_fwd_plain(xa, wa, DEC_SEED, H, DEC_L, rate)
+            (ya * dy).sum().backward()
+            compare_grads("plain backward vs autograd of the plain forward", plain,
+                          (xa.grad, DT.FusionWeights(*(t.grad for t in wa))))
+            del xa, wa, ya
+    return errs
+
+
+def phase_train_golden(cfg):
+    """T2: the reference's own production-shape losses and gradients, on
+    the fused decoder (internal chunk = chunk_size, exact) and the plain
+    one.  Returns the fused run's fusion-layer launches."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+    from fseend_tpu_torch.train import trainer as TRN
+    from fseend_tpu_torch.utils import torch_convert as TC
+
+    g = np.load(Path(__file__).resolve().parent / "tests" / "goldens" / "ls_train_prod.npz")
+    sd = {k[4:]: np.asarray(g[k], np.float32) for k in g.files if k.startswith("sd__")}
+    gr = {k[4:]: np.asarray(g[k], np.float32) for k in g.files if k.startswith("gr__")}
+    batch = {"feats": torch.as_tensor(np.asarray(g["feats"], np.float32), device="cuda"),
+             **{k: torch.as_tensor(g[k], device="cuda") for k in ("labels", "lens", "n_spk")}}
+    gcfg = dataclasses.replace(cfg, dropout=0.0, kernel="plain")
+    full = {k: np.zeros_like(v) for k, v in sd.items()}
+    full.update(gr)
+    ref = dict(TC.ls_from_state_dict(full, gcfg, "cuda").named_parameters())
+    task = TRN.TaskConfig(label_mode="fixed", masked_emb_loss=True)
+    launches = None
+    for label, fused in (("fused decoder", True), ("plain decoder", False)):
+        model = TC.ls_from_state_dict(sd, dataclasses.replace(gcfg, use_fused_dec=fused), "cuda")
+        DT.fwd_launches = DT.bwd_launches = 0
+        t0 = time.perf_counter()
+        loss, (_, metrics) = TRN.compute_loss(task, model, batch, None, train=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = (DT.fwd_launches, DT.bwd_launches)
+        if fused:
+            launches = n
+            if min(n) <= 0:
+                raise AssertionError(f"golden, fused decoder: fusion-layer launches {n}")
+        elif max(n) > 0:
+            raise AssertionError(f"golden, plain decoder launched the fusion layer {n}")
+        for i, k in enumerate(("pit_loss", "emb_loss", "tot_loss")):
+            got, want = float(metrics[k]), float(g["losses"][i])
+            if not abs(got - want) <= 1e-4 * abs(want):
+                raise AssertionError(f"golden {label}: {k} {got} vs the reference's {want}")
+        worst = 0.0
+        for name, p in model.named_parameters():
+            r = ref[name].detach()
+            err = (p.grad - r).abs().max().item()
+            tol = max(GOLDEN_RTOL * r.abs().max().item(), GOLDEN_ATOL)
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                raise AssertionError(f"golden {label}: gradient of {name} differs by {err} > {tol}")
+        log(f"golden ({label}): B {tuple(batch['feats'].shape)}, losses "
+            f"{[round(float(metrics[k]), 6) for k in ('pit_loss', 'emb_loss', 'tot_loss')]} "
+            f"(reference {[round(float(v), 6) for v in g['losses']]}), {len(ref)} gradient "
+            f"leaves, worst at {worst:.3f} of its bound; fusion-layer launches {n}; {secs:.2f} s")
+        del model, loss
+    return launches
+
+
+class SyntheticSpeech:
+    """An in-memory dataset of `n` recordings of T frames: features from
+    a normal distribution and S speakers' activity as a few turns each,
+    made with numpy from `seed`."""
+
+    def __init__(self, n, seed, T, F, S):
+        rng = np.random.default_rng(seed)
+        self.items = []
+        for i in range(n):
+            labels = np.zeros((T, S), np.float32)
+            for s in range(S):
+                for start in rng.integers(0, T, 3):
+                    labels[start:start + rng.integers(20, 200), s] = 1.0
+            self.items.append((rng.standard_normal((T, F)).astype(np.float32), labels,
+                               f"synth{i}"))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def phase_train(cfg, card):
+    """T3: run_training for one epoch, then the train step timed on both
+    decoder routes.  Returns (fusion-layer launches, the arguments of one
+    training forward and one backward call, the step rows)."""
+    import tempfile
+
+    from fseend_tpu_torch.data.loader import pad_collate
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+    from fseend_tpu_torch.models import ls_eend
+    from fseend_tpu_torch.train import loop as LOOP
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+    from fseend_tpu_torch.utils import checkpoint as CK
+
+    tcfg = dataclasses.replace(cfg, dropout=0.1, use_fused_dec=True, fused_dec_chunk=TRAIN_L,
+                               kernel="plain")                   # configs/ls_simu.yaml
+    task = TRN.TaskConfig(label_mode="fixed", masked_emb_loss=True)
+    tx = optim.build_optimizer("noam", 1.0, d_model=cfg.n_units, warmup_steps=100_000,
+                               grad_clip=5.0)
+    train = SyntheticSpeech(TRAIN_B * TRAIN_STEPS, SEED, TRAIN_T, cfg.in_size, TRAIN_SPK)
+    val = SyntheticSpeech(TRAIN_B, SEED + 1, TRAIN_T, cfg.in_size, TRAIN_SPK)
+    calls = {}
+
+    def first_training_call(name):
+        orig = getattr(DT, name)
+
+        def wrapped(*args, **kw):
+            if name not in calls and args[-1] > 0.0:            # rate: a training call
+                calls[name] = ([a.clone() if torch.is_tensor(a) else a for a in args], kw)
+            return orig(*args, **kw)
+        return orig, wrapped
+
+    res = {}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        logger = LOOP.MetricsLogger(tmp, "smoke")
+        saved = [(name, *first_training_call(name))
+                 for name in ("fusion_layer_fwd", "fusion_layer_bwd")]
+        try:
+            for name, _, wrapped in saved:
+                setattr(DT, name, wrapped)
+            DT.fwd_launches = DT.bwd_launches = 0
+            t0 = time.perf_counter()
+            state, ckpt_dir = LOOP.run_training(
+                task=task, model_cfg=tcfg, train_dataset=train, val_dataset=val, tx=tx,
+                logger=logger, batch_size=TRAIN_B, chunk_size=TRAIN_T, max_speakers=TRAIN_SPK,
+                input_dim=cfg.in_size, max_epochs=1, seed=SEED, log_every=1)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {"dec_train_fusion_fwd": DT.fwd_launches,
+                        "dec_train_fusion_bwd": DT.bwd_launches}
+        finally:
+            for name, orig, _ in saved:
+                setattr(DT, name, orig)
+            logger.close()
+        n_layers = cfg.dec_n_layers
+        log(f"train: run_training, {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_T} frames x "
+            f"{TRAIN_SPK} speakers + 1 validation batch in {secs:.2f} s; launches {launches}")
+        if state.step != TRAIN_STEPS:
+            raise AssertionError(f"run_training took {state.step} steps")
+        if launches != {"dec_train_fusion_fwd": n_layers * (TRAIN_STEPS + 1),
+                        "dec_train_fusion_bwd": n_layers * TRAIN_STEPS}:
+            raise AssertionError(f"fusion-layer launches {launches} on the main path")
+        recs = [json.loads(ln) for ln in (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/tot_loss"] for r in recs if "train/tot_loss" in r]
+        der = [r["val/DER"] for r in recs if "val/DER" in r]
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses + der).all():
+            raise AssertionError(f"train losses {losses}, validation DER {der}")
+        log(f"  losses {[round(v, 4) for v in losses]}, validation DER {der[0]:.4f}")
+        fresh = CK.load_ls_eend(ckpt_dir / "ckpt_epoch=0.npz", tcfg, "cuda")
+        for (name, a), b in zip(state.model.state_dict().items(), fresh.state_dict().values()):
+            if not name.endswith("num_batches_tracked") and not torch.equal(a, b):
+                raise AssertionError(f"checkpoint reload: {name} differs")
+        log("  checkpoint saved and reloaded into a fresh model bit for bit")
+        del state, fresh
+
+    # the train step alone, both decoder routes, the same weights and batch
+    items = [train[i] for i in range(TRAIN_B)]
+    batch = pad_collate(items, TRAIN_T, TRAIN_SPK, cfg.in_size)
+    batch.pop("recs")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    rows = {}
+    for route, fused in (("fused decoder", True), ("plain decoder", False)):
+        rcfg = dataclasses.replace(tcfg, use_fused_dec=fused)
+        model = ls_eend.init_ls_eend(rcfg, torch.Generator().manual_seed(SEED), device="cuda")
+        state = TRN.TrainState.create(model, tx)
+        step = TRN.make_train_step(task, rcfg, tx)
+        step(state, batch, SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, batch, SEED), reps=3)
+        peak = torch.cuda.max_memory_allocated()
+        rows[route] = {"route": route, "B": TRAIN_B, "T": TRAIN_T, "ms": ms,
+                       "frames_per_s": TRAIN_B * TRAIN_T / (ms / 1e3),
+                       "max_memory_allocated": peak}
+        if fused:
+            # the step's parts: loss forward + backward without the
+            # optimizer, and the encoder's forward + backward alone
+            gen = TRN.step_generator(SEED, 0, "cuda")
+            rcfg_model = ls_eend.with_cfg(model, rcfg)
+
+            def loss_backward():
+                loss, _ = TRN.compute_loss(task, rcfg_model, batch, gen, train=True)
+                loss.backward()
+
+            xs = ls_eend.pad_to_chunk(batch["feats"], rcfg.chunk_size)
+
+            def encoder_backward():
+                h, _ = ls_eend.encode(rcfg_model, xs, "chunkwise", True, gen)
+                h.square().mean().backward()
+
+            rows[route].update(loss_backward_ms=cuda_ms(loss_backward, reps=3),
+                               encoder_backward_ms=cuda_ms(encoder_backward, reps=3))
+            profile_window(lambda: step(state, batch, SEED), 2, card)
+        log(json.dumps({"train_step": rows[route], "card": card}))
+        del model, state, step
+    return launches, calls, rows
+
+
 def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -514,6 +825,28 @@ def kernel_bound(name, args, cfg):
         nbytes += (v.numel() + kv0.numel() + s0.numel()) * 4         # out + state out
         tiles = -(-L // 64)                     # a k/v tile is read by every q tile after it
         design = nbytes + BH * T * (dk + dv) * 4 * (tiles - 1) / 2
+    elif name.startswith("dec_train_fusion"):
+        # per (frame, slot) row: the products 2 D (4D + D + 3D + D) + 4 D F,
+        # the core H ((L + 1)(dk + dv) + 4 dk dv), the slot attention 4 C D;
+        # the backward recomputes the forward and takes two products (input
+        # and weight gradient) for each of the forward's: 3x
+        bwd = name.endswith("bwd")
+        x, w = args[0], args[4 if bwd else 1]
+        B, C, T, D = x.shape
+        L = args[-2]
+        Fh = w.wf1.shape[0]
+        R = B * C * T
+        fwd = R * (2 * D * 9 * D + 4 * D * Fh + H * ((L + 1) * 2 * dk + 4 * dk * dk) + 4 * C * D)
+        flops = 3 * fwd if bwd else fwd
+        wbytes = sum(t.numel() * 4 for t in weights)
+        if bwd:
+            nbytes += x.numel() * 4 + wbytes                              # dx + weight grads
+            work = 27 * D + 3 * Fh                   # the recompute's and the gradients' buffers
+        else:
+            nbytes += x.numel() * 4 + B * (T // L) * H * C * (dk * dk + 1) * 4   # y + kvs, ss
+            work = 15 * D + Fh
+        # every buffer of the workspace written once and read once
+        design = nbytes + 2 * R * work * 4
     else:
         # per frame: the four input projections 2 D (2D + 2F), the out
         # projection 2 F D, and the core as above for each head
@@ -552,8 +885,9 @@ def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1):
 
 
 def profile_window(fn, reps, card):
-    """`python3 chip_smoke.py --profile`: a torch.profiler trace of fn()
-    called 1 + reps times (the first call absorbs the tracer's start-up);
+    """A torch.profiler trace of fn() called 1 + reps times (the first call
+    absorbs the tracer's start-up): over the train step always, over the
+    blockwise server's process_block with `--profile`;
     prints the device's busy share of a call and the device kernels that
     take most of it."""
     from torch.autograd import DeviceType
@@ -665,9 +999,41 @@ def phase_times(cfg, model, rng, card, main_path_args):
                         outside_kernels_ms=blocks[kernel] - in_kernel)
         log(json.dumps({"process_block": line, "card": card}))
         del bsrv
-    log("library_ms: null for all four kernels -- no single PyTorch call computes a frame "
-        "scan, the chunkwise core with its carried state, or the whole retention layer")
     return rows
+
+
+def phase_train_times(cfg, card, calls):
+    """The fusion layer's forward and backward kernels at the T3 shape, on
+    the arguments of a training call of the main path: held against their
+    plain versions once, then timed beside them and their bound."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
+    rows, errs = {}, {}
+    for name, kern, plain in (("dec_train_fusion_fwd", DT.fusion_layer_fwd,
+                               DT.fusion_layer_fwd_plain),
+                              ("dec_train_fusion_bwd", DT.fusion_layer_bwd,
+                               DT.fusion_layer_bwd_plain)):
+        args, kw = calls["fusion_layer_" + name[-3:]]
+        # the main path's call held against plain with `kink_free` weights
+        # (the forward's checkpoints made again for them)
+        w_i = 4 if name.endswith("bwd") else 1
+        check = list(args)
+        check[w_i] = kink_free(args[w_i], SEED)
+        if name.endswith("bwd"):
+            _, check[2], check[3] = DT.fusion_layer_fwd_plain(check[0], check[w_i], *check[5:])
+        got = kern(*check, **kw)
+        torch.cuda.synchronize()
+        want = plain(*check, **kw)
+        label = f"{name}[main path {tuple(args[0].shape)}]"
+        errs[name] = (compare(label, got, want, ("y", "kvs", "ss")) if name.endswith("fwd")
+                      else compare_grads(label, got, want))
+        del got, want
+        rows[name] = time_kernel(name, f"main path {tuple(args[0].shape)} L={args[-2]}", kern,
+                                 plain, args, kw, cfg, card)
+    log("library_ms: null for all six kernels -- no single PyTorch call computes a frame "
+        "scan, the chunkwise core with its carried state, the whole retention layer, or a "
+        "fusion layer's forward or backward")
+    return rows, errs
 
 
 def main() -> int:
@@ -691,7 +1057,15 @@ def main() -> int:
     for name, phase in (("retention_layer", phase_block_serve), ("chunk_retention", phase_batch)):
         launches[name], err, main_path_args[name] = phase(cfg, model, rng)
         errs[name] = max(chunk_errs[name], err)
+    dec_errs = phase_dec_train_vs_plain(cfg, model, rng)
+    phase_train_golden(cfg)
+    train_launches, train_calls, _ = phase_train(cfg, card)
+    launches.update(train_launches)
     rows = phase_times(cfg, model, rng, card, main_path_args)
+    train_rows, train_errs = phase_train_times(cfg, card, train_calls)
+    rows.update(train_rows)
+    for name in dec_errs:
+        errs[name] = max(dec_errs[name], train_errs[name])
     sources = {
         "enc_frame_scan": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
                            "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),
@@ -701,6 +1075,10 @@ def main() -> int:
                             "fseend_tpu/kernels/retention_pallas.py:131"),
         "retention_layer": ("fseend_tpu_torch/kernels/csrc/retention_layer.cu",
                             "fseend_tpu/kernels/retention_layer_pallas.py:172"),
+        "dec_train_fusion_fwd": ("fseend_tpu_torch/kernels/csrc/dec_train_fusion_fwd.cu",
+                                 "fseend_tpu/kernels/dec_train_fusion_pallas.py:574"),
+        "dec_train_fusion_bwd": ("fseend_tpu_torch/kernels/csrc/dec_train_fusion_bwd.cu",
+                                 "fseend_tpu/kernels/dec_train_fusion_pallas.py:620"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name],

@@ -11,8 +11,11 @@ carried state `(kv, scale)` as it was before the chunk, and the update
 
 On a CUDA tensor the wrapper launches `csrc/chunk_retention.cu` (design
 notes there and in `csrc/chunk_retention_core.cuh`); on a CPU tensor it runs
-`chunk_retention_plain`.  Neither touches the incoming state.  Float32 only,
-forward only.
+`chunk_retention_plain`.  Neither touches the incoming state.  Float32 only.
+When a gradient is wanted the call goes through `_ChunkRetentionFn`, whose
+backward re-runs `chunk_retention_plain` under autograd (the recompute
+backward of `retention_pallas.py:253-263`; the JAX package has no backward
+kernel either).
 
 Layouts: gammas (BH,) per row; q, k (BH, T, dk) with k already scaled by
 dk**-0.5; v (BH, T, dv); kv0 (BH, dk, dv); s0 (BH, 1, 1); T % chunk == 0.
@@ -36,11 +39,46 @@ def chunk_retention(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     """Launches the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
     _check(gammas, q, k, v, kv0, s0, chunk)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"chunk_retention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, kv0, s0)):
+        return _ChunkRetentionFn.apply(gammas, q, k, v, kv0, s0, chunk)
+    return _forward(gammas, q, k, v, kv0, s0, chunk)
+
+
+def _forward(gammas, q, k, v, kv0, s0, chunk):
     if q.device.type == "cpu":
         return chunk_retention_plain(gammas, q, k, v, kv0, s0, chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"chunk_retention: unsupported device {q.device}")
     return _launch(gammas, q, k, v, kv0, s0, chunk)
+
+
+def recompute_grads(plain, inputs, needs, grads_out):
+    """Backward of a kernel that has no backward of its own: re-run
+    `plain(*inputs)` under autograd and return the gradients of the inputs
+    flagged in `needs` (None for the others) given the output gradients
+    `grads_out`."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        outs = plain(*ins)
+    pairs = [(o, g) for o, g in zip(outs, grads_out) if o.requires_grad and g is not None]
+    wanted = [t for t in ins if t.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                   allow_unused=True))
+    return [next(got) if t.requires_grad else None for t in ins]
+
+
+class _ChunkRetentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gammas, q, k, v, kv0, s0, chunk):
+        ctx.save_for_backward(gammas, q, k, v, kv0, s0)
+        ctx.chunk = chunk
+        return _forward(gammas, q, k, v, kv0, s0, chunk)
+
+    @staticmethod
+    def backward(ctx, *grads_out):
+        grads = recompute_grads(lambda *a: chunk_retention_plain(*a, ctx.chunk),
+                                ctx.saved_tensors, ctx.needs_input_grad[:6], grads_out)
+        return (*grads, None)
 
 
 def _check(gammas, q, k, v, kv0, s0, chunk):
@@ -68,10 +106,6 @@ def _launch(gammas, q, k, v, kv0, s0, chunk):
     dv = v.shape[-1]
     if dk % 16 or dv % 16:
         raise ValueError(f"chunk_retention: head dims {dk}, {dv} must be multiples of 16")
-    if any(t.requires_grad for t in (q, k, v, kv0, s0)):
-        raise NotImplementedError(
-            "chunk_retention: the CUDA kernel is forward only; its recompute "
-            "backward comes with training (ROADMAP A6)")
     lib = _build.load("chunk_retention", {"CR_DK": dk, "CR_DV": dv})
     fn = lib.chunk_retention_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -114,11 +148,11 @@ def chunk_retention_plain(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor
         sl = slice(n * L, (n + 1) * L)
         qc, kc, vc = q[:, sl], k[:, sl], v[:, sl]
         qk = (qc @ kc.transpose(1, 2)) * mask
-        inner_scale = qk.abs().sum(-1, keepdim=True).clamp(min=1.0)
+        inner_scale = qk.detach().abs().sum(-1, keepdim=True).clamp(min=1.0)
         inner = (qk / inner_scale) @ vc
         cross = ((qc * inner_decay) @ kv) / s
         all_scale = torch.maximum(inner_scale, s)
         outs.append(inner * (inner_scale / all_scale) + cross * (s / all_scale))
         kv = kv * cross_decay + kc.transpose(1, 2) @ (vc * last_row)
-        s = kv.abs().sum(1, keepdim=True).amax(2, keepdim=True).clamp(min=1.0)
+        s = kv.detach().abs().sum(1, keepdim=True).amax(2, keepdim=True).clamp(min=1.0)
     return torch.cat(outs, dim=1), kv, s

@@ -1,5 +1,5 @@
-// The chunkwise-retention core shared by chunk_retention.cu and
-// retention_layer.cu, float32.
+// The chunkwise-retention core shared by chunk_retention.cu,
+// retention_layer.cu and dec_train_fusion_{fwd,bwd}.cu, float32.
 //
 // For one (batch, head) row and each L-frame chunk n, with the carried
 // unnormalized state KV (dk, dv) and its scale c (a scalar >= 1):
@@ -49,6 +49,12 @@ struct CoreArgs {
   const float *kv0, *s0;  // (B*H, dk, dv), (B*H)
   float *kvf, *sf;        // the new state, same shapes
   int H, T, L;
+  // optional: the state each chunk reads, for a backward's recompute, with
+  // the batch rows read as (b, c) pairs, b*ckC + c:
+  // kvs (B/ckC, T/L, H, ckC, dk, dv), ss (B/ckC, T/L, H, ckC)
+  float* kvs = nullptr;
+  float* ss = nullptr;
+  int ckC = 1;
 };
 
 template <int DK, int DV>
@@ -117,6 +123,11 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
     const float* vn = a.v + row0 * a.ldv + h * DV;
     float* on = a.out + row0 * a.ldo + h * DV;
     const float cs = kv_scale;  // the scale of the state this chunk reads
+    if (a.kvs) {
+      const size_t slot = (((size_t)(b / a.ckC) * (T / L) + n) * a.H + h) * a.ckC + b % a.ckC;
+      for (int i = tid; i < DK * DV; i += kThreads) a.kvs[slot * DK * DV + i] = KV[i];
+      if (tid == 0) a.ss[slot] = cs;
+    }
     float kvc[RK][CV];
 #pragma unroll
     for (int r = 0; r < RK; ++r)

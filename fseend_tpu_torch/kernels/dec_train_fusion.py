@@ -1,0 +1,541 @@
+"""One decoder fusion layer in training semantics, forward and backward: the
+CUDA kernels' wrappers, their plain PyTorch versions, the dropout hash and
+the `torch.autograd.Function` the model calls.
+
+Replaces `fseend_tpu/kernels/dec_train_fusion_pallas.py`: `_fwd_call` (the
+forward with per-chunk retention state checkpoints) and `_bwd_call` (the
+hand-written backward, a reverse sweep over the chunks).  On the slot-major
+grid x (B, C, T, D), T a multiple of the internal chunk L, from a zero
+retention state (kv 0, scale 1), per chunk:
+  1. gamma = 1 chunkwise retention per (b, c, head): q | k | v | g projection
+     (k scaled by dk**-0.5), `q k^T * tril / sqrt(i+1)` renormalized by
+     `max(sum |q k|, 1)`, the cross read of the incoming `kv / s` scaled by
+     `sqrt(L) / sqrt(i+1)`, both mixed by `max(sum, s)`, group norm (eps
+     1e-6), the state update `kv += k^T v / sqrt(L)`, `s = max(max col-sum
+     |kv|, 1)`;
+  2. silu(g) gate, out projection, dropout, residual, LayerNorm;
+  3. attention across the C slots of each frame, dropout on the softmax
+     weights, out projection, dropout, residual, LayerNorm;
+  4. relu FFN D -> F -> D, dropout on the hidden and on the output,
+     residual, LayerNorm.
+The renormalizers are constants of the backward, as the JAX package's
+stop-gradients make them.
+
+Dropout is `hash_keep`, the JAX kernel's counter hash (`_hash_keep`), bit
+for bit: the element index is the linear index inside the chunk-local shape
+of the site ((C, L, D), (C, L, F) for the FFN hidden, (C, L, C) for the
+attention weights of head h, site 1 + 16 h), keyed by (seed, b, n, site).
+So the masks depend on L, and the port's masks equal the JAX kernel's.
+
+On CUDA tensors the wrappers launch `csrc/dec_train_fusion_fwd.cu` and
+`csrc/dec_train_fusion_bwd.cu` (each a sequence of this repository's
+kernels behind one call; design notes there); on CPU tensors they run
+`fusion_layer_fwd_plain` / `fusion_layer_bwd_plain`.  Float32 only.
+
+Weights (`FusionWeights`) are in torch's (out, in) layout: wqkvg (4D, D) the
+q | k | v | g rows, wro (D, D), wmi (3D, D) the slot attention's packed
+in-projection, wmo (D, D), wf1 (F, D), wf2 (D, F), biases beside them, lns
+and lnb (3, D) the scales and biases of norm11, norm21, norm22.  The state
+checkpoints are the JAX layout: kvs (B, N, H, C, dk, dv) and ss (B, N, H,
+C, 1, 1), the state each chunk reads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from fseend_tpu_torch.kernels import _build
+from fseend_tpu_torch.ops import nn as tnn
+
+# launches of the CUDA forward / backward since the counts were last set to 0
+fwd_launches = 0
+bwd_launches = 0
+
+# dropout sites, in the JAX kernel's numbering
+SITE_RET, SITE_ATTNW, SITE_MHA, SITE_FFH, SITE_FFO = range(5)
+_M32 = 0xFFFFFFFF
+
+
+class FusionWeights(NamedTuple):
+    wqkvg: torch.Tensor
+    bqkvg: torch.Tensor
+    wro: torch.Tensor
+    bro: torch.Tensor
+    wmi: torch.Tensor
+    bmi: torch.Tensor
+    wmo: torch.Tensor
+    bmo: torch.Tensor
+    wf1: torch.Tensor
+    bf1: torch.Tensor
+    wf2: torch.Tensor
+    bf2: torch.Tensor
+    lns: torch.Tensor
+    lnb: torch.Tensor
+
+
+def pack_fusion(layer) -> FusionWeights:
+    """A `FusionLayer` module's weights as one tuple; the packing is part
+    of the autograd graph, so gradients reach the module's parameters."""
+    tr, at = layer.time_ret, layer.spk_attn
+    projs = (tr.q_proj, tr.k_proj, tr.v_proj, tr.g_proj)
+    norms = (layer.norm11, layer.norm21, layer.norm22)
+    return FusionWeights(
+        torch.cat([p.weight for p in projs]), torch.cat([p.bias for p in projs]),
+        tr.out_proj.weight, tr.out_proj.bias, at.in_proj.weight, at.in_proj.bias,
+        at.out_proj.weight, at.out_proj.bias, layer.linear1.weight, layer.linear1.bias,
+        layer.linear2.weight, layer.linear2.bias,
+        torch.stack([m.weight for m in norms]), torch.stack([m.bias for m in norms]))
+
+
+# ---------------------------------------------------------------------------
+# dropout: the JAX kernel's counter hash
+# ---------------------------------------------------------------------------
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for int64 a in [0, 2**32) and a constant c, in
+    16-bit halves so that no product leaves int64."""
+    return ((a & 0xFFFF) * c + (((a >> 16) * (c & 0xFFFF)) << 16)) & _M32
+
+
+def keep_threshold(rate: float) -> int:
+    """An element is kept iff its hash is >= this."""
+    return min(int(rate * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def hash_keep(seed: int, b, n: int, site: int, shape: tuple, rate: float,
+              device=None) -> torch.Tensor:
+    """The dropout multiplier of `dec_train_fusion_pallas.py:_hash_keep`:
+    1 / (1 - rate) (float32) where kept, 0 elsewhere, over the chunk-local
+    `shape` of `site` in chunk n of batch row b.  `b` may be a 1-D tensor of
+    batch rows; the result then has a leading axis for it."""
+    bt = torch.as_tensor(b, dtype=torch.int64, device=device)
+    base = (((int(seed) & _M32) * 0x9E3779B9 & _M32)
+            ^ ((int(n) & _M32) * 0xC2B2AE35 & _M32)
+            ^ ((site * 0x27D4EB2F) & _M32))
+    base = _mul32(bt & _M32, 0x85EBCA6B) ^ base
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
+    h = idx ^ base.reshape(base.shape + (1,) * len(shape))
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    mult = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    return (h >= keep_threshold(rate)).to(torch.float32) * mult.to(h.device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _consts(L: int, device):
+    i = torch.arange(L, dtype=torch.float32, device=device)
+    sc = torch.sqrt(i + 1.0)[:, None]                             # (L, 1) sqrt(i+1)
+    mask = torch.where(i[None, :] <= i[:, None], 1.0, 0.0) / sc   # (L, L)
+    return mask, sc[-1:] / sc, 1.0 / math.sqrt(L)                 # mask, inner decay, wlast
+
+
+def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, C, L, H*d) -> (B, H, C, L, d)."""
+    B, C, L, HD = t.shape
+    return t.reshape(B, C, L, H, HD // H).permute(0, 3, 1, 2, 4)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, C, L, d) -> (B, C, L, H*d)."""
+    B, H, C, L, d = t.shape
+    return t.permute(0, 2, 3, 1, 4).reshape(B, C, L, H * d)
+
+
+def _ln_fwd(x, scale, bias):
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    rs = torch.rsqrt(var + 1e-5)
+    xh = (x - mu) * rs
+    return xh * scale + bias, xh, rs
+
+
+def _chunk_masks(seed, n, B, C, L, D, F, H, rate, device):
+    """Dropout multipliers of chunk n for every batch row, or None at rate 0."""
+    if rate <= 0.0:
+        return None
+    b = torch.arange(B, device=device)
+    return {"m0": hash_keep(seed, b, n, SITE_RET, (C, L, D), rate, device),
+            "m1": torch.stack([hash_keep(seed, b, n, SITE_ATTNW + 16 * h, (C, L, C), rate,
+                                         device) for h in range(H)], dim=1),
+            "m2": hash_keep(seed, b, n, SITE_MHA, (C, L, D), rate, device),
+            "m3": hash_keep(seed, b, n, SITE_FFH, (C, L, F), rate, device),
+            "m4": hash_keep(seed, b, n, SITE_FFO, (C, L, D), rate, device)}
+
+
+def _chunk_fwd(xc, kv_in, s_in, w: FusionWeights, seed, n, H, rate, collect=False):
+    """Chunk n of the layer for every batch row: xc (B, C, L, D), the
+    incoming state kv_in (B, H, C, dk, dv) and s_in (B, H, C, 1, 1).
+    Returns (y, kv_out, s_out, stash); the stash (collect) holds what the
+    backward reads."""
+    B, C, L, D = xc.shape
+    Fh = w.wf1.shape[0]
+    dk = D // H
+    mask, inner_decay, wlast = _consts(L, xc.device)
+    ms = _chunk_masks(seed, n, B, C, L, D, Fh, H, rate, xc.device)
+
+    def drop(t, key):
+        return t if ms is None else t * ms[key]
+
+    # time-axis retention, per (b, head, slot)
+    qkvg = xc @ w.wqkvg.T + w.bqkvg                              # (B, C, L, 4D)
+    q = _heads(qkvg[..., :D], H)
+    k = _heads(qkvg[..., D:2 * D], H) * dk ** -0.5
+    v = _heads(qkvg[..., 2 * D:3 * D], H)
+    g = qkvg[..., 3 * D:]
+    qk = (q @ k.transpose(-1, -2)) * mask                         # (B, H, C, L, L)
+    is_ = qk.detach().abs().sum(-1, keepdim=True).clamp(min=1.0)
+    inner = (qk / is_) @ v
+    kvn = kv_in / s_in
+    cross = (q * inner_decay) @ kvn
+    all_ = torch.maximum(is_, s_in)
+    oh = inner * (is_ / all_) + cross * (s_in / all_)
+    mu = oh.mean(-1, keepdim=True)
+    grs = torch.rsqrt((oh - mu).square().mean(-1, keepdim=True) + 1e-6)
+    ohn = (oh - mu) * grs
+    kv_out = kv_in + (k.transpose(-1, -2) @ v) * wlast
+    s_out = kv_out.detach().abs().sum(-2, keepdim=True).amax(-1, keepdim=True).clamp(min=1.0)
+    retcat = _merge(ohn)
+    gated = F.silu(g) * retcat
+    a = drop(gated @ w.wro.T + w.bro, "m0")
+    x1, xh1, rs1 = _ln_fwd(xc + a, w.lns[0], w.lnb[0])
+    # attention across the C slots of each frame
+    qkv = x1 @ w.wmi.T + w.bmi
+    qh, kh, vh = (_heads(qkv[..., i * D:(i + 1) * D], H) for i in range(3))
+    inv = 1.0 / math.sqrt(dk)
+    wts = torch.softmax(torch.einsum("bhcld,bhjld->bhclj", qh, kh) * inv, dim=-1)
+    wd = wts if ms is None else wts * ms["m1"]
+    attn = _merge(torch.einsum("bhclj,bhjld->bhcld", wd, vh))
+    s = drop(attn @ w.wmo.T + w.bmo, "m2")
+    x2, xh2, rs2 = _ln_fwd(x1 + s, w.lns[1], w.lnb[1])
+    # relu feed-forward
+    hpre = x2 @ w.wf1.T + w.bf1
+    hdrop = drop(torch.relu(hpre), "m3")
+    f = drop(hdrop @ w.wf2.T + w.bf2, "m4")
+    y, xh3, rs3 = _ln_fwd(x2 + f, w.lns[2], w.lnb[2])
+    st = None
+    if collect:
+        st = dict(ms or {}, xc=xc, q=q, k=k, v=v, g=g, qk=qk, is_=is_, all_=all_, kv_in=kv_in,
+                  s_in=s_in, ohn=ohn, grs=grs, retcat=retcat, gated=gated, xh1=xh1, rs1=rs1,
+                  x1=x1, qh=qh, kh=kh, vh=vh, wts=wts, wd=wd, attn=attn, xh2=xh2, rs2=rs2,
+                  x2=x2, hpre=hpre, hdrop=hdrop, xh3=xh3, rs3=rs3)
+    return y, kv_out, s_out, st
+
+
+def fusion_layer_fwd_plain(x: torch.Tensor, w: FusionWeights, seed: int, n_heads: int,
+                           chunk: int, rate: float, checkpoints: bool = True):
+    """The forward as a loop over the chunks, every batch row at once (the
+    oracle `tests/test_dec_train_fusion.py` holds the JAX kernel to).
+    Differentiable by torch autograd.  Returns (y, kvs, ss); kvs and ss are
+    None without `checkpoints`."""
+    B, C, T, D = x.shape
+    H, L = n_heads, chunk
+    dk = D // H
+    kv = x.new_zeros(B, H, C, dk, dk)
+    s = x.new_ones(B, H, C, 1, 1)
+    ys, kvs, ss = [], [], []
+    for n in range(T // L):
+        kvs.append(kv)
+        ss.append(s)
+        y, kv, s, _ = _chunk_fwd(x[:, :, n * L:(n + 1) * L], kv, s, w, seed, n, H, rate)
+        ys.append(y)
+    y = torch.cat(ys, dim=2)
+    if not checkpoints:
+        return y, None, None
+    return y, torch.stack(kvs, dim=1), torch.stack(ss, dim=1)
+
+
+def _ln_bwd(dy, xh, rs, scale):
+    dxh = dy * scale
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xh).mean(-1, keepdim=True)
+    return rs * (dxh - m1 - xh * m2), dy * xh, dy
+
+
+def _chunk_bwd(dy, st, w: FusionWeights, dS, acc: list, H: int):
+    """Backward of chunk n (the JAX `_bwd_kernel` op for op).  dS is the
+    cotangent of the state after the chunk; adds the weight gradients to
+    `acc` (a FusionWeights-ordered list) and returns (dx, the cotangent of
+    the state the chunk read)."""
+    B, C, L, D = dy.shape
+    dk = D // H
+    mask, inner_decay, wlast = _consts(L, dy.device)
+
+    def rows(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def wgrad(i, d, a):                      # weight i += d^T a, bias i + 1 += sum d
+        acc[i] += rows(d).T @ rows(a)
+        acc[i + 1] += rows(d).sum(0)
+
+    def dmul(t, key):
+        return t if key not in st else t * st[key]
+
+    def ln_grads(j, dy_, xh, rs):
+        dr, dls, dlb = _ln_bwd(dy_, xh, rs, w.lns[j])
+        acc[12][j] += rows(dls).sum(0)
+        acc[13][j] += rows(dlb).sum(0)
+        return dr
+
+    # LN3, FFN
+    dr3 = ln_grads(2, dy, st["xh3"], st["rs3"])
+    df = dmul(dr3, "m4")
+    wgrad(10, df, st["hdrop"])
+    dhpre = dmul(df @ w.wf2, "m3") * (st["hpre"] > 0)
+    wgrad(8, dhpre, st["x2"])
+    dx2 = dr3 + dhpre @ w.wf1
+    # LN2, slot attention
+    dr2 = ln_grads(1, dx2, st["xh2"], st["rs2"])
+    ds = dmul(dr2, "m2")
+    wgrad(6, ds, st["attn"])
+    dah = _heads(ds @ w.wmo, H)
+    wts, wd = st["wts"], st["wd"]
+    dwd = torch.einsum("bhcld,bhjld->bhclj", dah, st["vh"])
+    dvh = torch.einsum("bhclj,bhcld->bhjld", wd, dah)
+    dw = dwd if "m1" not in st else dwd * st["m1"]
+    dscore = wts * (dw - (dw * wts).sum(-1, keepdim=True)) / math.sqrt(dk)
+    dqh = torch.einsum("bhclj,bhjld->bhcld", dscore, st["kh"])
+    dkh = torch.einsum("bhclj,bhcld->bhjld", dscore, st["qh"])
+    dqkv = torch.cat([_merge(dqh), _merge(dkh), _merge(dvh)], dim=-1)
+    wgrad(4, dqkv, st["x1"])
+    dx1 = dr2 + dqkv @ w.wmi
+    # LN1, gate, out projection
+    dr1 = ln_grads(0, dx1, st["xh1"], st["rs1"])
+    da = dmul(dr1, "m0")
+    wgrad(2, da, st["gated"])
+    dgated = da @ w.wro
+    g = st["g"]
+    sg = torch.sigmoid(g)
+    dretcat = dgated * (g * sg)
+    dg = dgated * st["retcat"] * (sg * (1.0 + g * (1.0 - sg)))
+    # group norm, retention core
+    dohn = _heads(dretcat, H)
+    ohn = st["ohn"]
+    doh = st["grs"] * (dohn - dohn.mean(-1, keepdim=True)
+                       - ohn * (dohn * ohn).mean(-1, keepdim=True))
+    q, k, v, is_, all_, s_in = (st[key] for key in ("q", "k", "v", "is_", "all_", "s_in"))
+    dinner = doh * (is_ / all_)
+    dcross = doh * (s_in / all_)
+    dq = (dcross @ (st["kv_in"] / s_in).transpose(-1, -2)) * inner_decay
+    dkv_cross = ((q * inner_decay).transpose(-1, -2) @ dcross) / s_in
+    dv = (st["qk"] / is_).transpose(-1, -2) @ dinner
+    dqk = (dinner @ v.transpose(-1, -2)) / is_ * mask
+    dq = dq + dqk @ k
+    dkk = dqk.transpose(-1, -2) @ q + (v @ dS.transpose(-1, -2)) * wlast
+    dv = dv + (k @ dS) * wlast
+    dqkvg = torch.cat([_merge(dq), _merge(dkk * dk ** -0.5), _merge(dv), dg], dim=-1)
+    wgrad(0, dqkvg, st["xc"])
+    return dr1 + dqkvg @ w.wqkvg, dS + dkv_cross
+
+
+@torch.no_grad()
+def fusion_layer_bwd_plain(x: torch.Tensor, dy: torch.Tensor, kvs: torch.Tensor,
+                           ss: torch.Tensor, w: FusionWeights, seed: int, n_heads: int,
+                           chunk: int, rate: float):
+    """The hand-written backward: a reverse sweep over the chunks, each
+    recomputed from its state checkpoint, carrying the state cotangent.
+    Returns (dx, FusionWeights of the weight gradients)."""
+    B, C, T, D = x.shape
+    H, L = n_heads, chunk
+    dk = D // H
+    acc = [torch.zeros_like(t) for t in w]
+    dS = x.new_zeros(B, H, C, dk, dk)
+    dx = torch.empty_like(x)
+    for n in reversed(range(T // L)):
+        sl = slice(n * L, (n + 1) * L)
+        _, _, _, st = _chunk_fwd(x[:, :, sl], kvs[:, n], ss[:, n], w, seed, n, H, rate,
+                                 collect=True)
+        dx[:, :, sl], dS = _chunk_bwd(dy[:, :, sl], st, w, dS, acc, H)
+    return dx, FusionWeights(*acc)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(x, w: FusionWeights, n_heads, chunk):
+    B, C, T, D = x.shape
+    Fh = w.wf1.shape[0]
+    want = {"wqkvg": (4 * D, D), "bqkvg": (4 * D,), "wro": (D, D), "bro": (D,),
+            "wmi": (3 * D, D), "bmi": (3 * D,), "wmo": (D, D), "bmo": (D,), "wf1": (Fh, D),
+            "bf1": (Fh,), "wf2": (D, Fh), "bf2": (D,), "lns": (3, D), "lnb": (3, D)}
+    got = {"x": x, **w._asdict()}
+    for name, t in got.items():
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"fusion layer: {name} has shape {tuple(t.shape)}, "
+                             f"expected {want[name]}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"fusion layer: {name} is {t.dtype}; float32 only")
+        if t.device != x.device:
+            raise ValueError(f"fusion layer: {name} is on {t.device}, x on {x.device}")
+    if D % n_heads:
+        raise ValueError(f"fusion layer: {n_heads} heads do not tile D={D}")
+    if chunk <= 0 or T % chunk:
+        raise ValueError(f"fusion layer: T={T} is not a multiple of chunk={chunk}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fusion layer: unsupported device {x.device}")
+
+
+def fusion_layer_fwd(x: torch.Tensor, w: FusionWeights, seed: int, n_heads: int,
+                     chunk: int, rate: float, checkpoints: bool = True):
+    """Forward of one layer -> (y, kvs, ss) (None, None without
+    `checkpoints`): the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check(x, w, n_heads, chunk)
+    if x.device.type == "cpu":
+        return fusion_layer_fwd_plain(x, w, seed, n_heads, chunk, rate, checkpoints)
+    return _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints)
+
+
+def fusion_layer_bwd(x: torch.Tensor, dy: torch.Tensor, kvs: torch.Tensor, ss: torch.Tensor,
+                     w: FusionWeights, seed: int, n_heads: int, chunk: int, rate: float):
+    """Backward of one layer -> (dx, weight gradients): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    _check(x, w, n_heads, chunk)
+    B, C, T, D = x.shape
+    H, dk, N = n_heads, D // n_heads, T // chunk
+    for name, t, shape in (("dy", dy, x.shape), ("kvs", kvs, (B, N, H, C, dk, dk)),
+                           ("ss", ss, (B, N, H, C, 1, 1))):
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"fusion layer backward: {name} is {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, expected {tuple(shape)} float32 on {x.device}")
+    if x.device.type == "cpu":
+        return fusion_layer_bwd_plain(x, dy, kvs, ss, w, seed, n_heads, chunk, rate)
+    return _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate)
+
+
+class _FusedFusionLayerFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed, n_heads, chunk, rate, *w):
+        w = FusionWeights(*w)
+        y, kvs, ss = fusion_layer_fwd(x, w, seed, n_heads, chunk, rate)
+        ctx.save_for_backward(x, kvs, ss, *w)
+        ctx.args = (seed, n_heads, chunk, rate)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kvs, ss, *w = ctx.saved_tensors
+        dx, dw = fusion_layer_bwd(x, dy.contiguous(), kvs, ss, FusionWeights(*w), *ctx.args)
+        return (dx, None, None, None, None, *dw)
+
+
+def fused_fusion_layer(x: torch.Tensor, w: FusionWeights, seed: int, n_heads: int,
+                       chunk: int, rate: float) -> torch.Tensor:
+    """One decoder fusion layer on the slot-major grid x (B, C, T, D);
+    `rate` is the dropout rate (0 in eval) and `seed` keys its masks.
+    Differentiable through the hand-written backward; without a gradient
+    to take, the forward skips the state checkpoints."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x,) + tuple(w)):
+        return _FusedFusionLayerFn.apply(x, seed, n_heads, chunk, rate, *w)
+    return fusion_layer_fwd(x, w, seed, n_heads, chunk, rate, checkpoints=False)[0]
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _lib(which: str, D: int, H: int):
+    """The forward or backward library for model width D and H heads."""
+    dk = D // H
+    if D % 128 or D > 512 or 32 % H or dk % 16:
+        raise ValueError(f"fusion layer kernels: D={D}, {H} heads unsupported (D a multiple "
+                         f"of 128 up to 512, H dividing 32)")
+    return _build.load(f"dec_train_fusion_{which}", {"CR_DK": dk, "CR_DV": dk, "DTF_D": D})
+
+
+def _dims(x, w, n_heads, chunk):
+    B, C, T, D = x.shape
+    Fh = w.wf1.shape[0]
+    if C > 32:
+        raise ValueError(f"fusion layer kernels: {C} slots exceed one warp")
+    if Fh % 16:
+        raise ValueError(f"fusion layer kernels: F={Fh} must be a multiple of 16")
+    return B, C, T, D, Fh
+
+
+def _rate_args(seed, rate):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"fusion layer: dropout rate {rate} outside [0, 1)")
+    return (ctypes.c_uint(int(seed) & _M32), ctypes.c_uint(keep_threshold(rate)),
+            ctypes.c_float(1.0 / (1.0 - rate)))
+
+
+def _workspace(n: int, H: int) -> int:
+    if n == 0:
+        raise ValueError(f"fusion layer kernels: library built for another head count than {H}")
+    return n
+
+
+def _ptrs(ts):
+    return [t.data_ptr() for t in ts]
+
+
+def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints):
+    global fwd_launches
+    B, C, T, D, Fh = _dims(x, w, n_heads, chunk)
+    H, dk, N = n_heads, D // n_heads, T // chunk
+    lib = _lib("fwd", D, H)
+    x = x.contiguous()
+    w = [t.contiguous() for t in w]
+    y = torch.empty_like(x)
+    kvs = ss = None
+    if checkpoints:
+        kvs = x.new_empty(B, N, H, C, dk, dk)
+        ss = x.new_empty(B, N, H, C, 1, 1)
+    lib.dtf_fwd_workspace.restype = ctypes.c_size_t
+    lib.dtf_fwd_workspace.argtypes = [ctypes.c_int] * 4
+    ws = x.new_empty(_workspace(lib.dtf_fwd_workspace(B * C, T, H, Fh), H))
+    fn = lib.dtf_forward
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
+                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), *_ptrs(w), y.data_ptr(),
+                 kvs.data_ptr() if checkpoints else None, ss.data_ptr() if checkpoints else None,
+                 ws.data_ptr(), B, C, T, chunk, Fh, *_rate_args(seed, rate), stream)
+    _build.check(lib, err, "fusion layer forward")
+    fwd_launches += 1
+    return y, kvs, ss
+
+
+def _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate):
+    global bwd_launches
+    B, C, T, D, Fh = _dims(x, w, n_heads, chunk)
+    H = n_heads
+    lib = _lib("bwd", D, H)
+    x, dy, kvs, ss = (t.contiguous() for t in (x, dy, kvs, ss))
+    w = [t.contiguous() for t in w]
+    # the backward's dX products read the weights transposed, (in, out)
+    wt = [w[i].T.contiguous() for i in (0, 2, 4, 6, 8, 10)]
+    dx = torch.empty_like(x)
+    grads = [torch.zeros_like(t) for t in w]
+    lib.dtf_bwd_workspace.restype = ctypes.c_size_t
+    lib.dtf_bwd_workspace.argtypes = [ctypes.c_int] * 5
+    ws = x.new_empty(_workspace(lib.dtf_bwd_workspace(B * C, T, chunk, H, Fh), H))
+    fn = lib.dtf_backward
+    fn.argtypes = ([ctypes.c_void_p] * 40 + [ctypes.c_int] * 5
+                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), kvs.data_ptr(), ss.data_ptr(), *_ptrs(w),
+                 *_ptrs(wt), dx.data_ptr(), *_ptrs(grads), ws.data_ptr(),
+                 B, C, T, chunk, Fh, *_rate_args(seed, rate), stream)
+    _build.check(lib, err, "fusion layer backward")
+    bwd_launches += 1
+    return dx, FusionWeights(*grads)

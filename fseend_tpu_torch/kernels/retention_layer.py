@@ -10,7 +10,9 @@ the out projection (+bias).  One call per layer and block of frames.
 On a CUDA tensor the wrapper launches `csrc/retention_layer.cu` (three
 kernels of this repository behind one call; see the note there); on a CPU
 tensor it runs `retention_layer_plain`.  Neither touches the incoming state.
-Float32 only, forward only.
+Float32 only.  When a gradient is wanted the call goes through
+`_RetentionLayerFn`, whose backward re-runs `retention_layer_plain` under
+autograd (the recompute backward of `retention_layer_pallas.py:261-280`).
 
 Layouts: gammas (H,); x (B, T, D); kv0 (B, H, dk, dv); s0 (B, H, 1, 1);
 T % chunk == 0.  Returns (y (B, T, D), kv_f, s_f).
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from fseend_tpu_torch.kernels import _build
-from fseend_tpu_torch.kernels.chunk_retention import chunk_retention_plain
+from fseend_tpu_torch.kernels.chunk_retention import chunk_retention_plain, recompute_grads
 from fseend_tpu_torch.ops import nn as tnn
 
 # launches of the CUDA kernel since the count was last set to 0
@@ -41,14 +43,13 @@ class RetLayerWeights(NamedTuple):
     bo: torch.Tensor     # (D,)
 
 
-@torch.no_grad()
 def pack_retention(ret) -> RetLayerWeights:
-    """Stack a `Retention` module's projections (pack once per model)."""
+    """Stack a `Retention` module's projections (a server packs once, under
+    no_grad; in training the packing is part of the graph)."""
     projs = (ret.q_proj, ret.k_proj, ret.v_proj, ret.g_proj)
-    return RetLayerWeights(torch.cat([p.weight for p in projs]).contiguous(),
-                           torch.cat([p.bias for p in projs]).contiguous(),
-                           ret.out_proj.weight.detach().contiguous(),
-                           ret.out_proj.bias.detach().contiguous())
+    return RetLayerWeights(torch.cat([p.weight for p in projs]),
+                           torch.cat([p.bias for p in projs]),
+                           ret.out_proj.weight, ret.out_proj.bias)
 
 
 def retention_layer(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,
@@ -56,11 +57,36 @@ def retention_layer(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,
     """Launches the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
     _check(gammas, x, w, kv0, s0, chunk)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"retention_layer: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kv0, s0) + tuple(w)):
+        return _RetentionLayerFn.apply(gammas, x, *w, kv0, s0, chunk)
+    return _forward(gammas, x, w, kv0, s0, chunk)
+
+
+def _forward(gammas, x, w, kv0, s0, chunk):
     if x.device.type == "cpu":
         return retention_layer_plain(gammas, x, w, kv0, s0, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"retention_layer: unsupported device {x.device}")
     return _launch(gammas, x, w, kv0, s0, chunk)
+
+
+def _plain_flat(gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0, chunk):
+    return retention_layer_plain(gammas, x, RetLayerWeights(wqkvg, bqkvg, wo, bo), kv0, s0,
+                                 chunk)
+
+
+class _RetentionLayerFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0, chunk):
+        ctx.save_for_backward(gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0)
+        ctx.chunk = chunk
+        return _forward(gammas, x, RetLayerWeights(wqkvg, bqkvg, wo, bo), kv0, s0, chunk)
+
+    @staticmethod
+    def backward(ctx, *grads_out):
+        grads = recompute_grads(lambda *a: _plain_flat(*a, ctx.chunk), ctx.saved_tensors,
+                                ctx.needs_input_grad[:8], grads_out)
+        return (*grads, None)
 
 
 def _check(gammas, x, w, kv0, s0, chunk):
@@ -97,10 +123,6 @@ def _launch(gammas, x, w, kv0, s0, chunk):
         raise ValueError(f"retention_layer: head dims {dk}, {dv} must be multiples of 16")
     if B * T > 128 * 65535:
         raise ValueError(f"retention_layer: {B * T} frames exceed one launch's grid")
-    if any(t.requires_grad for t in (x, kv0, s0) + tuple(w)):
-        raise NotImplementedError(
-            "retention_layer: the CUDA kernel is forward only; its recompute "
-            "backward comes with training (ROADMAP A6)")
     lib = _build.load("retention_layer", {"CR_DK": dk, "CR_DV": dv})
     fn = lib.retention_layer_launch
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float]

@@ -1,17 +1,22 @@
-"""LS-EEND inference: the conformer-retention encoder, the look-ahead cnn
-and the retention attractor decoder, in three modes over one `LSEEND`.
+"""LS-EEND: the conformer-retention encoder, the look-ahead cnn and the
+retention attractor decoder, in three modes over one `LSEEND`.
 
-Port of the inference parts of `fseend_tpu/models/ls_eend.py`.  Parameters
+Port of `fseend_tpu/models/ls_eend.py`.  Parameters
 live in `LSEEND`, an `nn.Module` whose submodule paths follow the JAX
 parameter pytree (`enc.proj`, `enc.blocks.{i}.ff1.linear1`,
 `dec.layers.{i}.time_ret.q_proj`, ...); the BatchNorm running statistics
-(the JAX `model_state`) are its buffers.  Training (dropout, `remat`, the
-fused training decoder) is not ported.
+(the JAX `model_state`) are its buffers.
 
 1. Batch (`ls_forward`, `ls_test`): whole recordings, padded to a multiple
    of `chunk_size`; retention in `time_mode` "chunkwise" (the default, with
    the route `LSEENDConfig.kernel` picks), "recurrent" (reproduces
-   streaming) or "parallel".
+   streaming) or "parallel".  `ls_forward(train=True)` is the training
+   pass: dropout drawn from the caller's `torch.Generator`, BatchNorm on
+   batch statistics (the updated running statistics are returned, the
+   buffers left as they were), `remat` recomputing each conformer block in
+   the backward, and with `use_fused_dec` the decoder run slot-major through
+   the fusion-layer kernels (`kernels/dec_train_fusion.py`, forward and
+   hand-written backward).
 2. Blockwise streaming (`ls_blockstream_init/step/run`): K frames per step
    through the chunkwise retention with the state carried across blocks,
    every op a (B, K, D) matmul; emits the previous block (one-block lag);
@@ -49,14 +54,17 @@ one, unnormalized, scale ones when fresh):
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+from fseend_tpu_torch.kernels import dec_train_fusion as DTF
 from fseend_tpu_torch.kernels import enc_frame_scan as EFS
 from fseend_tpu_torch.kernels import retention_layer as RL
 from fseend_tpu_torch.ops import nn as tnn
@@ -80,14 +88,12 @@ class LSEENDConfig:
     pe_max_len: int = 5000
     half_step_residual: bool = True
     kernel: str = "fused"              # chunkwise route, see R.RetentionConfig
-    use_fused_dec: bool = False        # training only: not ported
-    remat: bool = False                # training only: not ported
+    dropout: float = 0.1               # training only
+    use_fused_dec: bool = False        # chunkwise decoder through the fusion-layer kernels
+    fused_dec_chunk: int | None = None  # their internal chunk; None: chunk_size (exact)
+    remat: bool = False                # training: recompute each conformer block
 
     def __post_init__(self):
-        if self.use_fused_dec or self.remat:
-            raise NotImplementedError(
-                "use_fused_dec and remat belong to training, which is not "
-                "ported yet (ROADMAP A6, B3)")
         self.ret_cfg                   # validates `kernel`
 
     @property
@@ -268,16 +274,20 @@ def _lin(m: nn.Linear, x):
     return tnn.linear(x, m.weight, m.bias)
 
 
-def _ff(p: FeedForward, x):
-    """FeedForwardModule: LN -> Linear -> swish -> Linear."""
-    return _lin(p.linear2, F.silu(_lin(p.linear1, _ln(p.norm, x))))
+def _ff(p: FeedForward, x, rate: float = 0.0, gen=None):
+    """FeedForwardModule: LN -> Linear -> swish -> dropout -> Linear ->
+    dropout (dropout in training only)."""
+    h = tnn.dropout(F.silu(_lin(p.linear1, _ln(p.norm, x))), rate, gen)
+    return tnn.dropout(_lin(p.linear2, h), rate, gen)
 
 
-def _conv_module(p: ConvModule, x, cache=None):
+def _conv_module(p: ConvModule, x, cache=None, *, train: bool = False, rate: float = 0.0,
+                 gen=None):
     """ConformerConvModule over (B, T, D): LN -> pointwise(2D) -> GLU ->
-    causal depthwise(k) -> eval BatchNorm -> swish -> pointwise.  `cache`
-    (B, k-1, D) is the post-GLU history before x (None: zeros, the batch
-    form).  Returns (y, the history after x)."""
+    causal depthwise(k) -> BatchNorm -> swish -> pointwise -> dropout.
+    `cache` (B, k-1, D) is the post-GLU history before x (None: zeros, the
+    batch form).  Returns (y, the history after x, the BatchNorm's updated
+    running statistics in training, else None)."""
     h = _lin(p.pw1, _ln(p.norm, x))
     a, b = h.chunk(2, dim=-1)
     h = a * torch.sigmoid(b)
@@ -285,8 +295,13 @@ def _conv_module(p: ConvModule, x, cache=None):
     if cache is None:
         cache = h.new_zeros(h.shape[0], k - 1, h.shape[2])
     y = tnn.causal_depthwise_conv(h, p.dw.weight, cache)
-    y = F.silu(tnn.batch_norm(y, p.bn))
-    return _lin(p.pw2, y), torch.cat([cache, h], dim=1)[:, -(k - 1):]
+    bn_state = None
+    if train:
+        y, bn_state = tnn.batch_norm_train(y, p.bn)
+    else:
+        y = tnn.batch_norm(y, p.bn)
+    y = tnn.dropout(_lin(p.pw2, F.silu(y)), rate, gen)
+    return y, torch.cat([cache, h], dim=1)[:, -(k - 1):], bn_state
 
 
 def _retention_seq(p: R.Retention, x, cfg: LSEENDConfig, time_mode: str):
@@ -302,33 +317,73 @@ def _retention_seq(p: R.Retention, x, cfg: LSEENDConfig, time_mode: str):
     raise ValueError(f"unknown time_mode: {time_mode}")
 
 
-def _block(p: ConformerBlock, x, cfg: LSEENDConfig, time_mode: str = "chunkwise"):
-    """ConformerEncoderBlock over (B, T, D)."""
-    x = x + cfg.ff_factor * _ff(p.ff1, x)
-    x = x + _retention_seq(p.ret, _ln(p.ret_norm, x), cfg, time_mode)
-    x = x + _conv_module(p.conv, x)[0]
-    x = x + cfg.ff_factor * _ff(p.ff2, x)
-    return _ln(p.final_norm, x)
+def _block(p: ConformerBlock, x, cfg: LSEENDConfig, time_mode: str = "chunkwise",
+           train: bool = False, gen=None):
+    """ConformerEncoderBlock over (B, T, D) -> (y, the BatchNorm's updated
+    running statistics in training, else None)."""
+    rate = cfg.dropout if train else 0.0
+    x = x + cfg.ff_factor * _ff(p.ff1, x, rate, gen)
+    x = x + tnn.dropout(_retention_seq(p.ret, _ln(p.ret_norm, x), cfg, time_mode), rate, gen)
+    h, _, bn_state = _conv_module(p.conv, x, train=train, rate=rate, gen=gen)
+    x = x + h
+    x = x + cfg.ff_factor * _ff(p.ff2, x, rate, gen)
+    return _ln(p.final_norm, x), bn_state
 
 
-def encode(model: LSEEND, xs: torch.Tensor, time_mode: str = "chunkwise"):
-    """xs: (B, T, in_size) with T % chunk_size == 0 (pad upstream)."""
+def _block_remat(p: ConformerBlock, x, cfg: LSEENDConfig, time_mode: str, gen):
+    """_block in training, its activations recomputed in the backward
+    (`torch.utils.checkpoint`).  The recompute draws the same dropout masks
+    from a copy of `gen` as it was; `gen` itself advances once."""
+    start = gen.get_state() if gen is not None else None
+    end = []
+
+    def run(h):
+        g = None
+        if start is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(start)
+        y, bn = _block(p, h, cfg, time_mode, True, g)
+        if g is not None and not end:
+            end.append(g.get_state())
+        return y, bn["mean"], bn["var"]
+
+    y, mean, var = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+    if end:
+        gen.set_state(end[0])
+    return y, {"mean": mean, "var": var}
+
+
+def encode(model: LSEEND, xs: torch.Tensor, time_mode: str = "chunkwise",
+           train: bool = False, gen=None):
+    """xs: (B, T, in_size) with T % chunk_size == 0 (pad upstream).
+    Returns (h, the BatchNorm states: updated in training, else the
+    running statistics)."""
+    cfg = model.cfg
     h = _ln(model.enc.norm, _lin(model.enc.proj, xs))
+    bn = []
     for bp in model.enc.blocks:
-        h = _block(bp, h, model.cfg, time_mode)
-    return h
+        if train and cfg.remat:
+            h, st = _block_remat(bp, h, cfg, time_mode, gen)
+        else:
+            h, st = _block(bp, h, cfg, time_mode, train, gen)
+        bn.append(st or {"mean": bp.conv.bn.running_mean, "var": bp.conv.bn.running_var})
+    return h, bn
 
 
 def fusion_layer(p: FusionLayer, x: torch.Tensor, cfg: LSEENDConfig,
-                 time_mode: str = "chunkwise") -> torch.Tensor:
+                 time_mode: str = "chunkwise", train: bool = False, gen=None) -> torch.Tensor:
     """x: (B, T, C, D).  Retention over T per slot; MHA over C per frame;
-    FFN; post-norm."""
+    FFN; post-norm; dropout after each sublayer and on the attention
+    weights in training."""
+    rate = cfg.dropout if train else 0.0
     B, T, C, D = x.shape
     xt = x.transpose(1, 2).reshape(B * C, T, D)
-    xt = _ln(p.norm11, xt + _retention_seq(p.time_ret, xt, cfg, time_mode))
+    a = tnn.dropout(_retention_seq(p.time_ret, xt, cfg, time_mode), rate, gen)
+    xt = _ln(p.norm11, xt + a)
     x = xt.reshape(B, C, T, D).transpose(1, 2)
-    x = _ln(p.norm21, x + tnn.mha(p.spk_attn, x, x, x))
-    return _ln(p.norm22, x + tnn.ff_block(x, p.linear1, p.linear2))
+    a = tnn.dropout(tnn.mha(p.spk_attn, x, x, x, rate, gen), rate, gen)
+    x = _ln(p.norm21, x + a)
+    return _ln(p.norm22, x + tnn.ff_block(x, p.linear1, p.linear2, rate, gen))
 
 
 def _slot_queries(model: LSEEND, emb: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -342,12 +397,42 @@ def _slot_queries(model: LSEEND, emb: torch.Tensor, n_slots: int) -> torch.Tenso
     return _lin(model.dec.convert, x)
 
 
-def decode(model: LSEEND, emb: torch.Tensor, n_slots: int,
-           time_mode: str = "chunkwise") -> torch.Tensor:
+def decode(model: LSEEND, emb: torch.Tensor, n_slots: int, time_mode: str = "chunkwise",
+           train: bool = False, gen=None) -> torch.Tensor:
+    if model.cfg.use_fused_dec and time_mode == "chunkwise":
+        return _decode_fused(model, emb, n_slots, train, gen)
     x = _slot_queries(model, emb, n_slots)
     for lp in model.dec.layers:
-        x = fusion_layer(lp, x, model.cfg, time_mode)
+        x = fusion_layer(lp, x, model.cfg, time_mode, train, gen)
     return x
+
+
+def _decode_fused(model: LSEEND, emb: torch.Tensor, n_slots: int, train: bool, gen):
+    """The decoder slot-major (B, C, T, D), each fusion layer one call of
+    `kernels/dec_train_fusion.py` (forward and hand-written backward, the
+    dropout hashed inside).  T is end-padded to the internal chunk
+    (`fused_dec_chunk`, default `chunk_size`): every per-frame op is causal,
+    so the first T frames are exact.  Each layer's dropout seed is one draw
+    from `gen`; eval and rate 0 run with seed 0 and rate 0.  Returns
+    (B, T, C, D), the `decode` contract."""
+    cfg = model.cfg
+    B, T, D = emb.shape
+    pe = tnn.sinusoidal_table(cfg.pe_max_len, D, device=emb.device)[:n_slots].to(emb.dtype)
+    x = torch.cat([emb[:, None].expand(B, n_slots, T, D),
+                   pe[None, :, None].expand(B, n_slots, T, D)], dim=-1)
+    x = _lin(model.dec.convert, x)                           # (B, C, T, D)
+    L = cfg.fused_dec_chunk or cfg.chunk_size
+    pad = (-T) % L
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    for lp in model.dec.layers:
+        seed, rate = 0, 0.0
+        if train and gen is not None and cfg.dropout > 0.0:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=gen.device))
+            rate = cfg.dropout
+        x = DTF.fused_fusion_layer(x.contiguous(), DTF.pack_fusion(lp), seed, cfg.n_heads, L,
+                                   rate)
+    return x[:, :, :T].transpose(1, 2)
 
 
 def pad_to_chunk(xs: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -355,18 +440,24 @@ def pad_to_chunk(xs: torch.Tensor, chunk: int) -> torch.Tensor:
     return F.pad(xs, (0, 0, 0, pad)) if pad else xs
 
 
-@torch.no_grad()
 def ls_forward(model: LSEEND, xs, lens, n_slots: int, *, train: bool = False,
-               rngs=None, time_mode: str = "chunkwise") -> dict:
+               generator: torch.Generator | None = None,
+               time_mode: str = "chunkwise") -> dict:
     """Full batch pass on the device that holds `model`.  xs (B, T, F) is
     padded to a chunk multiple internally, zeroed past each recording's
     `lens` entry before the encoder and again before the cnn, as the
-    reference does.  Returns logits (B, T, C), emb (B, T, D) and attractors
-    (B, T, C, D)."""
-    if train or rngs is not None:
-        raise NotImplementedError(
-            "ls_forward(train=True) is not ported yet (ROADMAP A6, B3): the "
-            "port runs inference only")
+    reference does.  Returns logits (B, T, C), emb (B, T, D), attractors
+    (B, T, C, D) and "state", {"conv_bn": [{"mean", "var"}]}: the BatchNorm
+    running statistics, updated from this batch in training.
+
+    train=True is the training pass (differentiable; dropout from
+    `generator`, which lives on the model's device, none without one);
+    otherwise the pass runs without autograd."""
+    with contextlib.nullcontext() if train else torch.no_grad():
+        return _ls_forward(model, xs, lens, n_slots, train, generator, time_mode)
+
+
+def _ls_forward(model, xs, lens, n_slots, train, gen, time_mode):
     cfg = model.cfg
     device = model.cnn.weight.device
     xs = torch.as_tensor(xs).to(device)
@@ -378,13 +469,14 @@ def ls_forward(model: LSEEND, xs, lens, n_slots: int, *, train: bool = False,
     len_mask = (torch.arange(xs.shape[1], device=device)[None, :] < lens[:, None])[..., None]
     zero = xs.new_zeros(())
     xs = torch.where(len_mask, xs, zero)
-    h = encode(model, xs, time_mode)
+    h, bn = encode(model, xs, time_mode, train, gen)
     h = torch.where(len_mask, h, zero)              # re-pad with zeros before the cnn
     emb = tnn.l2_normalize(tnn.lookahead_conv(h, model.cnn.weight, model.cnn.bias,
                                               cfg.conv_delay))
-    attractors = tnn.l2_normalize(decode(model, emb, n_slots, time_mode))
+    attractors = tnn.l2_normalize(decode(model, emb, n_slots, time_mode, train, gen))
     logits = torch.einsum("btd,btcd->btc", emb, attractors)
-    return {"logits": logits[:, :T0], "emb": emb[:, :T0], "attractors": attractors[:, :T0]}
+    return {"logits": logits[:, :T0], "emb": emb[:, :T0], "attractors": attractors[:, :T0],
+            "state": {"conv_bn": bn}}
 
 
 def ls_test(model: LSEEND, xs, lens, max_nspks: int | None = None) -> dict:
@@ -642,6 +734,7 @@ def ls_blockstream_init(cfg: LSEENDConfig, batch: int, n_slots: int | None = Non
     }
 
 
+@torch.no_grad()
 def pack_block_weights(model: LSEEND):
     """The retention layers' stacked projections for the "fused" route
     (pack once per model): (encoder layers, decoder layers)."""
@@ -656,7 +749,7 @@ def _enc_block_blockstream(p: ConformerBlock, x, st: dict, cfg: LSEENDConfig,
     h, ret_state = R.retention_chunkwise_stateful(p.ret, _ln(p.ret_norm, x), st["ret"],
                                                   rc, packed)
     x = x + h
-    h, conv_cache = _conv_module(p.conv, x, st["conv"])
+    h, conv_cache, _ = _conv_module(p.conv, x, st["conv"])
     x = x + h
     x = x + cfg.ff_factor * _ff(p.ff2, x)
     return _ln(p.final_norm, x), {"ret": ret_state, "conv": conv_cache}

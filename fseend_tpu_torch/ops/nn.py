@@ -1,8 +1,10 @@
 """Core neural building blocks as plain functions on tensors, plus the small
 `nn.Module` parameter holders the models are built from.
 
-Port of the subset of `fseend_tpu/ops/nn.py` that LS-EEND inference runs
-(batch, blockwise and per-frame).  Numerics follow the JAX functions (and through them the torch modules
+Port of the subset of `fseend_tpu/ops/nn.py` that LS-EEND runs (inference,
+batch, blockwise and per-frame, and training: dropout from a
+`torch.Generator`, train-mode BatchNorm, attention dropout).  Numerics
+follow the JAX functions (and through them the torch modules
 of the reference): layer norm is written out as mean / biased variance /
 rsqrt, the l2 norm has no eps, attention scales by 1/sqrt(head_dim) after the
 dot product.  Convolutions are written as matmuls over an unfolded window,
@@ -45,6 +47,17 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
     return x / torch.sqrt(x.square().sum(dim=dim, keepdim=True) + eps)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: x / keep where kept, 0 elsewhere; the identity when
+    rate is 0 or there is no generator (eval).  The mask is drawn from
+    `generator`, which must live on x's device."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     """Eval-mode BatchNorm over the last axis of (..., D) from the running
     statistics held in `bn`."""
@@ -52,9 +65,28 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     return y * bn.weight + bn.bias
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d, momentum: float = 0.1):
+    """Train-mode BatchNorm over the last axis of (..., D): normalizes with
+    the batch mean and biased variance over every leading position (padding
+    included, as the reference does) and returns (y, {"mean", "var"}), the
+    running statistics updated with the unbiased variance.  `bn`'s buffers
+    are not written."""
+    axes = tuple(range(x.ndim - 1))
+    n = x[..., 0].numel()
+    mean = x.mean(dim=axes)
+    var = (x - mean).square().mean(dim=axes)
+    unbiased = var.detach() * (n / max(n - 1, 1))
+    new = {"mean": (1 - momentum) * bn.running_mean + momentum * mean.detach(),
+           "var": (1 - momentum) * bn.running_var + momentum * unbiased}
+    y = (x - mean) * torch.rsqrt(var + bn.eps)
+    return y * bn.weight + bn.bias, new
+
+
 def mha(p: "MultiheadAttention", query: torch.Tensor, key: torch.Tensor,
-        value: torch.Tensor) -> torch.Tensor:
-    """torch-compatible multi-head attention without mask or dropout.
+        value: torch.Tensor, rate: float = 0.0,
+        generator: torch.Generator | None = None) -> torch.Tensor:
+    """torch-compatible multi-head attention without mask; in training,
+    dropout on the post-softmax weights (rows then no longer sum to 1).
     query/key/value: (..., T, D) -> (..., T, D)."""
     D = query.shape[-1]
     H = p.n_heads
@@ -68,15 +100,18 @@ def mha(p: "MultiheadAttention", query: torch.Tensor, key: torch.Tensor,
 
     q, k, v = split(q), split(k), split(v)
     logits = q @ k.transpose(-1, -2) / math.sqrt(D // H)
-    out = torch.softmax(logits, dim=-1) @ v          # (..., H, T, hd)
+    w = dropout(torch.softmax(logits, dim=-1), rate, generator)
+    out = w @ v                                      # (..., H, T, hd)
     out = out.transpose(-3, -2).reshape(*query.shape)
     return linear(out, p.out_proj.weight, p.out_proj.bias)
 
 
-def ff_block(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear) -> torch.Tensor:
-    """relu feed-forward of a transformer layer (no dropout: serving)."""
-    return linear(torch.relu(linear(x, linear1.weight, linear1.bias)),
-                  linear2.weight, linear2.bias)
+def ff_block(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear, rate: float = 0.0,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """relu feed-forward of a transformer layer, dropout after the
+    activation and after the second linear in training."""
+    h = dropout(torch.relu(linear(x, linear1.weight, linear1.bias)), rate, generator)
+    return dropout(linear(h, linear2.weight, linear2.bias), rate, generator)
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,

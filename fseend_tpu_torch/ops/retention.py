@@ -7,8 +7,10 @@ data-dependent renormalizers (parallel row sum, chunkwise inner scale, the
 max-abs-sum kv scale) are clamped to >= 1; the output group norm is a
 non-affine layer norm over head_dim with eps 1e-6; silu(g) gating; out
 projection.  The xpos rotation, which the reference computes and never
-applies, is not ported (`use_xpos=True` raises).  Inference only: nothing
-here detaches the renormalizers for a backward pass.
+applies, is not ported (`use_xpos=True` raises).  The renormalizers are
+detached where the JAX package stops their gradient (the parallel row sum,
+the chunkwise inner scale and the recomputed kv scale), so a backward pass
+gives its gradients.
 
 Two state conventions, not interchangeable:
   * recurrent: ``kv`` (B, H, dv, dk) with ``out[v] = sum_k q[k] kv[v, k]``,
@@ -21,7 +23,8 @@ Two state conventions, not interchangeable:
 `retention_chunkwise_stateful` picks its route from `RetentionConfig.kernel`:
 the whole layer in `kernels/retention_layer.py`, the core alone in
 `kernels/chunk_retention.py`, or plain tensor ops.  On the card the first two
-are CUDA kernels; on CPU tensors they run their plain versions.
+are CUDA kernels; on CPU tensors they run their plain versions.  Both kernel
+routes train: their backward recomputes the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -132,7 +135,7 @@ def retention_parallel(p: Retention, x: torch.Tensor, cfg: RetentionConfig) -> t
     q, k, v, g = _project_qkv(p, x, cfg)
     mask, _ = _decay_mask(x.shape[1], decay_gammas(cfg, x.device))
     qk = (q @ k.transpose(-1, -2)) * mask
-    qk = qk / qk.sum(-1, keepdim=True).abs().clamp(min=1.0)
+    qk = qk / qk.detach().sum(-1, keepdim=True).abs().clamp(min=1.0)
     return _finish(p, qk @ v, g)
 
 
@@ -200,7 +203,7 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
     vc = v.reshape(B, H, N, L, dv)
     # intra-chunk attention, batched over chunks
     qk = (qc @ kc.transpose(-1, -2)) * mask[:, None]
-    inner_scale = qk.abs().sum(-1, keepdim=True).clamp(min=1.0)
+    inner_scale = qk.detach().abs().sum(-1, keepdim=True).clamp(min=1.0)
     inner_out = (qk / inner_scale) @ vc
     # per-chunk kv summaries k^T (v * last mask row), then the small scan
     kv_chunks = kc.transpose(-1, -2) @ (vc * mask[:, None, -1, :, None])
@@ -210,7 +213,8 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
         kv_rec.append(kv_state / kv_scale)
         cross_scale.append(kv_scale)
         kv_state = kv_state * cross_decay + kv_chunks[:, :, n]
-        kv_scale = kv_state.abs().sum(-2, keepdim=True).amax(-1, keepdim=True).clamp(min=1.0)
+        kv_scale = (kv_state.detach().abs().sum(-2, keepdim=True).amax(-1, keepdim=True)
+                    .clamp(min=1.0))
     kv_rec = torch.stack(kv_rec, dim=2)               # (B, H, N, dk, dv)
     cross_scale = torch.stack(cross_scale, dim=2)     # (B, H, N, 1, 1)
 

@@ -6,7 +6,9 @@ and the BatchNorm running statistics in a separate `model_state`; its
 stream states (per-frame and blockwise) are nested dicts with per-layer
 lists.  These functions take
 those trees as numpy arrays (`jax.tree.map(np.asarray, tree)`) and return
-the port's `LSEEND` module / flat state dict, and back.  No JAX import.
+the port's `LSEEND` module / flat state dict, and back (`ls_params_to_jax`
+for the weights, the checkpoints and the gradient comparisons).  No JAX
+import.
 """
 
 from __future__ import annotations
@@ -142,3 +144,32 @@ def ls_blockstate_to_numpy(state: dict) -> dict:
         "m": n["m"],
         "dec": [{"kv": kv, "scale": sc} for kv, sc in zip(n["dec_kv"], n["dec_scale"])],
     }
+
+
+@torch.no_grad()
+def ls_params_to_jax(model: ls_eend.LSEEND):
+    """The JAX package's (params, model_state) pytrees, numpy leaves, from
+    the port's module: linear kernels (in, out), convolution kernels (width,
+    in/groups, out), BatchNorm running statistics in model_state.  Static
+    leaves (`_n_heads`, `_groups`) are left out."""
+
+    def val(t):
+        return t.detach().cpu().numpy().copy()
+
+    def tree(mod: nn.Module):
+        if isinstance(mod, nn.ModuleList):
+            return [tree(m) for m in mod]
+        if isinstance(mod, nn.Linear):
+            return {"kernel": val(mod.weight).T.copy(), "bias": val(mod.bias)}
+        if isinstance(mod, nn.Conv1d):
+            out = {"kernel": val(mod.weight).transpose(2, 1, 0).copy()}
+            if mod.bias is not None:
+                out["bias"] = val(mod.bias)
+            return out
+        if isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+            return {"scale": val(mod.weight), "bias": val(mod.bias)}
+        return {name: tree(child) for name, child in mod.named_children()}
+
+    bn = [blk.conv.bn for blk in model.enc.blocks]
+    return tree(model), {"conv_bn": [{"mean": val(b.running_mean), "var": val(b.running_var)}
+                                     for b in bn]}

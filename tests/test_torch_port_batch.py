@@ -38,9 +38,27 @@ LENS = np.array([21, 13])
 ATOL = 2e-4
 
 
+def _jax_params(seed: int):
+    """A JAX parameter pytree of JCFG's structure (static metadata included,
+    from `jax.eval_shape` of the JAX init) holding the port initializer's
+    weights for `seed`: random weights on both sides without the JAX
+    init's eager random ops, which cost seconds per config."""
+    model = T.init_ls_eend(TCFG, torch.Generator().manual_seed(seed), device="cpu")
+    tree, _ = CV.ls_params_to_jax(model)
+    shapes, _ = jax.eval_shape(lambda k: J.init_ls_eend(k, JCFG), jax.random.PRNGKey(0))
+
+    def leaf(path, _):
+        node = tree
+        for p in path:
+            node = node[p.key if hasattr(p, "key") else p.idx]
+        return jnp.asarray(node)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 @pytest.fixture(scope="module")
 def setup():
-    params, _ = J.init_ls_eend(jax.random.PRNGKey(3), JCFG)
+    params = _jax_params(3)
     rng = np.random.default_rng(7)
     mstate = {"conv_bn": [{"mean": jnp.asarray(rng.normal(0, 0.2, 32), jnp.float32),
                            "var": jnp.asarray(rng.uniform(0.5, 2.0, 32), jnp.float32)}

@@ -52,9 +52,27 @@ def _model_with(model, kernel):
     return T.with_cfg(model, dataclasses.replace(model.cfg, kernel=kernel))
 
 
+def _jax_params(seed: int):
+    """A JAX parameter pytree of JCFG's structure (static metadata included,
+    from `jax.eval_shape` of the JAX init) holding the port initializer's
+    weights for `seed`: random weights on both sides without the JAX
+    init's eager random ops, which cost seconds per config."""
+    model = T.init_ls_eend(TCFG, torch.Generator().manual_seed(seed), device="cpu")
+    tree, _ = CV.ls_params_to_jax(model)
+    shapes, _ = jax.eval_shape(lambda k: J.init_ls_eend(k, JCFG), jax.random.PRNGKey(0))
+
+    def leaf(path, _):
+        node = tree
+        for p in path:
+            node = node[p.key if hasattr(p, "key") else p.idx]
+        return jnp.asarray(node)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 @pytest.fixture(scope="module")
 def setup():
-    params, _ = J.init_ls_eend(jax.random.PRNGKey(3), JCFG)
+    params = _jax_params(3)
     rng = np.random.default_rng(17)
     mstate = {"conv_bn": [{"mean": jnp.asarray(rng.normal(0, 0.2, 32), jnp.float32),
                            "var": jnp.asarray(rng.uniform(0.5, 2.0, 32), jnp.float32)}
@@ -75,39 +93,52 @@ def _jax_reset_lane(state, fresh, lane):
     return jax.tree.map(leaf, state, fresh)
 
 
-@pytest.mark.parametrize("kernel", ROUTES)
-def test_blockstream_step_matches_jax_block_by_block(setup, kernel):
-    """Five steps: two plain blocks, a reset of lane 1 (its next block is
-    gated as a warm-up block again), a block with an h_mask tail, and an
-    enc_bypass flush.  After every step the logits and every state leaf; the
-    port continues from JAX's state converted across, so a drift cannot
-    hide."""
-    params, mstate, model, xs = setup
-    model = _model_with(model, kernel)
-    packed = T.pack_block_weights(model)
+# two plain blocks, a reset of lane 1 (its next block is gated as a warm-up
+# block again), a block with an h_mask tail, and an enc_bypass flush
+STEPS = [dict(), dict(), dict(reset=1), dict(h_mask=np.arange(K) < 5), dict(enc_bypass=True)]
+
+
+@pytest.fixture(scope="module")
+def jax_steps(setup):
+    """JAX's side of the five STEPS (the same for every route), computed
+    once: per step (the state it starts from, its logits, the state after),
+    numpy leaves."""
+    params, mstate, _, xs = setup
     jstate = J.ls_blockstream_init(JCFG, B, C, K)
     fresh = jax.tree.map(np.asarray, jstate)
-    state = T.ls_blockstream_init(TCFG, B, C, K, device="cpu")
-    _assert_state(state, jstate)
-    h_mask = np.arange(K) < 5
-    steps = [dict(), dict(), dict(reset=1), dict(h_mask=h_mask), dict(enc_bypass=True)]
-    for i, step in enumerate(steps):
+    out = []
+    for i, step in enumerate(STEPS):
         if "reset" in step:
             jstate = _jax_reset_lane(jax.tree.map(np.asarray, jstate), fresh, step["reset"])
-        given = CV.ls_blockstate_from_jax(jax.tree.map(np.asarray, jstate), "cpu")
-        before = {k: v.clone() for k, v in given.items()}
+        start = jax.tree.map(np.asarray, jstate)
         jkw = {"enc_bypass": step.get("enc_bypass", False),
                "h_mask": jnp.asarray(step["h_mask"]) if "h_mask" in step else None}
         with jax.default_matmul_precision("highest"):
             jstate, want = J.ls_blockstream_step(params, jstate, JCFG, mstate,
                                                  jnp.asarray(xs[i]), C, **jkw)
+        out.append((start, np.asarray(want), jax.tree.map(np.asarray, jstate)))
+    return out
+
+
+@pytest.mark.parametrize("kernel", ROUTES)
+def test_blockstream_step_matches_jax_block_by_block(setup, jax_steps, kernel):
+    """The five STEPS.  After every step the logits and every state leaf;
+    the port continues from JAX's state converted across, so a drift cannot
+    hide."""
+    _, _, model, xs = setup
+    model = _model_with(model, kernel)
+    packed = T.pack_block_weights(model)
+    state = T.ls_blockstream_init(TCFG, B, C, K, device="cpu")
+    _assert_state(state, jax_steps[0][0])
+    for i, (step, (start, want, after)) in enumerate(zip(STEPS, jax_steps)):
+        given = CV.ls_blockstate_from_jax(start, "cpu")
+        before = {k: v.clone() for k, v in given.items()}
         tkw = {"enc_bypass": step.get("enc_bypass", False),
                "h_mask": torch.as_tensor(step["h_mask"]) if "h_mask" in step else None}
         state, got = T.ls_blockstream_step(model, given, torch.as_tensor(xs[i]), C,
                                            packed=packed, **tkw)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
-                                   err_msg=f"step {i}")
-        _assert_state(state, jstate)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, err_msg=f"step {i}")
+        _assert_state(state, after)
         for key, t in before.items():              # the incoming state is not touched
             assert torch.equal(given[key], t), key
     assert state["m"].tolist() == [5, 3, 5]
@@ -123,24 +154,35 @@ def test_blockstate_roundtrip_and_layout(setup):
         T.ls_blockstream_init(TCFG, B, C, block=1, device="cpu")
 
 
+def _run_input(xs):
+    return torch.as_tensor(xs.transpose(1, 0, 2, 3).reshape(B, 5 * K, -1)[:, :29])
+
+
+@pytest.fixture(scope="module")
+def jax_run(setup):
+    """JAX's ls_blockstream_run on the full-length input, computed once."""
+    params, mstate, _, xs = setup
+    with jax.default_matmul_precision("highest"):
+        return np.asarray(J.ls_blockstream_run(params, JCFG, mstate,
+                                               jnp.asarray(_run_input(xs).numpy()), C, K))
+
+
 @pytest.mark.parametrize("kernel", ROUTES)
-def test_blockstream_run_equals_chunkwise_batch_pass(setup, kernel):
+def test_blockstream_run_equals_chunkwise_batch_pass(setup, jax_run, kernel):
     """ls_blockstream_run == the port's own ls_forward(time_mode="chunkwise")
     at chunk_size = block, with ragged lengths and T not a block multiple;
     and JAX's ls_blockstream_run on the full-length input."""
-    params, mstate, model, xs = setup
+    _, _, model, xs = setup
     model = _model_with(model, kernel)
-    x = torch.as_tensor(xs.transpose(1, 0, 2, 3).reshape(B, 5 * K, -1)[:, :29])
+    x = _run_input(xs)
     lens = torch.tensor([29, 11, 20])
     batch = T.ls_forward(model, x, lens, C)
     run = T.ls_blockstream_run(model, x, C, K, lens)
     for b in range(B):
         np.testing.assert_allclose(run[b, :lens[b]].numpy(),
                                    batch["logits"][b, :lens[b]].numpy(), atol=ATOL)
-    with jax.default_matmul_precision("highest"):
-        want = J.ls_blockstream_run(params, JCFG, mstate, jnp.asarray(x.numpy()), C, K)
-    np.testing.assert_allclose(T.ls_blockstream_run(model, x, C, K).numpy(),
-                               np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(T.ls_blockstream_run(model, x, C, K).numpy(), jax_run,
+                               atol=ATOL)
 
 
 def test_fused_route_takes_the_packed_weights(setup, monkeypatch):
@@ -179,25 +221,35 @@ def test_fused_route_takes_the_packed_weights(setup, monkeypatch):
         monkeypatch.setattr(RL, "retention_layer", spy)
 
 
-@pytest.mark.parametrize("kernel", ROUTES)
-def test_block_server_matches_jax_server_frame_for_frame(setup, kernel):
-    params, mstate, model, xs = setup
+SERVER_CALLS = [dict(), dict(), dict(h_mask=np.arange(K) < 3), dict(flush=True)]
+
+
+@pytest.fixture(scope="module")
+def jax_server(setup):
+    """The JAX BlockStreamingServer over SERVER_CALLS, computed once: the
+    emitted probabilities, the final state (numpy) and its block count."""
+    params, mstate, _, xs = setup
     jsrv = JRT.BlockStreamingServer(cfg=JCFG, params=params, model_state=mstate,
                                     n_lanes=B, n_slots=C, block=K)
+    with jax.default_matmul_precision("highest"):
+        wants = [np.asarray(jsrv.process_block(xs[i], **kw))
+                 for i, kw in enumerate(SERVER_CALLS)]
+    return wants, jax.tree.map(np.asarray, jsrv.state), jsrv.blocks_consumed()
+
+
+@pytest.mark.parametrize("kernel", ROUTES)
+def test_block_server_matches_jax_server_frame_for_frame(setup, jax_server, kernel):
+    _, _, model, xs = setup
+    wants, jstate, j_blocks = jax_server
     srv = RT.BlockStreamingServer(kind="ls", cfg=dataclasses.replace(TCFG, kernel=kernel),
                                   model=model, n_lanes=B, n_slots=C, block=K, device="cpu")
-    h_mask = np.arange(K) < 3
-    calls = [dict(), dict(), dict(h_mask=h_mask), dict(flush=True)]
-    for i, kw in enumerate(calls):
-        with jax.default_matmul_precision("highest"):
-            want = jsrv.process_block(xs[i], **kw)
+    for i, (kw, want) in enumerate(zip(SERVER_CALLS, wants)):
         got = srv.process_block(xs[i], **kw)
         assert got.shape == (B, K, C - 1)
         if i:                                      # the first emission is warm-up garbage
-            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
-                                       err_msg=f"block {i}")
-    assert srv.blocks_consumed() == jsrv.blocks_consumed() == 4
-    _assert_state(srv.state, jsrv.state)
+            np.testing.assert_allclose(got.numpy(), want, atol=ATOL, err_msg=f"block {i}")
+    assert srv.blocks_consumed() == j_blocks == 4
+    _assert_state(srv.state, jstate)
 
 
 def test_block_server_reset_lanes_reproduces_a_fresh_server_bit_for_bit(setup):

@@ -1,6 +1,7 @@
 """CUDA kernels of the PyTorch port (the two frame scans, the chunkwise
-retention core and the retention layer) against their plain PyTorch
-versions, on the card.  Marked `gpu`: they skip where there is no CUDA
+retention core, the retention layer and the fusion layer's training forward
+and backward) against their plain PyTorch versions, and one train step, on
+the card.  Marked `gpu`: they skip where there is no CUDA
 device.  On a machine with one (and without JAX, which tests/conftest.py
 imports), run them with
 
@@ -17,12 +18,15 @@ import torch
 
 from fseend_tpu_torch.kernels import chunk_retention as CR
 from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+from fseend_tpu_torch.kernels import dec_train_fusion as DTF
 from fseend_tpu_torch.kernels import enc_frame_scan as EFS
 from fseend_tpu_torch.kernels import retention_layer as RL
 from fseend_tpu_torch.models import ls_eend
 from fseend_tpu_torch.ops import retention as TR
 from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 from fseend_tpu_torch.serving.scheduler import ContinuousBatcher
+from fseend_tpu_torch.train import optim
+from fseend_tpu_torch.train import trainer as TRN
 
 pytestmark = pytest.mark.gpu
 
@@ -236,9 +240,100 @@ def test_kernel_routes_match_plain_route_end_to_end(cuda):
 
 
 def test_chunk_kernels_are_forward_only(cuda):
-    q = torch.zeros(2, 8, 16, device=cuda, requires_grad=True)
-    z = torch.zeros(2, 8, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        CR.chunk_retention(torch.ones(2, device=cuda), q, z, z,
-                           torch.zeros(2, 16, 16, device=cuda),
-                           torch.ones(2, 1, 1, device=cuda), 8)
+    """The kernels have no backward of their own: with a gradient wanted,
+    the forward still launches the kernel and the backward recomputes the
+    plain version (the gradients equal the plain route's autograd)."""
+    rng = np.random.default_rng(24)
+    args = [_randn(rng, 2, 16, 16, dev=cuda).requires_grad_(True) for _ in range(3)]
+    kv0, s0 = torch.zeros(2, 16, 16, device=cuda), torch.ones(2, 1, 1, device=cuda)
+    gam = torch.ones(2, device=cuda)
+    n0 = CR.launches
+    out = CR.chunk_retention(gam, *args, kv0, s0, 8)
+    assert CR.launches == n0 + 1
+    (out[0] * out[0]).sum().backward()
+    got = [a.grad.clone() for a in args]
+    for a in args:
+        a.grad = None
+    ref = CR.chunk_retention_plain(gam, *args, kv0, s0, 8)
+    (ref[0] * ref[0]).sum().backward()
+    for g, a in zip(got, args):
+        torch.testing.assert_close(g, a.grad, atol=ATOL, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the fusion layer's training kernels
+# ---------------------------------------------------------------------------
+
+
+def _fusion_case(dev, rate, L=40, T=80):
+    """Production-like proportions at a small width: D 128, 4 heads (head
+    dim 32), F 96, 3 slots; L = 40 leaves a partial 64-frame tile."""
+    rng = np.random.default_rng(31)
+    B, C, D, F = 2, 3, 128, 96
+    cfg = ls_eend.LSEENDConfig(in_size=8, n_units=D, n_heads=4, dec_n_layers=1,
+                               dec_dim_feedforward=F, chunk_size=L)
+    layer = ls_eend.init_ls_eend(cfg, torch.Generator().manual_seed(3), device=dev).dec.layers[0]
+    with torch.no_grad():
+        w = DTF.FusionWeights(*(t.detach().clone() for t in DTF.pack_fusion(layer)))
+        w = w._replace(wqkvg=w.wqkvg * 4)       # renormalizers and carried scales above 1
+        # the FFN bias at +-5: no hidden unit within float32 rounding of the
+        # ReLU's kink, where two summation orders could disagree on its sign
+        sign = torch.as_tensor(rng.integers(0, 2, F) * 2 - 1, dtype=torch.float32, device=dev)
+        w = w._replace(bf1=sign * 5.0)
+    x = _randn(rng, B, C, T, D, dev=dev)
+    return x, w, 1234, 4, L, rate
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fusion_forward_kernel_matches_plain(cuda, rate):
+    x, w, seed, H, L, rate = _fusion_case(cuda, rate)
+    n0 = DTF.fwd_launches
+    got = DTF.fusion_layer_fwd(x, w, seed, H, L, rate)
+    torch.cuda.synchronize()
+    assert DTF.fwd_launches == n0 + 1
+    want = DTF.fusion_layer_fwd_plain(x, w, seed, H, L, rate)
+    assert float(want[2].max()) > 1.0
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, atol=1e-3, rtol=0)
+    y, kvs, ss = DTF.fusion_layer_fwd(x, w, seed, H, L, rate, checkpoints=False)
+    assert kvs is None and ss is None
+    torch.testing.assert_close(y, got[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fusion_backward_kernel_matches_plain(cuda, rate):
+    x, w, seed, H, L, rate = _fusion_case(cuda, rate)
+    _, kvs, ss = DTF.fusion_layer_fwd_plain(x, w, seed, H, L, rate)
+    dy = _randn(np.random.default_rng(32), *x.shape, dev=cuda)
+    n0 = DTF.bwd_launches
+    dx, dw = DTF.fusion_layer_bwd(x, dy, kvs, ss, w, seed, H, L, rate)
+    torch.cuda.synchronize()
+    assert DTF.bwd_launches == n0 + 1
+    dx_p, dw_p = DTF.fusion_layer_bwd_plain(x, dy, kvs, ss, w, seed, H, L, rate)
+    torch.testing.assert_close(dx, dx_p, atol=1e-3, rtol=0)
+    for name, g, gp in zip(DTF.FusionWeights._fields, dw, dw_p):
+        tol = 2e-3 * float(gp.abs().max())
+        assert float((g - gp).abs().max()) <= tol, name
+
+
+def test_train_step_runs_the_fusion_kernels(cuda):
+    cfg = dataclasses.replace(CFG, n_units=128, in_size=16, use_fused_dec=True,
+                              fused_dec_chunk=16, chunk_size=24, dropout=0.1)
+    model = ls_eend.init_ls_eend(cfg, torch.Generator().manual_seed(6), device=cuda)
+    rng = np.random.default_rng(33)
+    Bt, Tt, S = 2, 40, C - 2
+    batch = {"feats": _randn(rng, Bt, Tt, cfg.in_size, dev=cuda),
+             "labels": torch.as_tensor(rng.uniform(size=(Bt, Tt, S)) > 0.6,
+                                       dtype=torch.float32, device=cuda),
+             "lens": torch.tensor([40, 31], device=cuda),
+             "n_spk": torch.tensor([1, 1], device=cuda)}
+    task = TRN.TaskConfig(label_mode="fixed", masked_emb_loss=True)
+    tx = optim.build_optimizer("noam", 1.0, d_model=128, warmup_steps=100, grad_clip=5.0)
+    state = TRN.TrainState.create(model, tx)
+    step = TRN.make_train_step(task, cfg, tx)
+    n_f, n_b = DTF.fwd_launches, DTF.bwd_launches
+    state, metrics = step(state, batch, 0)
+    torch.cuda.synchronize()
+    assert DTF.fwd_launches == n_f + cfg.dec_n_layers
+    assert DTF.bwd_launches == n_b + cfg.dec_n_layers
+    assert np.isfinite(float(metrics["tot_loss"])) and state.step == 1

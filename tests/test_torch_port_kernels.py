@@ -4,8 +4,8 @@ package's Pallas kernels in interpret mode, on the same weights, inputs and
 state: a non-zero incoming state (entry scale > 0), per-lane flush for the
 encoder, per-lane `valid` flipping mid-block for the decoder; and the
 port's whole kernel-path block against JAX's (`ls_stream_block_fused`,
-which calls the same Pallas kernels at the same shapes, so this file
-compiles them once).
+whose two Pallas kernel calls, recorded, are the references of the
+kernel tests, so this file interprets each kernel once).
 
 Tolerance: atol 2e-4, the JAX package's own fused-vs-scan tolerance
 (tests/test_dec_frame_scan.py): float32, another summation order."""
@@ -39,9 +39,27 @@ D, H, L = 64, 4, 2
 ATOL = 2e-4
 
 
+def _jax_params(seed: int):
+    """A JAX parameter pytree of JCFG's structure (static metadata included,
+    from `jax.eval_shape` of the JAX init) holding the port initializer's
+    weights for `seed`: random weights on both sides without the JAX
+    init's eager random ops, which cost seconds per config."""
+    model = T.init_ls_eend(TCFG, torch.Generator().manual_seed(seed), device="cpu")
+    tree, _ = CV.ls_params_to_jax(model)
+    shapes, _ = jax.eval_shape(lambda k: J.init_ls_eend(k, JCFG), jax.random.PRNGKey(0))
+
+    def leaf(path, _):
+        node = tree
+        for p in path:
+            node = node[p.key if hasattr(p, "key") else p.idx]
+        return jnp.asarray(node)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 @pytest.fixture(scope="module")
 def setup():
-    params, _ = J.init_ls_eend(jax.random.PRNGKey(3), JCFG)
+    params = _jax_params(3)
     rng = np.random.default_rng(3)
     mstate = {"conv_bn": [{"mean": jnp.asarray(rng.normal(0, 0.2, D), jnp.float32),
                            "var": jnp.asarray(rng.uniform(0.5, 2.0, D), jnp.float32)}
@@ -59,27 +77,67 @@ def _state(rng, lanes):
     return kv, np.broadcast_to(s[None, :, None], (L, lanes, H)).copy()
 
 
-def test_enc_frame_scan_plain_matches_pallas(setup):
-    params, mstate, model, rng = setup
-    h0 = rng.standard_normal((B, K, D)).astype(np.float32)
-    flush = np.zeros((B, K), np.float32)
-    flush[0, 7:] = 1.0
-    flush[2, 3:5] = 1.0
+@pytest.fixture(scope="module")
+def jax_block(setup):
+    """One K-frame block of JAX's kernel path (`ls_stream_block_fused`, both
+    Pallas frame scans in interpret mode) from a non-zero incoming state,
+    lanes flushing part-way (one with a gap) and clocks straddling
+    conv_delay, so that `valid` flips mid-block.  The arguments and results
+    of its two kernel calls are recorded: each Pallas kernel is interpreted
+    once for this file (the interpretation costs seconds per call shape)."""
+    params, mstate, _, rng = setup
+    xs = rng.standard_normal((B, K, JCFG.in_size)).astype(np.float32)
+    fl = np.zeros((K, B), bool)
+    fl[7:, 0] = True
+    fl[10:, 1] = True
+    fl[3:5, 2] = True
     kv, s = _state(rng, B)
+    dkv, ds = _state(rng, B * C)
+    ds = np.repeat(ds[:, ::C], C, axis=1)             # one clock per lane
     ring = (rng.standard_normal((L, B, 3, D)) * 0.5).astype(np.float32)
-    enc_states = [{"ret": {"kv": jnp.asarray(kv[l]), "scale": jnp.asarray(s[l])},
-                   "conv": jnp.asarray(ring[l])} for l in range(L)]
+    state0 = {
+        "t": np.array([0, 1, JCFG.conv_delay, 9], np.int32),
+        "enc": [{"ret": {"kv": kv[l], "scale": s[l]}, "conv": ring[l]} for l in range(L)],
+        "cnn_buf": (rng.standard_normal((B, JCFG.lookahead_kernel, D)) * 0.5).astype(np.float32),
+        "dec": [{"kv": dkv[l], "scale": ds[l]} for l in range(L)],
+    }
+    calls = {}
 
-    with jax.default_matmul_precision("highest"):
-        jw = JEFS.pack_enc_weights(params["enc"]["blocks"], mstate["conv_bn"], JCFG,
-                                   jnp.float32)
-        jkv, js, jring = JEFS.pack_enc_state(enc_states)
-        jh, jkv_f, js_f, jring_f = JEFS.enc_frame_scan(
-            jnp.asarray(h0.transpose(1, 2, 0)), jnp.asarray(flush.T[:, None, :]), *jw,
-            jkv, js, jring, ffac=JCFG.ff_factor, interpret=True)
-    want_state = JEFS.unpack_enc_state(jkv_f, js_f, jring_f, like=enc_states)
+    def record(mod, name):
+        orig = getattr(mod, name)
 
-    tkv, ts, tring = torch.as_tensor(kv), torch.as_tensor(s), torch.as_tensor(ring)
+        def wrapped(*args, **kw):
+            out = orig(*args, **kw)
+            calls[name] = (args, kw, out)
+            return out
+        return orig, wrapped
+
+    saved = [(mod, name, *record(mod, name)) for mod, name in
+             ((JEFS, "enc_frame_scan"), (JDFS, "dec_frame_scan"))]
+    try:
+        for mod, name, _, wrapped in saved:
+            setattr(mod, name, wrapped)
+        with jax.default_matmul_precision("highest"):
+            jst, (jlg, jv) = J.ls_stream_block_fused(
+                params, jax.tree.map(jnp.asarray, state0), JCFG, mstate, jnp.asarray(xs),
+                jnp.asarray(fl), C, interpret=True)
+    finally:
+        for mod, name, orig, _ in saved:
+            setattr(mod, name, orig)
+    return xs, fl, state0, (jst, jlg, jv), calls
+
+
+def test_enc_frame_scan_plain_matches_pallas(setup, jax_block):
+    _, _, model, _ = setup
+    _, _, state0, _, calls = jax_block
+    args, kw, (jh, jkv_f, js_f, jring_f) = calls["enc_frame_scan"]
+    h0 = np.ascontiguousarray(np.asarray(args[0]).transpose(2, 0, 1))   # (B, K, D)
+    flush = np.ascontiguousarray(np.asarray(args[1])[:, 0, :].T)        # (B, K)
+    assert flush.any() and not flush.all()
+    want_state = JEFS.unpack_enc_state(jkv_f, js_f, jring_f, like=state0["enc"])
+
+    st = CV.ls_state_from_jax(state0, "cpu")
+    tkv, ts, tring = st["enc_kv"], st["enc_scale"], st["enc_conv"]
     h = EFS.enc_frame_scan(torch.as_tensor(h0), torch.as_tensor(flush),
                            EFS.pack_enc_weights(model.enc.blocks), tkv, ts, tring,
                            ffac=TCFG.ff_factor)
@@ -93,32 +151,23 @@ def test_enc_frame_scan_plain_matches_pallas(setup):
                                    atol=ATOL)
 
 
-def test_dec_frame_scan_plain_matches_pallas(setup):
-    params, _, model, rng = setup
-    emb = rng.standard_normal((B, K, D)).astype(np.float32)
-    embn = emb / np.linalg.norm(emb, axis=-1, keepdims=True)
-    embp = rng.standard_normal((B, K, D)).astype(np.float32)
-    pe = rng.standard_normal((C, D)).astype(np.float32)
-    # per-lane clocks straddling conv_delay: valid flips mid-block
-    t0 = np.array([0, 1, JCFG.conv_delay, 9])
-    valid = ((t0[:, None] + np.arange(K)[None]) >= JCFG.conv_delay).astype(np.float32)
-    kv, s = _state(rng, B * C)
-    s = np.repeat(s[:, ::C], C, axis=1)             # one clock per lane
-    dec_states = [{"kv": jnp.asarray(kv[l]), "scale": jnp.asarray(s[l])} for l in range(L)]
-
-    with jax.default_matmul_precision("highest"):
-        jw = JDFS.pack_dec_weights(params["dec"], JCFG, jnp.float32)
-        jkv, js = JDFS.pack_dec_state(dec_states, B, C)
-        pe_t = jnp.repeat(jnp.asarray(pe.T), B, axis=1)       # (D, C*B) slot-major
-        jlog, jkv_f, js_f = JDFS.dec_frame_scan(
-            jnp.asarray(embp.transpose(1, 2, 0)), jnp.asarray(embn.transpose(1, 2, 0)),
-            jnp.asarray(valid.T[:, None, :]), pe_t, *jw, jkv, js, C=C, interpret=True)
-    want_state = JDFS.unpack_dec_state(jkv_f, js_f, B, C, H, like=dec_states)
+def test_dec_frame_scan_plain_matches_pallas(setup, jax_block):
+    _, _, model, _ = setup
+    _, _, state0, _, calls = jax_block
+    args, kw, (jlog, jkv_f, js_f) = calls["dec_frame_scan"]
+    assert kw["groups"] == 1
+    embp, embn = (np.ascontiguousarray(np.asarray(a).transpose(2, 0, 1))
+                  for a in args[:2])                                      # (B, K, D)
+    valid = np.ascontiguousarray(np.asarray(args[2])[:, 0, :].T)         # (B, K)
+    assert valid.any() and not valid.all()
+    pe = np.asarray(args[3])[:, ::B].T                   # (D, C*B) slot-major -> (C, D)
+    want_state = JDFS.unpack_dec_state(jkv_f, js_f, B, C, H, like=state0["dec"])
     want_logits = np.asarray(jlog).reshape(K, C, B).transpose(2, 0, 1)
 
-    tkv, ts = torch.as_tensor(kv), torch.as_tensor(s)
+    st = CV.ls_state_from_jax(state0, "cpu")
+    tkv, ts = st["dec_kv"], st["dec_scale"]
     logits = DFS.dec_frame_scan(torch.as_tensor(embp), torch.as_tensor(embn),
-                                torch.as_tensor(valid), torch.as_tensor(pe),
+                                torch.as_tensor(valid), torch.as_tensor(np.ascontiguousarray(pe)),
                                 DFS.pack_dec_weights(model.dec.layers), tkv, ts)
     np.testing.assert_allclose(logits.numpy(), want_logits, atol=ATOL)
     for l in range(L):
@@ -157,21 +206,12 @@ def test_wrappers_check_dtype_shape_and_layout(setup):
                            torch.zeros(L, B * C, H))
 
 
-def test_block_fused_matches_jax_fused_block(setup):
-    """One K-frame block of the kernel path, per-lane flush and clocks
-    straddling conv_delay: logits, valid and every state leaf."""
-    params, mstate, model, rng = setup
-    xs = rng.standard_normal((B, K, JCFG.in_size)).astype(np.float32)
-    fl = np.zeros((K, B), bool)
-    fl[8:, 0] = True
-    fl[10:, 1] = True
-    state0 = dict(J.ls_stream_init(JCFG, B, C),
-                  t=jnp.asarray([0, 1, JCFG.conv_delay, 5], jnp.int32))
-    with jax.default_matmul_precision("highest"):
-        jst, (jlg, jv) = J.ls_stream_block_fused(params, state0, JCFG, mstate,
-                                                 jnp.asarray(xs), jnp.asarray(fl), C,
-                                                 interpret=True)
-    st = CV.ls_state_from_jax(jax.tree.map(np.asarray, state0), "cpu")
+def test_block_fused_matches_jax_fused_block(setup, jax_block):
+    """The port's whole kernel-path block against JAX's: logits, valid and
+    every state leaf."""
+    _, _, model, _ = setup
+    xs, fl, state0, (jst, jlg, jv), _ = jax_block
+    st = CV.ls_state_from_jax(state0, "cpu")
     st, (lg, v) = T.ls_stream_block_fused(model, st, torch.as_tensor(xs),
                                           torch.as_tensor(fl), C)
     np.testing.assert_array_equal(v.numpy(), np.asarray(jv))

@@ -10,6 +10,7 @@ and the port's core divides once by max(inner, cross) where JAX multiplies
 by two ratios), 1e-5 against the stored goldens as the JAX package's own
 test of them."""
 
+import functools
 import pathlib
 
 import jax
@@ -83,17 +84,27 @@ def test_retention_parallel_matches_jax(rng, use_decay):
     np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("kernel", ROUTES)
-@pytest.mark.parametrize("use_decay", [False, True])
-def test_retention_chunkwise_matches_jax(rng, use_decay, kernel):
-    """Fresh state, three chunks, inputs large enough that the clamped
-    renormalizers are above 1; output and both state leaves."""
-    p, m = _pair()
-    jcfg, tcfg = _cfgs(kernel, use_decay=use_decay)
-    x = rng.uniform(0, 1, (3, T, D)).astype(np.float32) * 4
+@functools.cache
+def _jax_chunkwise(use_decay):
+    """JAX's side of test_retention_chunkwise_matches_jax, once per decay
+    setting (it is the same for every route)."""
+    p, _ = _pair()
+    jcfg, _ = _cfgs(use_decay=use_decay)
+    x = np.random.default_rng(4321).uniform(0, 1, (3, T, D)).astype(np.float32) * 4
     with jax.default_matmul_precision("highest"):
         want, jst = JR.retention_chunkwise_stateful(p, jnp.asarray(x), None, jcfg)
         want2 = JR.retention_chunkwise(p, jnp.asarray(x), jcfg)
+    return x, want, want2, jst
+
+
+@pytest.mark.parametrize("kernel", ROUTES)
+@pytest.mark.parametrize("use_decay", [False, True])
+def test_retention_chunkwise_matches_jax(use_decay, kernel):
+    """Fresh state, three chunks, inputs large enough that the clamped
+    renormalizers are above 1; output and both state leaves."""
+    _, m = _pair()
+    _, tcfg = _cfgs(kernel, use_decay=use_decay)
+    x, want, want2, jst = _jax_chunkwise(use_decay)
     assert float(jnp.max(jst["scale"])) > 1.0
     with torch.no_grad():
         got, tst = TR.retention_chunkwise_stateful(m, torch.as_tensor(x), None, tcfg)
@@ -103,17 +114,27 @@ def test_retention_chunkwise_matches_jax(rng, use_decay, kernel):
     _assert_state(tst, jst)
 
 
-@pytest.mark.parametrize("kernel", ROUTES)
-@pytest.mark.parametrize("use_decay", [False, True])
-def test_chunkwise_carried_state_and_two_calls_equal_one(rng, use_decay, kernel):
-    """A call continuing from JAX's mid-stream state matches JAX; the input
-    state is left as it was; two calls of half the length equal one call."""
-    p, m = _pair()
-    jcfg, tcfg = _cfgs(kernel, use_decay=use_decay)
-    x = rng.uniform(0, 1, (2, 2 * T, D)).astype(np.float32) * 4
+@functools.cache
+def _jax_two_calls(use_decay):
+    """JAX's side of test_chunkwise_carried_state_and_two_calls_equal_one,
+    once per decay setting."""
+    p, _ = _pair()
+    jcfg, _ = _cfgs(use_decay=use_decay)
+    x = np.random.default_rng(4321).uniform(0, 1, (2, 2 * T, D)).astype(np.float32) * 4
     with jax.default_matmul_precision("highest"):
         y1, st1 = JR.retention_chunkwise_stateful(p, jnp.asarray(x[:, :T]), None, jcfg)
         y2, st2 = JR.retention_chunkwise_stateful(p, jnp.asarray(x[:, T:]), st1, jcfg)
+    return x, y1, st1, y2, st2
+
+
+@pytest.mark.parametrize("kernel", ROUTES)
+@pytest.mark.parametrize("use_decay", [False, True])
+def test_chunkwise_carried_state_and_two_calls_equal_one(use_decay, kernel):
+    """A call continuing from JAX's mid-stream state matches JAX; the input
+    state is left as it was; two calls of half the length equal one call."""
+    _, m = _pair()
+    _, tcfg = _cfgs(kernel, use_decay=use_decay)
+    x, y1, st1, y2, st2 = _jax_two_calls(use_decay)
     carried = _tstate(st1)
     before = {k: v.clone() for k, v in carried.items()}
     with torch.no_grad():

@@ -21,6 +21,7 @@ from fseend_tpu.serving import scheduler as JSCH
 from fseend_tpu_torch.models import ls_eend as T
 from fseend_tpu_torch.serving import runtime as RT
 from fseend_tpu_torch.serving.scheduler import ContinuousBatcher
+from fseend_tpu_torch.train import trainer as TRN
 from fseend_tpu_torch.utils import convert as CV
 
 torch.set_num_threads(1)
@@ -36,9 +37,27 @@ ATOL = 2e-4
 LENS = [7, 15, 1, 4, 11]          # the 1-frame stream is shorter than conv_delay
 
 
+def _jax_params(seed: int):
+    """A JAX parameter pytree of JCFG's structure (static metadata included,
+    from `jax.eval_shape` of the JAX init) holding the port initializer's
+    weights for `seed`: random weights on both sides without the JAX
+    init's eager random ops, which cost seconds per config."""
+    model = T.init_ls_eend(TCFG, torch.Generator().manual_seed(seed), device="cpu")
+    tree, _ = CV.ls_params_to_jax(model)
+    shapes, _ = jax.eval_shape(lambda k: J.init_ls_eend(k, JCFG), jax.random.PRNGKey(0))
+
+    def leaf(path, _):
+        node = tree
+        for p in path:
+            node = node[p.key if hasattr(p, "key") else p.idx]
+        return jnp.asarray(node)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 @pytest.fixture(scope="module")
 def setup():
-    params, _ = J.init_ls_eend(jax.random.PRNGKey(3), JCFG)
+    params = _jax_params(3)
     rng = np.random.default_rng(11)
     mstate = {"conv_bn": [{"mean": jnp.asarray(rng.normal(0, 0.2, 64), jnp.float32),
                            "var": jnp.asarray(rng.uniform(0.5, 2.0, 64), jnp.float32)}
@@ -126,10 +145,14 @@ def test_unported_modes_say_where_they_are_queued(setup):
     with pytest.raises(NotImplementedError, match="A9"):
         RT.BlockStreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        T.ls_forward(model, torch.zeros(1, 4, JCFG.in_size), torch.tensor([4]), C,
-                     train=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        dataclasses.replace(TCFG, use_fused_dec=True)
+    # training is ported (ROADMAP A6); its FS-EEND, EEND-EDA and multi-GPU
+    # forms are not
+    with pytest.raises(NotImplementedError, match="A9"):
+        TRN.TaskConfig(model="fs")
+    with pytest.raises(NotImplementedError, match="A10"):
+        TRN.TaskConfig(model="eda")
+    with pytest.raises(NotImplementedError, match="A11"):
+        TRN.make_train_step(TRN.TaskConfig(), dataclasses.replace(TCFG, use_fused_dec=True),
+                            None, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="bf16"):
         _server(model, dtype=torch.bfloat16)
