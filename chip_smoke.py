@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (`fseend_tpu_torch`) on one NVIDIA
 GPU: builds the CUDA kernels from the sources in the checkout, holds each
-kernel against its plain PyTorch version at the production LS-EEND width,
-drives the port's three LS-EEND inference paths (per-frame streaming server,
-blockwise streaming server, batch pass) and its training path (the train
-step and the epoch loop), and times the kernels, the servers and the step.
+kernel against its plain PyTorch version at the production width, drives
+the port's three LS-EEND inference paths (per-frame streaming server,
+blockwise streaming server, batch pass), its LS training path (the train
+step and the epoch loop) and FS-EEND serving (per-frame fast-block server,
+blockwise server, the batch pass against the reference), and times the
+kernels, the servers and the step.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block)
@@ -55,6 +57,27 @@ Phases (any failure raises; the script exits non-zero and prints no result):
  11. times: CUDA events after warm-up: process_block of both servers at
      B=128, K=128 (and step(), K=1), every kernel alone beside its plain
      version and its bound
+ 12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
+     cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
+     cached_attention_perlane at R 256 and 1536, K 125, skewed lane starts
+     with lanes before warm-up, min_pos 0 and 9; every row within 1e-3
+ 13. F2, FS per-frame serve: StreamingServer(kind="fs") over 64 lanes,
+     capacity 2048, 6 streams through ContinuousBatcher(block=500)
+     (sub-blocks of 125) on the kernel route, against the plain route and
+     fs_forward (1e-3); lane reset bit for bit; 24 launches per block, 6 per
+     step(); the fast block against the frame scan at 8 lanes, capacity 256,
+     200 frames
+ 14. F3, FS blockwise serve: BlockStreamingServer(kind="fs") over 64 lanes,
+     K 128, 16 blocks to the last in-capacity block and a flush, kernel
+     route vs plain route vs fs_forward (first 4 lanes), 4 launches per
+     block; the last in-capacity block timed on both routes
+ 15. F4, tests/goldens/fs_model_prod.npz (1500 frames) through the port's
+     own state-dict reader and fs_test: logits and emb within 1e-4
+ 16. F5, FS times: the per-frame server as bench.py:_mode_fs (three
+     500-frame blocks from a fresh state) on both routes, its step(), the
+     kernel's device share under torch.profiler; both kernels at their
+     main-path shapes beside their plain versions, bounds and
+     scaled_dot_product_attention (the library yardstick, never on the path)
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
 the timing lines come before it.  Float32 throughout, TF32 off.
@@ -94,6 +117,16 @@ STREAM_LENS = (137, 5, 50, 512, 777, 1000)  # lane 0 gets the 137-frame stream
 KERNEL_ATOL = 1e-3
 # kernel server vs plain server, probabilities after the sigmoid
 SERVE_ATOL = 1e-3
+# FS-EEND serving at FSEENDConfig() and bench.py:435-437's sizes: 64 lanes,
+# capacity 2048, blockwise K = 128; per-frame blocks of 500 frames (sub-blocks
+# of 125)
+FS_LANES, FS_CAP, FS_K, FS_BLOCK = 64, 2048, 128, 500
+FS_HD = 64                                   # 256 units / 4 heads
+# per-frame streams; each length + conv_delay stays within the capacity at
+# sub-block granularity (a write past it is clamped onto the tail)
+FS_STREAM_LENS = (1900, 1200, 777, 500, 137, 5)
+FS_SCAN_LANES, FS_SCAN_CAP, FS_SCAN_T = 8, 256, 200   # fast block vs frame scan
+FS_GOLDEN_ATOL = 1e-4                        # tests/test_torch_convert.py:85-95 drift 2.3e-5
 # published H100 SXM peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -123,7 +156,8 @@ def phase_build():
 
     secs = _build.build([("enc_frame_scan", {}), ("dec_frame_scan", {"FS_NSLOTS": SLOTS}),
                          ("chunk_retention", HEAD), ("retention_layer", HEAD),
-                         ("dec_train_fusion_fwd", DTF), ("dec_train_fusion_bwd", DTF)],
+                         ("dec_train_fusion_fwd", DTF), ("dec_train_fusion_bwd", DTF),
+                         ("cached_attention", {"CA_HD": FS_HD})],
                         verbose=True)
     log(f"build: {secs:.1f} s")
 
@@ -792,6 +826,8 @@ def kernel_bound(name, args, cfg):
     written once) over HBM bandwidth and its float32 operations (the matrix
     products; the elementwise work is of lower order) over the FMA-pipe
     peak.  Design bytes are what this kernel's design moves."""
+    if name.startswith("cached_attention"):
+        return attention_bound(name, args)
     tensors = [a for a in args if torch.is_tensor(a)]
     weights = [t for a in args if isinstance(a, tuple) for t in a]
     nbytes = sum(t.numel() * t.element_size() for t in tensors + weights)
@@ -869,19 +905,23 @@ def kernel_bound(name, args, cfg):
             nbytes, design)
 
 
-def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1):
-    """One kernel beside its plain version and its bound; the frame scans
-    update their state in place, so each side runs on its own clones."""
+def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1, library=None):
+    """One kernel beside its plain version, its bound and, where one PyTorch
+    call computes the same function, that call (`library`, a function of no
+    arguments); the frame scans update their state in place, so each side
+    runs on its own clones."""
     a_k, a_p = clone_args(args), clone_args(args)
     ms = cuda_ms(lambda: kern(*a_k, **kw), reps=5)
     plain_ms = cuda_ms(lambda: plain(*a_p, **kw), reps=plain_reps)
+    library_ms = cuda_ms(library, reps=5) if library is not None else None
     bound_ms, bound_by, flops, nbytes, design = kernel_bound(name, args, cfg)
     log(json.dumps({"timing": name, "shape": label, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
-                    "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
+                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "flop": flops, "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
                     "design_bytes": design, "design_tb_per_s": design / ms / 1e9,
                     "card": card}))
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def profile_window(fn, reps, card):
@@ -1030,10 +1070,442 @@ def phase_train_times(cfg, card, calls):
         del got, want
         rows[name] = time_kernel(name, f"main path {tuple(args[0].shape)} L={args[-2]}", kern,
                                  plain, args, kw, cfg, card)
-    log("library_ms: null for all six kernels -- no single PyTorch call computes a frame "
-        "scan, the chunkwise core with its carried state, the whole retention layer, or a "
-        "fusion layer's forward or backward")
+    log("library_ms: null for the six LS kernels -- no single PyTorch call computes a "
+        "frame scan, the chunkwise core with its carried state, the whole retention layer, "
+        "or a fusion layer's forward or backward")
     return rows, errs
+
+
+# ---------------------------------------------------------------------------
+# FS-EEND serving: F1 the cached-attention kernels, F2 the per-frame server,
+# F3 the blockwise server, F4 the reference at full width, F5 times
+# ---------------------------------------------------------------------------
+
+
+def attention_bound(name, args):
+    """The cached-attention kernels' bound from this call's inputs: each
+    query reads the positions its mask admits (its own, or [min_pos,
+    min(qpos, cap - 1)]), 4 hd operations apiece (q.k and p.v); the bytes
+    are q and the output once each and every row's cache prefix that any of
+    its queries reads (k and v), once."""
+    q, k, _, start = args[:4]
+    R, K, hd = q.shape
+    cap = k.shape[1]
+    if name == "cached_attention_perlane":
+        rpl, min_pos = args[4], args[5]
+        st = start.to(torch.int64).repeat_interleave(rpl)
+    else:
+        min_pos = 0
+        st = start.to(torch.int64).reshape(1).expand(R)
+    qpos = st[:, None] + torch.arange(K, device=q.device)[None, :]
+    reads = torch.where(qpos < min_pos, torch.ones_like(qpos),
+                        qpos.clamp(max=cap - 1) - min_pos + 1)
+    flops = 4 * hd * int(reads.sum())
+    prefix = int(((st + K - 1).clamp(max=cap - 1) + 1).sum())
+    nbytes = 4 * (2 * q.numel() + 2 * prefix * hd) + start.numel() * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    # the design reads every kv tile up to the tile's last readable position
+    # once per 64-query tile
+    design = nbytes + 4 * 2 * prefix * hd * (-(-K // 64) - 1)
+    return (max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), flops,
+            nbytes, design)
+
+
+def sdpa_call(args, name):
+    """The library yardstick: torch's scaled_dot_product_attention with the
+    same boolean mask (per lane, broadcast over the lane's rows).  Returns
+    a function of no arguments; the mask is built outside it."""
+    import torch.nn.functional as F
+
+    q, k, v, start = args[:4]
+    R, K, hd = q.shape
+    cap = k.shape[1]
+    rpl, min_pos = (args[4], args[5]) if name == "cached_attention_perlane" else (R, 0)
+    nl = R // rpl
+    pos = torch.arange(cap, device=q.device)[None, None, :]
+    st = start.to(torch.int64).reshape(-1).expand(nl)
+    qpos = st[:, None, None] + torch.arange(K, device=q.device)[None, :, None]
+    ok = (((pos <= qpos) & (pos >= min_pos)) | (pos == qpos))[:, None]  # (nl, 1, K, cap)
+    qv, kv, vv = (t.reshape(nl, rpl, t.shape[1], hd) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=ok).reshape(R, K, hd)
+
+
+def fs_make_model(fcfg, rng):
+    """FSEENDConfig() with random weights from the seed, random attention
+    in-projection biases and BatchNorm statistics, on the card."""
+    from fseend_tpu_torch.models import fs_eend
+    from fseend_tpu_torch.ops import nn as tnn
+
+    model = fs_eend.init_fs_eend(fcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, tnn.MultiheadAttention):
+                m.in_proj.bias.copy_(randn(rng, *m.in_proj.bias.shape, scale=0.1))
+        bn = model.enc.bn
+        bn.running_mean.copy_(randn(rng, fcfg.in_size, scale=0.2))
+        bn.running_var.copy_(torch.as_tensor(rng.uniform(0.5, 2.0, fcfg.in_size),
+                                             dtype=torch.float32))
+    return model
+
+
+def phase_fs_kernels_vs_plain(fcfg, rng):
+    """F1: both kernels against their plain versions at production width:
+    the shared head at the encoder's blockwise shape (R 256, K 128) at
+    start 0, mid-way and cap - K; the per-lane heads at the fast block's
+    encoder (R 256) and decoder (R 1536) shapes, K 125, skewed lane starts
+    with lanes before warm-up, min_pos 0 and 9.  Every row is compared."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+
+    H, C = fcfg.n_heads, fcfg.max_nspks
+    errs = {"cached_attention": 0.0, "cached_attention_perlane": 0.0}
+    R = FS_LANES * H
+    q = randn(rng, R, FS_K, FS_HD)
+    k, v = randn(rng, R, FS_CAP, FS_HD), randn(rng, R, FS_CAP, FS_HD)
+    for start in (0, FS_CAP // 2 - 64, FS_CAP - FS_K):
+        got = CA.cached_attention(q, k, v, start)
+        torch.cuda.synchronize()
+        want = CA.cached_attention_plain(q, k, v, start)
+        errs["cached_attention"] = max(errs["cached_attention"], compare(
+            f"cached_attention[R={R} K={FS_K} cap={FS_CAP} start={start}]", [got], [want],
+            ("out",)))
+    del q, k, v
+    K = FS_BLOCK // 4
+    starts = rng.integers(0, FS_CAP - K, FS_LANES)
+    starts[:6] = (0, 1, 4, 8, 9, 10)                          # around warm-up
+    start = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
+    for label, rpl in (("encoder", H), ("decoder", C * H)):
+        R = FS_LANES * rpl
+        q = randn(rng, R, K, FS_HD)
+        k, v = randn(rng, R, FS_CAP, FS_HD), randn(rng, R, FS_CAP, FS_HD)
+        for min_pos in (0, fcfg.conv_delay):
+            got = CA.cached_attention_perlane(q, k, v, start, rpl, min_pos)
+            torch.cuda.synchronize()
+            want = CA.cached_attention_perlane_plain(q, k, v, start, rpl, min_pos)
+            errs["cached_attention_perlane"] = max(errs["cached_attention_perlane"], compare(
+                f"cached_attention_perlane[{label} R={R} K={K} min_pos={min_pos}]", [got],
+                [want], ("out",)))
+        del q, k, v
+    return errs
+
+
+def fs_check(label, got, want, atol):
+    err = float(np.abs(got - want).max())
+    log(f"  {label}: max abs diff {err:.3e} (tol {atol:g})")
+    if not (np.isfinite(got).all() and err <= atol):
+        raise AssertionError(f"{label}: differs by {err} or non-finite")
+
+
+def phase_fs_serve(fcfg, model, rng):
+    """F2: StreamingServer(kind="fs") over 64 lanes, capacity 2048, through
+    ContinuousBatcher in 500-frame blocks (sub-blocks of 125) on the kernel
+    route: the streams held against the plain route and the batch pass;
+    lane reuse bit for bit; the launches counted.  Then the fast block
+    against the frame scan at a reduced size."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.models import fs_eend
+    from fseend_tpu_torch.serving.runtime import StreamingServer
+    from fseend_tpu_torch.serving.scheduler import ContinuousBatcher
+
+    C = fcfg.max_nspks
+    streams = {f"fs{i}_{n}": rng.standard_normal((n, fcfg.in_size)).astype(np.float32)
+               for i, n in enumerate(FS_STREAM_LENS)}
+
+    def make(flash, **kw):
+        kw.setdefault("n_lanes", FS_LANES)
+        kw.setdefault("capacity", FS_CAP)
+        return StreamingServer(kind="fs", cfg=dataclasses.replace(fcfg, use_flash_attn=flash),
+                               model=model, n_slots=C, device="cuda", **kw)
+
+    def run(server, todo):
+        cb = ContinuousBatcher(server, block=FS_BLOCK)
+        for sid, feats in todo.items():
+            cb.submit(sid, feats)
+        blocks = 0
+        while cb.active:
+            cb.step()
+            blocks += 1
+        return cb.results, blocks
+
+    server = make(True)
+    CA.perlane_launches = 0
+    t0 = time.perf_counter()
+    got, blocks = run(server, streams)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = CA.perlane_launches
+    per_block = (FS_BLOCK // 125) * (fcfg.enc_n_layers + fcfg.dec_n_layers)
+    log(f"fs serve: {len(streams)} streams ({sum(FS_STREAM_LENS)} frames) over {FS_LANES} "
+        f"lanes, capacity {FS_CAP}, {blocks} blocks of {FS_BLOCK} in {secs:.2f} s; "
+        f"cached_attention_perlane launches {launches} ({per_block} per block)")
+    if launches != blocks * per_block:
+        raise AssertionError(f"cached_attention_perlane launched {launches} times on the "
+                             f"main path, expected {blocks * per_block}")
+    plain = make(False)
+    ref, _ = run(plain, streams)
+    if CA.perlane_launches != launches:
+        raise AssertionError("the plain route launched cached_attention_perlane")
+    del plain
+    for sid, feats in streams.items():
+        if got[sid].shape != (len(feats), C - 1):
+            raise AssertionError(f"{sid}: probs {got[sid].shape}")
+        fs_check(f"{sid} kernel route vs plain route", got[sid], ref[sid], SERVE_ATOL)
+        out = fs_eend.fs_forward(model, torch.as_tensor(feats[None], device="cuda"),
+                                 torch.tensor([len(feats)], device="cuda"), C)
+        fs_check(f"{sid} kernel route vs fs_forward", got[sid],
+                 torch.sigmoid(out["logits"][0, :, 1:]).cpu().numpy(), SERVE_ATOL)
+    sid0 = next(iter(streams))
+    server.reset_lanes([0, 1])
+    again, _ = run(server, {sid0: streams[sid0]})
+    if not np.array_equal(again[sid0], got[sid0]):
+        raise AssertionError(f"{sid0}: re-served stream differs after lane reset")
+    log(f"  lane reset: {sid0} re-served on lane 0 bit for bit")
+    # step() is a one-frame fast block: one launch per layer
+    CA.perlane_launches = 0
+    server.step(np.zeros((FS_LANES, fcfg.in_size), np.float32))
+    if CA.perlane_launches != fcfg.enc_n_layers + fcfg.dec_n_layers:
+        raise AssertionError(f"step() launched {CA.perlane_launches} kernels")
+    del server
+
+    # the fast block against the frame scan (fs_stream_step, plain) at a
+    # reduced size: 8 lanes, capacity 256, 200 frames + 9 flush frames
+    B, T = FS_SCAN_LANES, FS_SCAN_T
+    xs = rng.standard_normal((B, T, fcfg.in_size)).astype(np.float32)
+    seq = np.concatenate([xs, np.zeros((B, fcfg.conv_delay, fcfg.in_size), np.float32)], 1)
+    flush = np.arange(T + fcfg.conv_delay) >= T
+    outs = {}
+    for label, kw in (("fast", {}), ("scan", {"fs_fast": False})):
+        srv = make(True, n_lanes=B, capacity=FS_SCAN_CAP, **kw)
+        t0 = time.perf_counter()
+        p, valid = srv.process_block(seq, flush)
+        torch.cuda.synchronize()
+        outs[label] = (p.cpu().numpy(), valid.cpu().numpy())
+        log(f"  {label}: {B} lanes x {T + fcfg.conv_delay} frames in "
+            f"{time.perf_counter() - t0:.2f} s")
+    if not np.array_equal(outs["fast"][1], outs["scan"][1]):
+        raise AssertionError("fast block and frame scan disagree on valid frames")
+    v = outs["scan"][1].T                                         # (B, K)
+    fs_check(f"fast block vs frame scan ({B} lanes, capacity {FS_SCAN_CAP})",
+             outs["fast"][0][v], outs["scan"][0][v], SERVE_ATOL)
+    return launches
+
+
+def phase_fs_block_serve(fcfg, model, rng, card):
+    """F3: BlockStreamingServer(kind="fs") over 64 lanes, K = 128, capacity
+    2048: 16 blocks fill the caches to the last in-capacity block, then a
+    flush; the kernel route against the plain route and the batch pass
+    (first 4 lanes); launches counted.  Then each route's last in-capacity
+    block timed again from its state.  Returns (launches, the arguments of
+    the last encoder call)."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.models import fs_eend
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer
+
+    C = fcfg.max_nspks
+    n_blocks = FS_CAP // FS_K
+    xs = torch.as_tensor(rng.standard_normal((FS_LANES, FS_CAP, fcfg.in_size)),
+                         dtype=torch.float32, device="cuda")
+    probs, launches, captured = {}, None, None
+    for flash in (True, False):
+        srv = BlockStreamingServer(kind="fs", cfg=dataclasses.replace(fcfg, use_flash_attn=flash),
+                                   model=model, n_lanes=FS_LANES, n_slots=C, block=FS_K,
+                                   capacity=FS_CAP, device="cuda")
+        outs, snap = [], None
+        CA.launches = 0
+        t0 = time.perf_counter()
+        for i in range(n_blocks):
+            if i == n_blocks - 1:
+                snap = (dict(srv.state), srv._frames_fed)
+            outs.append(srv.process_block(xs[:, i * FS_K:(i + 1) * FS_K]))
+        outs.append(srv.process_block(torch.zeros_like(xs[:, :FS_K]), flush=True))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        probs[flash] = torch.cat(outs[1:], dim=1)
+        route = "kernel" if flash else "plain"
+        if flash:
+            launches = CA.launches
+            log(f"fs block serve: {FS_LANES} lanes x {n_blocks} blocks of {FS_K} + 1 flush "
+                f"in {secs:.2f} s; cached_attention launches {launches} "
+                f"({fcfg.enc_n_layers} per block, none on the flush)")
+            if launches != n_blocks * fcfg.enc_n_layers:
+                raise AssertionError(f"cached_attention launched {launches} times on the "
+                                     f"main path")
+        elif CA.launches:
+            raise AssertionError("the plain route launched cached_attention")
+
+        def last_block():
+            srv.state, srv._frames_fed = dict(snap[0]), snap[1]
+            return srv.process_block(xs[:, -FS_K:])
+
+        if flash:
+            captured = capture_kernel_inputs(last_block, [(CA, "cached_attention")])
+            captured = captured["cached_attention"][0]
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(last_block, reps=5)
+        line = {"server": f"fs blockwise, {route} route", "lanes": FS_LANES, "K": FS_K,
+                "capacity": FS_CAP, "block": "last in capacity", "ms": ms,
+                "frames_per_s": FS_LANES * FS_K / (ms / 1e3),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if flash:
+            busy = device_ms_by_kernel(last_block)
+            kern = sum(ms for name, ms in busy.items() if "cached_attention" in name)
+            line.update(cached_attention_ms=kern, outside_kernels_ms=ms - kern,
+                        device_busy_ms=sum(busy.values()), top=top_kernels(busy, 1))
+        log(json.dumps({"process_block": line, "card": card}))
+        del srv, snap, outs
+    fs_check("kernel route vs plain route", probs[True].cpu().numpy(),
+             probs[False].cpu().numpy(), SERVE_ATOL)
+    n = 4
+    out = fs_eend.fs_forward(model, xs[:n], torch.full((n,), FS_CAP, device="cuda"), C)
+    fs_check(f"kernel route vs fs_forward ({n} lanes x {FS_CAP} frames)",
+             probs[True][:n].cpu().numpy(),
+             torch.sigmoid(out["logits"][..., 1:]).cpu().numpy(), SERVE_ATOL)
+    return launches, captured
+
+
+def device_ms_by_kernel(fn, warm=True):
+    """Device time by kernel name of one call of fn() under torch.profiler
+    (after one call outside it, if `warm`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def top_kernels(busy, calls, n=8):
+    """The n device kernels that take most of the time, ms per call."""
+    rows = sorted(busy.items(), key=lambda kv: -kv[1])[:n]
+    return [{"kernel": k[:72], "ms_per_call": ms / calls} for k, ms in rows]
+
+
+def phase_fs_golden(fcfg):
+    """F4: the reference's production-shape FS outputs
+    (tests/goldens/fs_model_prod.npz: 1500 frames, f16-shipped weights)
+    through the port's own state-dict reader and fs_test on the card."""
+    from fseend_tpu_torch.models import fs_eend
+    from fseend_tpu_torch.utils import torch_convert as TC
+
+    g = np.load(Path(__file__).resolve().parent / "tests" / "goldens" / "fs_model_prod.npz")
+    sd = {k[4:]: np.asarray(g[k], np.float32) for k in g.files if k.startswith("sd__")}
+    model = TC.fs_from_state_dict(sd, fcfg, "cuda")
+    x = torch.as_tensor(np.asarray(g["x"], np.float32), device="cuda")
+    out = fs_eend.fs_test(model, x, torch.tensor([x.shape[1]], device="cuda"))
+    drift = {}
+    for key in ("logits", "emb"):
+        got = out[key].cpu().numpy()
+        if got.shape != g[key].shape or not np.isfinite(got).all():
+            raise AssertionError(f"fs golden {key}: shape {got.shape} or non-finite values")
+        drift[key] = float(np.abs(got - g[key]).max())
+        log(f"fs golden (fs_model_prod.npz, {tuple(x.shape)}): {key} max abs diff "
+            f"{drift[key]:.3e} (tol {FS_GOLDEN_ATOL:g})")
+        if not drift[key] <= FS_GOLDEN_ATOL:
+            raise AssertionError(f"fs golden {key} differs by {drift[key]}")
+    return drift
+
+
+def phase_fs_times(fcfg, model, rng, card, block_args):
+    """F5: the per-frame server timed as bench.py:_mode_fs times it (64
+    lanes, three 500-frame blocks from a fresh state, CUDA events), and its
+    step(); both kernels at their main-path shapes beside their plain
+    versions, their bounds and scaled_dot_product_attention."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.serving.runtime import StreamingServer
+
+    C = fcfg.max_nspks
+    xs = [torch.as_tensor(rng.standard_normal((FS_LANES, FS_BLOCK, fcfg.in_size)),
+                          dtype=torch.float32, device="cuda") for _ in range(3)]
+    lanes = np.arange(FS_LANES)
+    rows = {}
+    for flash in (True, False):
+        route = "kernel" if flash else "plain"
+        srv = StreamingServer(kind="fs", cfg=dataclasses.replace(fcfg, use_flash_attn=flash),
+                              model=model, n_lanes=FS_LANES, n_slots=C, capacity=FS_CAP,
+                              device="cuda")
+        srv.process_block(xs[0])                        # warm-up, then a fresh state
+        srv.reset_lanes(lanes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for x in xs:
+            srv.process_block(x)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / len(xs)
+        line = {"server": f"fs per-frame, {route} route", "lanes": FS_LANES,
+                "K": FS_BLOCK, "sub_block": 125, "capacity": FS_CAP, "ms": ms,
+                "frames_per_s": FS_LANES * FS_BLOCK / (ms / 1e3),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if flash:
+            # the same three blocks from a fresh state under the profiler:
+            # the kernel's device time against the rest of the block
+            srv.reset_lanes(lanes)
+            busy = device_ms_by_kernel(lambda: [srv.process_block(x) for x in xs], warm=False)
+            kern = sum(v for k, v in busy.items() if "cached_attention" in k) / len(xs)
+            line.update(cached_attention_ms=kern, outside_kernels_ms=ms - kern,
+                        device_busy_ms=sum(busy.values()) / len(xs),
+                        top=top_kernels(busy, len(xs)))
+            # the third block's kernel calls recorded (after the first two)
+            srv.reset_lanes(lanes)
+            for x in xs[:2]:
+                srv.process_block(x)
+            calls = {}
+            orig = CA.cached_attention_perlane
+
+            def rec(*a, **kw):
+                calls[a[0].shape[0]] = ([t.clone() if torch.is_tensor(t) else t for t in a],
+                                        kw)
+                return orig(*a, **kw)
+
+            CA.cached_attention_perlane = rec
+            try:
+                srv.process_block(xs[2])
+            finally:
+                CA.cached_attention_perlane = orig
+            step_ms = cuda_ms(lambda: srv.step(xs[0][:, 0]), reps=20)
+            log(json.dumps({"step": {"server": "fs per-frame", "lanes": FS_LANES,
+                                     "ms": step_ms,
+                                     "frames_per_s": FS_LANES / (step_ms / 1e3)},
+                            "card": card}))
+        log(json.dumps({"process_block": line, "card": card}))
+        del srv
+
+    H = fcfg.n_heads
+    dec_args, kw = calls[FS_LANES * C * H]
+    enc_args, _ = calls[FS_LANES * H]
+    for label, args in (("decoder", dec_args), ("encoder", enc_args)):
+        got = CA.cached_attention_perlane(*args)
+        torch.cuda.synchronize()
+        err = compare(f"cached_attention_perlane[main path {label}]", [got],
+                      [CA.cached_attention_perlane_plain(*args)], ("out",))
+        lib = sdpa_call(args, "cached_attention_perlane")
+        log(f"  sdpa vs plain: max abs diff "
+            f"{(lib() - CA.cached_attention_perlane_plain(*args)).abs().max().item():.3e}")
+        row = time_kernel("cached_attention_perlane",
+                          f"main path {label} R={args[0].shape[0]} K={args[0].shape[1]} "
+                          f"start={int(args[3][0])} min_pos={args[5]}",
+                          CA.cached_attention_perlane, CA.cached_attention_perlane_plain,
+                          args, {}, None, card, library=lib)
+        if label == "decoder":
+            rows["cached_attention_perlane"] = dict(row, max_abs_err=err)
+    got = CA.cached_attention(*block_args)
+    torch.cuda.synchronize()
+    err = compare("cached_attention[main path encoder]", [got],
+                  [CA.cached_attention_plain(*block_args)], ("out",))
+    lib = sdpa_call(block_args, "cached_attention")
+    rows["cached_attention"] = dict(time_kernel(
+        "cached_attention", f"main path encoder R={block_args[0].shape[0]} "
+        f"K={block_args[0].shape[1]} start={int(block_args[3])}", CA.cached_attention,
+        CA.cached_attention_plain, block_args, {}, None, card, library=lib), max_abs_err=err)
+    return rows
+
 
 
 def main() -> int:
@@ -1041,7 +1513,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from fseend_tpu_torch.models import ls_eend
+    from fseend_tpu_torch.models import fs_eend, ls_eend
 
     t0 = time.perf_counter()
     card = phase_device()
@@ -1066,6 +1538,20 @@ def main() -> int:
     rows.update(train_rows)
     for name in dec_errs:
         errs[name] = max(dec_errs[name], train_errs[name])
+    del model
+    torch.cuda.empty_cache()
+
+    fcfg = fs_eend.FSEENDConfig()
+    log(f"config: {fcfg}")
+    fs_errs = phase_fs_kernels_vs_plain(fcfg, rng)
+    fmodel = fs_make_model(fcfg, rng)
+    launches["cached_attention_perlane"] = phase_fs_serve(fcfg, fmodel, rng)
+    launches["cached_attention"], block_args = phase_fs_block_serve(fcfg, fmodel, rng, card)
+    phase_fs_golden(fcfg)
+    fs_rows = phase_fs_times(fcfg, fmodel, rng, card, block_args)
+    for name, row in fs_rows.items():
+        errs[name] = max(fs_errs[name], row.pop("max_abs_err"))
+        rows[name] = row
     sources = {
         "enc_frame_scan": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
                            "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),
@@ -1079,10 +1565,13 @@ def main() -> int:
                                  "fseend_tpu/kernels/dec_train_fusion_pallas.py:574"),
         "dec_train_fusion_bwd": ("fseend_tpu_torch/kernels/csrc/dec_train_fusion_bwd.cu",
                                  "fseend_tpu/kernels/dec_train_fusion_pallas.py:620"),
+        "cached_attention_perlane": ("fseend_tpu_torch/kernels/csrc/cached_attention.cu",
+                                     "fseend_tpu/kernels/cached_attention_pallas.py:223"),
+        "cached_attention": ("fseend_tpu_torch/kernels/csrc/cached_attention.cu",
+                             "fseend_tpu/kernels/cached_attention_pallas.py:101"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": errs[name], **rows[name],
-                "library_ms": None}
+                "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
                for name, (src, rep) in sources.items()]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -201,9 +201,10 @@ def empty_ls_eend(cfg: LSEENDConfig, device) -> LSEEND:
     return model.to_empty(device=device).eval()
 
 
-def with_cfg(model: LSEEND, cfg: LSEENDConfig) -> LSEEND:
+def with_cfg(model: nn.Module, cfg) -> nn.Module:
     """`model`'s weights (shared, not copied) under another config of the
-    same sizes: another chunkwise route or chunk size."""
+    same sizes (either family): another chunkwise route or chunk size, the
+    other cached-attention route."""
     other = copy.copy(model)
     other.cfg = cfg
     return other
@@ -491,7 +492,9 @@ def ls_test(model: LSEEND, xs, lens, max_nspks: int | None = None) -> dict:
 
 def ls_stream_init(cfg: LSEENDConfig, batch: int, n_slots: int | None = None,
                    dtype=torch.float32, device=None) -> dict:
-    """Zero (fresh-stream) state for `batch` lanes; O(1) in stream length."""
+    """Zero (fresh-stream) state for `batch` lanes; O(1) in stream length.
+    On the card unless the caller names another device."""
+    device = resolve_device(device)
     C = n_slots if n_slots is not None else cfg.max_nspks
     rc = cfg.ret_cfg
     H, dv, dk = rc.num_heads, rc.head_dim, rc.key_dim
@@ -709,9 +712,11 @@ def ls_blockstream_init(cfg: LSEENDConfig, batch: int, n_slots: int | None = Non
     conv needs `conv_delay` future encoder frames, which are the head of
     block m.  This keeps the decoder's time axis aligned from frame 0 of the
     stream, so the result equals the batch chunkwise pass exactly.  Requires
-    block >= conv_delay."""
+    block >= conv_delay.  On the card unless the caller names another
+    device."""
     if block < cfg.conv_delay:
         raise ValueError(f"block={block} must be >= conv_delay={cfg.conv_delay}")
+    device = resolve_device(device)
     C = n_slots if n_slots is not None else cfg.max_nspks
     rc = cfg.ret_cfg
     H, dk, dv = rc.num_heads, rc.key_dim, rc.head_dim

@@ -3,7 +3,8 @@
 
 Port of the subset of `fseend_tpu/ops/nn.py` that LS-EEND runs (inference,
 batch, blockwise and per-frame, and training: dropout from a
-`torch.Generator`, train-mode BatchNorm, attention dropout).  Numerics
+`torch.Generator`, train-mode BatchNorm, attention dropout) and FS-EEND's
+masked attention and post-norm transformer layer (inference).  Numerics
 follow the JAX functions (and through them the torch modules
 of the reference): layer norm is written out as mean / biased variance /
 rsqrt, the l2 norm has no eps, attention scales by 1/sqrt(head_dim) after the
@@ -82,28 +83,63 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d, momentum: float = 0.1)
     return y * bn.weight + bn.bias, new
 
 
-def mha(p: "MultiheadAttention", query: torch.Tensor, key: torch.Tensor,
-        value: torch.Tensor, rate: float = 0.0,
-        generator: torch.Generator | None = None) -> torch.Tensor:
-    """torch-compatible multi-head attention without mask; in training,
-    dropout on the post-softmax weights (rows then no longer sum to 1).
-    query/key/value: (..., T, D) -> (..., T, D)."""
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(..., T, D) -> (..., H, T, D // H)."""
+    return x.reshape(*x.shape[:-1], n_heads, x.shape[-1] // n_heads).transpose(-3, -2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, T, hd) -> (..., T, H * hd)."""
+    x = x.transpose(-3, -2)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def mha_project_qkv(p: "MultiheadAttention", query: torch.Tensor, key: torch.Tensor,
+                    value: torch.Tensor):
+    """The packed in-projection split into per-head q, k, v: (..., H, T, hd)
+    each."""
     D = query.shape[-1]
-    H = p.n_heads
     w, b = p.in_proj.weight, p.in_proj.bias
     q = linear(query, w[:D], b[:D])
     k = linear(key, w[D:2 * D], b[D:2 * D])
     v = linear(value, w[2 * D:], b[2 * D:])
+    return (split_heads(q, p.n_heads), split_heads(k, p.n_heads),
+            split_heads(v, p.n_heads))
 
-    def split(t):                                   # (..., T, D) -> (..., H, T, hd)
-        return t.reshape(*t.shape[:-1], H, D // H).transpose(-3, -2)
 
-    q, k, v = split(q), split(k), split(v)
-    logits = q @ k.transpose(-1, -2) / math.sqrt(D // H)
+def mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: torch.Tensor | None = None, rate: float = 0.0,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd) + mask) v on split heads, the softmax in
+    float32; `mask` is additive (-inf where a position may not be read) and
+    broadcasts to (..., Tq, Tk).  In training, dropout on the weights (rows
+    then no longer sum to 1)."""
+    logits = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        logits = logits + mask
     w = dropout(torch.softmax(logits, dim=-1), rate, generator)
-    out = w @ v                                      # (..., H, T, hd)
-    out = out.transpose(-3, -2).reshape(*query.shape)
+    return w @ v
+
+
+def mha(p: "MultiheadAttention", query: torch.Tensor, key: torch.Tensor,
+        value: torch.Tensor, rate: float = 0.0,
+        generator: torch.Generator | None = None,
+        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """torch-compatible multi-head attention, with an optional additive mask
+    (broadcast to (..., H, Tq, Tk)); in training, dropout on the
+    post-softmax weights.  query/key/value: (..., T, D) -> (..., T, D)."""
+    q, k, v = mha_project_qkv(p, query, key, value)
+    out = merge_heads(mha_core(q, k, v, mask, rate, generator))
     return linear(out, p.out_proj.weight, p.out_proj.bias)
+
+
+def causal_mask(T: int, mask_delay: int = 0, device=None) -> torch.Tensor:
+    """(T, T) additive mask: position i may read j <= i + mask_delay (the
+    reference's `_generate_square_subsequent_mask`)."""
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    zero = torch.zeros((), device=device)
+    return torch.where(j <= i + mask_delay, zero, float("-inf"))
 
 
 def ff_block(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear, rate: float = 0.0,
@@ -112,6 +148,15 @@ def ff_block(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear, rate: floa
     activation and after the second linear in training."""
     h = dropout(torch.relu(linear(x, linear1.weight, linear1.bias)), rate, generator)
     return dropout(linear(h, linear2.weight, linear2.bias), rate, generator)
+
+
+def transformer_layer(p: "TransformerLayer", x: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Post-norm encoder layer (torch TransformerEncoderLayer,
+    norm_first=False), eval: x = LN1(x + attn(x)); x = LN2(x + FF(x))."""
+    a = mha(p.self_attn, x, x, x, mask=mask)
+    x = layer_norm(x + a, p.norm1.weight, p.norm1.bias)
+    return layer_norm(x + ff_block(x, p.linear1, p.linear2), p.norm2.weight, p.norm2.bias)
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
@@ -176,3 +221,16 @@ class MultiheadAttention(nn.Module):
         self.n_heads = n_heads
         self.in_proj = nn.Linear(d_model, 3 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+
+
+class TransformerLayer(nn.Module):
+    """Self-attention + relu FFN + two layer norms (the JAX
+    `transformer_layer_init` pytree)."""
+
+    def __init__(self, d_model: int, n_heads: int, dim_ff: int):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, n_heads)
+        self.linear1 = nn.Linear(d_model, dim_ff)
+        self.linear2 = nn.Linear(dim_ff, d_model)
+        self.norm1 = nn.LayerNorm(d_model)
+        self.norm2 = nn.LayerNorm(d_model)

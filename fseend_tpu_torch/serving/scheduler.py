@@ -11,6 +11,9 @@ many streams over the fixed lanes of one StreamingServer:
     drain its look-ahead-conv tail while its neighbours keep consuming audio;
   * idle lanes ride along as flush lanes (state frozen, outputs invalid).
 
+FS lanes also need `capacity >= T + conv_delay` for every stream (the KV
+caches are preallocated per lane; checked at submit).
+
 Scheduling is numpy bookkeeping on (lanes, K) blocks; the server's outputs
 are copied to the host once per block.
 """
@@ -57,7 +60,13 @@ class ContinuousBatcher:
                 or any(j is not None and j.sid == sid for j in self.lanes)):
             raise ValueError(f"duplicate stream id {sid!r} (a same-named "
                              f"stream is queued, in flight, or finished)")
-        self.queue.append(_Job(sid, np.asarray(feats, np.float32)))
+        feats = np.asarray(feats, np.float32)
+        if self.srv.kind == "fs":
+            need = len(feats) + self.srv.cfg.conv_delay
+            if need > self.srv.capacity:
+                raise ValueError(f"stream {sid!r} needs {need} KV slots > server "
+                                 f"capacity {self.srv.capacity}")
+        self.queue.append(_Job(sid, feats))
 
     def _assign_free_lanes(self) -> None:
         taken = []

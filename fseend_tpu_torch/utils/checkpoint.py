@@ -27,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fseend_tpu_torch.models import ls_eend
+from fseend_tpu_torch.models import fs_eend, ls_eend
 from fseend_tpu_torch.utils import convert
 
 
@@ -169,3 +169,16 @@ def load_ls_eend(path: str | Path, cfg: ls_eend.LSEENDConfig, device=None) -> ls
                                     "var": np.ones(D, np.float32)}
                                    for _ in range(cfg.enc_n_layers)]}
     return convert.ls_params_from_jax(params, model_state, cfg, device)
+
+
+def load_fs_eend(path: str | Path, cfg: fs_eend.FSEENDConfig, device=None) -> fs_eend.FSEEND:
+    """An `FSEEND` holding the checkpoint's "params" and "model_state"; a
+    params-only file gets fresh BatchNorm statistics (mean 0, variance 1)."""
+    params = load_pytree(path, "params")
+    if params is None:
+        raise KeyError(f"{path}: no leaf under 'params/'")
+    model_state = load_pytree(path, "model_state")
+    if model_state is None:
+        model_state = {"bn": {"mean": np.zeros(cfg.in_size, np.float32),
+                              "var": np.ones(cfg.in_size, np.float32)}}
+    return convert.fs_params_from_jax(params, model_state, cfg, device)

@@ -1,11 +1,12 @@
-"""A reference (PyTorch LS-EEND) state dict -> the port's `LSEEND`.
+"""A reference (PyTorch LS-EEND or FS-EEND) state dict -> the port's
+`LSEEND` / `FSEEND`.
 
-The port's own copy of the LS half of `fseend_tpu/utils/torch_convert.py`
-(`normalize_keys`, `ls_from_state_dict` and its helpers), so that a released
-reference checkpoint, or a committed golden, reaches the port without the
-JAX package.  The helpers build the JAX package's parameter pytree (numpy
-leaves, linear kernels (in, out)); `utils/convert.py:ls_params_from_jax`
-puts it on the module.  Accepts the "model." prefix and the legacy
+The port's own copy of `fseend_tpu/utils/torch_convert.py`
+(`normalize_keys`, `ls_from_state_dict`, `fs_from_state_dict` and their
+helpers), so that a released reference checkpoint, or a committed golden,
+reaches the port without the JAX package.  The helpers build the JAX
+package's parameter pytree (numpy leaves, linear kernels (in, out));
+`utils/convert.py:{ls,fs}_params_from_jax` puts it on the module.  Accepts the "model." prefix and the legacy
 `dec.attractor_decoder.layers.*` keys, as the reference does.
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fseend_tpu_torch.models import ls_eend
+from fseend_tpu_torch.models import fs_eend, ls_eend
 from fseend_tpu_torch.utils import convert
 
 
@@ -116,3 +117,44 @@ def ls_from_state_dict(sd: dict, cfg: ls_eend.LSEENDConfig, device=None) -> ls_e
     another)."""
     params, model_state = ls_tree_from_state_dict(sd, cfg)
     return convert.ls_params_from_jax(params, model_state, cfg, device)
+
+
+def fs_tree_from_state_dict(sd: dict, cfg: fs_eend.FSEENDConfig):
+    """Reference OnlineTransformerDADiarization state dict -> the JAX
+    layout's (params, model_state), numpy leaves.  Keys the model does not
+    use are ignored."""
+    sd = normalize_keys(sd)
+    enc_layers = []
+    for i in range(cfg.enc_n_layers):
+        pre = f"enc.transformer_encoder.layers.{i}"
+        enc_layers.append({"self_attn": _mha(sd, f"{pre}.self_attn"),
+                           "linear1": _lin(sd, f"{pre}.linear1"),
+                           "linear2": _lin(sd, f"{pre}.linear2"),
+                           "norm1": _ln(sd, f"{pre}.norm1"),
+                           "norm2": _ln(sd, f"{pre}.norm2")})
+    dec_layers = []
+    for i in range(cfg.dec_n_layers):
+        pre = f"dec.layers.{i}"
+        dec_layers.append({"time_attn": _mha(sd, f"{pre}.self_attn1"),
+                           "spk_attn": _mha(sd, f"{pre}.self_attn2"),
+                           "linear1": _lin(sd, f"{pre}.linear1"),
+                           "linear2": _lin(sd, f"{pre}.linear2"),
+                           **{n: _ln(sd, f"{pre}.{n}")
+                              for n in ("norm11", "norm12", "norm21", "norm22")}})
+    params = {
+        "enc": {"bn": _ln(sd, "enc.bn"), "proj": _lin(sd, "enc.encoder"),
+                "norm": _ln(sd, "enc.encoder_norm"), "layers": enc_layers},
+        "cnn": _conv1d(sd, "cnn"),
+        "dec": {"convert": _lin(sd, "dec.convert"), "layers": dec_layers},
+    }
+    model_state = {"bn": {"mean": np.array(sd["enc.bn.running_mean"]),
+                          "var": np.array(sd["enc.bn.running_var"])}}
+    return params, model_state
+
+
+def fs_from_state_dict(sd: dict, cfg: fs_eend.FSEENDConfig, device=None) -> fs_eend.FSEEND:
+    """The port's `FSEEND` holding a reference state dict's weights and
+    input BatchNorm statistics, on `device` (the card unless the caller
+    names another)."""
+    params, model_state = fs_tree_from_state_dict(sd, cfg)
+    return convert.fs_params_from_jax(params, model_state, cfg, device)

@@ -1,7 +1,8 @@
 """CUDA kernels of the PyTorch port (the two frame scans, the chunkwise
-retention core, the retention layer and the fusion layer's training forward
-and backward) against their plain PyTorch versions, and one train step, on
-the card.  Marked `gpu`: they skip where there is no CUDA
+retention core, the retention layer, the fusion layer's training forward
+and backward, and the two cached-attention kernels) against their plain
+PyTorch versions, one train step, and FS-EEND serving on both
+cached-attention routes, on the card.  Marked `gpu`: they skip where there is no CUDA
 device.  On a machine with one (and without JAX, which tests/conftest.py
 imports), run them with
 
@@ -16,12 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from fseend_tpu_torch.kernels import cached_attention as CA
 from fseend_tpu_torch.kernels import chunk_retention as CR
 from fseend_tpu_torch.kernels import dec_frame_scan as DFS
 from fseend_tpu_torch.kernels import dec_train_fusion as DTF
 from fseend_tpu_torch.kernels import enc_frame_scan as EFS
 from fseend_tpu_torch.kernels import retention_layer as RL
-from fseend_tpu_torch.models import ls_eend
+from fseend_tpu_torch.models import fs_eend, ls_eend
 from fseend_tpu_torch.ops import retention as TR
 from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 from fseend_tpu_torch.serving.scheduler import ContinuousBatcher
@@ -337,3 +339,100 @@ def test_train_step_runs_the_fusion_kernels(cuda):
     assert DTF.fwd_launches == n_f + cfg.dec_n_layers
     assert DTF.bwd_launches == n_b + cfg.dec_n_layers
     assert np.isfinite(float(metrics["tot_loss"])) and state.step == 1
+
+
+# ---------------------------------------------------------------------------
+# the cached-attention kernels and FS-EEND serving
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hd", [8, 16, 64])
+@pytest.mark.parametrize("K,cap,start", [(1, 200, 0), (1, 200, 199), (70, 200, 60),
+                                         (125, 256, 131), (128, 200, 150)])
+def test_cached_attention_kernel_matches_plain(cuda, hd, K, cap, start):
+    """Shared head: K not a multiple of the 64-query tile, a cache not a
+    multiple of the 64-position tile, dead tiles, and start + K past the
+    capacity (the clamped write's queries read the whole cache)."""
+    rng = np.random.default_rng(hd + K + start)
+    q, k, v = (_randn(rng, 6, n, hd, dev=cuda) for n in (K, cap, cap))
+    n0 = CA.launches
+    got = CA.cached_attention(q, k, v, start)
+    torch.cuda.synchronize()
+    assert CA.launches == n0 + 1
+    torch.testing.assert_close(got, CA.cached_attention_plain(q, k, v, start),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [8, 64])
+@pytest.mark.parametrize("K,min_pos", [(1, 0), (1, 9), (125, 0), (125, 9), (64, 3)])
+def test_cached_attention_perlane_kernel_matches_plain(cuda, hd, K, min_pos):
+    """Per-lane heads with lanes before warm-up (start < min_pos), mid-way,
+    near the capacity and past it; 4 rows a lane."""
+    rng = np.random.default_rng(hd + K + min_pos)
+    cap = 260
+    starts = torch.tensor([0, 2, 8, 9, 70, 255, 300], dtype=torch.int32, device=cuda)
+    R = 4 * len(starts)
+    q, k, v = (_randn(rng, R, n, hd, dev=cuda) for n in (K, cap, cap))
+    n0 = CA.perlane_launches
+    got = CA.cached_attention_perlane(q, k, v, starts, 4, min_pos)
+    torch.cuda.synchronize()
+    assert CA.perlane_launches == n0 + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, CA.cached_attention_perlane_plain(q, k, v, starts, 4,
+                                                                      min_pos),
+                               atol=ATOL, rtol=0)
+
+
+def test_cached_attention_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 4, 160, device=cuda)
+    k = torch.zeros(2, 16, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        CA.cached_attention(q, k, k, 0)
+    with pytest.raises(ValueError, match="float32"):
+        CA.cached_attention_perlane(q.double(), k.double(), k.double(),
+                                    torch.zeros(2, dtype=torch.int32, device=cuda), 1)
+
+
+FS_CFG = fs_eend.FSEENDConfig(in_size=23, n_units=32, n_heads=4, enc_n_layers=2,
+                              dec_n_layers=2, enc_dim_feedforward=64,
+                              dec_dim_feedforward=64, conv_delay=3, max_nspks=4)
+
+
+def test_fs_servers_kernel_route_match_plain_route(cuda):
+    """The per-frame FS server (fast block, sub-blocks of 5) and the
+    blockwise FS server on the kernel route against the plain route;
+    every layer launches its kernel."""
+    model = fs_eend.init_fs_eend(FS_CFG, torch.Generator().manual_seed(7), device=cuda)
+    plain_cfg = dataclasses.replace(FS_CFG, use_flash_attn=False)
+    rng = np.random.default_rng(12)
+    streams = {f"s{i}": rng.standard_normal((t, FS_CFG.in_size)).astype(np.float32)
+               for i, t in enumerate([7, 23, 2, 16])}
+
+    def serve(cfg):
+        srv = StreamingServer(kind="fs", cfg=cfg, model=model, n_lanes=2, n_slots=4,
+                              capacity=48, device=cuda)
+        cb = ContinuousBatcher(srv, block=10)
+        for sid, feats in streams.items():
+            cb.submit(sid, feats)
+        return cb.run()
+
+    n0 = CA.perlane_launches
+    got = serve(FS_CFG)
+    assert CA.perlane_launches - n0 > 0
+    n1 = CA.perlane_launches
+    ref = serve(plain_cfg)
+    assert CA.perlane_launches == n1
+    for sid in streams:
+        np.testing.assert_allclose(got[sid], ref[sid], atol=ATOL)
+
+    xs = rng.standard_normal((3, 24, FS_CFG.in_size)).astype(np.float32)
+    outs = {}
+    for label, cfg in (("kernel", FS_CFG), ("plain", plain_cfg)):
+        srv = BlockStreamingServer(kind="fs", cfg=cfg, model=model, n_lanes=3, n_slots=4,
+                                   block=8, capacity=24, device=cuda)
+        n0 = CA.launches
+        ys = [srv.process_block(xs[:, i:i + 8]) for i in range(0, 24, 8)]
+        ys.append(srv.process_block(np.zeros_like(xs[:, :8]), flush=True))
+        assert CA.launches - n0 == (3 * FS_CFG.enc_n_layers if label == "kernel" else 0)
+        outs[label] = torch.cat(ys[1:], dim=1)
+    torch.testing.assert_close(outs["kernel"], outs["plain"], atol=ATOL, rtol=0)

@@ -202,13 +202,14 @@ def test_port_imports_without_jax():
         bad = [m for m in sys.modules if m == "fseend_tpu" or m.startswith("fseend_tpu.")]
         assert not bad, bad
         for n in ("serving.runtime", "kernels.chunk_retention", "kernels.retention_layer",
-                  "kernels.dec_train_fusion", "utils.checkpoint", "utils.torch_convert",
-                  "ops.retention", "models.ls_eend", "train.labels", "train.losses",
-                  "train.optim", "train.trainer", "train.loop", "data.loader", "data.sampler"):
+                  "kernels.dec_train_fusion", "kernels.cached_attention", "utils.checkpoint",
+                  "utils.torch_convert", "ops.retention", "models.ls_eend", "models.fs_eend",
+                  "train.labels", "train.losses", "train.optim", "train.trainer",
+                  "train.loop", "data.loader", "data.sampler"):
             assert "fseend_tpu_torch." + n in names, (n, names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 27

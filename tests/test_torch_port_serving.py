@@ -139,10 +139,12 @@ def test_stream_file_is_time_aligned(setup):
 
 def test_unported_modes_say_where_they_are_queued(setup):
     model, *_ = setup
-    with pytest.raises(NotImplementedError, match="A9"):
+    # FS-EEND serving is ported (ROADMAP A9; tests/test_torch_port_fs_serving.py):
+    # an FS server refuses an LS model rather than serving it
+    with pytest.raises(TypeError, match="FSEEND"):
         RT.StreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="FSEEND"):
         RT.BlockStreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
                                 device="cpu")
     # training is ported (ROADMAP A6); its FS-EEND, EEND-EDA and multi-GPU
