@@ -9,11 +9,18 @@ blockwise server, the batch pass against the reference), and times the
 kernels, the servers and the step.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
-                                      over the blockwise server's process_block)
+                                      over the blockwise server's process_block;
+                                      --parent DIR builds the dec_frame_scan.cu
+                                      and cached_attention.cu found in DIR, an
+                                      earlier commit's kernels/csrc with the
+                                      one-block-per-lane decoder scan (others
+                                      are refused), and times them against
+                                      this tree's in turns)
 
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
-  2. build: the six kernels with nvcc into build/, all started together
+  2. build: the seven CUDA sources (eight kernels) with nvcc into build/,
+     all started together
   3. frame-scan kernels vs plain: B=128 lanes, K=64 frames, C=10 slots, the
      full LSEENDConfig(); random weights from a seed with non-trivial
      BatchNorm statistics; non-zero incoming state; staggered per-lane
@@ -54,9 +61,14 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      then ms per step, frames/s and peak memory on the fused and the plain
      decoder route, the fused step's parts, and a torch.profiler window
      over two fused steps (device idle share, top kernels)
- 11. times: CUDA events after warm-up: process_block of both servers at
-     B=128, K=128 (and step(), K=1), every kernel alone beside its plain
-     version and its bound
+ 11. times: dec_frame_scan first held against its plain version on the
+     per-frame server's own calls at B=128, K=128 and step()'s K=1; then
+     CUDA events after warm-up: process_block of both servers at B=128,
+     K=128 (and step(), K=1, with a torch.profiler window), every kernel
+     alone beside its plain version and its bound (the tensor-core bound
+     for the kernels on the tensor cores, with the FMA-pipe bound beside
+     it); with --parent, the earlier dec_frame_scan, step() and
+     process_block against this tree's (earlier, this, this, earlier)
  12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
      cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
      cached_attention_perlane at R 256 and 1536, K 125, skewed lane starts
@@ -70,21 +82,28 @@ Phases (any failure raises; the script exits non-zero and prints no result):
  14. F3, FS blockwise serve: BlockStreamingServer(kind="fs") over 64 lanes,
      K 128, 16 blocks to the last in-capacity block and a flush, kernel
      route vs plain route vs fs_forward (first 4 lanes), 4 launches per
-     block; the last in-capacity block timed on both routes
+     block; the last in-capacity block timed on both routes (with
+     --parent, also on the earlier cached_attention, in turns)
  15. F4, tests/goldens/fs_model_prod.npz (1500 frames) through the port's
      own state-dict reader and fs_test: logits and emb within 1e-4
  16. F5, FS times: the per-frame server as bench.py:_mode_fs (three
-     500-frame blocks from a fresh state) on both routes, its step(), the
-     kernel's device share under torch.profiler; both kernels at their
-     main-path shapes beside their plain versions, bounds and
-     scaled_dot_product_attention (the library yardstick, never on the path)
+     500-frame blocks from a fresh state) on both routes, its step() (with
+     a torch.profiler window), the kernel's device share under
+     torch.profiler; both kernels at their main-path shapes beside their
+     plain versions, bounds and scaled_dot_product_attention (the library
+     yardstick, never on the path);
+     with --parent, the earlier cached_attention at the blockwise encoder's
+     shape in turns
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
-the timing lines come before it.  Float32 throughout, TF32 off.
+the timing lines come before it.  Float32 throughout, TF32 off.  Kernels
+are held within 1e-3 of their plain versions, the two on the tensor cores
+(dec_frame_scan, cached_attention) within 1e-4.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -115,6 +134,10 @@ STREAM_LENS = (137, 5, 50, 512, 777, 1000)  # lane 0 gets the 137-frame stream
 # kernel vs plain: float32 with another summation order, over 64 frames of
 # 4 encoder / 2 decoder layers; a wrong gate or term shows at O(0.1)
 KERNEL_ATOL = 1e-3
+# the kernels whose products run on the tensor cores in three TF32 passes
+# (csrc/tc_f32.cuh), against their plain versions: float32-exact to ~1e-6
+# relative, so held tighter than the FMA-pipe kernels
+TC_ATOL = 1e-4
 # kernel server vs plain server, probabilities after the sigmoid
 SERVE_ATOL = 1e-3
 # FS-EEND serving at FSEENDConfig() and bench.py:435-437's sizes: 64 lanes,
@@ -127,9 +150,14 @@ FS_HD = 64                                   # 256 units / 4 heads
 FS_STREAM_LENS = (1900, 1200, 777, 500, 137, 5)
 FS_SCAN_LANES, FS_SCAN_CAP, FS_SCAN_T = 8, 256, 200   # fast block vs frame scan
 FS_GOLDEN_ATOL = 1e-4                        # tests/test_torch_convert.py:85-95 drift 2.3e-5
-# published H100 SXM peaks (float32 outside the tensor cores; HBM3)
+# published H100 SXM peaks (float32 outside the tensor cores; TF32 dense on
+# the tensor cores; HBM3)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TC_PASSES = 3                      # 3xTF32: three TF32 products per float32 product
 PEAK_BYTES = 3.35e12
+# the kernels whose products run on the tensor cores (csrc/tc_f32.cuh)
+TENSOR_CORE_KERNELS = ("dec_frame_scan", "cached_attention")
 
 
 def log(*a):
@@ -154,12 +182,115 @@ def phase_device():
 def phase_build():
     from fseend_tpu_torch.kernels import _build
 
-    secs = _build.build([("enc_frame_scan", {}), ("dec_frame_scan", {"FS_NSLOTS": SLOTS}),
+    t0 = time.perf_counter()
+    src = parent_dir()
+    procs = start_parent_build(src) if src else None
+    secs = _build.build([("enc_frame_scan", {}), ("dec_frame_scan", DTF),
                          ("chunk_retention", HEAD), ("retention_layer", HEAD),
                          ("dec_train_fusion_fwd", DTF), ("dec_train_fusion_bwd", DTF),
                          ("cached_attention", {"CA_HD": FS_HD})],
                         verbose=True)
     log(f"build: {secs:.1f} s")
+    if procs:
+        finish_parent_build(procs)
+        log(f"build with the earlier sources: {time.perf_counter() - t0:.1f} s")
+
+
+# --parent DIR: an earlier commit's dec_frame_scan.cu and cached_attention.cu
+# (with the headers beside them), built beside this tree's and timed against
+# them in turns; their C entry points as that commit had them
+PARENT_SOURCES = {"dec_frame_scan": {"FS_NSLOTS": SLOTS}, "cached_attention": {"CA_HD": FS_HD}}
+PARENT = {}
+
+
+def parent_dir():
+    argv = sys.argv[1:]
+    return Path(argv[argv.index("--parent") + 1]).resolve() if "--parent" in argv else None
+
+
+def start_parent_build(src):
+    """One nvcc per earlier source into build/parent/, started now."""
+    from fseend_tpu_torch.kernels import _build
+
+    text = (src / "dec_frame_scan.cu").read_text()
+    if "FS_NSLOTS" not in text or "float kscale, void* stream" not in text:
+        raise SystemExit(f"--parent: {src}/dec_frame_scan.cu is not the one-block-per-lane "
+                         "frame scan whose entry point this script calls (FS_NSLOTS, kscale)")
+    out = _build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, defines in PARENT_SOURCES.items():
+        lib = out / f"lib{name}.so"
+        cmd = ([_build._nvcc()] + _build.NVCC_FLAGS + [f"-D{k}={v}" for k, v in defines.items()]
+               + ["-o", str(lib), str(src / f"{name}.cu")])
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_parent_build(procs):
+    """Wait for the earlier sources' builds and fill PARENT with callables of
+    the port's wrapper signatures (no launch counts)."""
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"earlier {name}.cu: nvcc exit {proc.returncode}\n{out}")
+        libs[name] = ctypes.CDLL(str(lib))
+    dec = libs["dec_frame_scan"].dec_frame_scan_launch
+    dec.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    dec.restype = ctypes.c_int
+    att = libs["cached_attention"].cached_attention_launch
+    att.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    att.restype = ctypes.c_int
+
+    def dec_frame_scan(embp, embn, valid, pe, w, kv, s):
+        B, K, D = embp.shape
+        C = pe.shape[0]
+        L, _, H, _, dk = kv.shape
+        logits = torch.empty(B, K, C, device=embp.device)
+        ptrs = (ctypes.c_void_p * len(w))(*[t.data_ptr() for t in w])
+        err = dec(ptrs, embp.data_ptr(), embn.data_ptr(), valid.data_ptr(), pe.data_ptr(),
+                  logits.data_ptr(), kv.data_ptr(), s.data_ptr(), B, K, L, D, H, dk,
+                  w.w_f1.shape[2], dk ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"earlier dec_frame_scan: CUDA error {err}")
+        return logits
+
+    def cached_attention(q, k, v, start):
+        R, K, _ = q.shape
+        st = torch.as_tensor(start, device=q.device).to(torch.int32).reshape(1)
+        out = torch.empty_like(q)
+        err = att(q.data_ptr(), k.data_ptr(), v.data_ptr(), st.data_ptr(), out.data_ptr(), R,
+                  K, k.shape[1], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"earlier cached_attention: CUDA error {err}")
+        return out
+
+    PARENT.update(dec_frame_scan=dec_frame_scan, cached_attention=cached_attention)
+
+
+def via(mod, name, fn, call):
+    """call() with mod.name replaced by fn for its duration."""
+    def run():
+        orig = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            return call()
+        finally:
+            setattr(mod, name, orig)
+    return run
+
+
+def in_turns(what, earlier, this, reps, card):
+    """The earlier kernel's and this tree's, timed earlier, this, this,
+    earlier on one card (CUDA events over reps calls each)."""
+    ms = [cuda_ms(earlier, reps), cuda_ms(this, reps), cuda_ms(this, reps),
+          cuda_ms(earlier, reps)]
+    log(json.dumps({"earlier_vs_this": {"what": what, "ms_in_turns": ms,
+                                        "earlier_ms": (ms[0] + ms[3]) / 2,
+                                        "this_ms": (ms[1] + ms[2]) / 2},
+                    "card": card}))
 
 
 def make_model(cfg, rng):
@@ -221,7 +352,7 @@ def clone_args(args):
     return [a.clone() if torch.is_tensor(a) else a for a in args]
 
 
-def compare(name, kernel_out, plain_out, labels):
+def compare(name, kernel_out, plain_out, labels, atol=KERNEL_ATOL):
     worst = 0.0
     for lab, a, b in zip(labels, kernel_out, plain_out):
         if a.shape != b.shape or not torch.isfinite(a).all():
@@ -229,8 +360,8 @@ def compare(name, kernel_out, plain_out, labels):
                                  f"{tuple(b.shape)} or non-finite values")
         err = (a - b).abs().max().item()
         worst = max(worst, err)
-        log(f"  {name}.{lab}: max abs diff {err:.3e} (tol {KERNEL_ATOL:g})")
-        if not err <= KERNEL_ATOL:
+        log(f"  {name}.{lab}: max abs diff {err:.3e} (tol {atol:g})")
+        if not err <= atol:
             raise AssertionError(f"{name}.{lab}: kernel differs from plain by {err}")
     return worst
 
@@ -288,7 +419,7 @@ def phase_kernel_vs_plain(cfg, model, rng):
         "enc_frame_scan": compare("enc_frame_scan", *res["enc_frame_scan"],
                                   ("h", "kv", "s", "ring")),
         "dec_frame_scan": compare("dec_frame_scan", *res["dec_frame_scan"],
-                                  ("logits", "kv", "s")),
+                                  ("logits", "kv", "s"), atol=TC_ATOL),
     }
     return errs
 
@@ -802,7 +933,7 @@ def phase_train(cfg, card):
 
             rows[route].update(loss_backward_ms=cuda_ms(loss_backward, reps=3),
                                encoder_backward_ms=cuda_ms(encoder_backward, reps=3))
-            profile_window(lambda: step(state, batch, SEED), 2, card)
+            profile_window(lambda: step(state, batch, SEED), 2, card, "fused train step")
         log(json.dumps({"train_step": rows[route], "card": card}))
         del model, state, step
     return launches, calls, rows
@@ -820,12 +951,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def pipe_bounds(name, t_bytes, flops):
+    """(bound_ms, bound_by, pipe, fma_bound_ms): the operations over the
+    peak of the pipe the kernel's products run on -- the FMA pipe's float32
+    peak, or for the kernels on the tensor cores (TENSOR_CORE_KERNELS) the
+    TF32 peak over the three passes of a float32-exact product -- against
+    the bytes; fma_bound_ms is the operations over the FMA pipe's peak."""
+    fma = flops / PEAK_F32_FLOPS * 1e3
+    if name in TENSOR_CORE_KERNELS:
+        t_ops, pipe = flops * TC_PASSES / PEAK_TF32_FLOPS * 1e3, "tensor cores (3xTF32)"
+    else:
+        t_ops, pipe = fma, "FMA (float32)"
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), pipe, fma
+
+
 def kernel_bound(name, args, cfg):
-    """(bound_ms, bound_by, operations, bytes, design bytes): the bound is the
-    larger of the bytes the call must move (each input read once, each output
-    written once) over HBM bandwidth and its float32 operations (the matrix
-    products; the elementwise work is of lower order) over the FMA-pipe
-    peak.  Design bytes are what this kernel's design moves."""
+    """(bound_ms, bound_by, operations, bytes, design bytes, pipe,
+    fma_bound_ms): the bound is the larger of the bytes the call must move
+    (each input read once, each output written once) over HBM bandwidth and
+    its float32 operations (the matrix products; the elementwise work is of
+    lower order) over the peak of its pipe (`pipe_bounds`).  Design bytes
+    are what this kernel's design moves."""
     if name.startswith("cached_attention"):
         return attention_bound(name, args)
     tensors = [a for a in args if torch.is_tensor(a)]
@@ -896,13 +1042,18 @@ def kernel_bound(name, args, cfg):
         # q | k | v | g written once and read once, g written again and read again
         design = nbytes + B * T * (2 * (2 * D + 2 * Fv) + 2 * Fv) * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    if name.endswith("frame_scan"):
+    wbytes = sum(t.numel() * 4 for t in weights)
+    if name == "enc_frame_scan":
         # every weight once per lane-frame (from L2), the retention state read
         # and written once per frame (device memory)
-        design = (sum(t.numel() * 4 for t in weights) * B * K + 2 * K * state[0].numel() * 4)
-    return (max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), flops,
-            nbytes, design)
+        design = wbytes * B * K + 2 * K * state[0].numel() * 4
+    elif name == "dec_frame_scan":
+        # layer-major: the weights once per slice of 128 frames, the state
+        # once per layer (in nbytes), and per layer and (lane, slot, frame)
+        # row every workspace buffer written and read once: 35 D + 2 F floats
+        design = nbytes + wbytes * -(-K // 128) + L * B * C * K * (35 * D + 2 * Fh) * 4
+    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops)
+    return bound_ms, bound_by, flops, nbytes, design, pipe, fma_ms
 
 
 def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1, library=None):
@@ -914,9 +1065,10 @@ def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1, lib
     ms = cuda_ms(lambda: kern(*a_k, **kw), reps=5)
     plain_ms = cuda_ms(lambda: plain(*a_p, **kw), reps=plain_reps)
     library_ms = cuda_ms(library, reps=5) if library is not None else None
-    bound_ms, bound_by, flops, nbytes, design = kernel_bound(name, args, cfg)
+    bound_ms, bound_by, flops, nbytes, design, pipe, fma_ms = kernel_bound(name, args, cfg)
     log(json.dumps({"timing": name, "shape": label, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_pipe": pipe, "fma_bound_ms": fma_ms,
                     "flop": flops, "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
                     "design_bytes": design, "design_tb_per_s": design / ms / 1e9,
                     "card": card}))
@@ -924,12 +1076,12 @@ def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1, lib
             "library_ms": library_ms}
 
 
-def profile_window(fn, reps, card):
+def profile_window(fn, reps, card, what):
     """A torch.profiler trace of fn() called 1 + reps times (the first call
-    absorbs the tracer's start-up): over the train step always, over the
-    blockwise server's process_block with `--profile`;
-    prints the device's busy share of a call and the device kernels that
-    take most of it."""
+    absorbs the tracer's start-up): over the train step and both servers'
+    step() always, over the blockwise server's process_block with
+    `--profile`; prints the device's busy share of a call, its device
+    kernels and those that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -947,7 +1099,7 @@ def profile_window(fn, reps, card):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(json.dumps({"profile": {"calls": reps, "ms_per_call": call_ms,
+    log(json.dumps({"profile": {"what": what, "calls": reps, "ms_per_call": call_ms,
                                 "device_busy_ms_per_call": busy,
                                 "device_idle_share": 1 - busy / call_ms,
                                 "device_kernels_per_call": sum(r[2] for r in rows),
@@ -956,7 +1108,28 @@ def profile_window(fn, reps, card):
                     "card": card}))
 
 
+def hold_dec_on_main_path(server, xs, got):
+    """dec_frame_scan against its plain version on the per-frame server's
+    own calls: the process_block call captured in `got` (K = 128: two
+    retention chunks, the state carried between them) and a step() (K = 1:
+    live row groups, products split along k).  Returns the larger error."""
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+
+    step_got = capture_kernel_inputs(lambda: server.step(xs[:, 0]))
+    err = 0.0
+    for label, g in (("process_block", got), ("step()", step_got)):
+        args, _ = g["dec_frame_scan"]
+        res = run_kernels({"dec_frame_scan": g["dec_frame_scan"]},
+                          {"dec_frame_scan": DFS.dec_frame_scan},
+                          {"dec_frame_scan": DFS.dec_frame_scan_plain})["dec_frame_scan"]
+        B, K, _ = args[0].shape
+        err = max(err, compare(f"dec_frame_scan[main path {label} B={B} K={K}]", *res,
+                               ("logits", "kv", "s"), atol=TC_ATOL))
+    return err
+
+
 def phase_times(cfg, model, rng, card, main_path_args):
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
     from fseend_tpu_torch.ops import retention as R
     from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
@@ -967,6 +1140,7 @@ def phase_times(cfg, model, rng, card, main_path_args):
                          device="cuda")
     server.process_block(xs)                          # non-zero state
     got = capture_kernel_inputs(lambda: server.process_block(xs))
+    dec_err = hold_dec_on_main_path(server, xs, got)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fps_ms = cuda_ms(lambda: server.process_block(xs), reps=5)
@@ -976,10 +1150,34 @@ def phase_times(cfg, model, rng, card, main_path_args):
         args, kw = got[name]
         rows[name] = time_kernel(name, f"B={B} K={K}", getattr(mod, name),
                                  getattr(mod, name + "_plain"), args, kw, cfg, card)
+    rows["dec_frame_scan"]["max_abs_err"] = dec_err
+    # where the decoder scan's time goes: device time by kernel of one call
+    a = clone_args(got["dec_frame_scan"][0])
+    busy = device_ms_by_kernel(lambda: DFS.dec_frame_scan(*a))
+    log(json.dumps({"dec_frame_scan_parts": {"device_busy_ms": sum(busy.values()),
+                                             "top": top_kernels(busy, 1, n=12)},
+                    "card": card}))
+    del a
     # frame latency of the single-frame path: step() is a K=1 block
     step_ms = cuda_ms(lambda: server.step(xs[:, 0]), reps=20)
     log(json.dumps({"step": {"lanes": B, "ms": step_ms, "frames_per_s": B / (step_ms / 1e3)},
                     "card": card}))
+    profile_window(lambda: server.step(xs[:, 0]), 5, card, "per-frame step()")
+    if PARENT:
+        args, kw = got["dec_frame_scan"]
+        old = PARENT["dec_frame_scan"]
+        a_old, a_new = clone_args(args), clone_args(args)
+        diff = (old(*clone_args(args)) - DFS.dec_frame_scan(*clone_args(args))).abs().max()
+        log(f"  earlier dec_frame_scan vs this: logits max abs diff {diff.item():.3e}")
+        in_turns(f"dec_frame_scan B={B} K={K}", lambda: old(*a_old),
+                 lambda: DFS.dec_frame_scan(*a_new), 5, card)
+        in_turns(f"per-frame step() B={B}", via(DFS, "dec_frame_scan", old,
+                                               lambda: server.step(xs[:, 0])),
+                 lambda: server.step(xs[:, 0]), 20, card)
+        in_turns(f"per-frame process_block B={B} K={K}",
+                 via(DFS, "dec_frame_scan", old, lambda: server.process_block(xs)),
+                 lambda: server.process_block(xs), 3, card)
+        del a_old, a_new
     fps = B * K / (fps_ms / 1e3)
     other_ms = fps_ms - rows["enc_frame_scan"]["ms"] - rows["dec_frame_scan"]["ms"]
     log(json.dumps({"process_block": {"server": "per-frame", "lanes": B, "K": K, "ms": fps_ms,
@@ -1031,7 +1229,8 @@ def phase_times(cfg, model, rng, card, main_path_args):
                 "ms": blocks[kernel], "frames_per_s": B * BLOCK / (blocks[kernel] / 1e3),
                 "max_memory_allocated": peak}
         if kernel == "fused" and "--profile" in sys.argv[1:]:
-            profile_window(lambda: bsrv.process_block(xb), 3, card)
+            profile_window(lambda: bsrv.process_block(xb), 3, card,
+                           "blockwise process_block, fused route")
         if kernel == "fused":
             in_kernel = (cfg.enc_n_layers * enc_row["ms"]
                          + cfg.dec_n_layers * rows["retention_layer"]["ms"])
@@ -1104,12 +1303,12 @@ def attention_bound(name, args):
     prefix = int(((st + K - 1).clamp(max=cap - 1) + 1).sum())
     nbytes = 4 * (2 * q.numel() + 2 * prefix * hd) + start.numel() * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
     # the design reads every kv tile up to the tile's last readable position
-    # once per 64-query tile
-    design = nbytes + 4 * 2 * prefix * hd * (-(-K // 64) - 1)
-    return (max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), flops,
-            nbytes, design)
+    # once per query tile (64 queries per-lane, 128 shared-head)
+    qt = 64 if name == "cached_attention_perlane" else 128
+    design = nbytes + 4 * 2 * prefix * hd * (-(-K // qt) - 1)
+    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops)
+    return bound_ms, bound_by, flops, nbytes, design, pipe, fma_ms
 
 
 def sdpa_call(args, name):
@@ -1168,7 +1367,7 @@ def phase_fs_kernels_vs_plain(fcfg, rng):
         want = CA.cached_attention_plain(q, k, v, start)
         errs["cached_attention"] = max(errs["cached_attention"], compare(
             f"cached_attention[R={R} K={FS_K} cap={FS_CAP} start={start}]", [got], [want],
-            ("out",)))
+            ("out",), atol=TC_ATOL))
     del q, k, v
     K = FS_BLOCK // 4
     starts = rng.integers(0, FS_CAP - K, FS_LANES)
@@ -1342,13 +1541,17 @@ def phase_fs_block_serve(fcfg, model, rng, card):
             captured = captured["cached_attention"][0]
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(last_block, reps=5)
+        if flash and PARENT:
+            in_turns("fs blockwise process_block, last in capacity",
+                     via(CA, "cached_attention", PARENT["cached_attention"], last_block),
+                     last_block, 5, card)
         line = {"server": f"fs blockwise, {route} route", "lanes": FS_LANES, "K": FS_K,
                 "capacity": FS_CAP, "block": "last in capacity", "ms": ms,
                 "frames_per_s": FS_LANES * FS_K / (ms / 1e3),
                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
         if flash:
             busy = device_ms_by_kernel(last_block)
-            kern = sum(ms for name, ms in busy.items() if "cached_attention" in name)
+            kern = sum(ms for name, ms in busy.items() if name.startswith("ca::"))
             line.update(cached_attention_ms=kern, outside_kernels_ms=ms - kern,
                         device_busy_ms=sum(busy.values()), top=top_kernels(busy, 1))
         log(json.dumps({"process_block": line, "card": card}))
@@ -1448,7 +1651,7 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
             # the kernel's device time against the rest of the block
             srv.reset_lanes(lanes)
             busy = device_ms_by_kernel(lambda: [srv.process_block(x) for x in xs], warm=False)
-            kern = sum(v for k, v in busy.items() if "cached_attention" in k) / len(xs)
+            kern = sum(v for k, v in busy.items() if k.startswith("ca::")) / len(xs)
             line.update(cached_attention_ms=kern, outside_kernels_ms=ms - kern,
                         device_busy_ms=sum(busy.values()) / len(xs),
                         top=top_kernels(busy, len(xs)))
@@ -1474,6 +1677,7 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
                                      "ms": step_ms,
                                      "frames_per_s": FS_LANES / (step_ms / 1e3)},
                             "card": card}))
+            profile_window(lambda: srv.step(xs[0][:, 0]), 5, card, "fs per-frame step()")
         log(json.dumps({"process_block": line, "card": card}))
         del srv
 
@@ -1498,8 +1702,15 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
     got = CA.cached_attention(*block_args)
     torch.cuda.synchronize()
     err = compare("cached_attention[main path encoder]", [got],
-                  [CA.cached_attention_plain(*block_args)], ("out",))
+                  [CA.cached_attention_plain(*block_args)], ("out",), atol=TC_ATOL)
     lib = sdpa_call(block_args, "cached_attention")
+    if PARENT:
+        old = PARENT["cached_attention"]
+        log(f"  earlier cached_attention vs this: max abs diff "
+            f"{(old(*block_args) - got).abs().max().item():.3e}")
+        in_turns(f"cached_attention R={block_args[0].shape[0]} K={block_args[0].shape[1]} "
+                 f"start={int(block_args[3])}", lambda: old(*block_args),
+                 lambda: CA.cached_attention(*block_args), 20, card)
     rows["cached_attention"] = dict(time_kernel(
         "cached_attention", f"main path encoder R={block_args[0].shape[0]} "
         f"K={block_args[0].shape[1]} start={int(block_args[3])}", CA.cached_attention,
@@ -1534,6 +1745,8 @@ def main() -> int:
     train_launches, train_calls, _ = phase_train(cfg, card)
     launches.update(train_launches)
     rows = phase_times(cfg, model, rng, card, main_path_args)
+    errs["dec_frame_scan"] = max(errs["dec_frame_scan"],
+                                 rows["dec_frame_scan"].pop("max_abs_err"))
     train_rows, train_errs = phase_train_times(cfg, card, train_calls)
     rows.update(train_rows)
     for name in dec_errs:

@@ -9,9 +9,11 @@
 // frame t lies in chunk n = t / L at place l = t % L.
 //
 // Row kernels run one warp per row; lane i owns the NV = D/32 contiguous
-// columns [i*NV, (i+1)*NV) (float4 loads), so a head's DV columns are the
-// G = DV/NV lanes of an aligned group and its sums are shuffles inside the
-// group.  D (DTF_D) and the head dims (CR_DK = CR_DV) are compile-time.
+// columns [i*NV, (i+1)*NV) (float4 loads, float2 where NV is not a multiple
+// of 4), so a head's DV columns are the G = DV/NV lanes of an aligned group
+// and its sums are shuffles inside the group.  D (DTF_D) and the head dims
+// (CR_DK = CR_DV) are compile-time.  The decoder frame scan
+// (dec_frame_scan.cu) runs the forward row kernels at dropout 0.
 #pragma once
 
 #include <initializer_list>
@@ -30,7 +32,7 @@ constexpr int DK = CR_DK;
 constexpr int H = D / DK;
 constexpr int NV = D / 32;
 constexpr int G = DK / NV;
-static_assert(D % 128 == 0 && D <= 512, "D a multiple of 128, at most 512");
+static_assert(D % 64 == 0 && D <= 512, "D a multiple of 64, at most 512");
 static_assert(CR_DK == CR_DV && H * DK == D, "equal key and value head dims tiling D");
 static_assert(DK % NV == 0 && 32 % G == 0, "a head is an aligned group of lanes");
 
@@ -72,19 +74,34 @@ __device__ __forceinline__ RowPos row_pos(const Drop& d, long long r) {
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
 __device__ __forceinline__ void load_row(const float* p, float (&v)[NV]) {
-  const float4* q = reinterpret_cast<const float4*>(p + lane_id() * NV);
+  if constexpr (NV % 4 == 0) {
+    const float4* q = reinterpret_cast<const float4*>(p + lane_id() * NV);
 #pragma unroll
-  for (int i = 0; i < NV / 4; ++i) {
-    const float4 t = q[i];
-    v[4 * i] = t.x, v[4 * i + 1] = t.y, v[4 * i + 2] = t.z, v[4 * i + 3] = t.w;
+    for (int i = 0; i < NV / 4; ++i) {
+      const float4 t = q[i];
+      v[4 * i] = t.x, v[4 * i + 1] = t.y, v[4 * i + 2] = t.z, v[4 * i + 3] = t.w;
+    }
+  } else {
+    const float2* q = reinterpret_cast<const float2*>(p + lane_id() * NV);
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) {
+      const float2 t = q[i];
+      v[2 * i] = t.x, v[2 * i + 1] = t.y;
+    }
   }
 }
 
 __device__ __forceinline__ void store_row(float* p, const float (&v)[NV]) {
-  float4* q = reinterpret_cast<float4*>(p + lane_id() * NV);
+  if constexpr (NV % 4 == 0) {
+    float4* q = reinterpret_cast<float4*>(p + lane_id() * NV);
 #pragma unroll
-  for (int i = 0; i < NV / 4; ++i)
-    q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    for (int i = 0; i < NV / 4; ++i)
+      q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else {
+    float2* q = reinterpret_cast<float2*>(p + lane_id() * NV);
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) q[i] = make_float2(v[2 * i], v[2 * i + 1]);
+  }
 }
 
 __device__ __forceinline__ float row_sum(const float (&v)[NV]) {

@@ -7,10 +7,17 @@ gamma = 1 recurrent retention step (output from the would-be-updated state,
 carry gated by the lane's `valid`), LN, attention across the C slots of the
 lane, LN, relu FFN, LN; then logits = l2-normed attractor . embedding.
 
-On a CUDA tensor the wrapper launches `csrc/dec_frame_scan.cu` (see the note
-there for what bounds it and how it is laid out); on a CPU tensor it runs
-`dec_frame_scan_plain`.  Both update the carried state in place.  Float32
-only.
+On a CUDA tensor the wrapper runs `csrc/dec_frame_scan.cu`: the block
+computed layer by layer over all (lane, slot, frame) rows, the linear
+layers as float32-exact tensor-core products (3xTF32, `csrc/tc_f32.cuh`)
+and the time retention in its exact recurrent form (see the note there);
+one call of that source is one launch of the count, whatever kernels it
+runs.  It needs D a multiple of 64 (at most 512), equal key and value head
+dims that are multiples of 16, and a workspace of B*C*min(K, 128) rows that
+the wrapper allocates (about 2 GB at 128 lanes x 128 frames, D 256, F
+2048); a longer K is walked in slices of 128 frames that carry the state.
+On a CPU tensor it runs `dec_frame_scan_plain`.  Both update the carried
+state in place.  Float32 only.
 
 Layouts (lane-major, as the port's stream state holds them):
   embp (B, K, D) = emb @ Wc[:D], the embedding's part of the decoder's
@@ -119,20 +126,29 @@ def _launch(embp, embn, valid, pe, w, kv, s):
     C = pe.shape[0]
     L, _, H, dv, dk = kv.shape
     Fh = w.w_f1.shape[2]
-    if D % 4 or Fh % 4:
-        raise ValueError(f"dec_frame_scan: D={D} and F={Fh} must be multiples of 4")
-    lib = _build.load("dec_frame_scan", {"FS_NSLOTS": C})
+    if D % 64 or D > 512 or dk % 16 or Fh % 4:
+        raise ValueError(f"dec_frame_scan: the CUDA kernel takes D a multiple of 64 up "
+                         f"to 512, head dims a multiple of 16 and F a multiple of 4; "
+                         f"got D={D}, dk={dk}, F={Fh}")
+    lib = _build.load("dec_frame_scan", {"DTF_D": D, "CR_DK": dk, "CR_DV": dk})
+    size = lib.dec_frame_scan_workspace
+    size.argtypes = [ctypes.c_int] * 7
+    size.restype = ctypes.c_size_t
+    n = size(B, K, C, L, D, H, Fh)
+    if n == 0:
+        raise ValueError(f"dec_frame_scan: the build for D={D}, dk={dk} does not take "
+                         f"{H} heads")
     fn = lib.dec_frame_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    ws = torch.empty(n, device=embp.device, dtype=torch.float32)
     logits = torch.empty(B, K, C, device=embp.device, dtype=torch.float32)
     ptrs = (ctypes.c_void_p * len(w))(*[t.data_ptr() for t in w])
     with torch.cuda.device(embp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptrs, embp.data_ptr(), embn.data_ptr(), valid.data_ptr(),
-                 pe.data_ptr(), logits.data_ptr(), kv.data_ptr(), s.data_ptr(),
-                 B, K, L, D, H, dk, Fh, dk ** -0.5, stream)
+        err = fn(ptrs, embp.data_ptr(), embn.data_ptr(), valid.data_ptr(), pe.data_ptr(),
+                 logits.data_ptr(), kv.data_ptr(), s.data_ptr(), ws.data_ptr(), B, K, C, L,
+                 Fh, stream)
     _build.check(lib, err, "dec_frame_scan")
     launches += 1
     return logits
@@ -142,9 +158,9 @@ def _launch(embp, embn, valid, pe, w, kv, s):
 def dec_frame_scan_plain(embp: torch.Tensor, embn: torch.Tensor, valid: torch.Tensor,
                          pe: torch.Tensor, w: DecWeights, kv: torch.Tensor,
                          s: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic with batched tensor ops: frames and layers in
-    Python loops, lanes and slots batched.  Same in-place contract as
-    dec_frame_scan."""
+    """The frame scan's arithmetic frame by frame, in the TPU kernel's
+    order: frames and layers in Python loops, lanes and slots batched.  Same
+    in-place contract as dec_frame_scan."""
     B, K, D = embp.shape
     C = pe.shape[0]
     L, BC, H, dv, dk = kv.shape

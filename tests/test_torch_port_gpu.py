@@ -9,7 +9,10 @@ imports), run them with
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
 Tolerance: float32 with another summation order than the batched plain
-version (2e-4, as the JAX package's fused-vs-scan tests)."""
+version (2e-4, as the JAX package's fused-vs-scan tests); the products of
+the decoder scan and of the shared-head cached attention run on the tensor
+cores in three TF32 passes, float32-exact to about 1e-6 relative
+(`fseend_tpu_torch/kernels/csrc/tc_f32.cuh`)."""
 
 import dataclasses
 
@@ -143,6 +146,74 @@ def test_server_kernel_path_matches_plain_server(cuda):
     cb = ContinuousBatcher(srv, block=6)
     cb.submit("s0", streams["s0"])
     np.testing.assert_array_equal(cb.run()["s0"], got["s0"])
+
+
+def _dec_case(dev, D, F, C, K, seed):
+    """Random fusion-layer weights and one call's inputs: lane 0 valid
+    throughout, lane 1 invalid in the middle of the block, lane 2 before
+    warm-up for its first frames, lane 3 never valid; incoming counts 0, 3,
+    40 and 1000 per lane (shared by the lane's slots and heads)."""
+    rng = np.random.default_rng(seed)
+    nl, H = 2, 4
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device=dev)
+
+    w = DFS.DecWeights(
+        w_qkvg=r(nl, D, 4 * D, scale=D ** -0.5), b_qkvg=r(nl, 4 * D, scale=0.1),
+        w_ro=r(nl, D, D, scale=D ** -0.5), b_ro=r(nl, D, scale=0.1),
+        w_mi=r(nl, D, 3 * D, scale=D ** -0.5), b_mi=r(nl, 3 * D, scale=0.1),
+        w_mo=r(nl, D, D, scale=D ** -0.5), b_mo=r(nl, D, scale=0.1),
+        w_f1=r(nl, D, F, scale=D ** -0.5), b_f1=r(nl, F, scale=0.1),
+        w_f2=r(nl, F, D, scale=F ** -0.5), b_f2=r(nl, D, scale=0.1),
+        ln_s=1.0 + r(nl, 3, D, scale=0.1), ln_b=r(nl, 3, D, scale=0.1))
+    lanes = 4
+    valid = np.ones((lanes, K), np.float32)
+    valid[1, K // 3:2 * K // 3 + 1] = 0.0
+    valid[2, :min(3, K - 1)] = 0.0
+    valid[3] = 0.0
+    embn = r(lanes, K, D)
+    s0 = np.repeat(np.array([0.0, 3.0, 40.0, 1000.0], np.float32), C)
+    s = torch.as_tensor(np.broadcast_to(s0[None, :, None], (nl, lanes * C, H)).copy(),
+                        device=dev)
+    args = [r(lanes, K, D), embn / embn.norm(dim=-1, keepdim=True),
+            torch.as_tensor(valid, device=dev), r(C, D, scale=0.5), w,
+            r(nl, lanes * C, H, D // H, D // H, scale=0.2), s]
+    return args
+
+
+@pytest.mark.parametrize("D,F", [(64, 48), (256, 2048)])
+@pytest.mark.parametrize("C", [6, 10])
+@pytest.mark.parametrize("K", [1, 7, 128, 200])
+def test_dec_frame_scan_kernel_matches_plain_over_two_calls(cuda, D, F, C, K):
+    """The layer-major kernel against the frame-by-frame plain version:
+    logits and the state after each of two consecutive calls (the second
+    reads the state the first left); K 200 walks two slices."""
+    args = _dec_case(cuda, D, F, C, K, seed=D + C + K)
+    ak = [t.clone() if torch.is_tensor(t) else t for t in args]
+    ap = [t.clone() if torch.is_tensor(t) else t for t in args]
+    for call in range(2):
+        if call:
+            ak[0] = ap[0] = args[0].flip(1).contiguous()
+        n0 = DFS.launches
+        got = DFS.dec_frame_scan(*ak)
+        torch.cuda.synchronize()
+        assert DFS.launches == n0 + 1
+        want = DFS.dec_frame_scan_plain(*ap)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+        torch.testing.assert_close(ak[5], ap[5], atol=ATOL, rtol=0)
+        torch.testing.assert_close(ak[6], ap[6], atol=0, rtol=0)
+
+
+def test_dec_frame_scan_refuses_what_it_does_not_take(cuda):
+    args = _dec_case(cuda, 32, 48, 3, 4, seed=0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        DFS.dec_frame_scan(*args)
+    args = _dec_case(cuda, 64, 48, 3, 4, seed=0)
+    args[0] = args[0].double()
+    with pytest.raises(ValueError, match="float32"):
+        DFS.dec_frame_scan(*args)
 
 
 def test_wrappers_raise_on_unsupported_dtype(cuda):
@@ -346,13 +417,17 @@ def test_train_step_runs_the_fusion_kernels(cuda):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("hd", [8, 16, 64])
+@pytest.mark.parametrize("hd", [6, 8, 12, 16, 64])
 @pytest.mark.parametrize("K,cap,start", [(1, 200, 0), (1, 200, 199), (70, 200, 60),
-                                         (125, 256, 131), (128, 200, 150)])
+                                         (125, 256, 131), (128, 200, 150),
+                                         (128, 2048, 1920), (128, 2048, 0), (200, 256, 10)])
 def test_cached_attention_kernel_matches_plain(cuda, hd, K, cap, start):
-    """Shared head: K not a multiple of the 64-query tile, a cache not a
-    multiple of the 64-position tile, dead tiles, and start + K past the
-    capacity (the clamped write's queries read the whole cache)."""
+    """Shared head: K not a multiple of the query tile and more than one
+    tile, a cache not a multiple of the 64-position tile, dead tiles, start
+    + K past the capacity (the clamped write's queries read the whole
+    cache), and the blockwise encoder's full 2048-position cache; head dims
+    padded to the mma's 8 (6, 12) and rows that are not 16-byte multiples
+    (6)."""
     rng = np.random.default_rng(hd + K + start)
     q, k, v = (_randn(rng, 6, n, hd, dev=cuda) for n in (K, cap, cap))
     n0 = CA.launches
