@@ -10,12 +10,14 @@ kernels, the servers and the step.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
-                                      --parent DIR builds the dec_frame_scan.cu
+                                      --parent DIR builds the enc_frame_scan.cu,
+                                      dec_frame_scan.cu, dec_train_fusion_bwd.cu
                                       and cached_attention.cu found in DIR, an
                                       earlier commit's kernels/csrc with the
-                                      one-block-per-lane decoder scan (others
-                                      are refused), and times them against
-                                      this tree's in turns)
+                                      one-block-per-lane encoder scan and the
+                                      layer-major decoder scan (others are
+                                      refused), and times them against this
+                                      tree's in turns)
 
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -24,7 +26,8 @@ Phases (any failure raises; the script exits non-zero and prints no result):
   3. frame-scan kernels vs plain: B=128 lanes, K=64 frames, C=10 slots, the
      full LSEENDConfig(); random weights from a seed with non-trivial
      BatchNorm statistics; non-zero incoming state; staggered per-lane
-     clocks and lanes that flush part-way; every output and state leaf
+     clocks; lanes that flush from a frame on, lanes with a flushed gap in
+     the middle of the block; every output and state leaf
   4. serve: 6 streams through ContinuousBatcher(block=64) over a
      128-lane StreamingServer on the kernel path, against the plain
      per-frame server; then two lanes are reset and one stream is served
@@ -46,7 +49,7 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      B 2, T 256, L 128, dropout 0 and 0.1: forward y, kvs, ss within 1e-3;
      backward dx within 1e-3 and every weight gradient within 2e-3 of its
      leaf max; at rate 0 the plain backward against torch autograd of the
-     plain forward
+     plain forward; two backward calls give the same bits
   9. T2, the reference's production-shape gradients
      (tests/goldens/ls_train_prod.npz: B 4, T 1000-1500, chunk 500, dropout
      0) through the port's converter, compute_loss and backward, with the
@@ -61,14 +64,17 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      then ms per step, frames/s and peak memory on the fused and the plain
      decoder route, the fused step's parts, and a torch.profiler window
      over two fused steps (device idle share, top kernels)
- 11. times: dec_frame_scan first held against its plain version on the
-     per-frame server's own calls at B=128, K=128 and step()'s K=1; then
+ 11. times: both frame scans first held against their plain versions on
+     the per-frame server's own calls at B=128, K=128 and step()'s K=1; then
      CUDA events after warm-up: process_block of both servers at B=128,
      K=128 (and step(), K=1, with a torch.profiler window), every kernel
      alone beside its plain version and its bound (the tensor-core bound
      for the kernels on the tensor cores, with the FMA-pipe bound beside
-     it); with --parent, the earlier dec_frame_scan, step() and
-     process_block against this tree's (earlier, this, this, earlier)
+     it), both frame scans at K=1, the device time by kernel of one call of
+     each frame scan and of the fusion layer's backward (the *_parts
+     lines); with --parent, the earlier frame scans, step() and
+     process_block against this tree's, and the earlier fusion-layer
+     backward alone and in the T3 step (earlier, this, this, earlier)
  12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
      cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
      cached_attention_perlane at R 256 and 1536, K 125, skewed lane starts
@@ -97,14 +103,16 @@ Phases (any failure raises; the script exits non-zero and prints no result):
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
 the timing lines come before it.  Float32 throughout, TF32 off.  Kernels
-are held within 1e-3 of their plain versions, the two on the tensor cores
-(dec_frame_scan, cached_attention) within 1e-4.
+are held within 1e-3 of their plain versions, the four on the tensor cores
+(both frame scans, cached_attention, the fusion layer's backward: its dx)
+within 1e-4.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -125,8 +133,9 @@ DTF = dict(HEAD, DTF_D=256)                  # the fusion-layer kernels at that 
 DEC_SEED, DEC_B, DEC_T, DEC_L = 1234, 2, 256, 128   # T1
 TRAIN_B, TRAIN_T, TRAIN_SPK, TRAIN_STEPS = 8, 1000, 8, 4   # T3; ls_simu.yaml trains at batch 32
 TRAIN_L = 128                                # fused_dec_chunk of every LS train config
-# kernel vs plain over the fusion layer's forward and backward: float32, weight
-# gradients summed over 5120+ rows with atomics in another order
+# kernel vs plain over the fusion layer's backward: float32 weight gradients
+# summed over 5120+ rows, in row slices added in a fixed order, against
+# torch's sums in another order
 GRAD_RTOL = 2e-3
 # the reference's production-shape gradients (tests/test_train_parity.py:151-163)
 GOLDEN_RTOL, GOLDEN_ATOL = 2e-3, 5e-6
@@ -136,7 +145,8 @@ STREAM_LENS = (137, 5, 50, 512, 777, 1000)  # lane 0 gets the 137-frame stream
 KERNEL_ATOL = 1e-3
 # the kernels whose products run on the tensor cores in three TF32 passes
 # (csrc/tc_f32.cuh), against their plain versions: float32-exact to ~1e-6
-# relative, so held tighter than the FMA-pipe kernels
+# relative, so held tighter than the FMA-pipe kernels (the fusion layer's
+# backward on dx; its weight gradients at GRAD_RTOL)
 TC_ATOL = 1e-4
 # kernel server vs plain server, probabilities after the sigmoid
 SERVE_ATOL = 1e-3
@@ -157,7 +167,8 @@ PEAK_TF32_FLOPS = 495e12
 TC_PASSES = 3                      # 3xTF32: three TF32 products per float32 product
 PEAK_BYTES = 3.35e12
 # the kernels whose products run on the tensor cores (csrc/tc_f32.cuh)
-TENSOR_CORE_KERNELS = ("dec_frame_scan", "cached_attention")
+TENSOR_CORE_KERNELS = ("enc_frame_scan", "dec_frame_scan", "cached_attention",
+                       "dec_train_fusion_bwd")
 
 
 def log(*a):
@@ -185,7 +196,7 @@ def phase_build():
     t0 = time.perf_counter()
     src = parent_dir()
     procs = start_parent_build(src) if src else None
-    secs = _build.build([("enc_frame_scan", {}), ("dec_frame_scan", DTF),
+    secs = _build.build([("enc_frame_scan", DTF), ("dec_frame_scan", DTF),
                          ("chunk_retention", HEAD), ("retention_layer", HEAD),
                          ("dec_train_fusion_fwd", DTF), ("dec_train_fusion_bwd", DTF),
                          ("cached_attention", {"CA_HD": FS_HD})],
@@ -196,10 +207,15 @@ def phase_build():
         log(f"build with the earlier sources: {time.perf_counter() - t0:.1f} s")
 
 
-# --parent DIR: an earlier commit's dec_frame_scan.cu and cached_attention.cu
-# (with the headers beside them), built beside this tree's and timed against
-# them in turns; their C entry points as that commit had them
-PARENT_SOURCES = {"dec_frame_scan": {"FS_NSLOTS": SLOTS}, "cached_attention": {"CA_HD": FS_HD}}
+# --parent DIR: an earlier commit's kernel sources (with the headers beside
+# them), built beside this tree's and timed against them in turns; their C
+# entry points as that commit had them, recognised by these signatures
+PARENT_SOURCES = {
+    "enc_frame_scan": ({}, "int kc, float ffac, float kscale, void* stream"),
+    "dec_frame_scan": (DTF, "float* ws, int B, int K, int C, int L, int F, void* stream"),
+    "dec_train_fusion_bwd": (DTF, "unsigned seed, unsigned thr, float mult, void* stream_"),
+    "cached_attention": ({"CA_HD": FS_HD}, "int R, int K, int cap, void* stream"),
+}
 PARENT = {}
 
 
@@ -209,17 +225,18 @@ def parent_dir():
 
 
 def start_parent_build(src):
-    """One nvcc per earlier source into build/parent/, started now."""
+    """One nvcc per earlier source into build/parent/, started now; refuses a
+    source whose entry point is not the one this script calls."""
     from fseend_tpu_torch.kernels import _build
 
-    text = (src / "dec_frame_scan.cu").read_text()
-    if "FS_NSLOTS" not in text or "float kscale, void* stream" not in text:
-        raise SystemExit(f"--parent: {src}/dec_frame_scan.cu is not the one-block-per-lane "
-                         "frame scan whose entry point this script calls (FS_NSLOTS, kscale)")
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, defines in PARENT_SOURCES.items():
+    for name, (defines, signature) in PARENT_SOURCES.items():
+        text = " ".join((src / f"{name}.cu").read_text().split())
+        if signature not in text:
+            raise SystemExit(f"--parent: {src}/{name}.cu lacks the entry point this script "
+                             f"calls (... {signature})")
         lib = out / f"lib{name}.so"
         cmd = ([_build._nvcc()] + _build.NVCC_FLAGS + [f"-D{k}={v}" for k, v in defines.items()]
                + ["-o", str(lib), str(src / f"{name}.cu")])
@@ -231,43 +248,83 @@ def start_parent_build(src):
 def finish_parent_build(procs):
     """Wait for the earlier sources' builds and fill PARENT with callables of
     the port's wrapper signatures (no launch counts)."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
     libs = {}
     for name, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"earlier {name}.cu: nvcc exit {proc.returncode}\n{out}")
         libs[name] = ctypes.CDLL(str(lib))
-    dec = libs["dec_frame_scan"].dec_frame_scan_launch
-    dec.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    dec.restype = ctypes.c_int
-    att = libs["cached_attention"].cached_attention_launch
-    att.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    att.restype = ctypes.c_int
+    P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def entry(lib, fn, argtypes, restype=ctypes.c_int):
+        f = getattr(libs[lib], fn)
+        f.argtypes, f.restype = argtypes, restype
+        return f
+
+    enc = entry("enc_frame_scan", "enc_frame_scan_launch", [P] * 7 + [I] * 8 + [F32] * 2 + [P])
+    dec = entry("dec_frame_scan", "dec_frame_scan_launch", [P] * 9 + [I] * 5 + [P])
+    dec_ws = entry("dec_frame_scan", "dec_frame_scan_workspace", [I] * 7, ctypes.c_size_t)
+    bwd = entry("dec_train_fusion_bwd", "dtf_backward",
+                [P] * 40 + [I] * 5 + [ctypes.c_uint, ctypes.c_uint, F32, P])
+    bwd_ws = entry("dec_train_fusion_bwd", "dtf_bwd_workspace", [I] * 5, ctypes.c_size_t)
+    att = entry("cached_attention", "cached_attention_launch", [P] * 5 + [I] * 3 + [P])
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def check(what, err):
+        if err:
+            raise RuntimeError(f"earlier {what}: CUDA error {err}")
+
+    def ptrs(ts):
+        return [t.data_ptr() for t in ts]
+
+    def enc_frame_scan(h0, flush, w, kv, s, ring, *, ffac):
+        B, K, D = h0.shape
+        L, _, H, _, dk = kv.shape
+        hout = torch.empty_like(h0)
+        check("enc_frame_scan", enc((P * len(w))(*ptrs(w)), *ptrs((h0, flush, hout, kv, s, ring)),
+                                    B, K, L, D, H, dk, w.wf1a.shape[2], w.dw.shape[1], ffac,
+                                    dk ** -0.5, stream()))
+        return hout
 
     def dec_frame_scan(embp, embn, valid, pe, w, kv, s):
         B, K, D = embp.shape
         C = pe.shape[0]
-        L, _, H, _, dk = kv.shape
+        L, _, H, _, _ = kv.shape
+        Fh = w.w_f1.shape[2]
+        ws = torch.empty(dec_ws(B, K, C, L, D, H, Fh), device=embp.device)
         logits = torch.empty(B, K, C, device=embp.device)
-        ptrs = (ctypes.c_void_p * len(w))(*[t.data_ptr() for t in w])
-        err = dec(ptrs, embp.data_ptr(), embn.data_ptr(), valid.data_ptr(), pe.data_ptr(),
-                  logits.data_ptr(), kv.data_ptr(), s.data_ptr(), B, K, L, D, H, dk,
-                  w.w_f1.shape[2], dk ** -0.5, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"earlier dec_frame_scan: CUDA error {err}")
+        check("dec_frame_scan", dec((P * len(w))(*ptrs(w)),
+                                    *ptrs((embp, embn, valid, pe, logits, kv, s, ws)),
+                                    B, K, C, L, Fh, stream()))
         return logits
+
+    def fusion_layer_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate):
+        B, C, T, _ = x.shape
+        Fh = w.wf1.shape[0]
+        x, dy, kvs, ss = (t.contiguous() for t in (x, dy, kvs, ss))
+        w = [t.contiguous() for t in w]
+        wt = [w[i].T.contiguous() for i in (0, 2, 4, 6, 8, 10)]
+        dx = torch.empty_like(x)
+        grads = [torch.zeros_like(t) for t in w]
+        ws = x.new_empty(bwd_ws(B * C, T, chunk, n_heads, Fh))
+        check("dec_train_fusion_bwd", bwd(*ptrs((x, dy, kvs, ss, *w, *wt, dx, *grads, ws)),
+                                          B, C, T, chunk, Fh, *DT._rate_args(seed, rate),
+                                          stream()))
+        return dx, DT.FusionWeights(*grads)
 
     def cached_attention(q, k, v, start):
         R, K, _ = q.shape
         st = torch.as_tensor(start, device=q.device).to(torch.int32).reshape(1)
         out = torch.empty_like(q)
-        err = att(q.data_ptr(), k.data_ptr(), v.data_ptr(), st.data_ptr(), out.data_ptr(), R,
-                  K, k.shape[1], torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"earlier cached_attention: CUDA error {err}")
+        check("cached_attention", att(*ptrs((q, k, v, st, out)), R, K, k.shape[1], stream()))
         return out
 
-    PARENT.update(dec_frame_scan=dec_frame_scan, cached_attention=cached_attention)
+    PARENT.update(enc_frame_scan=enc_frame_scan, dec_frame_scan=dec_frame_scan,
+                  dec_train_fusion_bwd=fusion_layer_bwd, cached_attention=cached_attention)
 
 
 def via(mod, name, fn, call):
@@ -282,14 +339,18 @@ def via(mod, name, fn, call):
     return run
 
 
-def in_turns(what, earlier, this, reps, card):
+def in_turns(what, earlier, this, reps, card, rounds=1):
     """The earlier kernel's and this tree's, timed earlier, this, this,
-    earlier on one card (CUDA events over reps calls each)."""
-    ms = [cuda_ms(earlier, reps), cuda_ms(this, reps), cuda_ms(this, reps),
-          cuda_ms(earlier, reps)]
+    earlier on one card (CUDA events over reps calls each), `rounds` times;
+    the medians of each side's readings.  A host-bound call (`step()`)
+    spreads by 15 % between readings, so it takes several rounds."""
+    ms = []
+    for _ in range(rounds):
+        ms += [cuda_ms(earlier, reps), cuda_ms(this, reps), cuda_ms(this, reps),
+               cuda_ms(earlier, reps)]
     log(json.dumps({"earlier_vs_this": {"what": what, "ms_in_turns": ms,
-                                        "earlier_ms": (ms[0] + ms[3]) / 2,
-                                        "this_ms": (ms[1] + ms[2]) / 2},
+                                        "earlier_ms": float(np.median(ms[0::4] + ms[3::4])),
+                                        "this_ms": float(np.median(ms[1::4] + ms[2::4]))},
                     "card": card}))
 
 
@@ -360,7 +421,8 @@ def compare(name, kernel_out, plain_out, labels, atol=KERNEL_ATOL):
                                  f"{tuple(b.shape)} or non-finite values")
         err = (a - b).abs().max().item()
         worst = max(worst, err)
-        log(f"  {name}.{lab}: max abs diff {err:.3e} (tol {atol:g})")
+        log(f"  {name}.{lab}: max abs diff {err:.3e} (tol {atol:g}; plain's max |value| "
+            f"{b.abs().max().item():.3g})")
         if not err <= atol:
             raise AssertionError(f"{name}.{lab}: kernel differs from plain by {err}")
     return worst
@@ -395,19 +457,25 @@ def phase_kernel_vs_plain(cfg, model, rng):
     no_flush = torch.zeros(K, B, dtype=torch.bool, device="cuda")
     state, _ = ls_eend.ls_stream_block_fused(model, state, xs, no_flush, SLOTS, packed)
     # staggered clocks: valid flips mid-block on lanes whose t < conv_delay;
-    # a third of the lanes flush from a frame inside the block on
+    # a third of the lanes flush from a frame inside the block on, a third
+    # have a flushed gap in the middle (the encoder reads its conv ring as it
+    # stands there, then takes frames again)
     t = rng.integers(0, 2 * cfg.conv_delay, B)
     state["t"] = torch.as_tensor(t, dtype=torch.int32, device="cuda")
     fl = np.zeros((K, B), bool)
     for b in range(0, B, 3):
         fl[rng.integers(1, K):, b] = True
+    for b in range(1, B, 3):
+        start = rng.integers(0, K - 1)
+        fl[start:rng.integers(start + 1, K), b] = True
     xs2 = torch.as_tensor(rng.standard_normal((B, K, cfg.in_size)), dtype=torch.float32,
                           device="cuda")
     flush = torch.as_tensor(fl, device="cuda")
     log(f"incoming state: enc scale max {state['enc_scale'].max().item():.0f}, "
         f"dec kv max abs {state['dec_kv'].abs().max().item():.3f}; "
         f"{int((t < cfg.conv_delay).sum())} lanes start invalid, "
-        f"{int(fl.any(0).sum())} lanes flush part-way")
+        f"{int(fl[-1].sum())} lanes flush to the end of the block, "
+        f"{int((fl.any(0) & ~fl[-1]).sum())} have a flushed gap")
     got = capture_kernel_inputs(
         lambda: ls_eend.ls_stream_block_fused(model, state, xs2, flush, SLOTS, packed))
     res = run_kernels(got,
@@ -417,7 +485,7 @@ def phase_kernel_vs_plain(cfg, model, rng):
                        "dec_frame_scan": DFS.dec_frame_scan_plain})
     errs = {
         "enc_frame_scan": compare("enc_frame_scan", *res["enc_frame_scan"],
-                                  ("h", "kv", "s", "ring")),
+                                  ("h", "kv", "s", "ring"), atol=TC_ATOL),
         "dec_frame_scan": compare("dec_frame_scan", *res["dec_frame_scan"],
                                   ("logits", "kv", "s"), atol=TC_ATOL),
     }
@@ -689,22 +757,38 @@ def dec_layer_weights(model):
     return kink_free(w._replace(wqkvg=w.wqkvg * 4), SEED)
 
 
-def compare_grads(label, got, want):
-    """(dx, weight gradients) against a reference: dx within KERNEL_ATOL,
-    each weight gradient within GRAD_RTOL of its leaf max.  Returns the
-    largest absolute difference."""
+def compare_grads(label, got, want, dx_atol=TC_ATOL):
+    """(dx, weight gradients) against a reference: dx within dx_atol, each
+    weight gradient within GRAD_RTOL of its leaf max.  Returns the largest
+    absolute difference."""
     from fseend_tpu_torch.kernels import dec_train_fusion as DT
 
     (dx, dw), (dx_r, dw_r) = got, want
-    worst = compare(label, [dx], [dx_r], ("dx",))
+    worst = compare(label, [dx], [dx_r], ("dx",), atol=dx_atol)
+    share = 0.0                                  # the largest error over its bound
     for name, g, r in zip(DT.FusionWeights._fields, dw, dw_r):
         err, tol = (g - r).abs().max().item(), GRAD_RTOL * r.abs().max().item()
         worst = max(worst, err)
+        share = max(share, err / tol)
         if not (torch.isfinite(g).all() and err <= tol):
             raise AssertionError(f"{label}.{name}: differs by {err} > {tol}")
     log(f"  {label}: 14 weight gradients within {GRAD_RTOL:g} of their leaf max "
-        f"(largest abs diff {worst:.3e})")
+        f"(largest abs diff {worst:.3e}, the worst at {share:.3f} of its bound)")
     return worst
+
+
+def same_bits(label, got, again):
+    """Two backward calls on the same inputs: dx and every weight gradient
+    the same to the bit (no atomics: row slices added in a fixed order)."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx",) + DT.FusionWeights._fields, (got[0], *got[1]),
+                          (again[0], *again[1])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: a second call gives other bits in {name} "
+                                 f"(max {(a - b).abs().max().item():.3e})")
+    log(f"  {label}: a second call gives dx and the 14 weight gradients bit for bit")
 
 
 def phase_dec_train_vs_plain(cfg, model, rng):
@@ -731,13 +815,16 @@ def phase_dec_train_vs_plain(cfg, model, rng):
         plain = DT.fusion_layer_bwd_plain(x, dy, kvs, ss, *args)
         errs["dec_train_fusion_bwd"] = max(errs["dec_train_fusion_bwd"], compare_grads(
             f"dec_train_fusion_bwd[rate={rate}]", got, plain))
+        same_bits(f"dec_train_fusion_bwd[rate={rate}]", got,
+                  DT.fusion_layer_bwd(x, dy, kvs, ss, *args))
         if rate == 0.0:
             xa = x.clone().requires_grad_(True)
             wa = DT.FusionWeights(*(t.clone().requires_grad_(True) for t in w))
             ya, _, _ = DT.fusion_layer_fwd_plain(xa, wa, DEC_SEED, H, DEC_L, rate)
             (ya * dy).sum().backward()
             compare_grads("plain backward vs autograd of the plain forward", plain,
-                          (xa.grad, DT.FusionWeights(*(t.grad for t in wa))))
+                          (xa.grad, DT.FusionWeights(*(t.grad for t in wa))),
+                          dx_atol=KERNEL_ATOL)
             del xa, wa, ya
     return errs
 
@@ -933,6 +1020,12 @@ def phase_train(cfg, card):
 
             rows[route].update(loss_backward_ms=cuda_ms(loss_backward, reps=3),
                                encoder_backward_ms=cuda_ms(encoder_backward, reps=3))
+            if PARENT:  # the step on the earlier fusion-layer backward
+                earlier = via(DT, "_launch_bwd", PARENT["dec_train_fusion_bwd"],
+                              lambda: step(state, batch, SEED))
+                in_turns("T3 train step, fused decoder", earlier,
+                         lambda: step(state, batch, SEED), 3, card)
+                profile_window(earlier, 2, card, "fused train step, earlier backward")
             profile_window(lambda: step(state, batch, SEED), 2, card, "fused train step")
         log(json.dumps({"train_step": rows[route], "card": card}))
         del model, state, step
@@ -1044,9 +1137,10 @@ def kernel_bound(name, args, cfg):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     wbytes = sum(t.numel() * 4 for t in weights)
     if name == "enc_frame_scan":
-        # every weight once per lane-frame (from L2), the retention state read
-        # and written once per frame (device memory)
-        design = wbytes * B * K + 2 * K * state[0].numel() * 4
+        # layer-major: the weights once per slice of 128 frames, the state
+        # once per layer (in nbytes), and per layer and (lane, frame) row the
+        # workspace buffers written and read: about 42 D + 4 F floats
+        design = nbytes + wbytes * -(-K // 128) + L * B * K * (42 * D + 4 * Fh) * 4
     elif name == "dec_frame_scan":
         # layer-major: the weights once per slice of 128 frames, the state
         # once per layer (in nbytes), and per layer and (lane, slot, frame)
@@ -1108,28 +1202,36 @@ def profile_window(fn, reps, card, what):
                     "card": card}))
 
 
-def hold_dec_on_main_path(server, xs, got):
-    """dec_frame_scan against its plain version on the per-frame server's
-    own calls: the process_block call captured in `got` (K = 128: two
-    retention chunks, the state carried between them) and a step() (K = 1:
-    live row groups, products split along k).  Returns the larger error."""
+FRAME_SCAN_LEAVES = {"enc_frame_scan": ("h", "kv", "s", "ring"),
+                     "dec_frame_scan": ("logits", "kv", "s")}
+
+
+def hold_on_main_path(server, xs, got):
+    """Both frame scans against their plain versions on the per-frame
+    server's own calls: the process_block call captured in `got` (K = 128:
+    two retention chunks, the state carried between them) and a step() (K =
+    1: live row groups, products split along k).  Returns the larger error
+    of each and step()'s arguments."""
     from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
 
     step_got = capture_kernel_inputs(lambda: server.step(xs[:, 0]))
-    err = 0.0
+    fns = ({"enc_frame_scan": EFS.enc_frame_scan, "dec_frame_scan": DFS.dec_frame_scan},
+           {"enc_frame_scan": EFS.enc_frame_scan_plain,
+            "dec_frame_scan": DFS.dec_frame_scan_plain})
+    errs = dict.fromkeys(FRAME_SCAN_LEAVES, 0.0)
     for label, g in (("process_block", got), ("step()", step_got)):
-        args, _ = g["dec_frame_scan"]
-        res = run_kernels({"dec_frame_scan": g["dec_frame_scan"]},
-                          {"dec_frame_scan": DFS.dec_frame_scan},
-                          {"dec_frame_scan": DFS.dec_frame_scan_plain})["dec_frame_scan"]
-        B, K, _ = args[0].shape
-        err = max(err, compare(f"dec_frame_scan[main path {label} B={B} K={K}]", *res,
-                               ("logits", "kv", "s"), atol=TC_ATOL))
-    return err
+        res = run_kernels(g, *fns)
+        for name, leaves in FRAME_SCAN_LEAVES.items():
+            B, K, _ = g[name][0][0].shape
+            errs[name] = max(errs[name], compare(f"{name}[main path {label} B={B} K={K}]",
+                                                 *res[name], leaves, atol=TC_ATOL))
+    return errs, step_got
 
 
 def phase_times(cfg, model, rng, card, main_path_args):
     from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
     from fseend_tpu_torch.ops import retention as R
     from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
@@ -1140,7 +1242,7 @@ def phase_times(cfg, model, rng, card, main_path_args):
                          device="cuda")
     server.process_block(xs)                          # non-zero state
     got = capture_kernel_inputs(lambda: server.process_block(xs))
-    dec_err = hold_dec_on_main_path(server, xs, got)
+    scan_errs, step_got = hold_on_main_path(server, xs, got)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fps_ms = cuda_ms(lambda: server.process_block(xs), reps=5)
@@ -1150,34 +1252,45 @@ def phase_times(cfg, model, rng, card, main_path_args):
         args, kw = got[name]
         rows[name] = time_kernel(name, f"B={B} K={K}", getattr(mod, name),
                                  getattr(mod, name + "_plain"), args, kw, cfg, card)
-    rows["dec_frame_scan"]["max_abs_err"] = dec_err
-    # where the decoder scan's time goes: device time by kernel of one call
-    a = clone_args(got["dec_frame_scan"][0])
-    busy = device_ms_by_kernel(lambda: DFS.dec_frame_scan(*a))
-    log(json.dumps({"dec_frame_scan_parts": {"device_busy_ms": sum(busy.values()),
-                                             "top": top_kernels(busy, 1, n=12)},
-                    "card": card}))
-    del a
+        rows[name]["max_abs_err"] = scan_errs[name]
+        args, kw = step_got[name]
+        time_kernel(name, f"step() B={B} K=1", getattr(mod, name),
+                    getattr(mod, name + "_plain"), args, kw, cfg, card)
+        # where the scan's time goes: device time by kernel of one call
+        a = clone_args(got[name][0])
+        busy = device_ms_by_kernel(lambda: getattr(mod, name)(*a, **got[name][1]))
+        log(json.dumps({f"{name}_parts": {"device_busy_ms": sum(busy.values()),
+                                          "top": top_kernels(busy, 1, n=12)},
+                        "card": card}))
+        del a
     # frame latency of the single-frame path: step() is a K=1 block
     step_ms = cuda_ms(lambda: server.step(xs[:, 0]), reps=20)
     log(json.dumps({"step": {"lanes": B, "ms": step_ms, "frames_per_s": B / (step_ms / 1e3)},
                     "card": card}))
     profile_window(lambda: server.step(xs[:, 0]), 5, card, "per-frame step()")
     if PARENT:
-        args, kw = got["dec_frame_scan"]
-        old = PARENT["dec_frame_scan"]
-        a_old, a_new = clone_args(args), clone_args(args)
-        diff = (old(*clone_args(args)) - DFS.dec_frame_scan(*clone_args(args))).abs().max()
-        log(f"  earlier dec_frame_scan vs this: logits max abs diff {diff.item():.3e}")
-        in_turns(f"dec_frame_scan B={B} K={K}", lambda: old(*a_old),
-                 lambda: DFS.dec_frame_scan(*a_new), 5, card)
-        in_turns(f"per-frame step() B={B}", via(DFS, "dec_frame_scan", old,
-                                               lambda: server.step(xs[:, 0])),
-                 lambda: server.step(xs[:, 0]), 20, card)
+        for (mod, name), (label, g, reps, rounds) in itertools.product(
+                frame_scans(), ((f"B={B} K={K}", got, 5, 1),
+                                (f"step() B={B} K=1", step_got, 20, 5))):
+            args, kw = g[name]
+            old = PARENT[name]
+            a_old, a_new = clone_args(args), clone_args(args)
+            diff = (old(*clone_args(args), **kw)
+                    - getattr(mod, name)(*clone_args(args), **kw)).abs().max()
+            log(f"  earlier {name} vs this at {label}: output max abs diff {diff.item():.3e}")
+            in_turns(f"{name} {label}", lambda: old(*a_old, **kw),
+                     lambda: getattr(mod, name)(*a_new, **kw), reps, card, rounds)
+            del a_old, a_new
+
+        def earlier(call):  # call() on the earlier frame scans
+            return via(EFS, "enc_frame_scan", PARENT["enc_frame_scan"],
+                       via(DFS, "dec_frame_scan", PARENT["dec_frame_scan"], call))
+
+        in_turns(f"per-frame step() B={B}", earlier(lambda: server.step(xs[:, 0])),
+                 lambda: server.step(xs[:, 0]), 20, card, rounds=5)
         in_turns(f"per-frame process_block B={B} K={K}",
-                 via(DFS, "dec_frame_scan", old, lambda: server.process_block(xs)),
+                 earlier(lambda: server.process_block(xs)),
                  lambda: server.process_block(xs), 3, card)
-        del a_old, a_new
     fps = B * K / (fps_ms / 1e3)
     other_ms = fps_ms - rows["enc_frame_scan"]["ms"] - rows["dec_frame_scan"]["ms"]
     log(json.dumps({"process_block": {"server": "per-frame", "lanes": B, "K": K, "ms": fps_ms,
@@ -1264,11 +1377,31 @@ def phase_train_times(cfg, card, calls):
         torch.cuda.synchronize()
         want = plain(*check, **kw)
         label = f"{name}[main path {tuple(args[0].shape)}]"
-        errs[name] = (compare(label, got, want, ("y", "kvs", "ss")) if name.endswith("fwd")
-                      else compare_grads(label, got, want))
+        if name.endswith("fwd"):
+            errs[name] = compare(label, got, want, ("y", "kvs", "ss"))
+        else:
+            errs[name] = compare_grads(label, got, want)
+            same_bits(label, got, kern(*check, **kw))
         del got, want
         rows[name] = time_kernel(name, f"main path {tuple(args[0].shape)} L={args[-2]}", kern,
                                  plain, args, kw, cfg, card)
+    # where the backward's time goes: device time by kernel of one call (and
+    # of the earlier kernel's, with --parent), then the two in turns
+    args, kw = calls["fusion_layer_bwd"]
+    versions = [("this", DT.fusion_layer_bwd)]
+    if PARENT:
+        versions.insert(0, ("earlier", PARENT["dec_train_fusion_bwd"]))
+    for which, fn in versions:
+        busy = device_ms_by_kernel(lambda: fn(*args, **kw))
+        log(json.dumps({"dec_train_fusion_bwd_parts": {
+            "kernel": which, "device_busy_ms": sum(busy.values()),
+            "top": top_kernels(busy, 1, n=16)}, "card": card}))
+    if PARENT:
+        old = PARENT["dec_train_fusion_bwd"]
+        diff = (old(*args, **kw)[0] - DT.fusion_layer_bwd(*args, **kw)[0]).abs().max()
+        log(f"  earlier dec_train_fusion_bwd vs this: dx max abs diff {diff.item():.3e}")
+        in_turns(f"dec_train_fusion_bwd main path {tuple(args[0].shape)}",
+                 lambda: old(*args, **kw), lambda: DT.fusion_layer_bwd(*args, **kw), 3, card)
     log("library_ms: null for the six LS kernels -- no single PyTorch call computes a "
         "frame scan, the chunkwise core with its carried state, the whole retention layer, "
         "or a fusion layer's forward or backward")
@@ -1745,8 +1878,8 @@ def main() -> int:
     train_launches, train_calls, _ = phase_train(cfg, card)
     launches.update(train_launches)
     rows = phase_times(cfg, model, rng, card, main_path_args)
-    errs["dec_frame_scan"] = max(errs["dec_frame_scan"],
-                                 rows["dec_frame_scan"].pop("max_abs_err"))
+    for name in FRAME_SCAN_LEAVES:
+        errs[name] = max(errs[name], rows[name].pop("max_abs_err"))
     train_rows, train_errs = phase_train_times(cfg, card, train_calls)
     rows.update(train_rows)
     for name in dec_errs:

@@ -8,30 +8,43 @@
 //
 // What bounds it on the card: operations, about three times the forward's:
 // the forward is recomputed once, and every product of the backward is two
-// (the input gradient and the weight gradient).
+// (the input gradient and the weight gradient).  0.84 TFLOP at the T3 shape
+// (B 8, C 10, T 1024, D 256, F 2048): 12.5 ms of the FMA pipe, about 5.1 ms
+// of the tensor cores at three TF32 passes.
 //
 // The TPU kernel recomputes each chunk's forward in VMEM inside its reverse
 // sweep.  Here the recompute runs first, over the whole layer, with the
-// forward's kernels into a workspace (x, dy and the checkpoints are all the
-// backward reads from the forward, as in the JAX contract), and the
+// forward's row kernels into a workspace (x, dy and the checkpoints are all
+// the backward reads from the forward, as in the JAX contract), and the
 // backward then runs layer-wide, in reverse:
 //   ln_bwd (LN3) -> wgrad, colsum, linear (FFN out) -> relu_drop (the same
 //   kernel: mask * relu') -> wgrad, colsum, linear accumulated (FFN in) ->
 //   ln_bwd (LN2) -> ... slot_attn backward ... -> ln_bwd (LN1) -> out
 //   projection -> gate_bwd -> core_bwd_kernel -> the q | k | v | g products.
-// Weight gradients are G += A^T X over all B*C*T rows (lin::wgrad_kernel,
-// row slices added with atomics), so their last bits vary from run to run.
+// Every product runs on the tensor cores, float32-exact (tc_f32.cuh): the
+// recompute's as A W with the transposed weights (in, out), the input
+// gradients dX = G W with the weights as they are (out, in), accumulated
+// into dx where the residual stream's gradient gathers.  Weight gradients
+// G = A^T X over all B*C*T rows (tc::wgrad_kernel), bias gradients (column
+// sums) and the LayerNorms' scale and bias gradients are sums over row
+// slices added in a fixed order, with no atomics: every gradient comes out
+// the same to the bit from run to run.
 //
 // core_bwd_kernel is the retention core's backward: one block per (b, c,
 // head), the chunks in reverse, carrying dS, the cotangent of the state
 // after the chunk, in shared memory (zero after the last chunk).  Chunk n's
 // k and v gradients take dS_n alone; the chunk's cross read adds
 // qid^T (doh / all) to make dS_{n-1}.  The row sums, the incoming scale and
-// their max are constants (the reference detaches them).  The masked
-// L x L products of the chunk (S = mask * Q K^T and its gradient) go to a
-// per-block scratch in device memory (L2 at L = 128), and each gradient
-// element is one thread's complete sum, so no element is added to twice.
+// their max are constants (the reference detaches them).  A chunk of L rows
+// is walked in tiles of 64 rows held in shared memory, and every product
+// (the masked L x L score tiles S = mask * Q K~^T and Dm = mask * P V^T, and
+// the dk x dk state products) runs on the tensor cores (tc_f32.cuh, small
+// parts rounded to nearest): a pass for the row sums, one over the key tiles
+// for dk and dv, one over the query tiles for dq, one for dS.  Each
+// gradient element is one warp's complete sum, so no element is added to
+// twice.
 #include "dec_train_fusion_common.cuh"
+#include "tc_f32.cuh"
 
 using namespace dtf;
 
@@ -44,103 +57,237 @@ struct CoreBwdArgs {
   int ldp;
   float *dq, *dk, *dv;  // stride ldq
   const float *kvs, *ss;
-  float* scratch;  // 2 L L floats per block
   int C, T, L;
   float kscale;
 };
 
-template <int DK_>
+constexpr int kBt = 64;        // rows of a tile
+constexpr int kLdt = DK + 4;   // row stride of the (rows, DK) tiles
+constexpr int kLdx = kBt + 4;  // row stride of the (kBt, kBt) score tiles
+constexpr int NJD = DK / 16;   // 8-column mma tiles of a warp's half of DK
+constexpr int NJS = kBt / 16;  // 8-column mma tiles of a warp's half of a score tile
+
+constexpr int core_smem_floats(int L) {
+  return 4 * kBt * kLdt + 2 * kBt * kLdx + 2 * DK * kLdt + 3 * L;
+}
+
+// acc[j] += A B for a warp's 16 rows and NJ * 8 columns over kn (a multiple
+// of 8): A(m, k) with m < 16, B(k, n) with n < 8 NJ, both read from shared
+// memory by the caller's accessors
+template <int NJ, class FA, class FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NJ][4], int kn, FA A, FB Bm) {
+  const int g = tc::lane_g(), t = tc::lane_t();
+  for (int k0 = 0; k0 < kn; k0 += 8) {
+    tc::FragA fa;
+    tc::set_a<true>(fa, A(g, k0 + t), A(g + 8, k0 + t), A(g, k0 + t + 4), A(g + 8, k0 + t + 4));
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      tc::FragB fb;
+      tc::split_rn(Bm(k0 + t, 8 * j + g), fb.big[0], fb.small[0]);
+      tc::split_rn(Bm(k0 + t + 4, 8 * j + g), fb.big[1], fb.small[1]);
+      tc::mma3(acc[j], fa, fb);
+    }
+  }
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero(float (&acc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// f(m, n, v) for each accumulator element of a warp: row m < 16, column n
+template <int NJ, class F>
+__device__ __forceinline__ void each(const float (&acc)[NJ][4], F f) {
+  const int g = tc::lane_g(), t = tc::lane_t();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f(g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1), acc[j][e]);
+}
+
+// rows [r0, r0 + kBt) of a (L, DK) operand of row stride ld into a tile,
+// rows at or past L zero
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int ld, int r0, int L) {
+  for (int i = threadIdx.x; i < kBt * (DK / 4); i += blockDim.x) {
+    const int r = i / (DK / 4), c = (i % (DK / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < L) v = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * ld + c);
+    *reinterpret_cast<float4*>(dst + r * kLdt + c) = v;
+  }
+}
+
 __global__ void __launch_bounds__(256) core_bwd_kernel(CoreBwdArgs a) {
   extern __shared__ __align__(16) float sm[];
-  float* dS = sm;             // (DK, DK) the state cotangent
-  float* KV = dS + DK_ * DK_;  // (DK, DK) the state the chunk read
-  float* all = KV + DK_ * DK_;  // (L)
-  const int tid = threadIdx.x, nt = blockDim.x;
+  float* Qi = sm;                 // (kBt, kLdt) query-side tile of q
+  float* Pi = Qi + kBt * kLdt;    // (kBt, kLdt) query-side tile of doh / all
+  float* Kj = Pi + kBt * kLdt;    // (kBt, kLdt) key-side tile of k~
+  float* Vj = Kj + kBt * kLdt;    // (kBt, kLdt) key-side tile of v
+  float* Sx = Vj + kBt * kLdt;    // (kBt, kLdx) the tile of S
+  float* Dx = Sx + kBt * kLdx;    // (kBt, kLdx) the tile of Dm
+  float* KV = Dx + kBt * kLdx;    // (DK, kLdt) the state the chunk read, [k][v]
+  float* dS = KV + DK * kLdt;     // (DK, kLdt) the state cotangent, [k][v]
+  const int L = a.L, T = a.T, N = T / L, ld = a.ldq, nb = (L + kBt - 1) / kBt;
+  float* all = dS + DK * kLdt;    // (L) the row renormalizers
+  float* rsq = all + L;           // (L) 1 / sqrt(i + 1)
+  float* scl = rsq + L;           // (L) sqrt(L) / sqrt(i + 1)
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wr = 16 * (warp >> 1);                 // the warp's 16 rows of a 64-row output
+  const int wcs = (kBt / 2) * (warp & 1);          // its half of a score tile's columns
+  const int wcd = (DK / 2) * (warp & 1);           // its half of DK
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int T = a.T, L = a.L, N = T / L, ld = a.ldq;
-  float* S = a.scratch + (size_t)bh * 2 * L * L;
-  float* Dm = S + (size_t)L * L;
   const float sqL = sqrtf((float)L), wlast = (float)(1.0 / sqrt((double)L));
 
-  for (int i = tid; i < DK_ * DK_; i += nt) dS[i] = 0.f;
+  for (int i = tid; i < DK * kLdt; i += blockDim.x) dS[i] = 0.f;
+  for (int i = tid; i < L; i += blockDim.x) {
+    rsq[i] = 1.f / sqrtf(i + 1.f);
+    scl[i] = sqL / sqrtf(i + 1.f);
+  }
+  // S tile (I, J) into Sx: mask * (Qi Kj^T) / sqrt(i + 1)
+  auto score = [&](float* X, const float* Aop, const float* Bop, int I, int J) {
+    float acc[NJS][4];
+    zero(acc);
+    warp_mma(acc, DK, [&](int m, int k) { return Aop[(wr + m) * kLdt + k]; },
+             [&](int k, int n) { return Bop[(wcs + n) * kLdt + k]; });
+    each(acc, [&](int m, int n, float v) {
+      const int i = I * kBt + wr + m, j = J * kBt + wcs + n;
+      X[(wr + m) * kLdx + wcs + n] = j <= i && i < L ? v * rsq[i] : 0.f;
+    });
+  };
   for (int n = N - 1; n >= 0; --n) {
     const size_t row0 = (size_t)b * T + (size_t)n * L;
-    const float* q = a.q + row0 * ld + h * DK_;
-    const float* k = a.k + row0 * ld + h * DK_;
-    const float* v = a.v + row0 * ld + h * DK_;
-    float* P = a.p + row0 * a.ldp + h * DK_;
-    float* dq = a.dq + row0 * ld + h * DK_;
-    float* dk = a.dk + row0 * ld + h * DK_;
-    float* dv = a.dv + row0 * ld + h * DK_;
+    const float* q = a.q + row0 * ld + h * DK;
+    const float* k = a.k + row0 * ld + h * DK;
+    const float* v = a.v + row0 * ld + h * DK;
+    float* P = a.p + row0 * a.ldp + h * DK;
     const size_t slot = (((size_t)(b / a.C) * N + n) * H + h) * a.C + b % a.C;
-    __syncthreads();  // the last chunk is done with KV, all and the scratch
-    for (int i = tid; i < DK_ * DK_; i += nt) KV[i] = a.kvs[slot * DK_ * DK_ + i];
     const float s_in = a.ss[slot];
-    // S = mask * Q K^T
-    for (int e = tid; e < L * L; e += nt) {
-      const int i = e / L, j = e % L;
-      float acc = 0.f;
-      if (j <= i) {
-        for (int c = 0; c < DK_; ++c) acc = fmaf(q[(size_t)i * ld + c], k[(size_t)j * ld + c], acc);
-        acc *= 1.f / sqrtf(i + 1.f);
+    __syncthreads();  // the last chunk is done with every tile
+    for (int i = tid; i < DK * DK; i += blockDim.x)
+      KV[(i / DK) * kLdt + i % DK] = a.kvs[slot * DK * DK + i];
+    for (int i = tid; i < L; i += blockDim.x) all[i] = 0.f;
+    // ---- the row sums of |S|, then P = doh / max(max(sum, 1), s_in) ----
+    for (int I = 0; I < nb; ++I) {
+      __syncthreads();
+      load_tile(Qi, q, ld, I * kBt, L);
+      for (int J = 0; J <= I; ++J) {
+        load_tile(Kj, k, ld, J * kBt, L);
+        __syncthreads();
+        score(Sx, Qi, Kj, I, J);
+        __syncthreads();
+        {  // four threads a row, 16 columns each
+          const int r = tid >> 2, c0 = (tid & 3) * 16;
+          float sum = 0.f;
+          for (int c = 0; c < 16; ++c) sum += fabsf(Sx[r * kLdx + c0 + c]);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          if ((tid & 3) == 0 && I * kBt + r < L) all[I * kBt + r] += sum;
+        }
+        __syncthreads();
       }
-      S[e] = acc;
     }
+    for (int i = tid; i < L; i += blockDim.x) all[i] = fmaxf(fmaxf(all[i], 1.f), s_in);
     __syncthreads();
-    for (int i = tid; i < L; i += nt) {
-      float r = 0.f;
-      for (int j = 0; j <= i; ++j) r += fabsf(S[(size_t)i * L + j]);
-      all[i] = fmaxf(fmaxf(r, 1.f), s_in);
+    for (int e = tid; e < L * DK; e += blockDim.x)
+      P[(size_t)(e / DK) * a.ldp + e % DK] /= all[e / DK];
+    __syncthreads();  // P is read back by the tiles below
+    // ---- per key tile J: dv = S^T P + (K dS) / sqrt(L),
+    //      dk = (Dm^T Q + (V dS^T) / sqrt(L)) kscale ----
+    for (int J = 0; J < nb; ++J) {
+      __syncthreads();
+      load_tile(Kj, k, ld, J * kBt, L);
+      load_tile(Vj, v, ld, J * kBt, L);
+      float dv[NJD][4], dk[NJD][4];
+      zero(dv);
+      zero(dk);
+      for (int I = J; I < nb; ++I) {
+        __syncthreads();
+        load_tile(Qi, q, ld, I * kBt, L);
+        load_tile(Pi, P, a.ldp, I * kBt, L);
+        __syncthreads();
+        score(Sx, Qi, Kj, I, J);
+        score(Dx, Pi, Vj, I, J);
+        __syncthreads();
+        warp_mma(dv, kBt, [&](int m, int kk) { return Sx[kk * kLdx + wr + m]; },
+                 [&](int kk, int c) { return Pi[kk * kLdt + wcd + c]; });
+        warp_mma(dk, kBt, [&](int m, int kk) { return Dx[kk * kLdx + wr + m]; },
+                 [&](int kk, int c) { return Qi[kk * kLdt + wcd + c]; });
+      }
+      float kd[NJD][4], vd[NJD][4];
+      zero(kd);
+      zero(vd);
+      warp_mma(kd, DK, [&](int m, int u) { return Kj[(wr + m) * kLdt + u]; },
+               [&](int u, int c) { return dS[u * kLdt + wcd + c]; });
+      warp_mma(vd, DK, [&](int m, int u) { return Vj[(wr + m) * kLdt + u]; },
+               [&](int u, int c) { return dS[(wcd + c) * kLdt + u]; });
+      const int j0 = J * kBt + wr;
+      each(dv, [&](int m, int c, float x) {
+        if (j0 + m < L) a.dv[(row0 + j0 + m) * ld + h * DK + wcd + c] = x;
+      });
+      each(kd, [&](int m, int c, float x) {
+        if (j0 + m < L) a.dv[(row0 + j0 + m) * ld + h * DK + wcd + c] += x * wlast;
+      });
+      each(dk, [&](int m, int c, float x) {
+        if (j0 + m < L) a.dk[(row0 + j0 + m) * ld + h * DK + wcd + c] = x;
+      });
+      each(vd, [&](int m, int c, float x) {
+        float* o = a.dk + (row0 + j0 + m) * ld + h * DK + wcd + c;
+        if (j0 + m < L) *o = (*o + x * wlast) * a.kscale;
+      });
     }
-    __syncthreads();
-    for (int e = tid; e < L * DK_; e += nt) P[(size_t)(e / DK_) * a.ldp + e % DK_] /= all[e / DK_];
-    __syncthreads();
-    // Dm = mask * P V^T
-    for (int e = tid; e < L * L; e += nt) {
-      const int i = e / L, j = e % L;
-      float acc = 0.f;
-      if (j <= i) {
-        for (int c = 0; c < DK_; ++c) acc = fmaf(P[(size_t)i * a.ldp + c], v[(size_t)j * ld + c], acc);
-        acc *= 1.f / sqrtf(i + 1.f);
+    // ---- per query tile I: dq = Dm K~ + (P KV^T) sqrt(L) / sqrt(i + 1) ----
+    for (int I = 0; I < nb; ++I) {
+      __syncthreads();
+      load_tile(Pi, P, a.ldp, I * kBt, L);
+      float dq[NJD][4];
+      zero(dq);
+      for (int J = 0; J <= I; ++J) {
+        __syncthreads();
+        load_tile(Kj, k, ld, J * kBt, L);
+        load_tile(Vj, v, ld, J * kBt, L);
+        __syncthreads();
+        score(Dx, Pi, Vj, I, J);
+        __syncthreads();
+        warp_mma(dq, kBt, [&](int m, int jj) { return Dx[(wr + m) * kLdx + jj]; },
+                 [&](int jj, int c) { return Kj[jj * kLdt + wcd + c]; });
       }
-      Dm[e] = acc;
+      float cr[NJD][4];
+      zero(cr);
+      warp_mma(cr, DK, [&](int m, int u) { return Pi[(wr + m) * kLdt + u]; },
+               [&](int u, int c) { return KV[(wcd + c) * kLdt + u]; });
+      const int i0 = I * kBt + wr;
+      each(dq, [&](int m, int c, float x) {
+        if (i0 + m < L) a.dq[(row0 + i0 + m) * ld + h * DK + wcd + c] = x;
+      });
+      each(cr, [&](int m, int c, float x) {
+        if (i0 + m < L) a.dq[(row0 + i0 + m) * ld + h * DK + wcd + c] += x * scl[i0 + m];
+      });
     }
-    __syncthreads();
-    for (int e = tid; e < L * DK_; e += nt) {
-      const int i = e / DK_, c = e % DK_;
-      // dq: the inner path, then the cross read of the incoming state
-      float g = 0.f, cr = 0.f;
-      for (int j = 0; j <= i; ++j) g = fmaf(Dm[(size_t)i * L + j], k[(size_t)j * ld + c], g);
-      for (int u = 0; u < DK_; ++u) cr = fmaf(P[(size_t)i * a.ldp + u], KV[c * DK_ + u], cr);
-      dq[(size_t)i * ld + c] = g + cr * (sqL / sqrtf(i + 1.f));
-      // dk (frame j = i) and dv: the inner path, then the state update's
-      float gk = 0.f, gv = 0.f, sk = 0.f, sv = 0.f;
-      for (int r = i; r < L; ++r) {
-        gk = fmaf(Dm[(size_t)r * L + i], q[(size_t)r * ld + c], gk);
-        gv = fmaf(S[(size_t)r * L + i], P[(size_t)r * a.ldp + c], gv);
-      }
-      for (int u = 0; u < DK_; ++u) {
-        sk = fmaf(v[(size_t)i * ld + u], dS[c * DK_ + u], sk);
-        sv = fmaf(k[(size_t)i * ld + u], dS[u * DK_ + c], sv);
-      }
-      dk[(size_t)i * ld + c] = (gk + sk * wlast) * a.kscale;
-      dv[(size_t)i * ld + c] = gv + sv * wlast;
+    // ---- dS += (Q sqrt(L) / sqrt(i + 1))^T P, a warp's 16 rows of k ----
+    float ds[NJD][4];
+    zero(ds);
+    for (int I = 0; I < nb; ++I) {
+      __syncthreads();
+      load_tile(Qi, q, ld, I * kBt, L);
+      load_tile(Pi, P, a.ldp, I * kBt, L);
+      __syncthreads();
+      if (wr < DK)
+        warp_mma(ds, kBt,
+                 [&](int m, int i) {
+                   const int r = I * kBt + i;
+                   return r < L ? Qi[i * kLdt + wr + m] * scl[r] : 0.f;
+                 },
+                 [&](int i, int u) { return Pi[i * kLdt + wcd + u]; });
     }
     __syncthreads();  // every read of dS_n is done
-    for (int e = tid; e < DK_ * DK_; e += nt) {
-      const int c = e / DK_, u = e % DK_;
-      float acc = 0.f;
-      for (int i = 0; i < L; ++i)
-        acc = fmaf(q[(size_t)i * ld + c] * (sqL / sqrtf(i + 1.f)), P[(size_t)i * a.ldp + u], acc);
-      dS[e] += acc;
-    }
+    if (wr < DK) each(ds, [&](int m, int u, float x) { dS[(wr + m) * kLdt + wcd + u] += x; });
   }
 }
 
 struct BwdBufs {
   float *qkvg, *oh, *gated, *a, *r1, *x1, *qkv, *attn, *s, *r2, *x2, *hpre, *hdrop, *f, *r3;
-  float *g2, *gF, *dqkv, *dqkvg, *doh, *scratch;
-  float *zkv, *ones, *kvf, *sf;
+  float *g2, *gF, *dqkv, *dqkvg, *doh;
+  float *zkv, *ones, *kvf, *sf, *part;
 };
 
 size_t carve_bwd(float* base, int BC, int T, int L, int F, BwdBufs* b) {
@@ -156,12 +303,28 @@ size_t carve_bwd(float* base, int BC, int T, int L, int F, BwdBufs* b) {
   b->gF = c.take(R * F);
   b->dqkv = c.take(R * 3 * D);
   b->dqkvg = c.take(R * 4 * D);
-  b->scratch = c.take(rows * 2 * L * L);
   b->zkv = c.take(rows * DK * DK);
   b->kvf = c.take(rows * DK * DK);
   b->ones = c.take(rows);
   b->sf = c.take(rows);
+  b->part = c.take(tc::kSplitFloats);  // partial sums of the gradients' row slices
   return c.used;
+}
+
+// The layer's products, all in tc_f32.cuh's precise form over R rows of
+// contiguous operands: C (R, N) = (A (R, K) W (K, N) + bias) * sc(n), and
+// dx (R, D) += A (R, K) W (K, D), an input gradient with W in torch's (out,
+// in) layout
+inline int mm(const float* A, const float* W, const float* bias, float* C, int R, int N, int K,
+              cudaStream_t st, float* part, int s_lo = 0, int s_hi = 0, float s = 1.f) {
+  return tc::launch_linear<tc::kNone, false, true>(A, K, W, N, bias, C, N, R, N, K, st, s_lo,
+                                                   s_hi, s, part);
+}
+
+inline int mm_add(const float* A, const float* W, float* dx, int R, int K, cudaStream_t st,
+                  float* part) {
+  return tc::launch_linear<tc::kNone, true, true>(A, K, W, D, nullptr, dx, D, R, D, K, st, 0, 0,
+                                                  1.f, part);
 }
 
 }  // namespace
@@ -174,8 +337,8 @@ extern "C" size_t dtf_bwd_workspace(int BC, int T, int L, int H_, int F) {
 
 // x, dy, dx (B, C, T, D); kvs, ss as dtf_forward writes them; w* the 14
 // weights and t* the transposes (in, out) of wqkvg, wro, wmi, wmo, wf1, wf2;
-// g* the 14 gradients, zero on entry, in the weights' layouts.  Returns the
-// first CUDA error of the launches.
+// g* the 14 gradients in the weights' layouts, each written once.  Returns
+// the first CUDA error of the launches.
 extern "C" int dtf_backward(const float* x, const float* dy, const float* kvs, const float* ss,
                             const float* wqkvg, const float* bqkvg, const float* wro,
                             const float* bro, const float* wmi, const float* bmi,
@@ -199,57 +362,59 @@ extern "C" int dtf_backward(const float* x, const float* dy, const float* kvs, c
 #define DTF_TRY(call) \
   if ((err = (call)) != 0) return err
   // ---- recompute the forward ----
-  DTF_TRY(lin::launch_linear(x, D, wqkvg, bqkvg, b.qkvg, 4 * D, R, 4 * D, D, st, D, 2 * D, kscale));
+  float* part = b.part;
+  DTF_TRY(mm(x, tqkvg, bqkvg, b.qkvg, R, 4 * D, D, st, part, D, 2 * D, kscale));
   DTF_TRY(retention_fwd(b.qkvg, b.oh, b.zkv, b.ones, b.kvf, b.sf, nullptr, nullptr, BC, T, L, C,
                         st));
   DTF_TRY(gate_fwd(b.oh, b.qkvg + 3 * D, 4 * D, b.gated, R, st));
-  DTF_TRY(lin::launch_linear(b.gated, D, wro, bro, b.a, D, R, D, D, st));
+  DTF_TRY(mm(b.gated, tro, bro, b.a, R, D, D, st, part));
   DTF_TRY(add_drop_ln(x, b.a, lns, lnb, b.r1, b.x1, R, dp, kRet, st));
-  DTF_TRY(lin::launch_linear(b.x1, D, wmi, bmi, b.qkv, 3 * D, R, 3 * D, D, st));
+  DTF_TRY(mm(b.x1, tmi, bmi, b.qkv, R, 3 * D, D, st, part));
   DTF_TRY(slot_attn(b.qkv, nullptr, b.attn, B, dp, false, st));
-  DTF_TRY(lin::launch_linear(b.attn, D, wmo, bmo, b.s, D, R, D, D, st));
+  DTF_TRY(mm(b.attn, tmo, bmo, b.s, R, D, D, st, part));
   DTF_TRY(add_drop_ln(b.x1, b.s, lns + D, lnb + D, b.r2, b.x2, R, dp, kMha, st));
-  DTF_TRY(lin::launch_linear(b.x2, D, wf1, bf1, b.hpre, F, R, F, D, st));
+  DTF_TRY(mm(b.x2, tf1, bf1, b.hpre, R, F, D, st, part));
   DTF_TRY(relu_drop(b.hpre, b.hpre, b.hdrop, R, F, dp, st));
-  DTF_TRY(lin::launch_linear(b.hdrop, F, wf2, bf2, b.f, D, R, D, F, st));
+  DTF_TRY(mm(b.hdrop, tf2, bf2, b.f, R, D, F, st, part));
   DTF_TRY(add_drop_ln(b.x2, b.f, lns + 2 * D, lnb + 2 * D, b.r3, nullptr, R, dp, kFfo, st));
   // ---- backward; dx carries the residual stream's gradient ----
   // LN3 and the FFN
-  DTF_TRY(ln_bwd(dy, b.r3, lns + 2 * D, dx, b.g2, glns + 2 * D, glnb + 2 * D, R, dp, kFfo, st));
-  DTF_TRY(lin::launch_wgrad(b.g2, D, b.hdrop, F, gf2, R, D, F, st));
-  DTF_TRY(lin::launch_colsum(b.g2, D, gbf2, R, D, st));
-  DTF_TRY(lin::launch_linear(b.g2, D, tf2, nullptr, b.gF, F, R, F, D, st));
+  DTF_TRY(ln_bwd(dy, b.r3, lns + 2 * D, dx, b.g2, glns + 2 * D, glnb + 2 * D, R, dp, kFfo, part,
+                 st));
+  DTF_TRY(tc::launch_wgrad(b.g2, D, b.hdrop, F, gf2, R, D, F, st, part));
+  DTF_TRY(tc::launch_colsum(b.g2, D, gbf2, R, D, st, part));
+  DTF_TRY(mm(b.g2, wf2, nullptr, b.gF, R, F, D, st, part));
   DTF_TRY(relu_drop(b.gF, b.hpre, b.gF, R, F, dp, st));
-  DTF_TRY(lin::launch_wgrad(b.gF, F, b.x2, D, gf1, R, F, D, st));
-  DTF_TRY(lin::launch_colsum(b.gF, F, gbf1, R, F, st));
-  DTF_TRY(lin::launch_linear<true>(b.gF, F, tf1, nullptr, dx, D, R, D, F, st));
+  DTF_TRY(tc::launch_wgrad(b.gF, F, b.x2, D, gf1, R, F, D, st, part));
+  DTF_TRY(tc::launch_colsum(b.gF, F, gbf1, R, F, st, part));
+  DTF_TRY(mm_add(b.gF, wf1, dx, R, F, st, part));
   // LN2 and the slot attention
-  DTF_TRY(ln_bwd(dx, b.r2, lns + D, dx, b.g2, glns + D, glnb + D, R, dp, kMha, st));
-  DTF_TRY(lin::launch_wgrad(b.g2, D, b.attn, D, gmo, R, D, D, st));
-  DTF_TRY(lin::launch_colsum(b.g2, D, gbmo, R, D, st));
-  DTF_TRY(lin::launch_linear(b.g2, D, tmo, nullptr, b.a, D, R, D, D, st));
+  DTF_TRY(ln_bwd(dx, b.r2, lns + D, dx, b.g2, glns + D, glnb + D, R, dp, kMha, part, st));
+  DTF_TRY(tc::launch_wgrad(b.g2, D, b.attn, D, gmo, R, D, D, st, part));
+  DTF_TRY(tc::launch_colsum(b.g2, D, gbmo, R, D, st, part));
+  DTF_TRY(mm(b.g2, wmo, nullptr, b.a, R, D, D, st, part));
   DTF_TRY(slot_attn(b.qkv, b.a, b.dqkv, B, dp, true, st));
-  DTF_TRY(lin::launch_wgrad(b.dqkv, 3 * D, b.x1, D, gmi, R, 3 * D, D, st));
-  DTF_TRY(lin::launch_colsum(b.dqkv, 3 * D, gbmi, R, 3 * D, st));
-  DTF_TRY(lin::launch_linear<true>(b.dqkv, 3 * D, tmi, nullptr, dx, D, R, D, 3 * D, st));
+  DTF_TRY(tc::launch_wgrad(b.dqkv, 3 * D, b.x1, D, gmi, R, 3 * D, D, st, part));
+  DTF_TRY(tc::launch_colsum(b.dqkv, 3 * D, gbmi, R, 3 * D, st, part));
+  DTF_TRY(mm_add(b.dqkv, wmi, dx, R, 3 * D, st, part));
   // LN1, the out projection and the gate
-  DTF_TRY(ln_bwd(dx, b.r1, lns, dx, b.g2, glns, glnb, R, dp, kRet, st));
-  DTF_TRY(lin::launch_wgrad(b.g2, D, b.gated, D, gro, R, D, D, st));
-  DTF_TRY(lin::launch_colsum(b.g2, D, gbro, R, D, st));
-  DTF_TRY(lin::launch_linear(b.g2, D, tro, nullptr, b.a, D, R, D, D, st));
+  DTF_TRY(ln_bwd(dx, b.r1, lns, dx, b.g2, glns, glnb, R, dp, kRet, part, st));
+  DTF_TRY(tc::launch_wgrad(b.g2, D, b.gated, D, gro, R, D, D, st, part));
+  DTF_TRY(tc::launch_colsum(b.g2, D, gbro, R, D, st, part));
+  DTF_TRY(mm(b.g2, wro, nullptr, b.a, R, D, D, st, part));
   DTF_TRY(gate_bwd(b.a, b.oh, b.qkvg + 3 * D, 4 * D, b.dqkvg + 3 * D, 4 * D, b.doh, R, st));
   // the retention core, then its projections
   CoreBwdArgs ca{b.qkvg, b.qkvg + D, b.qkvg + 2 * D, 4 * D, b.doh, D,
-                 b.dqkvg, b.dqkvg + D, b.dqkvg + 2 * D, kvs, ss, b.scratch, C, T, L, kscale};
-  const int smem = (int)sizeof(float) * (2 * DK * DK + L);
-  cudaError_t e = cudaFuncSetAttribute(core_bwd_kernel<DK>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                 b.dqkvg, b.dqkvg + D, b.dqkvg + 2 * D, kvs, ss, C, T, L, kscale};
+  const int smem = (int)sizeof(float) * core_smem_floats(L);
+  cudaError_t e =
+      cudaFuncSetAttribute(core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  core_bwd_kernel<DK><<<BC * H, 256, smem, st>>>(ca);
+  core_bwd_kernel<<<BC * H, 256, smem, st>>>(ca);
   DTF_TRY(cudaGetLastError());
-  DTF_TRY(lin::launch_wgrad(b.dqkvg, 4 * D, x, D, gqkvg, R, 4 * D, D, st));
-  DTF_TRY(lin::launch_colsum(b.dqkvg, 4 * D, gbqkvg, R, 4 * D, st));
-  DTF_TRY(lin::launch_linear<true>(b.dqkvg, 4 * D, tqkvg, nullptr, dx, D, R, D, 4 * D, st));
+  DTF_TRY(tc::launch_wgrad(b.dqkvg, 4 * D, x, D, gqkvg, R, 4 * D, D, st, part));
+  DTF_TRY(tc::launch_colsum(b.dqkvg, 4 * D, gbqkvg, R, 4 * D, st, part));
+  DTF_TRY(mm_add(b.dqkvg, wqkvg, dx, R, 4 * D, st, part));
 #undef DTF_TRY
   return 0;
 }

@@ -12,8 +12,8 @@
 // columns [i*NV, (i+1)*NV) (float4 loads, float2 where NV is not a multiple
 // of 4), so a head's DV columns are the G = DV/NV lanes of an aligned group
 // and its sums are shuffles inside the group.  D (DTF_D) and the head dims
-// (CR_DK = CR_DV) are compile-time.  The decoder frame scan
-// (dec_frame_scan.cu) runs the forward row kernels at dropout 0.
+// (CR_DK = CR_DV) are compile-time.  The frame scans (dec_frame_scan.cu,
+// enc_frame_scan.cu) run the forward row kernels at dropout 0.
 #pragma once
 
 #include <initializer_list>
@@ -155,12 +155,13 @@ add_drop_ln_kernel(const float* __restrict__ x, const float* __restrict__ a,
 
 // Backward of add_drop_ln: from dy and the pre-norm sum rsum, dres = the
 // gradient of the sum (written over dres, which may be dy) and dbranch =
-// dres * mask(site); dscale, dbias (D) += the column sums, reduced over the
-// block's rows first.
+// dres * mask(site); the block's column sums of the scale and bias
+// gradients, over its rows in a fixed order, go to part[blockIdx.x] (2D
+// floats: scale, then bias), which ln_bwd_reduce_kernel adds in block order.
 __global__ void __launch_bounds__(256)
 ln_bwd_kernel(const float* dy, const float* __restrict__ rsum, const float* __restrict__ scale,
-              float* dres, float* __restrict__ dbranch, float* __restrict__ dscale,
-              float* __restrict__ dbias, long long R, Drop dp, int site) {
+              float* dres, float* __restrict__ dbranch, float* __restrict__ part, long long R,
+              Drop dp, int site) {
   __shared__ float red[2][8][D];
   const int c0 = lane_id() * NV, warp = threadIdx.x >> 5;
   float ds[NV], db[NV];
@@ -199,7 +200,18 @@ ln_bwd_kernel(const float* dy, const float* __restrict__ rsum, const float* __re
     const int which = c / D, col = c % D;
     float s = 0.f;
     for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[which][w][col];
-    atomicAdd((which ? dbias : dscale) + col, s);
+    part[(size_t)blockIdx.x * 2 * D + c] = s;
+  }
+}
+
+// dscale[c], dbias[c] = the sums over the S blocks of ln_bwd_kernel's parts,
+// in block order (the same bits from run to run)
+__global__ void ln_bwd_reduce_kernel(const float* __restrict__ part, int S,
+                                     float* __restrict__ dscale, float* __restrict__ dbias) {
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < 2 * D; c += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int z = 0; z < S; ++z) s += part[(size_t)z * 2 * D + c];
+    (c < D ? dscale : dbias)[c % D] = s;
   }
 }
 
@@ -437,11 +449,17 @@ inline int add_drop_ln(const float* x, const float* a, const float* scale, const
   return cudaGetLastError();
 }
 
+// kLnBwdBlocks * 2D floats of `part` hold the blocks' column sums
+constexpr int kLnBwdBlocks = 132 * 2;
+
 inline int ln_bwd(const float* dy, const float* rsum, const float* scale, float* dres,
                   float* dbranch, float* dscale, float* dbias, long long R, const Drop& dp,
-                  int site, cudaStream_t st) {
-  const int grid = (int)lmin((R + 7) / 8, 132 * 2);  // few blocks: few atomics
-  ln_bwd_kernel<<<grid, 256, 0, st>>>(dy, rsum, scale, dres, dbranch, dscale, dbias, R, dp, site);
+                  int site, float* part, cudaStream_t st) {
+  const int grid = (int)lmin((R + 7) / 8, kLnBwdBlocks);
+  ln_bwd_kernel<<<grid, 256, 0, st>>>(dy, rsum, scale, dres, dbranch, part, R, dp, site);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ln_bwd_reduce_kernel<<<(2 * D + 255) / 256, 256, 0, st>>>(part, grid, dscale, dbias);
   return cudaGetLastError();
 }
 

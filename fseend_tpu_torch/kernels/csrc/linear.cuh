@@ -1,20 +1,11 @@
-// Float32 matrix products shared by retention_layer.cu and the fusion-layer
-// training kernels (dec_train_fusion_{fwd,bwd}.cu).
+// Float32 matrix products on the FMA pipe, shared by retention_layer.cu and
+// the fusion layer's training forward (dec_train_fusion_fwd.cu).
 //
-// linear_kernel: C = A W^T + bias (or C += A W^T + bias), the product of a
+// linear_kernel: C = A W^T + bias, the product of a
 //   row-major activation A (M, K) with a weight W (N, K) in torch's (out, in)
 //   layout: both operands are contiguous along the summed index.
-// wgrad_kernel:  G += A^T X summed over rows, the weight gradient of a
-//   linear layer: A (M, N) the output gradient, X (M, K) the input, G (N, K)
-//   again in torch's layout.  M is tens of thousands of rows and G small, so
-//   the rows are cut into slices, one slice per grid z, and each block adds
-//   its partial tile into G with atomicAdd (G starts at zero; the order of
-//   the additions, and so the last bits, changes from run to run).
-// colsum_kernel: g += sum over rows of A (M, N), a bias gradient, the same
-//   way.
-// Both products are shared-memory tiled: a 128 x 128 output tile per block of
-// 256 threads, 8 x 8 values per thread, 16 along the summed index per step,
-// on the FMA pipe.
+// Shared-memory tiled: a 128 x 128 output tile per block of 256 threads, 8 x 8
+// values per thread, 16 along the summed index per step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,11 +36,10 @@ __device__ __forceinline__ void tile_fma(const float* As, const float* Bs, int t
 // row (or column) of the tile that a thread's i-th accumulator row maps to
 __device__ __forceinline__ int tile_row(int t, int i) { return i < 4 ? t * 4 + i : 64 + t * 4 + i - 4; }
 
-// C[m][n] = (bias[n] + sum_k A[m][k] W[n][k]) * (s if s_lo <= n < s_hi else 1),
-// added to C when ACC.  A (M, K) with row stride lda, W (N, K) contiguous, C
+// C[m][n] = (bias[n] + sum_k A[m][k] W[n][k]) * (s if s_lo <= n < s_hi else 1).
+// A (M, K) with row stride lda, W (N, K) contiguous, C
 // row stride ldc, bias may be null.  K % 16 == 0, N % 4 == 0, every row start
 // 16-byte aligned.
-template <bool ACC>
 __global__ void __launch_bounds__(256)
 linear_kernel(const float* __restrict__ A, int lda, const float* __restrict__ W,
               const float* __restrict__ bias, float* __restrict__ C, int ldc, int M,
@@ -102,100 +92,16 @@ linear_kernel(const float* __restrict__ A, int lda, const float* __restrict__ W,
         o[j] = acc[i][jh * 4 + j] + (bias ? __ldg(bias + n + j) : 0.f);
         if (n + j >= s_lo && n + j < s_hi) o[j] *= s;
       }
-      if (ACC) {
-        const float4 c = *out;
-        o[0] += c.x, o[1] += c.y, o[2] += c.z, o[3] += c.w;
-      }
       *out = make_float4(o[0], o[1], o[2], o[3]);
     }
   }
 }
 
-template <bool ACC = false>
 inline int launch_linear(const float* A, int lda, const float* W, const float* bias, float* C,
                          int ldc, int M, int N, int K, cudaStream_t stream, int s_lo = 0,
                          int s_hi = 0, float s = 1.f) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  linear_kernel<ACC><<<grid, 256, 0, stream>>>(A, lda, W, bias, C, ldc, M, N, K, s_lo, s_hi, s);
-  return cudaGetLastError();
-}
-
-// G[n][k] += sum over the rows m of this block's slice of A[m][n] X[m][k].
-// A (M, N) row stride lda, X (M, K) row stride ldx, G (N, K) contiguous.
-// N % 4 == 0, K % 4 == 0, row starts 16-byte aligned; rows_per is a
-// multiple of 16.
-__global__ void __launch_bounds__(256)
-wgrad_kernel(const float* __restrict__ A, int lda, const float* __restrict__ X, int ldx,
-             float* __restrict__ G, int M, int N, int K, int rows_per) {
-  __shared__ __align__(16) float As[BK * LDS];  // As[m][n]
-  __shared__ __align__(16) float Xs[BK * LDS];  // Xs[m][k]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * BN, n0 = blockIdx.y * BM;
-  const int r0 = blockIdx.z * rows_per, r1 = min(M, r0 + rows_per);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = r0; m0 < r1; m0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 256, r = idx >> 5, c4 = (idx & 31) * 4;
-      float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vx = va;
-      if (m0 + r < r1) {
-        if (n0 + c4 < N) va = *reinterpret_cast<const float4*>(A + (size_t)(m0 + r) * lda + n0 + c4);
-        if (k0 + c4 < K) vx = *reinterpret_cast<const float4*>(X + (size_t)(m0 + r) * ldx + k0 + c4);
-      }
-      *reinterpret_cast<float4*>(As + r * LDS + c4) = va;
-      *reinterpret_cast<float4*>(Xs + r * LDS + c4) = vx;
-    }
-    __syncthreads();
-    tile_fma(As, Xs, tx, ty, acc);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int n = n0 + tile_row(ty, i);
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + tile_row(tx, j);
-      if (k < K) atomicAdd(G + (size_t)n * K + k, acc[i][j]);
-    }
-  }
-}
-
-// about four blocks per SM, slices of at least 256 rows
-inline int launch_wgrad(const float* A, int lda, const float* X, int ldx, float* G, int M,
-                        int N, int K, cudaStream_t stream) {
-  const int tiles = ((N + BM - 1) / BM) * ((K + BN - 1) / BN);
-  int slices = (528 + tiles - 1) / tiles;
-  if (slices > (M + 255) / 256) slices = (M + 255) / 256;
-  if (slices < 1) slices = 1;
-  const int rows_per = ((M + slices - 1) / slices + BK - 1) / BK * BK;
-  slices = (M + rows_per - 1) / rows_per;
-  const dim3 grid((K + BN - 1) / BN, (N + BM - 1) / BM, slices);
-  wgrad_kernel<<<grid, 256, 0, stream>>>(A, lda, X, ldx, G, M, N, K, rows_per);
-  return cudaGetLastError();
-}
-
-// g[n] += sum over this block's rows of A[m][n]
-__global__ void colsum_kernel(const float* __restrict__ A, int lda, float* __restrict__ g,
-                              int M, int N, int rows_per) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int r0 = blockIdx.y * rows_per, r1 = min(M, r0 + rows_per);
-  float s = 0.f;
-  for (int m = r0; m < r1; ++m) s += A[(size_t)m * lda + n];
-  atomicAdd(g + n, s);
-}
-
-inline int launch_colsum(const float* A, int lda, float* g, int M, int N, cudaStream_t stream) {
-  const int rows_per = 256;
-  const dim3 grid((N + 255) / 256, (M + rows_per - 1) / rows_per);
-  colsum_kernel<<<grid, 256, 0, stream>>>(A, lda, g, M, N, rows_per);
+  linear_kernel<<<grid, 256, 0, stream>>>(A, lda, W, bias, C, ldc, M, N, K, s_lo, s_hi, s);
   return cudaGetLastError();
 }
 

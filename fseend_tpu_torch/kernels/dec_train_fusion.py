@@ -29,8 +29,10 @@ So the masks depend on L, and the port's masks equal the JAX kernel's.
 
 On CUDA tensors the wrappers launch `csrc/dec_train_fusion_fwd.cu` and
 `csrc/dec_train_fusion_bwd.cu` (each a sequence of this repository's
-kernels behind one call; design notes there); on CPU tensors they run
-`fusion_layer_fwd_plain` / `fusion_layer_bwd_plain`.  Float32 only.
+kernels behind one call; design notes there; the backward's products run
+on the tensor cores, float32-exact, and its gradients come out the same to
+the bit from run to run); on CPU tensors they run `fusion_layer_fwd_plain`
+/ `fusion_layer_bwd_plain`.  Float32 only.
 
 Weights (`FusionWeights`) are in torch's (out, in) layout: wqkvg (4D, D) the
 q | k | v | g rows, wro (D, D), wmi (3D, D) the slot attention's packed
@@ -520,10 +522,10 @@ def _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate):
     lib = _lib("bwd", D, H)
     x, dy, kvs, ss = (t.contiguous() for t in (x, dy, kvs, ss))
     w = [t.contiguous() for t in w]
-    # the backward's dX products read the weights transposed, (in, out)
+    # the recompute's products read the weights transposed, (in, out)
     wt = [w[i].T.contiguous() for i in (0, 2, 4, 6, 8, 10)]
     dx = torch.empty_like(x)
-    grads = [torch.zeros_like(t) for t in w]
+    grads = [torch.empty_like(t) for t in w]         # each written once
     lib.dtf_bwd_workspace.restype = ctypes.c_size_t
     lib.dtf_bwd_workspace.argtypes = [ctypes.c_int] * 5
     ws = x.new_empty(_workspace(lib.dtf_bwd_workspace(B * C, T, chunk, H, Fh), H))

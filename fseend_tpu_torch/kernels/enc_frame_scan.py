@@ -6,10 +6,22 @@ call runs K frames of every lane through all conformer blocks (half FF ->
 recurrent retention -> causal depthwise conv module -> half FF -> LN) with a
 per-lane flush that gates the retention update and keeps the conv ring.
 
-On a CUDA tensor the wrapper launches `csrc/enc_frame_scan.cu` (see the note
-there for what bounds it and how it is laid out); on a CPU tensor it runs
-`enc_frame_scan_plain`, which repeats the kernel's arithmetic with batched
-tensor ops.  Both update the carried state in place.  Float32 only.
+On a CUDA tensor the wrapper runs `csrc/enc_frame_scan.cu`: the block
+computed layer by layer over all (lane, frame) rows, the linear layers as
+float32-exact tensor-core products (3xTF32, `csrc/tc_f32.cuh`), the
+retention in its exact recurrent form and the causal conv as a gather over
+the kept frames (see the note there); one call of that source is one launch
+of the count, whatever kernels it runs.  It needs D a multiple of 64 (at
+most 512), head dims that are multiples of 16, F a multiple of 4 and a
+workspace of B*min(K, 128) rows that the wrapper allocates (about 0.2 GB
+at 128 lanes x 128 frames, D 256, F 1024); a longer K is walked in slices
+of 128 frames that carry the state.  A K = 1 call (`step()`, bound by the
+launches' host time) runs as a CUDA graph in a workspace the wrapper keeps
+for each shape, so that every call with the same weights and state replays
+one graph.  On a CPU tensor it runs
+`enc_frame_scan_plain`, which repeats the arithmetic frame by frame with
+batched tensor ops.  Both update the carried state in place.  Float32
+only.
 
 Layouts (lane-major, as the port's stream state holds them):
   h0 (B, K, D) after the input projection + LN; flush (B, K) 0/1 float;
@@ -30,6 +42,10 @@ from fseend_tpu_torch.ops import nn as tnn
 
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
+
+# per (device, B, L, D, H, F, kc): the workspace of the K = 1 calls, which
+# run as a captured CUDA graph keyed by it
+_graph_ws: dict = {}
 
 
 class EncWeights(NamedTuple):
@@ -135,24 +151,40 @@ def _check(h0, flush, w, kv, s, ring):
 
 def _launch(h0, flush, w, kv, s, ring, ffac):
     global launches
-    lib = _build.load("enc_frame_scan")
-    fn = lib.enc_frame_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     B, K, D = h0.shape
     L, _, H, dv, dk = kv.shape
     Fh = w.wf1a.shape[2]
     kc = w.dw.shape[1]
-    if D % 4 or Fh % 4:
-        raise ValueError(f"enc_frame_scan: D={D} and F={Fh} must be multiples of 4")
+    if D % 64 or D > 512 or dk % 16 or Fh % 4:
+        raise ValueError(f"enc_frame_scan: the CUDA kernel takes D a multiple of 64 up "
+                         f"to 512, head dims a multiple of 16 and F a multiple of 4; "
+                         f"got D={D}, dk={dk}, F={Fh}")
+    lib = _build.load("enc_frame_scan", {"DTF_D": D, "CR_DK": dk, "CR_DV": dk})
+    fn, size = lib.enc_frame_scan_launch, lib.enc_frame_scan_workspace
+    if fn.argtypes is None:
+        size.argtypes = [ctypes.c_int] * 8
+        size.restype = ctypes.c_size_t
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    graph = K == 1
+    key = (h0.device, B, L, D, H, Fh, kc)
+    ws = _graph_ws.get(key) if graph else None
+    if ws is None:
+        n = size(B, K, L, D, H, Fh, kc, int(graph))
+        if n == 0:
+            raise ValueError(f"enc_frame_scan: the build for D={D}, dk={dk} does not take "
+                             f"{H} heads")
+        ws = torch.empty(n, device=h0.device, dtype=torch.float32)
+        if graph:
+            _graph_ws[key] = ws
     hout = torch.empty_like(h0)
     ptrs = (ctypes.c_void_p * len(w))(*[t.data_ptr() for t in w])
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptrs, h0.data_ptr(), flush.data_ptr(), hout.data_ptr(),
-                 kv.data_ptr(), s.data_ptr(), ring.data_ptr(),
-                 B, K, L, D, H, dk, Fh, kc, ffac, dk ** -0.5, stream)
+        err = fn(ptrs, h0.data_ptr(), flush.data_ptr(), hout.data_ptr(), kv.data_ptr(),
+                 s.data_ptr(), ring.data_ptr(), ws.data_ptr(), B, K, L, Fh, kc, ffac, int(graph),
+                 stream)
     _build.check(lib, err, "enc_frame_scan")
     launches += 1
     return hout

@@ -63,7 +63,7 @@ class TaskConfig:
         if self.compute_dtype != "f32":
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port runs float32 only; bf16 is "
-                "ROADMAP \"Next\" 1")
+                "ROADMAP B9")
         if self.label_mode not in ("fixed", "spk_pit", "spk_pit_hungarian"):
             raise ValueError(f"unknown label_mode {self.label_mode!r}")
 

@@ -10,9 +10,11 @@ imports), run them with
 
 Tolerance: float32 with another summation order than the batched plain
 version (2e-4, as the JAX package's fused-vs-scan tests); the products of
-the decoder scan and of the shared-head cached attention run on the tensor
-cores in three TF32 passes, float32-exact to about 1e-6 relative
-(`fseend_tpu_torch/kernels/csrc/tc_f32.cuh`)."""
+both frame scans, of the shared-head cached attention and of the fusion
+layer's backward run on the tensor cores in three TF32 passes,
+float32-exact to about 1e-6 relative
+(`fseend_tpu_torch/kernels/csrc/tc_f32.cuh`): the frame scans and the
+backward's dx are held within TC_ATOL = 1e-4."""
 
 import dataclasses
 
@@ -40,6 +42,7 @@ CFG = ls_eend.LSEENDConfig(
     conv_kernel_size=4, dec_dim_feedforward=48, conv_delay=2, max_nspks=3)
 B, C = 4, 3
 ATOL = 2e-4
+TC_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -108,7 +111,7 @@ def test_enc_kernel_matches_plain(cuda, K):
     got, want = _both(EFS.enc_frame_scan, EFS.enc_frame_scan_plain, args, kw)
     assert EFS.launches == n0 + 1
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        torch.testing.assert_close(g, w, atol=TC_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("K", [1, 6])
@@ -214,6 +217,77 @@ def test_dec_frame_scan_refuses_what_it_does_not_take(cuda):
     args[0] = args[0].double()
     with pytest.raises(ValueError, match="float32"):
         DFS.dec_frame_scan(*args)
+
+
+def _enc_case(dev, D, kc, K, seed):
+    """Random conformer-block weights (2 layers, F 4D, 4 heads, BatchNorm
+    folded to a non-trivial (a, b)) and one call's inputs over 5 lanes: lane
+    0 never flushed, lane 1 flushed for its first frames, lane 2 in the
+    middle, lane 3 from a frame to the end, lane 4 in a random pattern;
+    incoming counts 0, 3, 40, 1000 and 1 per lane."""
+    rng = np.random.default_rng(seed)
+    nl, H, Fh, lanes = 2, 4, 4 * D, 5
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device=dev)
+
+    def ff():
+        return (r(nl, D, Fh, scale=D ** -0.5), r(nl, Fh, scale=0.1),
+                r(nl, Fh, D, scale=Fh ** -0.5), r(nl, D, scale=0.1))
+
+    w = EFS.EncWeights(
+        1.0 + r(nl, 5, D, scale=0.1), r(nl, 5, D, scale=0.1), *ff(),
+        r(nl, D, 4 * D, scale=D ** -0.5), r(nl, 4 * D, scale=0.1),
+        r(nl, D, D, scale=D ** -0.5), r(nl, D, scale=0.1),
+        r(nl, D, 2 * D, scale=D ** -0.5), r(nl, 2 * D, scale=0.1),
+        r(nl, kc, D, scale=kc ** -0.5), 1.0 + r(nl, D, scale=0.2), r(nl, D, scale=0.1),
+        r(nl, D, D, scale=D ** -0.5), r(nl, D, scale=0.1), *ff())
+    fl = np.zeros((lanes, K), np.float32)
+    fl[1, :min(3, K)] = 1.0
+    fl[2, K // 3:2 * K // 3 + 1] = 1.0
+    fl[3, K // 2:] = 1.0
+    fl[4] = rng.integers(0, 2, K)
+    s0 = np.array([0.0, 3.0, 40.0, 1000.0, 1.0], np.float32)
+    s = torch.as_tensor(np.broadcast_to(s0[None, :, None], (nl, lanes, H)).copy(), device=dev)
+    return [r(lanes, K, D), torch.as_tensor(fl, device=dev), w,
+            r(nl, lanes, H, D // H, D // H, scale=0.2), s,
+            r(nl, lanes, kc - 1, D, scale=0.5)]
+
+
+@pytest.mark.parametrize("D,kc", [(64, 4), (256, 16)])
+@pytest.mark.parametrize("K", [1, 7, 128, 200])
+def test_enc_frame_scan_kernel_matches_plain_over_two_calls(cuda, D, kc, K):
+    """The layer-major kernel against the frame-by-frame plain version: h and
+    the state (kv, s, ring) after each of two consecutive calls (the second
+    reads the state the first left, with other flush patterns); K 200 walks
+    two slices."""
+    args = _enc_case(cuda, D, kc, K, seed=D + K)
+    ak = [t.clone() if torch.is_tensor(t) else t for t in args]
+    ap = [t.clone() if torch.is_tensor(t) else t for t in args]
+    for call in range(2):
+        if call:
+            ak[0] = ap[0] = args[0].flip(1).contiguous()
+            ak[1] = ap[1] = args[1].flip(0).contiguous()
+        n0 = EFS.launches
+        got = EFS.enc_frame_scan(*ak, ffac=0.5)
+        torch.cuda.synchronize()
+        assert EFS.launches == n0 + 1
+        want = EFS.enc_frame_scan_plain(*ap, ffac=0.5)
+        torch.testing.assert_close(got, want, atol=TC_ATOL, rtol=0)
+        torch.testing.assert_close(ak[3], ap[3], atol=TC_ATOL, rtol=0)
+        torch.testing.assert_close(ak[4], ap[4], atol=0, rtol=0)
+        torch.testing.assert_close(ak[5], ap[5], atol=TC_ATOL, rtol=0)
+
+
+def test_enc_frame_scan_refuses_what_it_does_not_take(cuda):
+    args = _enc_case(cuda, 32, 4, 4, seed=0)       # D 32, head dim 8
+    with pytest.raises(ValueError, match="multiple of 64"):
+        EFS.enc_frame_scan(*args, ffac=0.5)
+    args = _enc_case(cuda, 64, 4, 4, seed=0)
+    args[0] = args[0].double()
+    with pytest.raises(ValueError, match="float32"):
+        EFS.enc_frame_scan(*args, ffac=0.5)
 
 
 def test_wrappers_raise_on_unsupported_dtype(cuda):
@@ -383,10 +457,17 @@ def test_fusion_backward_kernel_matches_plain(cuda, rate):
     torch.cuda.synchronize()
     assert DTF.bwd_launches == n0 + 1
     dx_p, dw_p = DTF.fusion_layer_bwd_plain(x, dy, kvs, ss, w, seed, H, L, rate)
-    torch.testing.assert_close(dx, dx_p, atol=1e-3, rtol=0)
+    torch.testing.assert_close(dx, dx_p, atol=TC_ATOL, rtol=0)
     for name, g, gp in zip(DTF.FusionWeights._fields, dw, dw_p):
         tol = 2e-3 * float(gp.abs().max())
         assert float((g - gp).abs().max()) <= tol, name
+    # the weight gradients are row slices added in a fixed order: a second
+    # call gives the same bits
+    dx2, dw2 = DTF.fusion_layer_bwd(x, dy, kvs, ss, w, seed, H, L, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(dx2, dx)
+    for name, g, g2 in zip(DTF.FusionWeights._fields, dw, dw2):
+        assert torch.equal(g2, g), name
 
 
 def test_train_step_runs_the_fusion_kernels(cuda):

@@ -258,7 +258,7 @@ def test_unported_families_say_where_they_are_queued():
         TRN.TaskConfig(model="fs")
     with pytest.raises(NotImplementedError, match="A10"):
         TRN.TaskConfig(model="eda")
-    with pytest.raises(NotImplementedError, match="Next"):
+    with pytest.raises(NotImplementedError, match="B9"):
         TRN.TaskConfig(compute_dtype="bf16")
     with pytest.raises(NotImplementedError, match="A11"):
         TRN.make_train_step(TASK, CFG, TO.Optimizer(), mesh=object(), device="cpu")
