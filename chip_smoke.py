@@ -10,12 +10,13 @@ kernels, the servers and the step.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
-                                      --parent DIR builds the enc_frame_scan.cu,
-                                      dec_frame_scan.cu, dec_train_fusion_bwd.cu
-                                      and cached_attention.cu found in DIR, an
-                                      earlier commit's kernels/csrc with the
-                                      one-block-per-lane encoder scan and the
-                                      layer-major decoder scan (others are
+                                      --parent DIR builds the cached_attention.cu,
+                                      dec_train_fusion_fwd.cu and
+                                      dec_train_fusion_bwd.cu found in DIR, an
+                                      earlier commit's kernels/csrc whose
+                                      per-lane cached attention takes no scratch
+                                      and whose fusion-layer forward takes the
+                                      weights in torch's layout (others are
                                       refused), and times them against this
                                       tree's in turns)
 
@@ -46,8 +47,9 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      counted, its largest call held against plain
   8. T1, fusion-layer kernels vs plain: the training forward and backward
      of one decoder layer at production width (D 256, H 4, F 2048, C 10),
-     B 2, T 256, L 128, dropout 0 and 0.1: forward y, kvs, ss within 1e-3;
-     backward dx within 1e-3 and every weight gradient within 2e-3 of its
+     B 2, T 256, L 128, dropout 0 and 0.1: forward y within 1e-4, kvs and
+     ss within `checkpoint_atol`, y without checkpoints the same bits;
+     backward dx within 1e-4 and every weight gradient within 2e-3 of its
      leaf max; at rate 0 the plain backward against torch autograd of the
      plain forward; two backward calls give the same bits
   9. T2, the reference's production-shape gradients
@@ -63,7 +65,8 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      forward for validation); the last checkpoint reloaded bit for bit;
      then ms per step, frames/s and peak memory on the fused and the plain
      decoder route, the fused step's parts, and a torch.profiler window
-     over two fused steps (device idle share, top kernels)
+     over two fused steps (device idle share, top kernels); with --parent,
+     the step on the earlier fusion-layer forward and backward in turns
  11. times: both frame scans first held against their plain versions on
      the per-frame server's own calls at B=128, K=128 and step()'s K=1; then
      CUDA events after warm-up: process_block of both servers at B=128,
@@ -71,14 +74,15 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      alone beside its plain version and its bound (the tensor-core bound
      for the kernels on the tensor cores, with the FMA-pipe bound beside
      it), both frame scans at K=1, the device time by kernel of one call of
-     each frame scan and of the fusion layer's backward (the *_parts
-     lines); with --parent, the earlier frame scans, step() and
-     process_block against this tree's, and the earlier fusion-layer
-     backward alone and in the T3 step (earlier, this, this, earlier)
+     each frame scan and of the fusion layer's forward and backward (the
+     *_parts lines); with --parent, the earlier fusion-layer forward and
+     backward alone against this tree's (earlier, this, this, earlier)
  12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
      cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
-     cached_attention_perlane at R 256 and 1536, K 125, skewed lane starts
-     with lanes before warm-up, min_pos 0 and 9; every row within 1e-3
+     cached_attention_perlane at R 256 and 1536, K 125, 128, 129 and 1,
+     skewed lane starts with lanes before warm-up and lanes whose start + K
+     passes the capacity, min_pos 0 and 9, two K = 1 calls bit for bit;
+     every row within 1e-4
  13. F2, FS per-frame serve: StreamingServer(kind="fs") over 64 lanes,
      capacity 2048, 6 streams through ContinuousBatcher(block=500)
      (sub-blocks of 125) on the kernel route, against the plain route and
@@ -94,25 +98,26 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      own state-dict reader and fs_test: logits and emb within 1e-4
  16. F5, FS times: the per-frame server as bench.py:_mode_fs (three
      500-frame blocks from a fresh state) on both routes, its step() (with
-     a torch.profiler window), the kernel's device share under
-     torch.profiler; both kernels at their main-path shapes beside their
-     plain versions, bounds and scaled_dot_product_attention (the library
-     yardstick, never on the path);
-     with --parent, the earlier cached_attention at the blockwise encoder's
-     shape in turns
+     a torch.profiler window and the per-lane kernel's share of it), the
+     kernel's device share of a block under torch.profiler; both kernels at
+     their main-path shapes (the per-lane one also at step()'s K = 1)
+     beside their plain versions, bounds and scaled_dot_product_attention
+     (the library yardstick, never on the path); with --parent, in turns
+     against the earlier cached_attention.cu: the per-lane kernel at those
+     four shapes, the three blocks, step() (five rounds), and the shared
+     head at the blockwise encoder's shape
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
 the timing lines come before it.  Float32 throughout, TF32 off.  Kernels
-are held within 1e-3 of their plain versions, the four on the tensor cores
-(both frame scans, cached_attention, the fusion layer's backward: its dx)
-within 1e-4.
+are held within 1e-3 of their plain versions, the six on the tensor cores
+(both frame scans, both cached-attention kernels, the fusion layer's
+forward: its y, and backward: its dx) within 1e-4.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import itertools
 import json
 import subprocess
 import sys
@@ -166,9 +171,19 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TC_PASSES = 3                      # 3xTF32: three TF32 products per float32 product
 PEAK_BYTES = 3.35e12
-# the kernels whose products run on the tensor cores (csrc/tc_f32.cuh)
+# the kernels whose products run on the tensor cores (csrc/tc_f32.cuh); the
+# per-lane cached attention's K = 1 calls run on the FMA pipe (bound by bytes)
 TENSOR_CORE_KERNELS = ("enc_frame_scan", "dec_frame_scan", "cached_attention",
+                       "cached_attention_perlane", "dec_train_fusion_fwd",
                        "dec_train_fusion_bwd")
+
+
+def checkpoint_atol(want):
+    """The fusion-layer forward's checkpoints (kvs, ss) against plain: sums
+    over a chunk's frames whose size grows with the chunk, so TC_ATOL times
+    their leaf's max |value| where that exceeds 1, and never looser than
+    KERNEL_ATOL, the FMA-pipe forward's guard (y is held at TC_ATOL)."""
+    return min(KERNEL_ATOL, TC_ATOL * max(1.0, want.abs().max().item()))
 
 
 def log(*a):
@@ -209,12 +224,16 @@ def phase_build():
 
 # --parent DIR: an earlier commit's kernel sources (with the headers beside
 # them), built beside this tree's and timed against them in turns; their C
-# entry points as that commit had them, recognised by these signatures
+# entry points as that commit had them, recognised by these signatures (B6
+# on the FMA pipe with no scratch, B3 forward taking the weights in torch's
+# (out, in) layout)
 PARENT_SOURCES = {
-    "enc_frame_scan": ({}, "int kc, float ffac, float kscale, void* stream"),
-    "dec_frame_scan": (DTF, "float* ws, int B, int K, int C, int L, int F, void* stream"),
-    "dec_train_fusion_bwd": (DTF, "unsigned seed, unsigned thr, float mult, void* stream_"),
-    "cached_attention": ({"CA_HD": FS_HD}, "int R, int K, int cap, void* stream"),
+    "cached_attention": ({"CA_HD": FS_HD}, (
+        "const int* start, float* out, int R, int K, int cap, int rows_per_lane, int min_pos, "
+        "void* stream", "const int* start, float* out, int R, int K, int cap, void* stream")),
+    "dec_train_fusion_fwd": (DTF, ("dtf_forward(const float* x, const float* wqkvg, "
+                                   "const float* bqkvg",)),
+    "dec_train_fusion_bwd": (DTF, ("unsigned seed, unsigned thr, float mult, void* stream_",)),
 }
 PARENT = {}
 
@@ -226,17 +245,18 @@ def parent_dir():
 
 def start_parent_build(src):
     """One nvcc per earlier source into build/parent/, started now; refuses a
-    source whose entry point is not the one this script calls."""
+    source whose entry points are not the ones this script calls."""
     from fseend_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (defines, signature) in PARENT_SOURCES.items():
+    for name, (defines, signatures) in PARENT_SOURCES.items():
         text = " ".join((src / f"{name}.cu").read_text().split())
-        if signature not in text:
-            raise SystemExit(f"--parent: {src}/{name}.cu lacks the entry point this script "
-                             f"calls (... {signature})")
+        for signature in signatures:
+            if signature not in text:
+                raise SystemExit(f"--parent: {src}/{name}.cu lacks the entry point this "
+                                 f"script calls (... {signature})")
         lib = out / f"lib{name}.so"
         cmd = ([_build._nvcc()] + _build.NVCC_FLAGS + [f"-D{k}={v}" for k, v in defines.items()]
                + ["-o", str(lib), str(src / f"{name}.cu")])
@@ -247,7 +267,8 @@ def start_parent_build(src):
 
 def finish_parent_build(procs):
     """Wait for the earlier sources' builds and fill PARENT with callables of
-    the port's wrapper signatures (no launch counts)."""
+    the port's wrapper signatures (no launch counts; the transposed weights
+    `wt` that this tree's wrappers take are ignored)."""
     from fseend_tpu_torch.kernels import dec_train_fusion as DT
 
     libs = {}
@@ -263,13 +284,14 @@ def finish_parent_build(procs):
         f.argtypes, f.restype = argtypes, restype
         return f
 
-    enc = entry("enc_frame_scan", "enc_frame_scan_launch", [P] * 7 + [I] * 8 + [F32] * 2 + [P])
-    dec = entry("dec_frame_scan", "dec_frame_scan_launch", [P] * 9 + [I] * 5 + [P])
-    dec_ws = entry("dec_frame_scan", "dec_frame_scan_workspace", [I] * 7, ctypes.c_size_t)
+    fwd = entry("dec_train_fusion_fwd", "dtf_forward",
+                [P] * 19 + [I] * 5 + [ctypes.c_uint, ctypes.c_uint, F32, P])
+    fwd_ws = entry("dec_train_fusion_fwd", "dtf_fwd_workspace", [I] * 4, ctypes.c_size_t)
     bwd = entry("dec_train_fusion_bwd", "dtf_backward",
                 [P] * 40 + [I] * 5 + [ctypes.c_uint, ctypes.c_uint, F32, P])
     bwd_ws = entry("dec_train_fusion_bwd", "dtf_bwd_workspace", [I] * 5, ctypes.c_size_t)
     att = entry("cached_attention", "cached_attention_launch", [P] * 5 + [I] * 3 + [P])
+    att_pl = entry("cached_attention", "cached_attention_perlane_launch", [P] * 5 + [I] * 5 + [P])
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -281,28 +303,23 @@ def finish_parent_build(procs):
     def ptrs(ts):
         return [t.data_ptr() for t in ts]
 
-    def enc_frame_scan(h0, flush, w, kv, s, ring, *, ffac):
-        B, K, D = h0.shape
-        L, _, H, _, dk = kv.shape
-        hout = torch.empty_like(h0)
-        check("enc_frame_scan", enc((P * len(w))(*ptrs(w)), *ptrs((h0, flush, hout, kv, s, ring)),
-                                    B, K, L, D, H, dk, w.wf1a.shape[2], w.dw.shape[1], ffac,
-                                    dk ** -0.5, stream()))
-        return hout
+    def fusion_layer_fwd(x, w, seed, n_heads, chunk, rate, checkpoints=True, wt=None):
+        B, C, T, D = x.shape
+        H, dk, N, Fh = n_heads, D // n_heads, T // chunk, w.wf1.shape[0]
+        x = x.contiguous()
+        w = [t.contiguous() for t in w]
+        y = torch.empty_like(x)
+        kvs = x.new_empty(B, N, H, C, dk, dk) if checkpoints else None
+        ss = x.new_empty(B, N, H, C, 1, 1) if checkpoints else None
+        ws = x.new_empty(fwd_ws(B * C, T, H, Fh))
+        check("dec_train_fusion_fwd", fwd(*ptrs((x, *w, y)),
+                                          kvs.data_ptr() if checkpoints else None,
+                                          ss.data_ptr() if checkpoints else None,
+                                          ws.data_ptr(), B, C, T, chunk, Fh,
+                                          *DT._rate_args(seed, rate), stream()))
+        return y, kvs, ss
 
-    def dec_frame_scan(embp, embn, valid, pe, w, kv, s):
-        B, K, D = embp.shape
-        C = pe.shape[0]
-        L, _, H, _, _ = kv.shape
-        Fh = w.w_f1.shape[2]
-        ws = torch.empty(dec_ws(B, K, C, L, D, H, Fh), device=embp.device)
-        logits = torch.empty(B, K, C, device=embp.device)
-        check("dec_frame_scan", dec((P * len(w))(*ptrs(w)),
-                                    *ptrs((embp, embn, valid, pe, logits, kv, s, ws)),
-                                    B, K, C, L, Fh, stream()))
-        return logits
-
-    def fusion_layer_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate):
+    def fusion_layer_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt=None):
         B, C, T, _ = x.shape
         Fh = w.wf1.shape[0]
         x, dy, kvs, ss = (t.contiguous() for t in (x, dy, kvs, ss))
@@ -323,8 +340,18 @@ def finish_parent_build(procs):
         check("cached_attention", att(*ptrs((q, k, v, st, out)), R, K, k.shape[1], stream()))
         return out
 
-    PARENT.update(enc_frame_scan=enc_frame_scan, dec_frame_scan=dec_frame_scan,
-                  dec_train_fusion_bwd=fusion_layer_bwd, cached_attention=cached_attention)
+    def cached_attention_perlane(q, k, v, start, rows_per_lane, min_pos=0):
+        R, K, _ = q.shape
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        st = torch.as_tensor(start, device=q.device).to(torch.int32).contiguous()
+        out = torch.empty_like(q)
+        check("cached_attention_perlane", att_pl(*ptrs((q, k, v, st, out)), R, K, k.shape[1],
+                                                 rows_per_lane, min_pos, stream()))
+        return out
+
+    PARENT.update(dec_train_fusion_fwd=fusion_layer_fwd, dec_train_fusion_bwd=fusion_layer_bwd,
+                  cached_attention=cached_attention,
+                  cached_attention_perlane=cached_attention_perlane)
 
 
 def via(mod, name, fn, call):
@@ -414,8 +441,11 @@ def clone_args(args):
 
 
 def compare(name, kernel_out, plain_out, labels, atol=KERNEL_ATOL):
+    """Each output within `atol` of the plain one (a tolerance, or one per
+    label); returns the largest difference."""
     worst = 0.0
-    for lab, a, b in zip(labels, kernel_out, plain_out):
+    atols = atol if isinstance(atol, tuple) else (atol,) * len(labels)
+    for lab, a, b, atol in zip(labels, kernel_out, plain_out, atols):
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"{name}.{lab}: shape {tuple(a.shape)} vs "
                                  f"{tuple(b.shape)} or non-finite values")
@@ -807,7 +837,13 @@ def phase_dec_train_vs_plain(cfg, model, rng):
         torch.cuda.synchronize()
         want = DT.fusion_layer_fwd_plain(x, *args)
         errs["dec_train_fusion_fwd"] = max(errs["dec_train_fusion_fwd"], compare(
-            f"dec_train_fusion_fwd[rate={rate}]", got, want, ("y", "kvs", "ss")))
+            f"dec_train_fusion_fwd[rate={rate}]", got, want, ("y", "kvs", "ss"),
+            atol=(TC_ATOL, checkpoint_atol(want[1]), checkpoint_atol(want[2]))))
+        # the no-checkpoint call (validation) runs the same sequence: the same y
+        y_val = DT.fusion_layer_fwd(x, *args, checkpoints=False)[0]
+        if not torch.equal(y_val, got[0]):
+            raise AssertionError(f"dec_train_fusion_fwd[rate={rate}]: y without checkpoints "
+                                 f"differs by {(y_val - got[0]).abs().max().item():.3e}")
         log(f"  carried scale max {want[2].max().item():.2f}")
         kvs, ss = want[1], want[2]
         got = DT.fusion_layer_bwd(x, dy, kvs, ss, *args)
@@ -1020,12 +1056,13 @@ def phase_train(cfg, card):
 
             rows[route].update(loss_backward_ms=cuda_ms(loss_backward, reps=3),
                                encoder_backward_ms=cuda_ms(encoder_backward, reps=3))
-            if PARENT:  # the step on the earlier fusion-layer backward
-                earlier = via(DT, "_launch_bwd", PARENT["dec_train_fusion_bwd"],
-                              lambda: step(state, batch, SEED))
+            if PARENT:  # the step on the earlier fusion-layer forward and backward
+                earlier = via(DT, "_launch_fwd", PARENT["dec_train_fusion_fwd"],
+                              via(DT, "_launch_bwd", PARENT["dec_train_fusion_bwd"],
+                                  lambda: step(state, batch, SEED)))
                 in_turns("T3 train step, fused decoder", earlier,
                          lambda: step(state, batch, SEED), 3, card)
-                profile_window(earlier, 2, card, "fused train step, earlier backward")
+                profile_window(earlier, 2, card, "fused train step, earlier fusion layer")
             profile_window(lambda: step(state, batch, SEED), 2, card, "fused train step")
         log(json.dumps({"train_step": rows[route], "card": card}))
         del model, state, step
@@ -1044,14 +1081,15 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def pipe_bounds(name, t_bytes, flops):
+def pipe_bounds(name, t_bytes, flops, tensor_cores=None):
     """(bound_ms, bound_by, pipe, fma_bound_ms): the operations over the
     peak of the pipe the kernel's products run on -- the FMA pipe's float32
-    peak, or for the kernels on the tensor cores (TENSOR_CORE_KERNELS) the
-    TF32 peak over the three passes of a float32-exact product -- against
-    the bytes; fma_bound_ms is the operations over the FMA pipe's peak."""
+    peak, or for the kernels on the tensor cores (TENSOR_CORE_KERNELS, or
+    `tensor_cores` where given) the TF32 peak over the three passes of a
+    float32-exact product -- against the bytes; fma_bound_ms is the
+    operations over the FMA pipe's peak."""
     fma = flops / PEAK_F32_FLOPS * 1e3
-    if name in TENSOR_CORE_KERNELS:
+    if name in TENSOR_CORE_KERNELS if tensor_cores is None else tensor_cores:
         t_ops, pipe = flops * TC_PASSES / PEAK_TF32_FLOPS * 1e3, "tensor cores (3xTF32)"
     else:
         t_ops, pipe = fma, "FMA (float32)"
@@ -1170,12 +1208,13 @@ def time_kernel(name, label, kern, plain, args, kw, cfg, card, plain_reps=1, lib
             "library_ms": library_ms}
 
 
-def profile_window(fn, reps, card, what):
+def profile_window(fn, reps, card, what, part=None):
     """A torch.profiler trace of fn() called 1 + reps times (the first call
     absorbs the tracer's start-up): over the train step and both servers'
     step() always, over the blockwise server's process_block with
     `--profile`; prints the device's busy share of a call, its device
-    kernels and those that take most of it."""
+    kernels and those that take most of it, and with `part` the device time
+    of the kernels whose names hold it and their share of the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1193,13 +1232,16 @@ def profile_window(fn, reps, card, what):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(json.dumps({"profile": {"what": what, "calls": reps, "ms_per_call": call_ms,
-                                "device_busy_ms_per_call": busy,
-                                "device_idle_share": 1 - busy / call_ms,
-                                "device_kernels_per_call": sum(r[2] for r in rows),
-                                "top": [{"kernel": k[:72], "ms_per_call": ms,
-                                         "launches_per_call": n} for k, ms, n in rows[:16]]},
-                    "card": card}))
+    line = {"what": what, "calls": reps, "ms_per_call": call_ms,
+            "device_busy_ms_per_call": busy, "device_idle_share": 1 - busy / call_ms,
+            "device_kernels_per_call": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:72], "ms_per_call": ms, "launches_per_call": n}
+                    for k, ms, n in rows[:16]]}
+    if part:
+        mine = sum(ms for k, ms, _ in rows if part in k)
+        line["part"] = {"kernels": part, "device_ms_per_call": mine,
+                        "share_of_busy": mine / busy, "share_of_call": mine / call_ms}
+    log(json.dumps({"profile": line, "card": card}))
 
 
 FRAME_SCAN_LEAVES = {"enc_frame_scan": ("h", "kv", "s", "ring"),
@@ -1230,8 +1272,6 @@ def hold_on_main_path(server, xs, got):
 
 
 def phase_times(cfg, model, rng, card, main_path_args):
-    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
-    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
     from fseend_tpu_torch.ops import retention as R
     from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
@@ -1268,29 +1308,6 @@ def phase_times(cfg, model, rng, card, main_path_args):
     log(json.dumps({"step": {"lanes": B, "ms": step_ms, "frames_per_s": B / (step_ms / 1e3)},
                     "card": card}))
     profile_window(lambda: server.step(xs[:, 0]), 5, card, "per-frame step()")
-    if PARENT:
-        for (mod, name), (label, g, reps, rounds) in itertools.product(
-                frame_scans(), ((f"B={B} K={K}", got, 5, 1),
-                                (f"step() B={B} K=1", step_got, 20, 5))):
-            args, kw = g[name]
-            old = PARENT[name]
-            a_old, a_new = clone_args(args), clone_args(args)
-            diff = (old(*clone_args(args), **kw)
-                    - getattr(mod, name)(*clone_args(args), **kw)).abs().max()
-            log(f"  earlier {name} vs this at {label}: output max abs diff {diff.item():.3e}")
-            in_turns(f"{name} {label}", lambda: old(*a_old, **kw),
-                     lambda: getattr(mod, name)(*a_new, **kw), reps, card, rounds)
-            del a_old, a_new
-
-        def earlier(call):  # call() on the earlier frame scans
-            return via(EFS, "enc_frame_scan", PARENT["enc_frame_scan"],
-                       via(DFS, "dec_frame_scan", PARENT["dec_frame_scan"], call))
-
-        in_turns(f"per-frame step() B={B}", earlier(lambda: server.step(xs[:, 0])),
-                 lambda: server.step(xs[:, 0]), 20, card, rounds=5)
-        in_turns(f"per-frame process_block B={B} K={K}",
-                 earlier(lambda: server.process_block(xs)),
-                 lambda: server.process_block(xs), 3, card)
     fps = B * K / (fps_ms / 1e3)
     other_ms = fps_ms - rows["enc_frame_scan"]["ms"] - rows["dec_frame_scan"]["ms"]
     log(json.dumps({"process_block": {"server": "per-frame", "lanes": B, "K": K, "ms": fps_ms,
@@ -1366,6 +1383,8 @@ def phase_train_times(cfg, card, calls):
                               ("dec_train_fusion_bwd", DT.fusion_layer_bwd,
                                DT.fusion_layer_bwd_plain)):
         args, kw = calls["fusion_layer_" + name[-3:]]
+        # the wrapper makes the transposed weights itself: its time includes them
+        kw = {k: v for k, v in kw.items() if k != "wt"}
         # the main path's call held against plain with `kink_free` weights
         # (the forward's checkpoints made again for them)
         w_i = 4 if name.endswith("bwd") else 1
@@ -1378,30 +1397,37 @@ def phase_train_times(cfg, card, calls):
         want = plain(*check, **kw)
         label = f"{name}[main path {tuple(args[0].shape)}]"
         if name.endswith("fwd"):
-            errs[name] = compare(label, got, want, ("y", "kvs", "ss"))
+            errs[name] = compare(label, got, want, ("y", "kvs", "ss"),
+                                 atol=(TC_ATOL, checkpoint_atol(want[1]),
+                                       checkpoint_atol(want[2])))
         else:
             errs[name] = compare_grads(label, got, want)
             same_bits(label, got, kern(*check, **kw))
         del got, want
         rows[name] = time_kernel(name, f"main path {tuple(args[0].shape)} L={args[-2]}", kern,
                                  plain, args, kw, cfg, card)
-    # where the backward's time goes: device time by kernel of one call (and
-    # of the earlier kernel's, with --parent), then the two in turns
-    args, kw = calls["fusion_layer_bwd"]
-    versions = [("this", DT.fusion_layer_bwd)]
-    if PARENT:
-        versions.insert(0, ("earlier", PARENT["dec_train_fusion_bwd"]))
-    for which, fn in versions:
-        busy = device_ms_by_kernel(lambda: fn(*args, **kw))
-        log(json.dumps({"dec_train_fusion_bwd_parts": {
-            "kernel": which, "device_busy_ms": sum(busy.values()),
-            "top": top_kernels(busy, 1, n=16)}, "card": card}))
-    if PARENT:
-        old = PARENT["dec_train_fusion_bwd"]
-        diff = (old(*args, **kw)[0] - DT.fusion_layer_bwd(*args, **kw)[0]).abs().max()
-        log(f"  earlier dec_train_fusion_bwd vs this: dx max abs diff {diff.item():.3e}")
-        in_turns(f"dec_train_fusion_bwd main path {tuple(args[0].shape)}",
-                 lambda: old(*args, **kw), lambda: DT.fusion_layer_bwd(*args, **kw), 3, card)
+    # where each direction's time goes: device time by kernel of one call
+    # (and of the earlier kernel's, with --parent), then the two in turns
+    for name in ("dec_train_fusion_fwd", "dec_train_fusion_bwd"):
+        fn_name = "fusion_layer_" + name[-3:]
+        args, kw = calls[fn_name]
+        kw = {k: v for k, v in kw.items() if k != "wt"}
+        this = getattr(DT, fn_name)
+        versions = [("this", this)]
+        if PARENT:
+            versions.insert(0, ("earlier", PARENT[name]))
+        for which, fn in versions:
+            busy = device_ms_by_kernel(lambda: fn(*args, **kw))
+            log(json.dumps({f"{name}_parts": {
+                "kernel": which, "device_busy_ms": sum(busy.values()),
+                "top": top_kernels(busy, 1, n=16)}, "card": card}))
+        if PARENT:
+            old = PARENT[name]
+            diff = (old(*args, **kw)[0] - this(*args, **kw)[0]).abs().max()
+            log(f"  earlier {name} vs this: {'y' if name.endswith('fwd') else 'dx'} max abs "
+                f"diff {diff.item():.3e}")
+            in_turns(f"{name} main path {tuple(args[0].shape)}", lambda: old(*args, **kw),
+                     lambda: this(*args, **kw), 3, card)
     log("library_ms: null for the six LS kernels -- no single PyTorch call computes a "
         "frame scan, the chunkwise core with its carried state, the whole retention layer, "
         "or a fusion layer's forward or backward")
@@ -1437,10 +1463,18 @@ def attention_bound(name, args):
     nbytes = 4 * (2 * q.numel() + 2 * prefix * hd) + start.numel() * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
     # the design reads every kv tile up to the tile's last readable position
-    # once per query tile (64 queries per-lane, 128 shared-head)
-    qt = 64 if name == "cached_attention_perlane" else 128
-    design = nbytes + 4 * 2 * prefix * hd * (-(-K // qt) - 1)
-    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops)
+    # once per 128-query tile; at K = 1 (the per-lane form's split over the
+    # cache, on the FMA pipe, bound by bytes) once, and writes and reads the
+    # splits' partials
+    design = nbytes + 4 * 2 * prefix * hd * (-(-K // 128) - 1)
+    if name == "cached_attention_perlane" and K == 1:
+        from fseend_tpu_torch.kernels import _build
+
+        lib = _build.load("cached_attention", {"CA_HD": hd})
+        lib.cached_attention_perlane_scratch.argtypes = [ctypes.c_int] * 3
+        lib.cached_attention_perlane_scratch.restype = ctypes.c_size_t
+        design += 4 * 2 * lib.cached_attention_perlane_scratch(R, K, cap)
+    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops, tensor_cores=K > 1)
     return bound_ms, bound_by, flops, nbytes, design, pipe, fma_ms
 
 
@@ -1485,8 +1519,12 @@ def phase_fs_kernels_vs_plain(fcfg, rng):
     """F1: both kernels against their plain versions at production width:
     the shared head at the encoder's blockwise shape (R 256, K 128) at
     start 0, mid-way and cap - K; the per-lane heads at the fast block's
-    encoder (R 256) and decoder (R 1536) shapes, K 125, skewed lane starts
-    with lanes before warm-up, min_pos 0 and 9.  Every row is compared."""
+    encoder (R 256) and decoder (R 1536) shapes, K 125 (the fast block's
+    sub-block), 128, 129 (two query tiles) and 1 (step(): the split over
+    the cache at R 256, the rows alone at R 1536), skewed lane starts with
+    lanes before warm-up and lanes whose start + K passes the capacity,
+    min_pos 0 and 9; at K = 1 a second call gives the same bits.  Every row
+    is compared, all at TC_ATOL."""
     from fseend_tpu_torch.kernels import cached_attention as CA
 
     H, C = fcfg.n_heads, fcfg.max_nspks
@@ -1502,22 +1540,31 @@ def phase_fs_kernels_vs_plain(fcfg, rng):
             f"cached_attention[R={R} K={FS_K} cap={FS_CAP} start={start}]", [got], [want],
             ("out",), atol=TC_ATOL))
     del q, k, v
-    K = FS_BLOCK // 4
-    starts = rng.integers(0, FS_CAP - K, FS_LANES)
-    starts[:6] = (0, 1, 4, 8, 9, 10)                          # around warm-up
-    start = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
     for label, rpl in (("encoder", H), ("decoder", C * H)):
         R = FS_LANES * rpl
-        q = randn(rng, R, K, FS_HD)
         k, v = randn(rng, R, FS_CAP, FS_HD), randn(rng, R, FS_CAP, FS_HD)
-        for min_pos in (0, fcfg.conv_delay):
-            got = CA.cached_attention_perlane(q, k, v, start, rpl, min_pos)
-            torch.cuda.synchronize()
-            want = CA.cached_attention_perlane_plain(q, k, v, start, rpl, min_pos)
-            errs["cached_attention_perlane"] = max(errs["cached_attention_perlane"], compare(
-                f"cached_attention_perlane[{label} R={R} K={K} min_pos={min_pos}]", [got],
-                [want], ("out",)))
-        del q, k, v
+        for K in (FS_BLOCK // 4, 128, 129, 1):
+            starts = rng.integers(0, FS_CAP - K, FS_LANES)
+            starts[:6] = (0, 1, 4, 8, 9, 10)                  # around warm-up
+            starts[6:9] = (FS_CAP - K + 1, FS_CAP - 1, FS_CAP + 3)   # start + K past cap
+            start = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
+            q = randn(rng, R, K, FS_HD)
+            for min_pos in (0, fcfg.conv_delay):
+                got = CA.cached_attention_perlane(q, k, v, start, rpl, min_pos)
+                torch.cuda.synchronize()
+                want = CA.cached_attention_perlane_plain(q, k, v, start, rpl, min_pos)
+                errs["cached_attention_perlane"] = max(
+                    errs["cached_attention_perlane"], compare(
+                        f"cached_attention_perlane[{label} R={R} K={K} min_pos={min_pos}]",
+                        [got], [want], ("out",), atol=TC_ATOL))
+                if K == 1 and not torch.equal(
+                        CA.cached_attention_perlane(q, k, v, start, rpl, min_pos), got):
+                    raise AssertionError(f"cached_attention_perlane[{label} K=1]: a second "
+                                         f"call gives other bits")
+                del got, want
+            del q
+        log(f"  cached_attention_perlane[{label} K=1]: a second call gives the same bits")
+        del k, v
     return errs
 
 
@@ -1788,21 +1835,21 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
             line.update(cached_attention_ms=kern, outside_kernels_ms=ms - kern,
                         device_busy_ms=sum(busy.values()) / len(xs),
                         top=top_kernels(busy, len(xs)))
-            # the third block's kernel calls recorded (after the first two)
+            # the third block's kernel calls recorded (after the first two),
+            # then those of the step() after it (K = 1)
             srv.reset_lanes(lanes)
             for x in xs[:2]:
                 srv.process_block(x)
-            calls = {}
-            orig = CA.cached_attention_perlane
+            calls, orig = {}, CA.cached_attention_perlane
 
             def rec(*a, **kw):
-                calls[a[0].shape[0]] = ([t.clone() if torch.is_tensor(t) else t for t in a],
-                                        kw)
+                calls[tuple(a[0].shape[:2])] = ([t.clone() if torch.is_tensor(t) else t for t in a], kw)
                 return orig(*a, **kw)
 
             CA.cached_attention_perlane = rec
             try:
                 srv.process_block(xs[2])
+                srv.step(xs[0][:, 0])
             finally:
                 CA.cached_attention_perlane = orig
             step_ms = cuda_ms(lambda: srv.step(xs[0][:, 0]), reps=20)
@@ -1810,28 +1857,54 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
                                      "ms": step_ms,
                                      "frames_per_s": FS_LANES / (step_ms / 1e3)},
                             "card": card}))
-            profile_window(lambda: srv.step(xs[0][:, 0]), 5, card, "fs per-frame step()")
+            profile_window(lambda: srv.step(xs[0][:, 0]), 5, card, "fs per-frame step()",
+                           part="ca::")
+            if PARENT:
+                # bench.py's three blocks from a fresh state, then step() from
+                # there, on the earlier B6 and on this tree's, in turns
+                def three_blocks():
+                    srv.reset_lanes(lanes)
+                    for x in xs:
+                        srv.process_block(x)
+
+                def earlier(call):
+                    return via(CA, "cached_attention_perlane",
+                               PARENT["cached_attention_perlane"], call)
+
+                in_turns("fs per-frame process_block, three 500-frame blocks",
+                         earlier(three_blocks), three_blocks, 1, card)
+                in_turns(f"fs per-frame step() {FS_LANES} lanes",
+                         earlier(lambda: srv.step(xs[0][:, 0])),
+                         lambda: srv.step(xs[0][:, 0]), 20, card, rounds=5)
         log(json.dumps({"process_block": line, "card": card}))
         del srv
 
-    H = fcfg.n_heads
-    dec_args, kw = calls[FS_LANES * C * H]
-    enc_args, _ = calls[FS_LANES * H]
-    for label, args in (("decoder", dec_args), ("encoder", enc_args)):
+    H, err = fcfg.n_heads, 0.0
+    for label, (R, K) in (("decoder", (FS_LANES * C * H, 125)), ("encoder", (FS_LANES * H, 125)),
+                          ("step() decoder", (FS_LANES * C * H, 1)),
+                          ("step() encoder", (FS_LANES * H, 1))):
+        args, _ = calls[(R, K)]
         got = CA.cached_attention_perlane(*args)
         torch.cuda.synchronize()
-        err = compare(f"cached_attention_perlane[main path {label}]", [got],
-                      [CA.cached_attention_perlane_plain(*args)], ("out",))
+        err = max(err, compare(f"cached_attention_perlane[main path {label}]", [got],
+                               [CA.cached_attention_perlane_plain(*args)], ("out",),
+                               atol=TC_ATOL))
         lib = sdpa_call(args, "cached_attention_perlane")
         log(f"  sdpa vs plain: max abs diff "
             f"{(lib() - CA.cached_attention_perlane_plain(*args)).abs().max().item():.3e}")
-        row = time_kernel("cached_attention_perlane",
-                          f"main path {label} R={args[0].shape[0]} K={args[0].shape[1]} "
-                          f"start={int(args[3][0])} min_pos={args[5]}",
+        shape = (f"R={R} K={K} start={int(args[3][0])} min_pos={args[5]}")
+        if PARENT:
+            old = PARENT["cached_attention_perlane"]
+            log(f"  earlier cached_attention_perlane vs this: max abs diff "
+                f"{(old(*args) - got).abs().max().item():.3e}")
+            in_turns(f"cached_attention_perlane {label} {shape}", lambda: old(*args),
+                     lambda: CA.cached_attention_perlane(*args), 20, card)
+        row = time_kernel("cached_attention_perlane", f"main path {label} {shape}",
                           CA.cached_attention_perlane, CA.cached_attention_perlane_plain,
                           args, {}, None, card, library=lib)
         if label == "decoder":
-            rows["cached_attention_perlane"] = dict(row, max_abs_err=err)
+            rows["cached_attention_perlane"] = row
+    rows["cached_attention_perlane"]["max_abs_err"] = err
     got = CA.cached_attention(*block_args)
     torch.cuda.synchronize()
     err = compare("cached_attention[main path encoder]", [got],

@@ -15,9 +15,12 @@ so a pre-warm-up decoder query (qpos < min_pos) reads its own value and no
 row is empty.  Softmax in float32 with the 1/sqrt(hd) scale after the dot.
 
 On a CUDA tensor each wrapper launches `csrc/cached_attention.cu` (one source,
-two entry points; design notes there); on a CPU tensor it runs the plain
-version, the masked `mha_core` form the JAX package's non-flash paths use.
-Forward only; float32 only; hd <= 128.
+two entry points; design notes there: a block of K > 1 queries on the tensor
+cores, float32-exact, for both forms; the per-lane form's K = 1 calls
+(`step()`) streaming the cache on the FMA pipe, split over the cache when
+the rows alone do not fill the card, into scratch allocated here); on a CPU
+tensor it runs the plain version, the masked `mha_core` form the JAX
+package's non-flash paths use.  Forward only; float32 only; hd <= 128.
 
 Layouts: q (R, K, hd); k, v (R, cap, hd) with the block's keys and values
 already written; rows lane-major (`rows_per_lane` consecutive rows share a
@@ -110,11 +113,17 @@ def _launch(q, k, v, start, rows_per_lane, min_pos, perlane):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if perlane:
+            # the K = 1 path's per-split partials, when it splits the cache
+            lib.cached_attention_perlane_scratch.argtypes = [ctypes.c_int] * 3
+            lib.cached_attention_perlane_scratch.restype = ctypes.c_size_t
+            n = lib.cached_attention_perlane_scratch(R, K, cap)
+            part = q.new_empty(n) if n else None
             fn = lib.cached_attention_perlane_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
-                     out.data_ptr(), R, K, cap, rows_per_lane, min_pos, stream)
+                     out.data_ptr(), part.data_ptr() if n else None, R, K, cap,
+                     rows_per_lane, min_pos, stream)
         else:
             fn = lib.cached_attention_launch
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]

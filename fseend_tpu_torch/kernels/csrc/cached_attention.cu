@@ -4,52 +4,39 @@
 // Replaces the two TPU kernels of fseend_tpu/kernels/cached_attention_pallas.py:
 //   flash_cached_attention_perlane (_kernel_perlane): one write head per
 //     lane and a min_pos floor, for FS-EEND's per-frame-exact fast block
-//     (every encoder and decoder layer) -> cached_attention_kernel below;
+//     (every encoder and decoder layer) -> perlane_kernel (K > 1) and
+//     perlane_split_kernel + combine_kernel (K = 1, step()) below;
 //   flash_cached_attention (_kernel; wrapper cached_attention_block): one
 //     write head shared by every row and no floor, for the encoder of
 //     FS-EEND's blockwise step -> shared_head_kernel below.
 // For row r (a (lane, [slot,] head) triple, rows lane-major) and query i < K,
-// with qpos = start[r / rows_per_lane] + i, both compute
+// with qpos = start[r / rows_per_lane] + i, they compute
 //   out[r][i] = sum_p w[p] v[r][p],  w = softmax_p(q[r][i] . k[r][p] / sqrt(hd))
 // over the positions p < cap with (min_pos <= p <= qpos) or p == qpos.  The
 // shared-head form has a single start for all rows and min_pos = 0.
 //
-// What bounds it on the card: operations.  Each (query, readable position)
-// pair costs 4 hd float32 operations (q.k and p.v), against 8 hd bytes of
-// cache that every query of the row shares: at the decoder's fast-block shape
-// (1536 rows, K 125, hd 64, a full 2048-position cache) 100.7 GFLOP against
-// 1.6 GB read once, 1.5 ms of the FMA pipe against 0.5 ms of device memory;
-// at the blockwise encoder's (256 rows, K 128, start 1920) 16.6 GFLOP
-// against 285 MB, 0.25 ms of the FMA pipe, 0.10 ms of the tensor cores at
-// three TF32 passes (tc_f32.cuh), 0.085 ms of device memory.
+// What bounds it on the card.  A block of K queries: operations.  Each
+// (query, readable position) pair costs 4 hd float32 operations (q.k and
+// p.v), against 8 hd bytes of cache that every query of the row shares: at
+// the decoder's fast-block shape (1536 rows, K 125, hd 64, start 1375) 70
+// GFLOP against 1.1 GB read once, 0.43 ms of the tensor cores at three TF32
+// passes (tc_f32.cuh), 0.33 ms of device memory.  One query (K = 1, step()):
+// bytes.  The same cache prefix is read for 4 hd operations per position,
+// 0.5 operations a byte.
 //
-// Masked entries (both kernels): the score of a masked position is the
-// finite -1e30 the JAX kernels use, and its probability is set to 0
-// explicitly.  With min_pos > 0 a pre-warm-up query (qpos < min_pos) sees
-// whole tiles masked before its first finite score, where
-// exp(-1e30 - (-1e30)) would be 1; the explicit zero keeps those tiles out
-// of the sum and the accumulator (the JAX kernel does the same,
-// cached_attention_pallas.py:207-209).  Every query reads at least one
-// position (its own, or [min_pos, cap) when qpos >= cap), so the final
-// division is by a positive sum.
+// Masked entries: the score of a masked position is the finite -1e30 the JAX
+// kernels use, and its probability is set to 0 explicitly.  With min_pos > 0
+// a pre-warm-up query (qpos < min_pos) sees whole tiles masked before its
+// first finite score, where exp(-1e30 - (-1e30)) would be 1; the explicit
+// zero keeps those tiles out of the sum and the accumulator (the JAX kernel
+// does the same, cached_attention_pallas.py:207-209).  Every query reads at
+// least one position (its own, or [min_pos, cap) when qpos >= cap), so the
+// final division is by a positive sum.
 //
-// cached_attention_kernel (the per-lane form), the simple design: one
-// thread block per (row, 64-query tile), looping over 64-position kv tiles
-// staged in shared memory up to the last position any of its queries may
-// read (later tiles are dead and are not loaded).  The scores of a tile live
-// in registers, the probabilities pass through shared memory on their way to
-// the p.v product, and the running max, sum and the 64 x hd accumulator stay
-// in registers across tiles (online softmax in float32), so no (K, cap)
-// score tensor is ever written.  256 threads as 16 x 16: thread (ty, tx)
-// owns query rows ty + 16a and kv columns tx + 16b (a, b < 4) of a score
-// tile, and output columns tx + 16c of the accumulator, so that a warp reads
-// neighbouring shared-memory words; the rows of a q or k tile are padded by
-// one word against bank conflicts.  All products on the FMA pipe.
-//
-// shared_head_kernel (the shared-head form), on the tensor cores: one block
-// per (row, 128-query tile), so at K <= 128 each row's cache prefix is read
-// once.  Each of the 8 warps owns 16 query rows; q k^T and p v run through
-// the float32-exact 3xTF32 mma tile of tc_f32.cuh.  kv tiles of 64
+// K > 1, both forms (one body, tc_body<PERLANE>), on the tensor cores: one
+// block per (row, 128-query tile), so at K <= 128 each row's cache prefix is
+// read once.  Each of the 8 warps owns 16 query rows; q k^T and p v run
+// through the float32-exact 3xTF32 mma tile of tc_f32.cuh.  kv tiles of 64
 // positions are double-buffered in shared memory and copied with 16-byte
 // cp.async, the next tile's copy in flight while the current one is
 // multiplied; tiles past the block's last readable position are not loaded,
@@ -60,7 +47,25 @@
 // without shared memory: the 8 positions of each k step are taken in the
 // order the accumulator holds them (2t, 2t + 1 -> t, t + 4), and the v rows
 // are read in the same order.  Tile rows are padded to hd + 4 words (hd
-// rounded up to 8), so every fragment load of a warp hits 32 banks.
+// rounded up to 8), so every fragment load of a warp hits 32 banks.  The
+// per-lane form differs only in its start (one per lane, read per block)
+// and its mask (the floor, the self position).
+//
+// K = 1 (the per-lane form's step()), on the FMA pipe: a 16-row mma tile
+// would be 15/16 empty.  One block of 128 threads per (row, split of the
+// cache), looping over tiles of 128 positions copied to shared memory with
+// 16-byte cp.async (rows past the last readable position are not read);
+// thread t scores position t of the tile (float4 reads along a row of
+// stride hd + 4: a quarter-warp hits 32 banks), the block takes the tile's
+// max and sum (shuffles, then the 4 warps in order), and thread (g, c) adds
+// the probabilities of positions g, g + G, ... times the float4 c of their v
+// rows into its accumulator; the online softmax runs across the split's
+// tiles.  When the rows alone cannot fill the card (the encoder's 256), the
+// cache is split over blockIdx.y: each split writes its (max, sum,
+// accumulator) to scratch (an empty split: -1e30, 0, 0), and combine_kernel
+// merges a row's splits in the order of the split, weighting each by
+// exp(max - the row's max): a split with no readable position weighs 0, and
+// two calls give the same bits.  The scratch is the wrapper's.
 //
 // The head dim is a compile-time constant (CA_HD <= 128), so that the
 // accumulators stay in registers.
@@ -75,173 +80,34 @@
 
 namespace ca {
 
-constexpr int kQT = 64;            // queries per block
-constexpr int kKT = 64;            // kv positions per tile
-constexpr int kThreads = 256;      // 16 x 16
-constexpr int kNC = (CA_HD + 15) / 16;  // accumulator columns per thread
-constexpr int kLdq = CA_HD + 1;    // padded row length of the q and k tiles
-constexpr int kLdp = kKT + 1;      // padded row length of the probability tile
 constexpr float kNeg = -1e30f;
 
 static_assert(CA_HD >= 1 && CA_HD <= 128, "head dim must be in [1, 128]");
 
-constexpr int smem_floats() { return 2 * kQT * kLdq + kKT * CA_HD + kQT * kLdp; }
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// q, out (R, K, CA_HD); k, v (R, cap, CA_HD); start[row / rows_per_lane]
-__global__ void __launch_bounds__(kThreads)
-    cached_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const int* __restrict__ start,
-                            float* __restrict__ out, int K, int cap, int rows_per_lane,
-                            int min_pos, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                     // (kQT, kLdq)
-  float* ks = qs + kQT * kLdq;          // (kKT, kLdq)
-  float* vs = ks + kKT * kLdq;          // (kKT, CA_HD)
-  float* ps = vs + kKT * CA_HD;         // (kQT, kLdp)
-
-  const int row = blockIdx.x;
-  const int q0 = blockIdx.y * kQT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int st = start[row / rows_per_lane];
-  const int nq = min(kQT, K - q0);
-  // the last position a query of this tile may read
-  const int last = min(st + q0 + nq - 1, cap - 1);
-
-  const float* qr = q + ((size_t)row * K + q0) * CA_HD;
-  const float* kr = k + (size_t)row * cap * CA_HD;
-  const float* vr = v + (size_t)row * cap * CA_HD;
-  for (int idx = threadIdx.x; idx < kQT * CA_HD; idx += kThreads) {
-    const int r = idx / CA_HD, d = idx % CA_HD;
-    qs[r * kLdq + d] = r < nq ? qr[(size_t)r * CA_HD + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][kNC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNeg;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kNC; ++c) acc[a][c] = 0.f;
-  }
-
-  for (int j0 = 0; j0 <= last; j0 += kKT) {
-    __syncthreads();  // the previous tile's ks, vs and ps are consumed
-    const int nk = min(kKT, cap - j0);
-    for (int idx = threadIdx.x; idx < kKT * CA_HD; idx += kThreads) {
-      const int r = idx / CA_HD, d = idx % CA_HD;
-      const bool in = r < nk;
-      ks[r * kLdq + d] = in ? kr[(size_t)(j0 + r) * CA_HD + d] : 0.f;
-      vs[r * CA_HD + d] = in ? vr[(size_t)(j0 + r) * CA_HD + d] : 0.f;
+// n rows of a (rows, CA_HD) matrix into a tile of row stride LD by cp.async
+// over NT threads (16-byte copies where a row is a multiple of 16 bytes);
+// rows at or past `valid` are zero-filled
+template <int LD, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int n, int valid) {
+  if constexpr (CA_HD % 4 == 0) {
+    constexpr int kChunks = CA_HD / 4;
+    for (int idx = threadIdx.x; idx < n * kChunks; idx += NT) {
+      const int r = idx / kChunks, c = (idx % kChunks) * 4;
+      const bool ok = r < valid;
+      tc::cp_async16(dst + r * LD + c, ok ? src + (size_t)r * CA_HD + c : src, ok);
     }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < CA_HD; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * kLdq + d];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) kb[b] = ks[(tx + 16 * b) * kLdq + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qpos = st + q0 + ty + 16 * a;
-      unsigned ok = 0;  // bit b: kv column tx + 16b is readable
-      float mx = kNeg;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int p = j0 + tx + 16 * b;
-        if (p < cap && ((p <= qpos && p >= min_pos) || p == qpos)) ok |= 1u << b;
-        s[a][b] = (ok >> b) & 1u ? s[a][b] * scale : kNeg;
-        mx = fmaxf(mx, s[a][b]);
-      }
-      const float m_new = fmaxf(m[a], half_warp_max(mx));
-      const float corr = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float p = (ok >> b) & 1u ? expf(s[a][b] - m_new) : 0.f;
-        ps[(ty + 16 * a) * kLdp + tx + 16 * b] = p;
-        sum += p;
-      }
-      l[a] = l[a] * corr + half_warp_sum(sum);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) acc[a][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < nk; ++j) {
-      float pa[4], vc[kNC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = ps[(ty + 16 * a) * kLdp + j];
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) {
-        const int d = tx + 16 * c;
-        vc[c] = d < CA_HD ? vs[j * CA_HD + d] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < kNC; ++c) acc[a][c] = fmaf(pa[a], vc[c], acc[a][c]);
-    }
-  }
-
-  float* orow = out + ((size_t)row * K + q0) * CA_HD;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
-    if (r >= nq) continue;
-    const float inv = 1.f / l[a];
-#pragma unroll
-    for (int c = 0; c < kNC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < CA_HD) orow[(size_t)r * CA_HD + d] = acc[a][c] * inv;
+  } else {
+    for (int idx = threadIdx.x; idx < n * CA_HD; idx += NT) {
+      const int r = idx / CA_HD, c = idx % CA_HD;
+      const bool ok = r < valid;
+      tc::cp_async4(dst + r * LD + c, ok ? src + (size_t)r * CA_HD + c : src, ok);
     }
   }
 }
 
-inline int launch(const float* q, const float* k, const float* v, const int* start,
-                  float* out, int R, int K, int cap, int rows_per_lane, int min_pos,
-                  cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats();
-  cudaError_t err = cudaFuncSetAttribute(cached_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(R, (K + kQT - 1) / kQT);
-  cached_attention_kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, start, out, K, cap, rows_per_lane, min_pos,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(CA_HD))));
-  return cudaGetLastError();
-}
+// ---- K > 1, both forms, on the tensor cores ----
 
-
-// ---- the shared-head form on the tensor cores ----
-
+constexpr int kThreads = 256;              // 8 warps
 constexpr int kTcQ = 128;                  // queries per block: 8 warps x 16 rows
 constexpr int kTcKV = 64;                  // kv positions per tile
 constexpr int kHdp = (CA_HD + 7) / 8 * 8;  // head dim rounded up to the mma's k
@@ -252,37 +118,22 @@ constexpr int kPadDiv = kPad > 0 ? kPad : 1;
 
 constexpr int tc_smem_floats() { return (kTcQ + 4 * kTcKV) * kTcLd; }
 
-// n rows of a (rows, CA_HD) matrix into a tile of row stride kTcLd by
-// cp.async; rows at or past `valid` are zero-filled
-__device__ __forceinline__ void tc_load_rows(float* dst, const float* src, int n, int valid) {
-  if constexpr (CA_HD % 4 == 0) {
-    constexpr int kChunks = CA_HD / 4;
-    for (int idx = threadIdx.x; idx < n * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = (idx % kChunks) * 4;
-      const bool ok = r < valid;
-      tc::cp_async16(dst + r * kTcLd + c, ok ? src + (size_t)r * CA_HD + c : src, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < n * CA_HD; idx += kThreads) {
-      const int r = idx / CA_HD, c = idx % CA_HD;
-      const bool ok = r < valid;
-      tc::cp_async4(dst + r * kTcLd + c, ok ? src + (size_t)r * CA_HD + c : src, ok);
-    }
-  }
-}
-
-// q, out (R, K, CA_HD); k, v (R, cap, CA_HD); one start for every row
-__global__ void __launch_bounds__(kThreads)
-    shared_head_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const int* __restrict__ start,
-                       float* __restrict__ out, int K, int cap, float scale) {
+// q, out (R, K, CA_HD); k, v (R, cap, CA_HD); PERLANE: start[row /
+// rows_per_lane] and the min_pos floor, else start[0] and no floor; the
+// tiles are the kernel's dynamic shared memory
+template <bool PERLANE>
+__device__ __forceinline__ void tc_body(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        const int* __restrict__ start, float* __restrict__ out,
+                                        int K, int cap, int rows_per_lane, int min_pos,
+                                        float scale) {
   extern __shared__ __align__(16) float tsm[];
   float* qs = tsm;                       // (kTcQ, kTcLd)
   float* kvs = qs + kTcQ * kTcLd;        // 2 stages x (k, v) x (kTcKV, kTcLd)
 
   const int row = blockIdx.x, q0 = blockIdx.y * kTcQ;
   const int warp = threadIdx.x >> 5, g = tc::lane_g(), t = tc::lane_t();
-  const int st = start[0];
+  const int st = PERLANE ? start[row / rows_per_lane] : start[0];
   const int nq = min(kTcQ, K - q0);
   const int last = min(st + q0 + nq - 1, cap - 1);  // the block's last readable position
   const int ntile = last / kTcKV + 1;
@@ -299,10 +150,10 @@ __global__ void __launch_bounds__(kThreads)
   auto load_kv = [&](int it) {
     float* ks = kvs + (it & 1) * 2 * kTcKV * kTcLd;
     const int j0 = it * kTcKV;
-    tc_load_rows(ks, kr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
-    tc_load_rows(ks + kTcKV * kTcLd, vr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
+    load_rows<kTcLd, kThreads>(ks, kr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
+    load_rows<kTcLd, kThreads>(ks + kTcKV * kTcLd, vr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
   };
-  tc_load_rows(qs, q + ((size_t)row * K + q0) * CA_HD, kTcQ, nq);
+  load_rows<kTcLd, kThreads>(qs, q + ((size_t)row * K + q0) * CA_HD, kTcQ, nq);
   load_kv(0);
   tc::cp_async_commit();
 
@@ -352,7 +203,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int p = j0 + n * 8 + 2 * t + (e & 1);
-          const bool ok = p < cap && p <= (e < 2 ? qp0 : qp1);
+          const int qp = e < 2 ? qp0 : qp1;
+          bool ok;
+          if constexpr (PERLANE)
+            ok = p < cap && ((p <= qp && p >= min_pos) || p == qp);
+          else
+            ok = p < cap && p <= qp;
           s[n][e] = ok ? s[n][e] * scale : kNeg;
           if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
           else mx1 = fmaxf(mx1, s[n][e]);
@@ -419,38 +275,237 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-inline int launch_shared_head(const float* q, const float* k, const float* v,
-                              const int* start, float* out, int R, int K, int cap,
-                              cudaStream_t stream) {
+// one start for every row, no floor
+__global__ void __launch_bounds__(kThreads)
+    shared_head_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const int* __restrict__ start,
+                       float* __restrict__ out, int K, int cap, float scale) {
+  tc_body<false>(q, k, v, start, out, K, cap, 1, 0, scale);
+}
+
+// per-lane starts and the min_pos floor; two blocks an SM (the mask's
+// extra registers would otherwise leave one)
+__global__ void __launch_bounds__(kThreads, 2)
+    perlane_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const int* __restrict__ start,
+                   float* __restrict__ out, int K, int cap, int rows_per_lane, int min_pos,
+                   float scale) {
+  tc_body<true>(q, k, v, start, out, K, cap, rows_per_lane, min_pos, scale);
+}
+
+// ---- K = 1, the per-lane form: a split over the cache on the FMA pipe ----
+
+constexpr int kSplitT = 128;                // threads, and positions per tile
+constexpr int kHd4 = (CA_HD + 3) / 4 * 4;   // head dim rounded up to a float4
+constexpr int kSLd = kHd4 + 4;              // row stride of the k and v tiles
+constexpr int kNC4 = kHd4 / 4;              // float4 columns of a row
+constexpr int kGrp = kSplitT / kNC4;        // position groups of the p v sum
+constexpr int kPad4 = kHd4 - CA_HD;
+constexpr int kPad4Div = kPad4 > 0 ? kPad4 : 1;
+// blocks that fill the card: at fewer rows the cache is split
+constexpr int kFillBlocks = 132 * 8;
+
+constexpr int split_smem_floats() { return 2 * kSplitT * kSLd + kHd4 + kSplitT + 8 + kGrp * kHd4; }
+
+// the splits of each row's cache at R rows: rows alone when they fill the
+// card, else about kFillBlocks / R splits of whole tiles
+inline int split_count(int R, int cap, int* per_tiles) {
+  const int tiles = (cap + kSplitT - 1) / kSplitT;
+  int n = R >= kFillBlocks ? 1 : (kFillBlocks + R - 1) / R;
+  if (n > tiles) n = tiles;
+  *per_tiles = (tiles + n - 1) / n;
+  return (tiles + *per_tiles - 1) / *per_tiles;
+}
+
+// q, out (R, 1, CA_HD); k, v (R, cap, CA_HD).  Block (row, z) takes the
+// positions [z per kSplitT, (z + 1) per kSplitT) up to the row's last
+// readable one.  nsplit == 1: out = acc / sum; else part[row][z] = (max,
+// sum, acc[CA_HD]).
+__global__ void __launch_bounds__(kSplitT)
+    perlane_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ start,
+                         float* __restrict__ out, float* __restrict__ part, int cap,
+                         int rows_per_lane, int min_pos, float scale, int per, int nsplit) {
+  extern __shared__ __align__(16) float ssm[];
+  float* ks = ssm;                     // (kSplitT, kSLd)
+  float* vs = ks + kSplitT * kSLd;     // (kSplitT, kSLd)
+  float* qs = vs + kSplitT * kSLd;     // (kHd4)
+  float* ps = qs + kHd4;               // (kSplitT) the tile's probabilities
+  float* wred = ps + kSplitT;          // (8) the warps' max, then sum
+  float* racc = wred + 8;              // (kGrp, kHd4) the groups' accumulators
+
+  const int row = blockIdx.x, z = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int qpos = start[row / rows_per_lane];
+  const int j_begin = z * per * kSplitT;
+  // positions [j_begin, j_end) are this split's, every one <= qpos and < cap
+  const int j_end = min((z + 1) * per * kSplitT, min(qpos, cap - 1) + 1);
+  const int c = tid % kNC4, grp = tid / kNC4;
+
+  float m = kNeg, l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j_begin < j_end) {
+    const float* kr = k + (size_t)row * cap * CA_HD;
+    const float* vr = v + (size_t)row * cap * CA_HD;
+    if constexpr (kPad4 > 0) {  // the padded columns are never copied: zero them once
+      for (int idx = tid; idx < 2 * kSplitT * kPad4; idx += kSplitT)
+        ssm[(idx / kPad4Div) * kSLd + CA_HD + idx % kPad4Div] = 0.f;
+    }
+    for (int d = tid; d < kHd4; d += kSplitT) qs[d] = d < CA_HD ? q[(size_t)row * CA_HD + d] : 0.f;
+    for (int j0 = j_begin; j0 < j_end; j0 += kSplitT) {
+      const int nv = min(kSplitT, j_end - j0);
+      __syncthreads();  // the previous tile's ks, vs, ps and wred are consumed
+      load_rows<kSLd, kSplitT>(ks, kr + (size_t)j0 * CA_HD, kSplitT, nv);
+      load_rows<kSLd, kSplitT>(vs, vr + (size_t)j0 * CA_HD, kSplitT, nv);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      // the score of position j0 + tid
+      const int p = j0 + tid;
+      float s = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < kNC4; ++cc) {
+        const float4 kk = *reinterpret_cast<const float4*>(ks + tid * kSLd + 4 * cc);
+        const float4 qq = *reinterpret_cast<const float4*>(qs + 4 * cc);
+        s = fmaf(qq.x, kk.x, s);
+        s = fmaf(qq.y, kk.y, s);
+        s = fmaf(qq.z, kk.z, s);
+        s = fmaf(qq.w, kk.w, s);
+      }
+      const bool ok = tid < nv && (p >= min_pos || p == qpos);
+      s = ok ? s * scale : kNeg;
+      float mx = s;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) wred[warp] = mx;
+      __syncthreads();
+      const float m_new = fmaxf(m, fmaxf(fmaxf(wred[0], wred[1]), fmaxf(wred[2], wred[3])));
+      const float corr = expf(m - m_new);
+      const float pr = ok ? expf(s - m_new) : 0.f;
+      ps[tid] = pr;
+      const float sum = fs::warp_sum(pr);
+      if (lane == 0) wred[4 + warp] = sum;
+      __syncthreads();
+      l = l * corr + (((wred[4] + wred[5]) + wred[6]) + wred[7]);
+      m = m_new;
+      acc = make_float4(acc.x * corr, acc.y * corr, acc.z * corr, acc.w * corr);
+      if (grp < kGrp) {
+        for (int j = grp; j < nv; j += kGrp) {
+          const float pj = ps[j];
+          const float4 vv = *reinterpret_cast<const float4*>(vs + j * kSLd + 4 * c);
+          acc.x = fmaf(pj, vv.x, acc.x);
+          acc.y = fmaf(pj, vv.y, acc.y);
+          acc.z = fmaf(pj, vv.z, acc.z);
+          acc.w = fmaf(pj, vv.w, acc.w);
+        }
+      }
+    }
+  }
+  // the groups' accumulators added in the order of the group
+  if (grp < kGrp) *reinterpret_cast<float4*>(racc + grp * kHd4 + 4 * c) = acc;
+  __syncthreads();
+  for (int d = tid; d < CA_HD; d += kSplitT) {
+    float o = 0.f;
+    for (int gi = 0; gi < kGrp; ++gi) o += racc[gi * kHd4 + d];
+    if (nsplit == 1) {
+      out[(size_t)row * CA_HD + d] = o / l;
+    } else {
+      float* pz = part + ((size_t)row * nsplit + z) * (CA_HD + 2);
+      pz[2 + d] = o;
+      if (d == 0) pz[0] = m, pz[1] = l;
+    }
+  }
+}
+
+// out[row][d] = sum_z w_z acc_z[d] / sum_z w_z sum_z, w_z = exp(max_z - the
+// row's max), the splits added in the order of z
+__global__ void combine_kernel(const float* __restrict__ part, float* __restrict__ out, int R,
+                               int nsplit) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)R * CA_HD) return;
+  const int row = (int)(e / CA_HD), d = (int)(e % CA_HD);
+  const float* p = part + (size_t)row * nsplit * (CA_HD + 2);
+  float mx = kNeg;
+  for (int z = 0; z < nsplit; ++z) mx = fmaxf(mx, p[z * (CA_HD + 2)]);
+  float num = 0.f, den = 0.f;
+  for (int z = 0; z < nsplit; ++z) {
+    const float* pz = p + z * (CA_HD + 2);
+    const float w = expf(pz[0] - mx);
+    den = fmaf(w, pz[1], den);
+    num = fmaf(w, pz[2 + d], num);
+  }
+  out[e] = num / den;
+}
+
+inline float attention_scale() {
+  return static_cast<float>(1.0 / std::sqrt(static_cast<double>(CA_HD)));
+}
+
+inline int launch_tc(bool perlane, const float* q, const float* k, const float* v,
+                     const int* start, float* out, int R, int K, int cap, int rows_per_lane,
+                     int min_pos, cudaStream_t stream) {
   const size_t smem = sizeof(float) * tc_smem_floats();
-  cudaError_t err = cudaFuncSetAttribute(shared_head_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const void* fn = perlane ? reinterpret_cast<const void*>(perlane_kernel)
+                           : reinterpret_cast<const void*>(shared_head_kernel);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(R, (K + kTcQ - 1) / kTcQ);
-  shared_head_kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, start, out, K, cap,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(CA_HD))));
+  if (perlane)
+    perlane_kernel<<<grid, kThreads, smem, stream>>>(q, k, v, start, out, K, cap,
+                                                     rows_per_lane, min_pos, attention_scale());
+  else
+    shared_head_kernel<<<grid, kThreads, smem, stream>>>(q, k, v, start, out, K, cap,
+                                                         attention_scale());
+  return cudaGetLastError();
+}
+
+inline int launch_split(const float* q, const float* k, const float* v, const int* start,
+                        float* out, float* part, int R, int cap, int rows_per_lane, int min_pos,
+                        cudaStream_t stream) {
+  int per;
+  const int nsplit = split_count(R, cap, &per);
+  if (nsplit > 1 && !part) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * split_smem_floats();
+  cudaError_t err = cudaFuncSetAttribute(perlane_split_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  perlane_split_kernel<<<dim3(R, nsplit), kSplitT, smem, stream>>>(
+      q, k, v, start, out, part, cap, rows_per_lane, min_pos, attention_scale(), per, nsplit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  const long long total = (long long)R * CA_HD;
+  combine_kernel<<<(int)((total + 255) / 256), 256, 0, stream>>>(part, out, R, nsplit);
   return cudaGetLastError();
 }
 
 }  // namespace ca
 
-// Per-lane write heads: start (R / rows_per_lane) int32 on the device.
+// Floats of scratch cached_attention_perlane_launch needs at (R, K, cap):
+// the splits' partials at K = 1 when the rows alone do not fill the card,
+// else 0.
+extern "C" size_t cached_attention_perlane_scratch(int R, int K, int cap) {
+  int per;
+  const int nsplit = ca::split_count(R, cap, &per);
+  return K == 1 && nsplit > 1 ? (size_t)R * nsplit * (CA_HD + 2) : 0;
+}
+
+// Per-lane write heads: start (R / rows_per_lane) int32 on the device; part
+// the scratch of cached_attention_perlane_scratch floats (null when 0).
 // Returns cudaGetLastError().
-extern "C" int cached_attention_perlane_launch(const float* q, const float* k,
-                                               const float* v, const int* start,
-                                               float* out, int R, int K, int cap,
-                                               int rows_per_lane, int min_pos,
-                                               void* stream) {
-  return ca::launch(q, k, v, start, out, R, K, cap, rows_per_lane, min_pos,
-                    static_cast<cudaStream_t>(stream));
+extern "C" int cached_attention_perlane_launch(const float* q, const float* k, const float* v,
+                                               const int* start, float* out, float* part,
+                                               int R, int K, int cap, int rows_per_lane,
+                                               int min_pos, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 1) return ca::launch_split(q, k, v, start, out, part, R, cap, rows_per_lane, min_pos, st);
+  return ca::launch_tc(true, q, k, v, start, out, R, K, cap, rows_per_lane, min_pos, st);
 }
 
 // One write head for every row: start (1) int32 on the device; no floor.
 extern "C" int cached_attention_launch(const float* q, const float* k, const float* v,
                                        const int* start, float* out, int R, int K,
                                        int cap, void* stream) {
-  return ca::launch_shared_head(q, k, v, start, out, R, K, cap,
-                                static_cast<cudaStream_t>(stream));
+  return ca::launch_tc(false, q, k, v, start, out, R, K, cap, 1, 0,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -13,10 +13,11 @@
 // of the tensor cores at three TF32 passes.
 //
 // The TPU kernel recomputes each chunk's forward in VMEM inside its reverse
-// sweep.  Here the recompute runs first, over the whole layer, with the
-// forward's row kernels into a workspace (x, dy and the checkpoints are all
-// the backward reads from the forward, as in the JAX contract), and the
-// backward then runs layer-wide, in reverse:
+// sweep.  Here the recompute runs first, over the whole layer: the
+// forward's own sequence (dec_train_fusion_seq.cuh) into a workspace, so
+// the recomputed activations are the forward's to the bit (x, dy and the
+// checkpoints are all the backward reads from the forward, as in the JAX
+// contract), and the backward then runs layer-wide, in reverse:
 //   ln_bwd (LN3) -> wgrad, colsum, linear (FFN out) -> relu_drop (the same
 //   kernel: mask * relu') -> wgrad, colsum, linear accumulated (FFN in) ->
 //   ln_bwd (LN2) -> ... slot_attn backward ... -> ln_bwd (LN1) -> out
@@ -43,8 +44,7 @@
 // for dk and dv, one over the query tiles for dq, one for dS.  Each
 // gradient element is one warp's complete sum, so no element is added to
 // twice.
-#include "dec_train_fusion_common.cuh"
-#include "tc_f32.cuh"
+#include "dec_train_fusion_seq.cuh"
 
 using namespace dtf;
 
@@ -285,46 +285,31 @@ __global__ void __launch_bounds__(256) core_bwd_kernel(CoreBwdArgs a) {
 }
 
 struct BwdBufs {
-  float *qkvg, *oh, *gated, *a, *r1, *x1, *qkv, *attn, *s, *r2, *x2, *hpre, *hdrop, *f, *r3;
+  SeqBufs fw;  // the recompute's activations (dec_train_fusion_seq.cuh)
   float *g2, *gF, *dqkv, *dqkvg, *doh;
-  float *zkv, *ones, *kvf, *sf, *part;
 };
 
 size_t carve_bwd(float* base, int BC, int T, int L, int F, BwdBufs* b) {
   const size_t R = (size_t)BC * T, rows = (size_t)BC * H;
   Carve c{base};
-  b->qkvg = c.take(R * 4 * D);
-  for (float** p : {&b->oh, &b->gated, &b->a, &b->r1, &b->x1}) *p = c.take(R * D);
-  b->qkv = c.take(R * 3 * D);
-  for (float** p : {&b->attn, &b->s, &b->r2, &b->x2}) *p = c.take(R * D);
-  b->hpre = c.take(R * F);
-  b->hdrop = c.take(R * F);
-  for (float** p : {&b->f, &b->r3, &b->g2, &b->doh}) *p = c.take(R * D);
+  SeqBufs& f = b->fw;
+  f = SeqBufs{};
+  f.qkvg = c.take(R * 4 * D);
+  for (float** p : {&f.oh, &f.gated, &f.a, &f.r1, &f.x1}) *p = c.take(R * D);
+  f.qkv = c.take(R * 3 * D);
+  for (float** p : {&f.attn, &f.s, &f.r2, &f.x2}) *p = c.take(R * D);
+  f.hpre = c.take(R * F);
+  f.hdrop = c.take(R * F);
+  for (float** p : {&f.f, &f.r3, &b->g2, &b->doh}) *p = c.take(R * D);
   b->gF = c.take(R * F);
   b->dqkv = c.take(R * 3 * D);
   b->dqkvg = c.take(R * 4 * D);
-  b->zkv = c.take(rows * DK * DK);
-  b->kvf = c.take(rows * DK * DK);
-  b->ones = c.take(rows);
-  b->sf = c.take(rows);
-  b->part = c.take(tc::kSplitFloats);  // partial sums of the gradients' row slices
+  f.zkv = c.take(rows * DK * DK);
+  f.kvf = c.take(rows * DK * DK);
+  f.ones = c.take(rows);
+  f.sf = c.take(rows);
+  f.part = c.take(tc::kSplitFloats);  // partial sums of the products and the gradients' row slices
   return c.used;
-}
-
-// The layer's products, all in tc_f32.cuh's precise form over R rows of
-// contiguous operands: C (R, N) = (A (R, K) W (K, N) + bias) * sc(n), and
-// dx (R, D) += A (R, K) W (K, D), an input gradient with W in torch's (out,
-// in) layout
-inline int mm(const float* A, const float* W, const float* bias, float* C, int R, int N, int K,
-              cudaStream_t st, float* part, int s_lo = 0, int s_hi = 0, float s = 1.f) {
-  return tc::launch_linear<tc::kNone, false, true>(A, K, W, N, bias, C, N, R, N, K, st, s_lo,
-                                                   s_hi, s, part);
-}
-
-inline int mm_add(const float* A, const float* W, float* dx, int R, int K, cudaStream_t st,
-                  float* part) {
-  return tc::launch_linear<tc::kNone, true, true>(A, K, W, D, nullptr, dx, D, R, D, K, st, 0, 0,
-                                                  1.f, part);
 }
 
 }  // namespace
@@ -356,65 +341,54 @@ extern "C" int dtf_backward(const float* x, const float* dy, const float* kvs, c
   const int BC = B * C, R = BC * T;
   const Drop dp{seed, thr, mult, C, T, L};
   const float kscale = (float)(1.0 / sqrt((double)DK));
-  BwdBufs b;
-  carve_bwd(ws, BC, T, L, F, &b);
+  BwdBufs bb;
+  carve_bwd(ws, BC, T, L, F, &bb);
+  const SeqBufs& b = bb.fw;
+  float* part = b.part;
   int err;
 #define DTF_TRY(call) \
   if ((err = (call)) != 0) return err
-  // ---- recompute the forward ----
-  float* part = b.part;
-  DTF_TRY(mm(x, tqkvg, bqkvg, b.qkvg, R, 4 * D, D, st, part, D, 2 * D, kscale));
-  DTF_TRY(retention_fwd(b.qkvg, b.oh, b.zkv, b.ones, b.kvf, b.sf, nullptr, nullptr, BC, T, L, C,
-                        st));
-  DTF_TRY(gate_fwd(b.oh, b.qkvg + 3 * D, 4 * D, b.gated, R, st));
-  DTF_TRY(mm(b.gated, tro, bro, b.a, R, D, D, st, part));
-  DTF_TRY(add_drop_ln(x, b.a, lns, lnb, b.r1, b.x1, R, dp, kRet, st));
-  DTF_TRY(mm(b.x1, tmi, bmi, b.qkv, R, 3 * D, D, st, part));
-  DTF_TRY(slot_attn(b.qkv, nullptr, b.attn, B, dp, false, st));
-  DTF_TRY(mm(b.attn, tmo, bmo, b.s, R, D, D, st, part));
-  DTF_TRY(add_drop_ln(b.x1, b.s, lns + D, lnb + D, b.r2, b.x2, R, dp, kMha, st));
-  DTF_TRY(mm(b.x2, tf1, bf1, b.hpre, R, F, D, st, part));
-  DTF_TRY(relu_drop(b.hpre, b.hpre, b.hdrop, R, F, dp, st));
-  DTF_TRY(mm(b.hdrop, tf2, bf2, b.f, R, D, F, st, part));
-  DTF_TRY(add_drop_ln(b.x2, b.f, lns + 2 * D, lnb + 2 * D, b.r3, nullptr, R, dp, kFfo, st));
+  // ---- recompute the forward: the forward's own sequence ----
+  const SeqWeights sw{tqkvg, bqkvg, tro, bro, tmi, bmi, tmo, bmo, tf1, bf1, tf2, bf2, lns, lnb};
+  DTF_TRY(forward_seq(x, sw, b, B, C, T, L, F, dp, st));
   // ---- backward; dx carries the residual stream's gradient ----
   // LN3 and the FFN
-  DTF_TRY(ln_bwd(dy, b.r3, lns + 2 * D, dx, b.g2, glns + 2 * D, glnb + 2 * D, R, dp, kFfo, part,
+  DTF_TRY(ln_bwd(dy, b.r3, lns + 2 * D, dx, bb.g2, glns + 2 * D, glnb + 2 * D, R, dp, kFfo, part,
                  st));
-  DTF_TRY(tc::launch_wgrad(b.g2, D, b.hdrop, F, gf2, R, D, F, st, part));
-  DTF_TRY(tc::launch_colsum(b.g2, D, gbf2, R, D, st, part));
-  DTF_TRY(mm(b.g2, wf2, nullptr, b.gF, R, F, D, st, part));
-  DTF_TRY(relu_drop(b.gF, b.hpre, b.gF, R, F, dp, st));
-  DTF_TRY(tc::launch_wgrad(b.gF, F, b.x2, D, gf1, R, F, D, st, part));
-  DTF_TRY(tc::launch_colsum(b.gF, F, gbf1, R, F, st, part));
-  DTF_TRY(mm_add(b.gF, wf1, dx, R, F, st, part));
+  DTF_TRY(tc::launch_wgrad(bb.g2, D, b.hdrop, F, gf2, R, D, F, st, part));
+  DTF_TRY(tc::launch_colsum(bb.g2, D, gbf2, R, D, st, part));
+  DTF_TRY(mm(bb.g2, wf2, nullptr, bb.gF, R, F, D, st, part));
+  DTF_TRY(relu_drop(bb.gF, b.hpre, bb.gF, R, F, dp, st));
+  DTF_TRY(tc::launch_wgrad(bb.gF, F, b.x2, D, gf1, R, F, D, st, part));
+  DTF_TRY(tc::launch_colsum(bb.gF, F, gbf1, R, F, st, part));
+  DTF_TRY(mm_add(bb.gF, wf1, dx, R, F, st, part));
   // LN2 and the slot attention
-  DTF_TRY(ln_bwd(dx, b.r2, lns + D, dx, b.g2, glns + D, glnb + D, R, dp, kMha, part, st));
-  DTF_TRY(tc::launch_wgrad(b.g2, D, b.attn, D, gmo, R, D, D, st, part));
-  DTF_TRY(tc::launch_colsum(b.g2, D, gbmo, R, D, st, part));
-  DTF_TRY(mm(b.g2, wmo, nullptr, b.a, R, D, D, st, part));
-  DTF_TRY(slot_attn(b.qkv, b.a, b.dqkv, B, dp, true, st));
-  DTF_TRY(tc::launch_wgrad(b.dqkv, 3 * D, b.x1, D, gmi, R, 3 * D, D, st, part));
-  DTF_TRY(tc::launch_colsum(b.dqkv, 3 * D, gbmi, R, 3 * D, st, part));
-  DTF_TRY(mm_add(b.dqkv, wmi, dx, R, 3 * D, st, part));
+  DTF_TRY(ln_bwd(dx, b.r2, lns + D, dx, bb.g2, glns + D, glnb + D, R, dp, kMha, part, st));
+  DTF_TRY(tc::launch_wgrad(bb.g2, D, b.attn, D, gmo, R, D, D, st, part));
+  DTF_TRY(tc::launch_colsum(bb.g2, D, gbmo, R, D, st, part));
+  DTF_TRY(mm(bb.g2, wmo, nullptr, b.a, R, D, D, st, part));
+  DTF_TRY(slot_attn(b.qkv, b.a, bb.dqkv, B, dp, true, st));
+  DTF_TRY(tc::launch_wgrad(bb.dqkv, 3 * D, b.x1, D, gmi, R, 3 * D, D, st, part));
+  DTF_TRY(tc::launch_colsum(bb.dqkv, 3 * D, gbmi, R, 3 * D, st, part));
+  DTF_TRY(mm_add(bb.dqkv, wmi, dx, R, 3 * D, st, part));
   // LN1, the out projection and the gate
-  DTF_TRY(ln_bwd(dx, b.r1, lns, dx, b.g2, glns, glnb, R, dp, kRet, part, st));
-  DTF_TRY(tc::launch_wgrad(b.g2, D, b.gated, D, gro, R, D, D, st, part));
-  DTF_TRY(tc::launch_colsum(b.g2, D, gbro, R, D, st, part));
-  DTF_TRY(mm(b.g2, wro, nullptr, b.a, R, D, D, st, part));
-  DTF_TRY(gate_bwd(b.a, b.oh, b.qkvg + 3 * D, 4 * D, b.dqkvg + 3 * D, 4 * D, b.doh, R, st));
+  DTF_TRY(ln_bwd(dx, b.r1, lns, dx, bb.g2, glns, glnb, R, dp, kRet, part, st));
+  DTF_TRY(tc::launch_wgrad(bb.g2, D, b.gated, D, gro, R, D, D, st, part));
+  DTF_TRY(tc::launch_colsum(bb.g2, D, gbro, R, D, st, part));
+  DTF_TRY(mm(bb.g2, wro, nullptr, b.a, R, D, D, st, part));
+  DTF_TRY(gate_bwd(b.a, b.oh, b.qkvg + 3 * D, 4 * D, bb.dqkvg + 3 * D, 4 * D, bb.doh, R, st));
   // the retention core, then its projections
-  CoreBwdArgs ca{b.qkvg, b.qkvg + D, b.qkvg + 2 * D, 4 * D, b.doh, D,
-                 b.dqkvg, b.dqkvg + D, b.dqkvg + 2 * D, kvs, ss, C, T, L, kscale};
+  CoreBwdArgs ca{b.qkvg, b.qkvg + D, b.qkvg + 2 * D, 4 * D, bb.doh, D,
+                 bb.dqkvg, bb.dqkvg + D, bb.dqkvg + 2 * D, kvs, ss, C, T, L, kscale};
   const int smem = (int)sizeof(float) * core_smem_floats(L);
   cudaError_t e =
       cudaFuncSetAttribute(core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   core_bwd_kernel<<<BC * H, 256, smem, st>>>(ca);
   DTF_TRY(cudaGetLastError());
-  DTF_TRY(tc::launch_wgrad(b.dqkvg, 4 * D, x, D, gqkvg, R, 4 * D, D, st, part));
-  DTF_TRY(tc::launch_colsum(b.dqkvg, 4 * D, gbqkvg, R, 4 * D, st, part));
-  DTF_TRY(mm_add(b.dqkvg, wqkvg, dx, R, 4 * D, st, part));
+  DTF_TRY(tc::launch_wgrad(bb.dqkvg, 4 * D, x, D, gqkvg, R, 4 * D, D, st, part));
+  DTF_TRY(tc::launch_colsum(bb.dqkvg, 4 * D, gbqkvg, R, 4 * D, st, part));
+  DTF_TRY(mm_add(bb.dqkvg, wqkvg, dx, R, 4 * D, st, part));
 #undef DTF_TRY
   return 0;
 }

@@ -1,5 +1,6 @@
 // The small kernels of one decoder fusion layer in training semantics,
-// float32, shared by dec_train_fusion_fwd.cu and dec_train_fusion_bwd.cu:
+// float32, shared by the fusion layer's forward sequence
+// (dec_train_fusion_seq.cuh) and its backward (dec_train_fusion_bwd.cu):
 // the dropout hash, residual + dropout + LayerNorm forward and backward, the
 // group norm + silu gate forward and backward, relu + dropout, and the
 // attention across the C slots of a frame, forward and backward.
@@ -19,7 +20,6 @@
 #include <initializer_list>
 
 #include "chunk_retention_core.cuh"
-#include "linear.cuh"
 
 #ifndef DTF_D
 #error "define DTF_D (the model width), CR_DK and CR_DV (the head dims)"

@@ -17,48 +17,35 @@
 //
 // The TPU kernel keeps a whole chunk's activations in VMEM and makes one
 // pass.  A Hopper block has 227 KB and the chunk of (C, L, F) hidden values
-// alone is 10 MB at the production shape, so this file is a sequence of the
-// repository's kernels on the caller's stream around one workspace, each
-// activation making one round trip through device memory (L2 in part):
-//   1. lin::linear_kernel  qkvg = x Wqkvg^T + b, k columns scaled by dk^-1/2
-//   2. cr::core_kernel     the chunkwise core (chunk_retention_core.cuh), one
-//                          block per (b, c, head), writing the checkpoints
-//   3. gate_fwd            silu(g) * groupnorm(core output)
-//   4. linear, add_drop_ln out projection; dropout, residual, LayerNorm
-//   5. linear, slot_attn   q | k | v, attention over the C slots per warp
-//   6. linear, add_drop_ln
-//   7. linear, relu_drop, linear, add_drop_ln   the FFN
-// Dropout masks are the JAX kernel's counter hash, computed where they are
-// applied (dec_train_fusion_common.cuh), so no mask is stored.
-#include "dec_train_fusion_common.cuh"
+// alone is 10 MB at the production shape, so this file runs the forward
+// sequence of dec_train_fusion_seq.cuh (shared with the backward's
+// recompute) on the caller's stream around one workspace, each activation
+// making one round trip through device memory (L2 in part): its products on
+// the tensor cores in tc_f32.cuh's precise 3xTF32 form, the chunkwise core
+// (chunk_retention_core.cuh) writing the checkpoints, and the row kernels of
+// dec_train_fusion_common.cuh.  Dropout masks are the JAX kernel's counter
+// hash, computed where they are applied, so no mask is stored.
+#include "dec_train_fusion_seq.cuh"
 
 using namespace dtf;
 
 namespace {
 
-struct FwdBufs {
-  float *qkvg, *oh, *gated, *a, *x1, *qkv, *attn, *s, *x2, *h, *f;
-  float *zkv, *ones, *kvf, *sf;
-};
-
-size_t carve_fwd(float* base, int BC, int T, int F, FwdBufs* b) {
+size_t carve_fwd(float* base, int BC, int T, int F, SeqBufs* b) {
   const size_t R = (size_t)BC * T, rows = (size_t)BC * H;
   Carve c{base};
+  *b = SeqBufs{};
   b->qkvg = c.take(R * 4 * D);
-  b->oh = c.take(R * D);
-  b->gated = c.take(R * D);
-  b->a = c.take(R * D);
-  b->x1 = c.take(R * D);
+  for (float** p : {&b->oh, &b->gated, &b->a, &b->x1}) *p = c.take(R * D);
   b->qkv = c.take(R * 3 * D);
-  b->attn = c.take(R * D);
-  b->s = c.take(R * D);
-  b->x2 = c.take(R * D);
-  b->h = c.take(R * F);
+  for (float** p : {&b->attn, &b->s, &b->x2}) *p = c.take(R * D);
+  b->hpre = b->hdrop = c.take(R * F);  // relu and dropout in place
   b->f = c.take(R * D);
   b->zkv = c.take(rows * DK * DK);
   b->kvf = c.take(rows * DK * DK);
   b->ones = c.take(rows);
   b->sf = c.take(rows);
+  b->part = c.take(tc::kSplitFloats);  // a product's partial sums along k
   return c.used;
 }
 
@@ -66,43 +53,28 @@ size_t carve_fwd(float* base, int BC, int T, int F, FwdBufs* b) {
 
 // floats of workspace dtf_forward needs for BC = B*C sequences of T frames
 extern "C" size_t dtf_fwd_workspace(int BC, int T, int H_, int F) {
-  FwdBufs b;
+  SeqBufs b;
   return H_ == H ? carve_fwd(nullptr, BC, T, F, &b) : 0;
 }
 
-// x, y (B, C, T, D); the 14 weights in torch's (out, in) layout (lns, lnb
-// (3, D)); kvs (B, T/L, H, C, DK, DK) and ss (B, T/L, H, C), both null for
-// no checkpoints; ws of dtf_fwd_workspace floats.  T % L == 0, F % 16 == 0.
-// Returns the first CUDA error of the launches.
-extern "C" int dtf_forward(const float* x, const float* wqkvg, const float* bqkvg,
-                           const float* wro, const float* bro, const float* wmi,
-                           const float* bmi, const float* wmo, const float* bmo,
-                           const float* wf1, const float* bf1, const float* wf2,
+// x, y (B, C, T, D); t* the transposes (in, out) of wqkvg, wro, wmi, wmo,
+// wf1, wf2 and b* their biases; lns, lnb (3, D); kvs (B, T/L, H, C, DK, DK)
+// and ss (B, T/L, H, C), both null for no checkpoints; ws of
+// dtf_fwd_workspace floats.  T % L == 0, F % 16 == 0.  Returns the first
+// CUDA error of the launches.
+extern "C" int dtf_forward(const float* x, const float* tqkvg, const float* bqkvg,
+                           const float* tro, const float* bro, const float* tmi,
+                           const float* bmi, const float* tmo, const float* bmo,
+                           const float* tf1, const float* bf1, const float* tf2,
                            const float* bf2, const float* lns, const float* lnb, float* y,
                            float* kvs, float* ss, float* ws, int B, int C, int T, int L, int F,
                            unsigned seed, unsigned thr, float mult, void* stream_) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream_);
-  const int BC = B * C, R = BC * T;
-  const Drop dp{seed, thr, mult, C, T, L};
-  const float kscale = (float)(1.0 / sqrt((double)DK));
-  FwdBufs b;
-  carve_fwd(ws, BC, T, F, &b);
-  int err;
-#define DTF_TRY(call) \
-  if ((err = (call)) != 0) return err
-  DTF_TRY(lin::launch_linear(x, D, wqkvg, bqkvg, b.qkvg, 4 * D, R, 4 * D, D, st, D, 2 * D, kscale));
-  DTF_TRY(retention_fwd(b.qkvg, b.oh, b.zkv, b.ones, b.kvf, b.sf, kvs, ss, BC, T, L, C, st));
-  DTF_TRY(gate_fwd(b.oh, b.qkvg + 3 * D, 4 * D, b.gated, R, st));
-  DTF_TRY(lin::launch_linear(b.gated, D, wro, bro, b.a, D, R, D, D, st));
-  DTF_TRY(add_drop_ln(x, b.a, lns, lnb, nullptr, b.x1, R, dp, kRet, st));
-  DTF_TRY(lin::launch_linear(b.x1, D, wmi, bmi, b.qkv, 3 * D, R, 3 * D, D, st));
-  DTF_TRY(slot_attn(b.qkv, nullptr, b.attn, B, dp, false, st));
-  DTF_TRY(lin::launch_linear(b.attn, D, wmo, bmo, b.s, D, R, D, D, st));
-  DTF_TRY(add_drop_ln(b.x1, b.s, lns + D, lnb + D, nullptr, b.x2, R, dp, kMha, st));
-  DTF_TRY(lin::launch_linear(b.x2, D, wf1, bf1, b.h, F, R, F, D, st));
-  DTF_TRY(relu_drop(b.h, b.h, b.h, R, F, dp, st));
-  DTF_TRY(lin::launch_linear(b.h, F, wf2, bf2, b.f, D, R, D, F, st));
-  DTF_TRY(add_drop_ln(b.x2, b.f, lns + 2 * D, lnb + 2 * D, nullptr, y, R, dp, kFfo, st));
-#undef DTF_TRY
-  return 0;
+  SeqBufs b;
+  carve_fwd(ws, B * C, T, F, &b);
+  b.y = y;
+  b.kvs = kvs;
+  b.ss = ss;
+  const SeqWeights w{tqkvg, bqkvg, tro, bro, tmi, bmi, tmo, bmo, tf1, bf1, tf2, bf2, lns, lnb};
+  return forward_seq(x, w, b, B, C, T, L, F, Drop{seed, thr, mult, C, T, L},
+                     static_cast<cudaStream_t>(stream_));
 }

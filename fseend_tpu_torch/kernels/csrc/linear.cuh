@@ -1,5 +1,4 @@
-// Float32 matrix products on the FMA pipe, shared by retention_layer.cu and
-// the fusion layer's training forward (dec_train_fusion_fwd.cu).
+// Float32 matrix products on the FMA pipe, for retention_layer.cu (B4).
 //
 // linear_kernel: C = A W^T + bias, the product of a
 //   row-major activation A (M, K) with a weight W (N, K) in torch's (out, in)

@@ -29,10 +29,14 @@ So the masks depend on L, and the port's masks equal the JAX kernel's.
 
 On CUDA tensors the wrappers launch `csrc/dec_train_fusion_fwd.cu` and
 `csrc/dec_train_fusion_bwd.cu` (each a sequence of this repository's
-kernels behind one call; design notes there; the backward's products run
-on the tensor cores, float32-exact, and its gradients come out the same to
-the bit from run to run); on CPU tensors they run `fusion_layer_fwd_plain`
-/ `fusion_layer_bwd_plain`.  Float32 only.
+kernels behind one call; design notes there; both run the one forward
+sequence of `csrc/dec_train_fusion_seq.cuh`, the backward as its recompute,
+with every product on the tensor cores, float32-exact, and the backward's
+gradients come out the same to the bit from run to run); on CPU tensors
+they run `fusion_layer_fwd_plain` / `fusion_layer_bwd_plain`.  The products
+read the weights transposed to (in, out): `_FusedFusionLayerFn` makes the
+transposes once per forward and keeps them for its backward.  Float32
+only.
 
 Weights (`FusionWeights`) are in torch's (out, in) layout: wqkvg (4D, D) the
 q | k | v | g rows, wro (D, D), wmi (3D, D) the slot attention's packed
@@ -390,21 +394,30 @@ def _check(x, w: FusionWeights, n_heads, chunk):
         raise ValueError(f"fusion layer: unsupported device {x.device}")
 
 
+def transposed(w: FusionWeights) -> list:
+    """The six products' weights (wqkvg, wro, wmi, wmo, wf1, wf2)
+    transposed to (in, out) and contiguous: the layout the kernels' forward
+    products read."""
+    return [w[i].T.contiguous() for i in (0, 2, 4, 6, 8, 10)]
+
+
 def fusion_layer_fwd(x: torch.Tensor, w: FusionWeights, seed: int, n_heads: int,
-                     chunk: int, rate: float, checkpoints: bool = True):
+                     chunk: int, rate: float, checkpoints: bool = True, wt=None):
     """Forward of one layer -> (y, kvs, ss) (None, None without
     `checkpoints`): the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors.  `wt`: `transposed(w)`, where the caller has it already."""
     _check(x, w, n_heads, chunk)
     if x.device.type == "cpu":
         return fusion_layer_fwd_plain(x, w, seed, n_heads, chunk, rate, checkpoints)
-    return _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints)
+    return _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt)
 
 
 def fusion_layer_bwd(x: torch.Tensor, dy: torch.Tensor, kvs: torch.Tensor, ss: torch.Tensor,
-                     w: FusionWeights, seed: int, n_heads: int, chunk: int, rate: float):
+                     w: FusionWeights, seed: int, n_heads: int, chunk: int, rate: float,
+                     wt=None):
     """Backward of one layer -> (dx, weight gradients): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.  `wt`: `transposed(w)`,
+    where the caller has it already."""
     _check(x, w, n_heads, chunk)
     B, C, T, D = x.shape
     H, dk, N = n_heads, D // n_heads, T // chunk
@@ -415,22 +428,27 @@ def fusion_layer_bwd(x: torch.Tensor, dy: torch.Tensor, kvs: torch.Tensor, ss: t
                              f"on {t.device}, expected {tuple(shape)} float32 on {x.device}")
     if x.device.type == "cpu":
         return fusion_layer_bwd_plain(x, dy, kvs, ss, w, seed, n_heads, chunk, rate)
-    return _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate)
+    return _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt)
 
 
 class _FusedFusionLayerFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed, n_heads, chunk, rate, *w):
         w = FusionWeights(*w)
-        y, kvs, ss = fusion_layer_fwd(x, w, seed, n_heads, chunk, rate)
-        ctx.save_for_backward(x, kvs, ss, *w)
+        # the kernels' products read the weights transposed: made once, for
+        # the forward and its backward
+        wt = transposed(w) if x.device.type == "cuda" else []
+        y, kvs, ss = fusion_layer_fwd(x, w, seed, n_heads, chunk, rate, wt=wt or None)
+        ctx.save_for_backward(x, kvs, ss, *w, *wt)
         ctx.args = (seed, n_heads, chunk, rate)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, kvs, ss, *w = ctx.saved_tensors
-        dx, dw = fusion_layer_bwd(x, dy.contiguous(), kvs, ss, FusionWeights(*w), *ctx.args)
+        x, kvs, ss, *rest = ctx.saved_tensors
+        n = len(FusionWeights._fields)
+        dx, dw = fusion_layer_bwd(x, dy.contiguous(), kvs, ss, FusionWeights(*rest[:n]),
+                                  *ctx.args, wt=rest[n:] or None)
         return (dx, None, None, None, None, *dw)
 
 
@@ -486,13 +504,16 @@ def _ptrs(ts):
     return [t.data_ptr() for t in ts]
 
 
-def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints):
+def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt=None):
     global fwd_launches
     B, C, T, D, Fh = _dims(x, w, n_heads, chunk)
     H, dk, N = n_heads, D // n_heads, T // chunk
     lib = _lib("fwd", D, H)
     x = x.contiguous()
-    w = [t.contiguous() for t in w]
+    wt = transposed(w) if wt is None else wt
+    # the products' weights (in, out), their biases, the LayerNorms'
+    w = [t.contiguous() for t in (wt[0], w.bqkvg, wt[1], w.bro, wt[2], w.bmi, wt[3], w.bmo,
+                                  wt[4], w.bf1, wt[5], w.bf2, w.lns, w.lnb)]
     y = torch.empty_like(x)
     kvs = ss = None
     if checkpoints:
@@ -515,15 +536,15 @@ def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints):
     return y, kvs, ss
 
 
-def _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate):
+def _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt=None):
     global bwd_launches
     B, C, T, D, Fh = _dims(x, w, n_heads, chunk)
     H = n_heads
     lib = _lib("bwd", D, H)
     x, dy, kvs, ss = (t.contiguous() for t in (x, dy, kvs, ss))
-    w = [t.contiguous() for t in w]
     # the recompute's products read the weights transposed, (in, out)
-    wt = [w[i].T.contiguous() for i in (0, 2, 4, 6, 8, 10)]
+    wt = transposed(w) if wt is None else wt
+    w = [t.contiguous() for t in w]
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in w]         # each written once
     lib.dtf_bwd_workspace.restype = ctypes.c_size_t
