@@ -11,14 +11,13 @@ kernels, the servers and the step.
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
                                       --parent DIR builds the cached_attention.cu,
-                                      dec_train_fusion_fwd.cu and
-                                      dec_train_fusion_bwd.cu found in DIR, an
-                                      earlier commit's kernels/csrc whose
-                                      per-lane cached attention takes no scratch
-                                      and whose fusion-layer forward takes the
-                                      weights in torch's layout (others are
-                                      refused), and times them against this
-                                      tree's in turns)
+                                      dec_train_fusion_{fwd,bwd}.cu,
+                                      chunk_retention.cu and retention_layer.cu
+                                      found in DIR, an earlier commit's
+                                      kernels/csrc with PR 7's entry points
+                                      (others are refused), times them against
+                                      this tree's in turns, and holds B3's
+                                      outputs to theirs bit for bit)
 
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -36,7 +35,10 @@ Phases (any failure raises; the script exits non-zero and prints no result):
   5. chunkwise kernels vs plain at production width, from a carried state:
      chunk_retention at (BH 512, T 1000, L 500) and (BH 5120, T = L = 128),
      gamma = 1 and gamma < 1; retention_layer at the encoder shape (128,
-     128, 256) and the decoder shape (1280, 128, 256), two calls in a row
+     128, 256), the decoder shape (1280, 128, 256) and a batch decoder (20,
+     1000, 256) in 500-frame chunks, two calls in a row; out / y within
+     1e-4, the new state within `checkpoint_atol`; each case's first call
+     made twice, bit for bit
   6. blockwise serve: BlockStreamingServer(block=128) over 128 lanes on the
      "fused" route, streams of four lengths with per-lane h_mask tails and
      one flush, against the "plain" route and against the batch pass at
@@ -44,14 +46,16 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      retention_layer launches counted, its largest call held against plain
   7. batch: ls_test on 2 recordings of 2900 frames, chunk_size 500, on the
      "core" route against the "plain" route; chunk_retention launches
-     counted, its largest call held against plain
+     counted (4 encoder calls of 8 rows, 2 decoder calls of 80), the last
+     call of each held against plain
   8. T1, fusion-layer kernels vs plain: the training forward and backward
      of one decoder layer at production width (D 256, H 4, F 2048, C 10),
      B 2, T 256, L 128, dropout 0 and 0.1: forward y within 1e-4, kvs and
      ss within `checkpoint_atol`, y without checkpoints the same bits;
-     backward dx within 1e-4 and every weight gradient within 2e-3 of its
-     leaf max; at rate 0 the plain backward against torch autograd of the
-     plain forward; two backward calls give the same bits
+     backward dx within 1e-4 of the plain backward in float64 beyond
+     float32's own error (`compare_exact`), every weight gradient within
+     2e-3 of its leaf max; at rate 0 the plain backward against torch
+     autograd of the plain forward; two backward calls give the same bits
   9. T2, the reference's production-shape gradients
      (tests/goldens/ls_train_prod.npz: B 4, T 1000-1500, chunk 500, dropout
      0) through the port's converter, compute_loss and backward, with the
@@ -74,9 +78,11 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      alone beside its plain version and its bound (the tensor-core bound
      for the kernels on the tensor cores, with the FMA-pipe bound beside
      it), both frame scans at K=1, the device time by kernel of one call of
-     each frame scan and of the fusion layer's forward and backward (the
-     *_parts lines); with --parent, the earlier fusion-layer forward and
-     backward alone against this tree's (earlier, this, this, earlier)
+     each frame scan, of both chunkwise kernels and of the fusion layer's
+     forward and backward (the *_parts lines); with --parent, the earlier
+     fusion-layer forward and backward (the same bits) and both chunkwise
+     kernels at each of their main-path shapes against this tree's
+     (earlier, this, this, earlier)
  12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
      cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
      cached_attention_perlane at R 256 and 1536, K 125, 128, 129 and 1,
@@ -108,10 +114,13 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      head at the blockwise encoder's shape
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
-the timing lines come before it.  Float32 throughout, TF32 off.  Kernels
-are held within 1e-3 of their plain versions, the six on the tensor cores
-(both frame scans, both cached-attention kernels, the fusion layer's
-forward: its y, and backward: its dx) within 1e-4.
+the timing lines come before it.  Float32 throughout, TF32 off.  Every
+kernel runs its products on the tensor cores and is held within 1e-4 of its
+plain version (the fusion layer's forward on y, its backward on dx, the
+chunkwise kernels on out and y), carried states within `checkpoint_atol`;
+the chunkwise kernels' out and y and the fusion layer's dx at T1 against
+the plain version in float64, beyond float32's own error on the call
+(`compare_exact`).
 """
 
 from __future__ import annotations
@@ -145,13 +154,15 @@ GRAD_RTOL = 2e-3
 # the reference's production-shape gradients (tests/test_train_parity.py:151-163)
 GOLDEN_RTOL, GOLDEN_ATOL = 2e-3, 5e-6
 STREAM_LENS = (137, 5, 50, 512, 777, 1000)  # lane 0 gets the 137-frame stream
-# kernel vs plain: float32 with another summation order, over 64 frames of
-# 4 encoder / 2 decoder layers; a wrong gate or term shows at O(0.1)
+# float32 with another summation order, over 64 frames of 4 encoder / 2
+# decoder layers (a wrong gate or term shows at O(0.1)): the guard the
+# FMA-pipe kernels had, now the plain backward against autograd and the cap
+# of `checkpoint_atol`
 KERNEL_ATOL = 1e-3
-# the kernels whose products run on the tensor cores in three TF32 passes
-# (csrc/tc_f32.cuh), against their plain versions: float32-exact to ~1e-6
-# relative, so held tighter than the FMA-pipe kernels (the fusion layer's
-# backward on dx; its weight gradients at GRAD_RTOL)
+# every kernel's products run on the tensor cores in three TF32 passes
+# (csrc/tc_f32.cuh): against their plain versions float32-exact to ~1e-6
+# relative, so held at 1e-4 (the fusion layer's backward on dx; its weight
+# gradients at GRAD_RTOL; carried states at `checkpoint_atol`)
 TC_ATOL = 1e-4
 # kernel server vs plain server, probabilities after the sigmoid
 SERVE_ATOL = 1e-3
@@ -175,14 +186,15 @@ PEAK_BYTES = 3.35e12
 # per-lane cached attention's K = 1 calls run on the FMA pipe (bound by bytes)
 TENSOR_CORE_KERNELS = ("enc_frame_scan", "dec_frame_scan", "cached_attention",
                        "cached_attention_perlane", "dec_train_fusion_fwd",
-                       "dec_train_fusion_bwd")
+                       "dec_train_fusion_bwd", "chunk_retention", "retention_layer")
 
 
 def checkpoint_atol(want):
-    """The fusion-layer forward's checkpoints (kvs, ss) against plain: sums
-    over a chunk's frames whose size grows with the chunk, so TC_ATOL times
-    their leaf's max |value| where that exceeds 1, and never looser than
-    KERNEL_ATOL, the FMA-pipe forward's guard (y is held at TC_ATOL)."""
+    """A carried retention state (the fusion-layer forward's checkpoints kvs,
+    ss; the chunkwise kernels' new kv and scale) against plain: sums over a
+    chunk's frames whose size grows with the chunk, so TC_ATOL times their
+    leaf's max |value| where that exceeds 1, and never looser than
+    KERNEL_ATOL."""
     return min(KERNEL_ATOL, TC_ATOL * max(1.0, want.abs().max().item()))
 
 
@@ -224,16 +236,19 @@ def phase_build():
 
 # --parent DIR: an earlier commit's kernel sources (with the headers beside
 # them), built beside this tree's and timed against them in turns; their C
-# entry points as that commit had them, recognised by these signatures (B6
-# on the FMA pipe with no scratch, B3 forward taking the weights in torch's
-# (out, in) layout)
+# entry points as PR 7 had them, recognised by these signatures (B3, B6 and
+# B7 as this tree's; the chunkwise kernels without scratch, B4 on weights
+# in torch's (out, in) layout)
 PARENT_SOURCES = {
     "cached_attention": ({"CA_HD": FS_HD}, (
-        "const int* start, float* out, int R, int K, int cap, int rows_per_lane, int min_pos, "
-        "void* stream", "const int* start, float* out, int R, int K, int cap, void* stream")),
-    "dec_train_fusion_fwd": (DTF, ("dtf_forward(const float* x, const float* wqkvg, "
+        "const int* start, float* out, float* part, int R, int K, int cap, int rows_per_lane, "
+        "int min_pos, void* stream",
+        "const int* start, float* out, int R, int K, int cap, void* stream")),
+    "dec_train_fusion_fwd": (DTF, ("dtf_forward(const float* x, const float* tqkvg, "
                                    "const float* bqkvg",)),
     "dec_train_fusion_bwd": (DTF, ("unsigned seed, unsigned thr, float mult, void* stream_",)),
+    "chunk_retention": (HEAD, ("float* kvf, float* sf, int BH, int T, int L, void* stream)",)),
+    "retention_layer": (HEAD, ("float* ws, float* y, const float* kv0",)),
 }
 PARENT = {}
 
@@ -267,8 +282,12 @@ def start_parent_build(src):
 
 def finish_parent_build(procs):
     """Wait for the earlier sources' builds and fill PARENT with callables of
-    the port's wrapper signatures (no launch counts; the transposed weights
-    `wt` that this tree's wrappers take are ignored)."""
+    the port's wrapper signatures.  B3, B6 and B7 run this tree's wrappers
+    on the earlier libraries (same entry points; their launch counts move,
+    after the main path's were read); the chunkwise kernels get callables
+    of their own (no launch counts)."""
+    from fseend_tpu_torch.kernels import _build
+    from fseend_tpu_torch.kernels import cached_attention as CA
     from fseend_tpu_torch.kernels import dec_train_fusion as DT
 
     libs = {}
@@ -277,21 +296,23 @@ def finish_parent_build(procs):
         if proc.returncode != 0:
             raise RuntimeError(f"earlier {name}.cu: nvcc exit {proc.returncode}\n{out}")
         libs[name] = ctypes.CDLL(str(lib))
+        libs[name].fs_error_string.argtypes = [ctypes.c_int]
+        libs[name].fs_error_string.restype = ctypes.c_char_p
     P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-    def entry(lib, fn, argtypes, restype=ctypes.c_int):
+    def on(name, fn):
+        """fn, with the wrappers' library loads answered by the earlier one"""
+        def call(*a, **kw):
+            return via(_build, "load", lambda *_, **__: libs[name], lambda: fn(*a, **kw))()
+        return call
+
+    def entry(lib, fn, argtypes):
         f = getattr(libs[lib], fn)
-        f.argtypes, f.restype = argtypes, restype
+        f.argtypes, f.restype = argtypes, ctypes.c_int
         return f
 
-    fwd = entry("dec_train_fusion_fwd", "dtf_forward",
-                [P] * 19 + [I] * 5 + [ctypes.c_uint, ctypes.c_uint, F32, P])
-    fwd_ws = entry("dec_train_fusion_fwd", "dtf_fwd_workspace", [I] * 4, ctypes.c_size_t)
-    bwd = entry("dec_train_fusion_bwd", "dtf_backward",
-                [P] * 40 + [I] * 5 + [ctypes.c_uint, ctypes.c_uint, F32, P])
-    bwd_ws = entry("dec_train_fusion_bwd", "dtf_bwd_workspace", [I] * 5, ctypes.c_size_t)
-    att = entry("cached_attention", "cached_attention_launch", [P] * 5 + [I] * 3 + [P])
-    att_pl = entry("cached_attention", "cached_attention_perlane_launch", [P] * 5 + [I] * 5 + [P])
+    cret = entry("chunk_retention", "chunk_retention_launch", [P] * 9 + [I] * 3 + [P])
+    rlay = entry("retention_layer", "retention_layer_launch", [P] * 12 + [I] * 4 + [F32, P])
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -303,55 +324,44 @@ def finish_parent_build(procs):
     def ptrs(ts):
         return [t.data_ptr() for t in ts]
 
-    def fusion_layer_fwd(x, w, seed, n_heads, chunk, rate, checkpoints=True, wt=None):
-        B, C, T, D = x.shape
-        H, dk, N, Fh = n_heads, D // n_heads, T // chunk, w.wf1.shape[0]
-        x = x.contiguous()
-        w = [t.contiguous() for t in w]
+    def chunk_retention(gammas, q, k, v, kv0, s0, chunk):
+        BH, T, _ = q.shape
+        gammas, q, k, v, kv0, s0 = (t.contiguous() for t in (gammas, q, k, v, kv0, s0))
+        out = torch.empty_like(v)
+        kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
+        check("chunk_retention", cret(*ptrs((gammas, q, k, v, out, kv0, s0, kv_f, s_f)), BH, T,
+                                      chunk, stream()))
+        return out, kv_f, s_f
+
+    def retention_layer(gammas, x, w, kv0, s0, chunk):
+        """`w` in torch's (out, in) layout (`torch_layout`), as PR 7 took it."""
+        B, T, D = x.shape
+        H = gammas.shape[0]
+        gammas, x, kv0, s0 = (t.contiguous() for t in (gammas, x, kv0, s0))
+        ws = x.new_empty(B * T, w.wqkvg.shape[0])
         y = torch.empty_like(x)
-        kvs = x.new_empty(B, N, H, C, dk, dk) if checkpoints else None
-        ss = x.new_empty(B, N, H, C, 1, 1) if checkpoints else None
-        ws = x.new_empty(fwd_ws(B * C, T, H, Fh))
-        check("dec_train_fusion_fwd", fwd(*ptrs((x, *w, y)),
-                                          kvs.data_ptr() if checkpoints else None,
-                                          ss.data_ptr() if checkpoints else None,
-                                          ws.data_ptr(), B, C, T, chunk, Fh,
-                                          *DT._rate_args(seed, rate), stream()))
-        return y, kvs, ss
+        kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
+        check("retention_layer", rlay(*ptrs((gammas, x, *w, ws, y, kv0, s0, kv_f, s_f)), B, T,
+                                      chunk, H, (D // H) ** -0.5, stream()))
+        return y, kv_f, s_f
 
-    def fusion_layer_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt=None):
-        B, C, T, _ = x.shape
-        Fh = w.wf1.shape[0]
-        x, dy, kvs, ss = (t.contiguous() for t in (x, dy, kvs, ss))
-        w = [t.contiguous() for t in w]
-        wt = [w[i].T.contiguous() for i in (0, 2, 4, 6, 8, 10)]
-        dx = torch.empty_like(x)
-        grads = [torch.zeros_like(t) for t in w]
-        ws = x.new_empty(bwd_ws(B * C, T, chunk, n_heads, Fh))
-        check("dec_train_fusion_bwd", bwd(*ptrs((x, dy, kvs, ss, *w, *wt, dx, *grads, ws)),
-                                          B, C, T, chunk, Fh, *DT._rate_args(seed, rate),
-                                          stream()))
-        return dx, DT.FusionWeights(*grads)
+    # the launch functions themselves (the T3 step swaps them for these)
+    launch_fwd, launch_bwd = DT._launch_fwd, DT._launch_bwd
 
-    def cached_attention(q, k, v, start):
-        R, K, _ = q.shape
-        st = torch.as_tensor(start, device=q.device).to(torch.int32).reshape(1)
-        out = torch.empty_like(q)
-        check("cached_attention", att(*ptrs((q, k, v, st, out)), R, K, k.shape[1], stream()))
-        return out
+    def fusion_layer_fwd(x, w, seed, n_heads, chunk, rate, checkpoints=True, wt=None):
+        return launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt)
 
-    def cached_attention_perlane(q, k, v, start, rows_per_lane, min_pos=0):
-        R, K, _ = q.shape
-        q, k, v = (t.contiguous() for t in (q, k, v))
-        st = torch.as_tensor(start, device=q.device).to(torch.int32).contiguous()
-        out = torch.empty_like(q)
-        check("cached_attention_perlane", att_pl(*ptrs((q, k, v, st, out)), R, K, k.shape[1],
-                                                 rows_per_lane, min_pos, stream()))
-        return out
+    PARENT.update(dec_train_fusion_fwd=on("dec_train_fusion_fwd", fusion_layer_fwd),
+                  dec_train_fusion_bwd=on("dec_train_fusion_bwd", launch_bwd),
+                  cached_attention=on("cached_attention", CA.cached_attention),
+                  cached_attention_perlane=on("cached_attention", CA.cached_attention_perlane),
+                  chunk_retention=chunk_retention, retention_layer=retention_layer)
 
-    PARENT.update(dec_train_fusion_fwd=fusion_layer_fwd, dec_train_fusion_bwd=fusion_layer_bwd,
-                  cached_attention=cached_attention,
-                  cached_attention_perlane=cached_attention_perlane)
+
+def torch_layout(w):
+    """A retention layer's weights in torch's (out, in) layout, for PR 7's
+    retention_layer.cu."""
+    return type(w)(w.wqkvg.T.contiguous(), w.bqkvg, w.wo.T.contiguous(), w.bo)
 
 
 def via(mod, name, fn, call):
@@ -438,6 +448,28 @@ def randn(rng, *shape, scale=1.0):
 
 def clone_args(args):
     return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+
+def compare_exact(label, got, want, exact, atol=TC_ATOL):
+    """One output against the plain version evaluated in float64 (`exact`):
+    within `atol` beyond float32's own error on the call (the largest
+    |plain in float32 - plain in float64|).  Where an output is
+    ill-conditioned in float32 -- a group norm over a row whose core output
+    is small, at the first frame from a fresh state (B4's y; B3's dx through
+    its gate) -- the float32 plain version is itself off by up to 1.5e-3
+    there (PERF.md, PR 8), and a kernel closer to the exact value than it
+    would fail a float32 reference.  Returns the difference from the float32
+    plain version."""
+    own = (want.double() - exact).abs().max().item()
+    err64 = (got.double() - exact).abs().max().item()
+    err32 = (got - want).abs().max().item()
+    log(f"  {label}: max abs diff {err32:.3e} from plain, {err64:.3e} from plain in float64 "
+        f"(tol {atol:g} + float32's own {own:.3e}; plain's max |value| "
+        f"{want.abs().max().item():.3g})")
+    if not (torch.isfinite(got).all() and got.shape == want.shape and err64 <= atol + own):
+        raise AssertionError(f"{label}: kernel differs from plain in float64 by {err64}, "
+                             f"float32 by {own}")
+    return err32
 
 
 def compare(name, kernel_out, plain_out, labels, atol=KERNEL_ATOL):
@@ -583,15 +615,39 @@ def chunk_kernels():
             "retention_layer": (RL, RL.retention_layer, RL.retention_layer_plain)}
 
 
+def in_float64(args):
+    """A chunkwise kernel's arguments with every tensor (and every weight of
+    a packed tuple) in float64."""
+    return [type(a)(*(t.double() for t in a)) if isinstance(a, tuple)
+            else a.double() if torch.is_tensor(a) else a for a in args]
+
+
 def compare_chunk_kernel(name, args, label):
     """One chunkwise kernel and its plain version on the same arguments
-    (neither writes to them) -> (max abs diff over out, kv and scale, the
-    plain version's results)."""
+    (neither writes to them) -> (max abs diff, the plain version's results):
+    out (y) by `compare_exact`, the new state within `checkpoint_atol`."""
     _, kern, plain = chunk_kernels()[name]
     got = kern(*args)
     torch.cuda.synchronize()
     want = plain(*args)
-    return compare(f"{name}[{label}]", got, want, ("out", "kv", "scale")), want
+    lab = "out" if name == "chunk_retention" else "y"
+    err = compare_exact(f"{name}[{label}].{lab}", got[0], want[0],
+                        plain(*in_float64(args))[0])
+    return max(err, compare(f"{name}[{label}]", got[1:], want[1:], ("kv", "scale"),
+                            atol=(checkpoint_atol(want[1]), checkpoint_atol(want[2])))), want
+
+
+def same_bits_chunk(name, args, label):
+    """Two calls of a chunkwise kernel on the same arguments: the same bits
+    (no atomics; the chunks' state is scanned in a fixed order)."""
+    _, kern, _ = chunk_kernels()[name]
+    got, again = kern(*args), kern(*args)
+    torch.cuda.synchronize()
+    for leaf, a, b in zip(("out", "kv", "scale"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}[{label}]: a second call gives other bits in {leaf} "
+                                 f"(max {(a - b).abs().max().item():.3e})")
+    log(f"  {name}[{label}]: a second call gives the same bits")
 
 
 def with_route(model, kernel, **changes):
@@ -603,7 +659,8 @@ def with_route(model, kernel, **changes):
 
 def phase_chunk_kernels_vs_plain(cfg, model, rng):
     """Both chunkwise kernels at production width, each case two calls in a
-    row, the second from the state the first left."""
+    row, the second from the state the first left; the first call of each
+    case made twice, bit for bit."""
     from fseend_tpu_torch.kernels import retention_layer as RL
     from fseend_tpu_torch.ops import retention as R
 
@@ -618,12 +675,19 @@ def phase_chunk_kernels_vs_plain(cfg, model, rng):
             for call in range(2):
                 args = (gam, randn(rng, BH, T, dk), randn(rng, BH, T, dk, scale=dk ** -0.5),
                         randn(rng, BH, T, dv), kv, sc, L)
-                err, (_, kv, sc) = compare_chunk_kernel(
-                    "chunk_retention", args, f"BH={BH} T={T} L={L} {glabel} call {call}")
+                label = f"BH={BH} T={T} L={L} {glabel} call {call}"
+                err, (_, kv, sc) = compare_chunk_kernel("chunk_retention", args, label)
                 errs["chunk_retention"] = max(errs["chunk_retention"], err)
+                if call == 0:
+                    same_bits_chunk("chunk_retention", args, label)
             log(f"  carried scale max {sc.max().item():.2f}")
-    for label, B, ret in (("encoder", LANES, model.enc.blocks[0].ret),
-                          ("decoder", LANES * SLOTS, model.dec.layers[0].time_ret)):
+    # the two blockwise shapes (one chunk a call), and the decoder of a batch
+    # pass on the "fused" route (2 recordings x 10 slots, two 500-frame chunks)
+    for label, B, T, L, ret in (("encoder", LANES, BLOCK, BLOCK, model.enc.blocks[0].ret),
+                                ("decoder", LANES * SLOTS, BLOCK, BLOCK,
+                                 model.dec.layers[0].time_ret),
+                                ("batch decoder", 2 * SLOTS, 1000, 500,
+                                 model.dec.layers[0].time_ret)):
         # four times the initial weights, so that the clamped renormalizers
         # and the carried scale are above 1 as after training
         w = RL.pack_retention(ret)
@@ -632,10 +696,12 @@ def phase_chunk_kernels_vs_plain(cfg, model, rng):
             st = R.chunk_state_init(rc, B, device="cuda")
             kv, sc = st["kv"], st["scale"]
             for call in range(2):
-                args = (gam, randn(rng, B, BLOCK, cfg.n_units), w, kv, sc, BLOCK)
-                err, (_, kv, sc) = compare_chunk_kernel(
-                    "retention_layer", args, f"{label} B={B} T=L={BLOCK} {glabel} call {call}")
+                args = (gam, randn(rng, B, T, cfg.n_units), w, kv, sc, L)
+                clabel = f"{label} B={B} T={T} L={L} {glabel} call {call}"
+                err, (_, kv, sc) = compare_chunk_kernel("retention_layer", args, clabel)
                 errs["retention_layer"] = max(errs["retention_layer"], err)
+                if call == 0:
+                    same_bits_chunk("retention_layer", args, clabel)
             log(f"  carried scale max {sc.max().item():.2f}")
     return errs
 
@@ -727,13 +793,19 @@ def phase_batch(cfg, model, rng):
     xs = torch.as_tensor(rng.standard_normal((len(BATCH_LENS), BATCH_T, cfg.in_size)),
                          dtype=torch.float32, device="cuda")
     lens = torch.as_tensor(BATCH_LENS, device="cuda")
-    res = {}
+    res, calls, orig = {}, {}, CR.chunk_retention
+
+    def rec(*a):              # the last call of each row count: encoder and decoder layers
+        calls[a[1].shape[0]] = clone_args(a)
+        return orig(*a)
+
     CR.launches = 0
     t0 = time.perf_counter()
-    captured = capture_kernel_inputs(
-        lambda: res.update(ls_eend.ls_test(with_route(model, "core", chunk_size=BATCH_CHUNK),
-                                           xs, lens)),
-        [(CR, "chunk_retention")])
+    CR.chunk_retention = rec
+    try:
+        res.update(ls_eend.ls_test(with_route(model, "core", chunk_size=BATCH_CHUNK), xs, lens))
+    finally:
+        CR.chunk_retention = orig
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = CR.launches
@@ -753,9 +825,17 @@ def phase_batch(cfg, model, rng):
             f"(tol {SERVE_ATOL:g})")
         if not err <= SERVE_ATOL:
             raise AssertionError(f"batch {key}: core route differs from plain by {err}")
-    args, _ = captured["chunk_retention"]
-    err, _ = compare_chunk_kernel("chunk_retention", args, "last call of the main path")
-    return launches, err, args
+    err = 0.0
+    for BH in sorted(calls):
+        args = calls[BH]
+        e, _ = compare_chunk_kernel(
+            "chunk_retention", args,
+            f"main path, the last {'decoder' if BH > len(BATCH_LENS) * cfg.n_heads else 'encoder'}"
+            f" call {tuple(args[1].shape)}")
+        err = max(err, e)
+    # the decoder's call (the most rows) makes the kernels line; the
+    # encoder's (8 rows) is timed beside it
+    return launches, err, calls
 
 
 # ---------------------------------------------------------------------------
@@ -787,14 +867,18 @@ def dec_layer_weights(model):
     return kink_free(w._replace(wqkvg=w.wqkvg * 4), SEED)
 
 
-def compare_grads(label, got, want, dx_atol=TC_ATOL):
-    """(dx, weight gradients) against a reference: dx within dx_atol, each
-    weight gradient within GRAD_RTOL of its leaf max.  Returns the largest
-    absolute difference."""
+def compare_grads(label, got, want, dx_atol=TC_ATOL, exact_dx=None):
+    """(dx, weight gradients) against a reference: dx within dx_atol (of
+    the float64 dx `exact_dx` beyond float32's own error, `compare_exact`,
+    where given), each weight gradient within GRAD_RTOL of its leaf max.
+    Returns the largest absolute difference."""
     from fseend_tpu_torch.kernels import dec_train_fusion as DT
 
     (dx, dw), (dx_r, dw_r) = got, want
-    worst = compare(label, [dx], [dx_r], ("dx",), atol=dx_atol)
+    if exact_dx is None:
+        worst = compare(label, [dx], [dx_r], ("dx",), atol=dx_atol)
+    else:
+        worst = compare_exact(f"{label}.dx", dx, dx_r, exact_dx, atol=dx_atol)
     share = 0.0                                  # the largest error over its bound
     for name, g, r in zip(DT.FusionWeights._fields, dw, dw_r):
         err, tol = (g - r).abs().max().item(), GRAD_RTOL * r.abs().max().item()
@@ -819,6 +903,16 @@ def same_bits(label, got, again):
             raise AssertionError(f"{label}: a second call gives other bits in {name} "
                                  f"(max {(a - b).abs().max().item():.3e})")
     log(f"  {label}: a second call gives dx and the 14 weight gradients bit for bit")
+
+
+def fusion_dx_in_float64(x, dy, w, seed, n_heads, chunk, rate):
+    """dx of the fusion layer's plain backward evaluated in float64, from
+    the plain forward's checkpoints in float64."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
+    x, dy, w = x.double(), dy.double(), DT.FusionWeights(*(t.double() for t in w))
+    _, kvs, ss = DT.fusion_layer_fwd_plain(x, w, seed, n_heads, chunk, rate)
+    return DT.fusion_layer_bwd_plain(x, dy, kvs, ss, w, seed, n_heads, chunk, rate)[0]
 
 
 def phase_dec_train_vs_plain(cfg, model, rng):
@@ -850,7 +944,8 @@ def phase_dec_train_vs_plain(cfg, model, rng):
         torch.cuda.synchronize()
         plain = DT.fusion_layer_bwd_plain(x, dy, kvs, ss, *args)
         errs["dec_train_fusion_bwd"] = max(errs["dec_train_fusion_bwd"], compare_grads(
-            f"dec_train_fusion_bwd[rate={rate}]", got, plain))
+            f"dec_train_fusion_bwd[rate={rate}]", got, plain,
+            exact_dx=fusion_dx_in_float64(x, dy, *args)))
         same_bits(f"dec_train_fusion_bwd[rate={rate}]", got,
                   DT.fusion_layer_bwd(x, dy, kvs, ss, *args))
         if rate == 0.0:
@@ -1096,6 +1191,19 @@ def pipe_bounds(name, t_bytes, flops, tensor_cores=None):
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), pipe, fma
 
 
+def core_reread_bytes(BH, T, L, dk, dv):
+    """What chunk_retention_tc.cuh moves beyond reading q, k, v and the state
+    once and writing the output and the new state once: the state pass
+    reads k and v again, the output pass reads each k/v tile once for every
+    64-query tile at or after it, and with more than one chunk the chunks'
+    summaries are written, scanned (read and written) and read by every
+    query tile of their chunk."""
+    nqt, N = -(-L // 64), T // L
+    rows = BH * T * (dk + dv) * 4 * (nqt + 1) / 2       # (a) once, (c) (nqt + 1) / 2 times
+    scan = BH * N * dk * dv * 4 * (3 + nqt) if N > 1 else 0
+    return rows + scan
+
+
 def kernel_bound(name, args, cfg):
     """(bound_ms, bound_by, operations, bytes, design bytes, pipe,
     fma_bound_ms): the bound is the larger of the bytes the call must move
@@ -1136,8 +1244,7 @@ def kernel_bound(name, args, cfg):
         dv = v.shape[-1]
         flops = BH * T * ((L + 1) * (dk + dv) + 4 * dk * dv)
         nbytes += (v.numel() + kv0.numel() + s0.numel()) * 4         # out + state out
-        tiles = -(-L // 64)                     # a k/v tile is read by every q tile after it
-        design = nbytes + BH * T * (dk + dv) * 4 * (tiles - 1) / 2
+        design = nbytes + core_reread_bytes(BH, T, L, dk, dv)
     elif name.startswith("dec_train_fusion"):
         # per (frame, slot) row: the products 2 D (4D + D + 3D + D) + 4 D F,
         # the core H ((L + 1)(dk + dv) + 4 dk dv), the slot attention 4 C D;
@@ -1165,13 +1272,15 @@ def kernel_bound(name, args, cfg):
         # projection 2 F D, and the core as above for each head
         _, x, w, kv0, s0, L = args
         B, T, _ = x.shape
-        Fv = w.wo.shape[1]
+        Fv = w.wo.shape[0]
         dv = Fv // H
         flops = B * T * (2 * D * (2 * D + 2 * Fv) + 2 * Fv * D
                          + H * ((L + 1) * (dk + dv) + 4 * dk * dv))
         nbytes += (x.numel() + kv0.numel() + s0.numel()) * 4         # y + state out
-        # q | k | v | g written once and read once, g written again and read again
-        design = nbytes + B * T * (2 * (2 * D + 2 * Fv) + 2 * Fv) * 4
+        # q | k | v | g written once and read by the core, g written again
+        # and read again, and the core's own re-reads
+        design = (nbytes + B * T * (2 * (2 * D + 2 * Fv) + 2 * Fv) * 4
+                  + core_reread_bytes(B * H, T, L, dk, dv))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     wbytes = sum(t.numel() * 4 for t in weights)
     if name == "enc_frame_scan":
@@ -1272,6 +1381,9 @@ def hold_on_main_path(server, xs, got):
 
 
 def phase_times(cfg, model, rng, card, main_path_args):
+    from fseend_tpu_torch.kernels import chunk_retention as CR
+    from fseend_tpu_torch.kernels import retention_layer as RL
+    from fseend_tpu_torch.models import ls_eend
     from fseend_tpu_torch.ops import retention as R
     from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
@@ -1317,31 +1429,59 @@ def phase_times(cfg, model, rng, card, main_path_args):
     del server, got
 
     # the chunkwise kernels: the main path's largest calls (these make the
-    # kernels line), then the other production shapes
-    for name, (_, kern, plain) in chunk_kernels().items():
-        args = main_path_args[name]
-        shape = tuple(args[1].shape) + (f"L={args[-1]}",)
-        rows[name] = time_kernel(name, f"main path {shape}", kern, plain, args, {}, cfg, card,
-                                 plain_reps=3)
+    # kernels line), the LS encoder's calls beside them, then the other
+    # production shapes; with --parent each row of PERF.md's table also
+    # against PR 7's kernel in turns, and one decoder call of each kernel by
+    # kernel (the *_parts lines)
     rc = cfg.ret_cfg
     dk, dv, H = rc.key_dim, rc.head_dim, rc.num_heads
-    _, kern, plain = chunk_kernels()["chunk_retention"]
-    for BH, T, L in ((LANES * H, 1000, 500), (LANES * H, BLOCK, BLOCK),
-                     (LANES * SLOTS * H, BLOCK, BLOCK)):
-        args = (torch.ones(BH, device="cuda"),
+    st = R.chunk_state_init(rc, LANES, device="cuda")
+    rl_dec = main_path_args["retention_layer"]
+    rl_enc = (rl_dec[0], rl_dec[1][:LANES].contiguous(), rl_dec[2], st["kv"], st["scale"], BLOCK)
+    cr_calls = main_path_args["chunk_retention"]
+
+    def cr_args(BH, T, L):
+        return (torch.ones(BH, device="cuda"),
                 *(torch.as_tensor(rng.standard_normal((BH, T, d)) * s, dtype=torch.float32,
                                   device="cuda")
                   for d, s in ((dk, 1.0), (dk, dk ** -0.5), (dv, 1.0))),
                 torch.zeros(BH, dk, dv, device="cuda"), torch.ones(BH, 1, 1, device="cuda"), L)
-        time_kernel("chunk_retention", f"BH={BH} T={T} L={L}", kern, plain, args, {}, cfg,
-                    card, plain_reps=3)
-    dec_args = main_path_args["retention_layer"]
-    st = R.chunk_state_init(rc, LANES, device="cuda")
-    enc_args = (dec_args[0], dec_args[1][:LANES].contiguous(), dec_args[2], st["kv"],
-                st["scale"], BLOCK)
-    _, kern, plain = chunk_kernels()["retention_layer"]
-    enc_row = time_kernel("retention_layer", f"encoder B={LANES} T=L={BLOCK}", kern, plain,
-                          enc_args, {}, cfg, card, plain_reps=3)
+
+    table = [("retention_layer", "main path decoder", rl_dec, True),
+             ("retention_layer", "encoder", rl_enc, True),
+             ("chunk_retention", "main path batch decoder", cr_calls[max(cr_calls)], True),
+             ("chunk_retention", "main path batch encoder", cr_calls[min(cr_calls)], True),
+             ("chunk_retention", "", cr_args(LANES * SLOTS * H, BLOCK, BLOCK), True),
+             ("chunk_retention", "", cr_args(LANES * H, 1000, 500), False),
+             ("chunk_retention", "", cr_args(LANES * H, BLOCK, BLOCK), False)]
+    enc_row = None
+    for name, label, args, compared in table:
+        _, kern, plain = chunk_kernels()[name]
+        shape = f"{label} {tuple(args[1].shape)} L={args[-1]}".strip()
+        row = time_kernel(name, shape, kern, plain, args, {}, cfg, card, plain_reps=3)
+        if label.startswith("main path decoder") or label.startswith("main path batch decoder"):
+            rows[name] = row
+        if name == "retention_layer" and label == "encoder":
+            enc_row = row
+        if PARENT and compared:
+            old = PARENT[name]
+            old_args = args if name == "chunk_retention" else (*args[:2], torch_layout(args[2]),
+                                                               *args[3:])
+            diff = max((a - b).abs().max().item() for a, b in zip(old(*old_args), kern(*args)))
+            log(f"  earlier {name} vs this [{shape}]: max abs diff {diff:.3e}")
+            in_turns(f"{name} {shape}", lambda: old(*old_args), lambda: kern(*args), 5, card)
+    for name, args in (("retention_layer", rl_dec), ("chunk_retention", cr_calls[max(cr_calls)])):
+        kern = chunk_kernels()[name][1]
+        versions = [("this", kern, args)]
+        if PARENT:
+            versions.insert(0, ("earlier", PARENT[name], args if name == "chunk_retention" else
+                                (*args[:2], torch_layout(args[2]), *args[3:])))
+        for which, fn, a in versions:
+            top = kernel_parts(lambda: fn(*a))
+            log(json.dumps({f"{name}_parts": {
+                "kernel": which, "shape": f"{tuple(a[1].shape)} L={a[-1]}",
+                "device_busy_ms": sum(t["ms_per_call"] for t in top), "top": top},
+                "card": card}))
 
     # the blockwise server, "fused" route then "plain" route
     blocks = {}
@@ -1358,6 +1498,20 @@ def phase_times(cfg, model, rng, card, main_path_args):
         line = {"server": f"blockwise, {kernel} route", "lanes": B, "K": BLOCK,
                 "ms": blocks[kernel], "frames_per_s": B * BLOCK / (blocks[kernel] / 1e3),
                 "max_memory_allocated": peak}
+        if kernel == "fused" and PARENT:
+            # the same blocks on PR 7's retention layer (its weights in torch's
+            # layout, made once per packed layer)
+            layouts = {}
+
+            def earlier_layer(gammas, x, w, kv0, s0, chunk):
+                if w.wqkvg.data_ptr() not in layouts:
+                    layouts[w.wqkvg.data_ptr()] = torch_layout(w)
+                return PARENT["retention_layer"](gammas, x, layouts[w.wqkvg.data_ptr()], kv0,
+                                                 s0, chunk)
+
+            in_turns("blockwise process_block, fused route",
+                     via(RL, "retention_layer", earlier_layer, lambda: bsrv.process_block(xb)),
+                     lambda: bsrv.process_block(xb), 5, card, rounds=2)
         if kernel == "fused" and "--profile" in sys.argv[1:]:
             profile_window(lambda: bsrv.process_block(xb), 3, card,
                            "blockwise process_block, fused route")
@@ -1368,6 +1522,19 @@ def phase_times(cfg, model, rng, card, main_path_args):
                         outside_kernels_ms=blocks[kernel] - in_kernel)
         log(json.dumps({"process_block": line, "card": card}))
         del bsrv
+    if PARENT:
+        # phase 7's ls_test on the "core" route, on PR 7's chunkwise core
+        xt = torch.as_tensor(rng.standard_normal((len(BATCH_LENS), BATCH_T, cfg.in_size)),
+                             dtype=torch.float32, device="cuda")
+        lens = torch.as_tensor(BATCH_LENS, device="cuda")
+        core = with_route(model, "core", chunk_size=BATCH_CHUNK)
+
+        def batch():
+            ls_eend.ls_test(core, xt, lens)
+
+        in_turns(f"ls_test, core route, {len(BATCH_LENS)} x {BATCH_T} frames",
+                 via(CR, "chunk_retention", PARENT["chunk_retention"], batch), batch, 3, card,
+                 rounds=2)
     return rows
 
 
@@ -1422,10 +1589,15 @@ def phase_train_times(cfg, card, calls):
                 "kernel": which, "device_busy_ms": sum(busy.values()),
                 "top": top_kernels(busy, 1, n=16)}, "card": card}))
         if PARENT:
+            # B3 keeps the parent's core: the same bits in every output
             old = PARENT[name]
-            diff = (old(*args, **kw)[0] - this(*args, **kw)[0]).abs().max()
-            log(f"  earlier {name} vs this: {'y' if name.endswith('fwd') else 'dx'} max abs "
-                f"diff {diff.item():.3e}")
+            a, b = old(*args, **kw), this(*args, **kw)
+            leaves = ([a[0], *a[1]], [b[0], *b[1]]) if name.endswith("bwd") else (a, b)
+            for j, (x, y) in enumerate(zip(*leaves)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"earlier {name} vs this: output {j} differs by "
+                                         f"{(x - y).abs().max().item():.3e}")
+            log(f"  earlier {name} vs this: all {len(leaves[0])} outputs bit for bit")
             in_turns(f"{name} main path {tuple(args[0].shape)}", lambda: old(*args, **kw),
                      lambda: this(*args, **kw), 3, card)
     log("library_ms: null for the six LS kernels -- no single PyTorch call computes a "
@@ -1760,6 +1932,30 @@ def device_ms_by_kernel(fn, warm=True):
         torch.cuda.synchronize()
     return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA}
+
+
+def kernel_parts(fn, reps=5):
+    """Device time by kernel per call of fn(), for a call of a few launches:
+    `reps` calls under torch.profiler after one outside it.  The tracer can
+    miss the first launches of its window, so each kernel's time is its mean
+    time per launch times its launches per call (its count over reps,
+    rounded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            per_call = max(1, round(e.count / reps))
+            rows.append({"kernel": e.key[:72], "launches_per_call": per_call,
+                         "ms_per_call": e.self_device_time_total / 1e3 / e.count * per_call})
+    return sorted(rows, key=lambda r: -r["ms_per_call"])
 
 
 def top_kernels(busy, calls, n=8):

@@ -10,8 +10,11 @@ carried state `(kv, scale)` as it was before the chunk, and the update
 `max(|kv|.sum(dk).max(dv), 1)`.  The state is carried unnormalized.
 
 On a CUDA tensor the wrapper launches `csrc/chunk_retention.cu` (design
-notes there and in `csrc/chunk_retention_core.cuh`); on a CPU tensor it runs
+notes there and in `csrc/chunk_retention_tc.cuh`); on a CPU tensor it runs
 `chunk_retention_plain`.  Neither touches the incoming state.  Float32 only.
+`chunk_retention_passes` is the kernel's algorithm (the state scanned over
+the chunks' summaries, the output per 64-query tile) in plain tensor ops,
+for the tests.
 When a gradient is wanted the call goes through `_ChunkRetentionFn`, whose
 backward re-runs `chunk_retention_plain` under autograd (the recompute
 backward of `retention_pallas.py:253-263`; the JAX package has no backward
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from fseend_tpu_torch.kernels import _build
 
@@ -100,24 +104,35 @@ def _check(gammas, q, k, v, kv0, s0, chunk):
         raise ValueError(f"chunk_retention: T={T} is not a multiple of chunk={chunk}")
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` (contiguous), copied when its data does not start on 16 bytes: the
+    kernels read their operands with 16-byte asynchronous copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(gammas, q, k, v, kv0, s0, chunk):
     global launches
     BH, T, dk = q.shape
     dv = v.shape[-1]
-    if dk % 16 or dv % 16:
-        raise ValueError(f"chunk_retention: head dims {dk}, {dv} must be multiples of 16")
+    if dk % 16 or dv % 16 or dk > 128 or dv > 128:
+        raise ValueError(f"chunk_retention: head dims {dk}, {dv} must be multiples of 16, "
+                         f"at most 128")
     lib = _build.load("chunk_retention", {"CR_DK": dk, "CR_DV": dv})
     fn = lib.chunk_retention_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    gammas, q, k, v, kv0, s0 = (t.contiguous() for t in (gammas, q, k, v, kv0, s0))
+    gammas, q, k, v, kv0, s0 = (aligned(t.contiguous()) for t in (gammas, q, k, v, kv0, s0))
     out = torch.empty_like(v)
     kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
+    N = T // chunk
+    # the chunks' summaries and scales, when there is more than one chunk
+    scratch = q.new_empty(BH * N * (dk * dv + 1)) if N > 1 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gammas.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), kv0.data_ptr(), s0.data_ptr(), kv_f.data_ptr(),
-                 s_f.data_ptr(), BH, T, chunk, stream)
+                 s_f.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 BH, T, chunk, stream)
     _build.check(lib, err, "chunk_retention")
     launches += 1
     return out, kv_f, s_f
@@ -156,3 +171,73 @@ def chunk_retention_plain(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor
         kv = kv * cross_decay + kc.transpose(1, 2) @ (vc * last_row)
         s = kv.detach().abs().sum(1, keepdim=True).amax(2, keepdim=True).clamp(min=1.0)
     return torch.cat(outs, dim=1), kv, s
+
+
+TILE = 64     # frames of a query tile and of a k/v tile (csrc/chunk_retention_tc.cuh:kTile)
+SLICE = 32    # frames a warp sums into a fresh accumulator
+
+
+def chunk_retention_passes(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, kv0: torch.Tensor, s0: torch.Tensor,
+                           chunk: int):
+    """The CUDA kernel's algorithm (csrc/chunk_retention_tc.cuh) in plain
+    tensor ops and in its fixed order, rows batched: each chunk zero-padded
+    to whole 64-frame tiles; (a) every chunk's summary U_m = K_m^T (V_m *
+    last mask row), summed over 32-frame slices in order; (b) the state
+    before each chunk, KV_n = KV_{n-1} gamma^L + U_{n-1}, and its scale, in
+    chunk order; (c) per (chunk, 64-query tile) two sums of their own, each
+    starting from the cross read idec * (q KV_n) over one half of dk and
+    taking one 32-frame half of each k/v tile at or before the query tile
+    (its masked scores, absolute row sums and S V), the second added to the
+    first at the end.  Same arguments and results as
+    `chunk_retention_plain`."""
+    BH, T, dk = q.shape
+    dv = v.shape[-1]
+    L, N = chunk, T // chunk
+    nqt = -(-L // TILE)
+    Lp = nqt * TILE
+
+    def chunks(t):                                  # (BH, T, d) -> (BH, N, Lp, d)
+        return F.pad(t.reshape(BH, N, L, t.shape[-1]), (0, 0, 0, Lp - L))
+
+    qp, kp, vp = chunks(q), chunks(k), chunks(v)
+    lg = torch.log(gammas).reshape(BH, 1)
+    i = torch.arange(Lp, dtype=q.dtype, device=q.device)
+    sv = torch.sqrt(torch.cumsum(torch.exp(lg * i), dim=1))              # (BH, Lp)
+    svl = torch.sqrt(torch.exp(lg * i[:L]).sum(dim=1, keepdim=True))   # (BH, 1)
+    rsv = 1.0 / sv
+    # (a)
+    lr = torch.where(i < L, torch.exp(lg * (L - 1 - i)) / svl, 0.0)    # (BH, Lp)
+    vl = vp * lr[:, None, :, None]
+    U = sum(kp[:, :, j:j + SLICE].transpose(2, 3) @ vl[:, :, j:j + SLICE]
+            for j in range(0, Lp, SLICE))                              # (BH, N, dk, dv)
+    # (b)
+    cd = torch.exp(lg * float(L))[:, :, None]
+    kv, c = kv0, s0.reshape(BH, 1)
+    states = []
+    for m in range(N):
+        states.append((kv, c))
+        kv = kv * cd + U[:, m]
+        c = kv.abs().sum(1).amax(1, keepdim=True).clamp(min=1.0)
+    # (c)
+    out = q.new_zeros(BH, N, Lp, dv)
+    for n, (kvn, cn) in enumerate(states):
+        for it in range(nqt):
+            rows = slice(it * TILE, (it + 1) * TILE)
+            qt, ii = qp[:, n, rows], i[rows]
+            idec = torch.where(ii < L, torch.exp(lg * (ii + 1)) * svl / sv[:, rows], 0.0)
+            acc = [(qt[..., h] @ kvn[:, h]) * idec[..., None]
+                   for h in (slice(0, dk // 2), slice(dk // 2, dk))]
+            rowabs = [0.0, 0.0]
+            for jt in range(it + 1):
+                for hf in range(2):
+                    cols = slice(jt * TILE + hf * SLICE, jt * TILE + (hf + 1) * SLICE)
+                    delta = ii[:, None] - i[None, cols]
+                    mask = torch.where(delta >= 0, torch.exp(lg[..., None] * delta.clamp(min=0)),
+                                       0.0) * rsv[:, rows, None]
+                    s = (qt @ kp[:, n, cols].transpose(1, 2)) * mask
+                    rowabs[hf] = rowabs[hf] + s.abs().sum(-1)
+                    acc[hf] = acc[hf] + s @ vp[:, n, cols]
+            inner = (rowabs[0] + rowabs[1]).clamp(min=1.0)
+            out[:, n, rows] = (acc[0] + acc[1]) / torch.maximum(inner, cn)[..., None]
+    return out[:, :, :L].reshape(BH, T, dv), kv, c.reshape(BH, 1, 1)

@@ -1,5 +1,8 @@
-// The chunkwise-retention core shared by chunk_retention.cu,
-// retention_layer.cu and dec_train_fusion_{fwd,bwd}.cu, float32.
+// The chunkwise-retention core of the fusion layer's training forward and
+// its backward's recompute (dec_train_fusion_seq.cuh, through
+// dec_train_fusion_common.cuh:retention_fwd), float32, with the per-chunk
+// checkpoints of the state.  chunk_retention.cu and retention_layer.cu run
+// chunk_retention_tc.cuh's tensor-core core instead.
 //
 // For one (batch, head) row and each L-frame chunk n, with the carried
 // unnormalized state KV (dk, dv) and its scale c (a scalar >= 1):
@@ -26,7 +29,7 @@
 // by the v tile.  K^T V for the state is accumulated from each diagonal tile.
 // 256 threads as 16 x 16; thread (ty, tx) owns rows r*16 + ty and columns
 // c*16 + tx of every tile, so that a warp reads neighbouring shared-memory
-// words.  All products run on the FMA pipe; tensor cores are later work.
+// words.  All products run on the FMA pipe.
 #pragma once
 
 #include "frame_scan_common.cuh"
@@ -42,8 +45,8 @@ struct CoreArgs {
   // starts at p + (b*T + t)*ld, head h at column h*dk (h*dv for v and out)
   const float *q, *k, *v;
   int ldq, ldk, ldv;
-  float* out;  // plain: the core's output.  FINISH: holds the gate g on
-  int ldo;     // entry and silu(g) * groupnorm(core output) on exit
+  float* out;
+  int ldo;
   const float* gamma;  // decay of row bh is gamma[bh % gmod]
   int gmod;
   const float *kv0, *s0;  // (B*H, dk, dv), (B*H)
@@ -80,7 +83,7 @@ __device__ __forceinline__ void load_tile_t(float* dst, const float* src, int ld
   }
 }
 
-template <int DK, int DV, bool FINISH>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
   static_assert(DK % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
   constexpr int R = kTile / 16;  // rows of a tile per thread
@@ -245,23 +248,7 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
         float o[CV];
 #pragma unroll
         for (int c = 0; c < CV; ++c) o[c] = acc[r][c] / all;
-        if (FINISH) {  // group norm over the head's dv values, eps 1e-6, then the gate
-          float sum = 0.f;
-#pragma unroll
-          for (int c = 0; c < CV; ++c) sum += o[c];
-          const float mu = half_warp_sum(sum) / DV;
-          float var = 0.f;
-#pragma unroll
-          for (int c = 0; c < CV; ++c) var += (o[c] - mu) * (o[c] - mu);
-          const float rs = rsqrtf(half_warp_sum(var) / DV + 1e-6f);
-          if (i < L) {
-#pragma unroll
-            for (int c = 0; c < CV; ++c) {
-              float* p = on + (size_t)i * a.ldo + c * 16 + tx;
-              *p = fs::silu(*p) * ((o[c] - mu) * rs);
-            }
-          }
-        } else if (i < L) {
+        if (i < L) {
 #pragma unroll
           for (int c = 0; c < CV; ++c) on[(size_t)i * a.ldo + c * 16 + tx] = o[c];
         }
@@ -296,14 +283,14 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
 }
 
 // one block per (batch, head) row; returns cudaGetLastError() after the launch
-template <int DK, int DV, bool FINISH>
+template <int DK, int DV>
 inline int launch_core(const CoreArgs& a, int rows, cudaStream_t stream) {
   const size_t smem = sizeof(float) * core_smem_floats<DK, DV>(a.L);
-  cudaError_t err = cudaFuncSetAttribute(core_kernel<DK, DV, FINISH>,
+  cudaError_t err = cudaFuncSetAttribute(core_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  core_kernel<DK, DV, FINISH><<<rows, kThreads, smem, stream>>>(a);
+  core_kernel<DK, DV><<<rows, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -532,7 +532,7 @@ inline int retention_fwd(const float* qkvg, float* oh, float* zkv, float* ones, 
   a.kvs = kvs;
   a.ss = ss;
   a.ckC = C;
-  return cr::launch_core<DK, DK, false>(a, (int)rows, st);
+  return cr::launch_core<DK, DK>(a, (int)rows, st);
 }
 
 }  // namespace dtf

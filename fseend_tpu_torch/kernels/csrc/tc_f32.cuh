@@ -1,8 +1,10 @@
 // Float32-exact matrix products on Hopper's tensor cores ("3xTF32"), shared
 // by the two frame scans (every linear layer of the block: dec_frame_scan.cu,
 // enc_frame_scan.cu), cached_attention.cu (q k^T and p v of the shared-head
-// kernel) and the fusion layer's backward (dec_train_fusion_bwd.cu: its
-// products, input gradients and weight gradients).
+// kernel), the fusion layer's forward and backward (dec_train_fusion_seq.cuh,
+// dec_train_fusion_bwd.cu: its products, input gradients and weight
+// gradients), the retention layer's projections (retention_layer.cu) and the
+// chunkwise core's products (chunk_retention_tc.cuh).
 //
 // Pipe: the tensor cores, through the warp-level
 // `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` (float32

@@ -7,10 +7,10 @@ dk**-0.5), the chunkwise core of `chunk_retention` per head with per-head
 decay, the per-head group norm (non-affine, eps 1e-6), the silu(g) gate and
 the out projection (+bias).  One call per layer and block of frames.
 
-On a CUDA tensor the wrapper launches `csrc/retention_layer.cu` (three
-kernels of this repository behind one call; see the note there); on a CPU
-tensor it runs `retention_layer_plain`.  Neither touches the incoming state.
-Float32 only.  When a gradient is wanted the call goes through
+On a CUDA tensor the wrapper launches `csrc/retention_layer.cu` (the two
+projections and the chunkwise core of this repository behind one call; see
+the note there); on a CPU tensor it runs `retention_layer_plain`.  Neither
+touches the incoming state.  Float32 only.  When a gradient is wanted the call goes through
 `_RetentionLayerFn`, whose backward re-runs `retention_layer_plain` under
 autograd (the recompute backward of `retention_layer_pallas.py:261-280`).
 
@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from fseend_tpu_torch.kernels import _build
-from fseend_tpu_torch.kernels.chunk_retention import chunk_retention_plain, recompute_grads
+from fseend_tpu_torch.kernels.chunk_retention import (aligned, chunk_retention_plain,
+                                                      recompute_grads)
 from fseend_tpu_torch.ops import nn as tnn
 
 # launches of the CUDA kernel since the count was last set to 0
@@ -35,21 +36,23 @@ launches = 0
 
 
 class RetLayerWeights(NamedTuple):
-    """One retention layer's weights in torch's (out, in) layout, the four
-    input projections stacked."""
-    wqkvg: torch.Tensor  # (2D + 2F, D): q | k | v | g rows, F = D * value_factor
+    """One retention layer's weights in the (in, out) layout the kernel's
+    products read (the JAX package's `kernel` layout), the four input
+    projections stacked."""
+    wqkvg: torch.Tensor  # (D, 2D + 2F): q | k | v | g columns, F = D * value_factor
     bqkvg: torch.Tensor  # (2D + 2F,)
-    wo: torch.Tensor     # (D, F)
+    wo: torch.Tensor     # (F, D)
     bo: torch.Tensor     # (D,)
 
 
 def pack_retention(ret) -> RetLayerWeights:
-    """Stack a `Retention` module's projections (a server packs once, under
-    no_grad; in training the packing is part of the graph)."""
+    """Stack a `Retention` module's projections, transposed to (in, out) (a
+    server packs once, under no_grad; in training the packing is part of
+    the graph)."""
     projs = (ret.q_proj, ret.k_proj, ret.v_proj, ret.g_proj)
-    return RetLayerWeights(torch.cat([p.weight for p in projs]),
+    return RetLayerWeights(torch.cat([p.weight.T for p in projs], dim=1),
                            torch.cat([p.bias for p in projs]),
-                           ret.out_proj.weight, ret.out_proj.bias)
+                           ret.out_proj.weight.T.contiguous(), ret.out_proj.bias)
 
 
 def retention_layer(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,
@@ -92,12 +95,12 @@ class _RetentionLayerFn(torch.autograd.Function):
 def _check(gammas, x, w, kv0, s0, chunk):
     B, T, D = x.shape
     H = gammas.shape[0]
-    Fv = w.wo.shape[1]
+    Fv = w.wo.shape[0]
     if D % H or Fv % H:
         raise ValueError(f"retention_layer: {H} heads do not tile D={D}, F={Fv}")
     dk, dv = D // H, Fv // H
-    want = {"gammas": (H,), "x": (B, T, D), "wqkvg": (2 * D + 2 * Fv, D),
-            "bqkvg": (2 * D + 2 * Fv,), "wo": (D, Fv), "bo": (D,),
+    want = {"gammas": (H,), "x": (B, T, D), "wqkvg": (D, 2 * D + 2 * Fv),
+            "bqkvg": (2 * D + 2 * Fv,), "wo": (Fv, D), "bo": (D,),
             "kv0": (B, H, dk, dv), "s0": (B, H, 1, 1)}
     got = {"gammas": gammas, "x": x, "kv0": kv0, "s0": s0, **w._asdict()}
     for name, shape in want.items():
@@ -117,26 +120,31 @@ def _launch(gammas, x, w, kv0, s0, chunk):
     global launches
     B, T, D = x.shape
     H = gammas.shape[0]
-    Fv = w.wo.shape[1]
+    Fv = w.wo.shape[0]
     dk, dv = D // H, Fv // H
-    if dk % 16 or dv % 16:
-        raise ValueError(f"retention_layer: head dims {dk}, {dv} must be multiples of 16")
+    if dk % 16 or dv % 16 or dk > 128 or dv > 128:
+        raise ValueError(f"retention_layer: head dims {dk}, {dv} must be multiples of 16, "
+                         f"at most 128")
     if B * T > 128 * 65535:
         raise ValueError(f"retention_layer: {B * T} frames exceed one launch's grid")
     lib = _build.load("retention_layer", {"CR_DK": dk, "CR_DV": dv})
     fn = lib.retention_layer_launch
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    gammas, x, kv0, s0 = (t.contiguous() for t in (gammas, x, kv0, s0))
-    w = RetLayerWeights(*(t.contiguous() for t in w))
+    gammas, x, kv0, s0 = (aligned(t.contiguous()) for t in (gammas, x, kv0, s0))
+    w = RetLayerWeights(*(aligned(t.contiguous()) for t in w))
     ws = torch.empty((B * T, 2 * D + 2 * Fv), dtype=x.dtype, device=x.device)
+    N = T // chunk
+    # the chunks' summaries and scales, when there is more than one chunk
+    scratch = x.new_empty(B * H * N * (dk * dv + 1)) if N > 1 else None
     y = torch.empty_like(x)
     kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gammas.data_ptr(), x.data_ptr(), w.wqkvg.data_ptr(), w.bqkvg.data_ptr(),
-                 w.wo.data_ptr(), w.bo.data_ptr(), ws.data_ptr(), y.data_ptr(),
+                 w.wo.data_ptr(), w.bo.data_ptr(), ws.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), y.data_ptr(),
                  kv0.data_ptr(), s0.data_ptr(), kv_f.data_ptr(), s_f.data_ptr(),
                  B, T, chunk, H, dk ** -0.5, stream)
     _build.check(lib, err, "retention_layer")
@@ -151,9 +159,9 @@ def retention_layer_plain(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeig
     projection."""
     B, T, D = x.shape
     H = gammas.shape[0]
-    Fv = w.wo.shape[1]
+    Fv = w.wo.shape[0]
     dk, dv = D // H, Fv // H
-    q, k, v, g = (x @ w.wqkvg.T + w.bqkvg).split([D, D, Fv, Fv], dim=-1)
+    q, k, v, g = (x @ w.wqkvg + w.bqkvg).split([D, D, Fv, Fv], dim=-1)
 
     def rows(t, d):                                   # (B, T, H*d) -> (B*H, T, d)
         return t.reshape(B, T, H, d).transpose(1, 2).reshape(B * H, T, d)
@@ -163,5 +171,5 @@ def retention_layer_plain(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeig
         kv0.reshape(B * H, dk, dv), s0.reshape(B * H, 1, 1), chunk)
     out = out.reshape(B, H, T, dv).transpose(1, 2)    # (B, T, H, dv)
     out = tnn.layer_norm(out, eps=1e-6).reshape(B, T, Fv)
-    y = (F.silu(g) * out) @ w.wo.T + w.bo
+    y = (F.silu(g) * out) @ w.wo + w.bo
     return y, kv_f.reshape(B, H, dk, dv), s_f.reshape(B, H, 1, 1)

@@ -329,6 +329,30 @@ def test_chunk_retention_kernel_matches_plain(cuda, gamma, L):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("gamma", [1.0, 0.97])
+def test_chunk_retention_kernel_over_odd_chunks_matches_plain(cuda, gamma):
+    """Four chunks of 75 frames (64 + 11: the second tile of each chunk
+    zero-padded) at the production head dims from a carried state: the
+    state scanned over the chunks' summaries.  out within TC_ATOL, the new
+    state within TC_ATOL of its scale; a second call gives the same bits."""
+    rng = np.random.default_rng(25)
+    BH, L, dk = 6, 75, 64
+    T = 4 * L
+    kv0 = _randn(rng, BH, dk, dk, scale=2.0, dev=cuda)
+    args = [torch.full((BH,), gamma, device=cuda), _randn(rng, BH, T, dk, dev=cuda),
+            _randn(rng, BH, T, dk, scale=dk ** -0.5, dev=cuda), _randn(rng, BH, T, dk, dev=cuda),
+            kv0, kv0.abs().sum(1, keepdim=True).amax(2, keepdim=True).clamp(min=1)]
+    got = CR.chunk_retention(*args, L)
+    again = CR.chunk_retention(*args, L)
+    torch.cuda.synchronize()
+    want = CR.chunk_retention_plain(*args, L)
+    torch.testing.assert_close(got[0], want[0], atol=TC_ATOL, rtol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=TC_ATOL * max(1.0, w.abs().max().item()), rtol=0)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
 @pytest.mark.parametrize("use_decay", [False, True])
 def test_retention_layer_kernel_matches_plain(cuda, use_decay):
     """Two calls in a row (the second from a carried state), two chunks per

@@ -280,7 +280,7 @@ def test_retention_layer_plain_matches_pallas_kernel(rng, case):
 def test_retention_layer_checks_its_arguments():
     _, m = _pair()
     w = RL.pack_retention(m)
-    assert w.wqkvg.shape == (4 * D, D) and w.wo.shape == (D, D)
+    assert w.wqkvg.shape == (D, 4 * D) and w.wo.shape == (D, D)     # (in, out)
     cfg = TR.RetentionConfig(D, H, 1, L)
     st = TR.chunk_state_init(cfg, 2)
     gam = TR.decay_gammas(cfg)
