@@ -4,9 +4,11 @@ GPU: builds the CUDA kernels from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the production width, drives
 the port's three LS-EEND inference paths (per-frame streaming server,
 blockwise streaming server, batch pass), its LS training path (the train
-step and the epoch loop) and FS-EEND serving (per-frame fast-block server,
-blockwise server, the batch pass against the reference), and times the
-kernels, the servers and the step.
+step and the epoch loop), FS-EEND serving (per-frame fast-block server,
+blockwise server, the batch pass against the reference), FS-EEND training
+(the reference's train golden, a production-width step, the epoch loop on
+a Kaldi data directory) and raw-audio serving (the device front end before
+both blockwise servers), and times the kernels, the servers and the steps.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
@@ -118,6 +120,31 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      against the earlier cached_attention.cu: the per-lane kernel at those
      four shapes, the three blocks, step() (five rounds), and the shared
      head at the blockwise encoder's shape
+ 17. F6, tests/goldens/fs_train_ref.npz (the reference's FS training run,
+     B 2, T 16) through the port's state-dict reader on the card: step-0
+     losses rtol 1e-4, every gradient atol 1e-5 + rtol 1e-3, its three Adam
+     steps' losses rtol 2e-4, weights after them 1e-4, BatchNorm statistics
+     1e-5
+ 18. F7, FS training at production width: configs/fs_simu.yaml's model
+     (FSEENDConfig(), dropout 0.1) and Noam-Adam, batch 32 x 500 frames x
+     4 speakers of synthetic features from the seed, 4 steps (finite
+     losses, moving BatchNorm statistics), then the step timed (CUDA
+     events), its peak memory and a torch.profiler window
+ 19. A1, run_training(TaskConfig(model="fs")) at FSEENDConfig() width on a
+     Kaldi data directory synthesized with the stdlib wave (4 recordings of
+     40 s, 2-3 speakers, a piped wav.scp entry): DiarizationDataset for
+     training and validation, 2 epochs of 2 steps at batch 4 x 200 frames;
+     the last checkpoint reloaded through load_fs_eend bit for bit
+ 20. A2, raw-audio serving: RawAudioPipeline over
+     BlockStreamingServer(kind="ls") (128 lanes, K 128, "fused" route:
+     retention_layer) and over BlockStreamingServer(kind="fs") (64 lanes,
+     K 128, capacity 2048, kernel route: cached_attention), 8 kHz audio
+     from the seed in blocks of K x 80 x 10 samples, three blocks and a
+     ragged remainder: the streamed features within 2e-4 of the host
+     pipeline, the probabilities within 1e-3 of the same server fed the
+     host features, each kernel launched on this path (counted from 0) and
+     its last call held against plain; the front end's ms per audio block
+     alone and the pipeline's (CUDA events)
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
 the timing lines come before it.  Float32 throughout, TF32 off.  Every
@@ -191,6 +218,12 @@ FS_STREAM_LENS = (1900, 1200, 777, 500, 137, 5)
 FS_SCAN_LANES, FS_SCAN_CAP, FS_SCAN_T = 8, 256, 200   # fast block vs frame scan
 PARTS_REPS = 5                               # calls profiled for each *_parts line
 FS_GOLDEN_ATOL = 1e-4                        # tests/test_torch_convert.py:85-95 drift 2.3e-5
+# F7: configs/fs_simu.yaml's batch 32 x 500-frame chunks, 4 speakers (6 slots)
+FS_TRAIN_B, FS_TRAIN_T, FS_TRAIN_SPK, FS_TRAIN_STEPS = 32, 500, 4, 4
+# A1: a Kaldi directory of 4 recordings of 40 s, chunks of 200 frames, batch 4
+KALDI_RECS, KALDI_DUR, KALDI_CHUNK, KALDI_B = 4, 40.0, 200, 4
+# A2: audio blocks of one model block (K x 80 x 10 samples), and a ragged end
+RAW_BLOCKS, RAW_RAGGED = 3, 12_345
 # published H100 SXM peaks (float32 outside the tensor cores; TF32 dense on
 # the tensor cores; HBM3)
 PEAK_F32_FLOPS = 67e12
@@ -2139,6 +2172,370 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# FS-EEND training, training from a Kaldi data directory, raw-audio serving
+# ---------------------------------------------------------------------------
+
+
+def _allclose(label, got, want, atol, rtol=0.0):
+    """|got - want| <= atol + rtol |want| elementwise (numpy's rule); returns
+    the worst |got - want| / (atol + rtol |want|)."""
+    ratio = ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+    if not (torch.isfinite(got).all() and ratio <= 1.0):
+        raise AssertionError(f"{label}: differs by {ratio:.3f} of atol {atol:g} + rtol {rtol:g}")
+    return ratio
+
+
+def phase_fs_train_golden():
+    """F6: the reference's own FS training run (tests/goldens/fs_train_ref.npz:
+    the golden's small model, B 2, T 16, dropout 0) on the card through the
+    port's state-dict reader: step-0 losses within rtol 1e-4 and every
+    gradient within atol 1e-5 + rtol 1e-3 (tests/test_train_parity.py:80-99);
+    then its three Adam steps through make_train_step: losses within rtol
+    2e-4, the post-step weights within 1e-4 and BatchNorm statistics within
+    1e-5."""
+    from fseend_tpu_torch.models import fs_eend
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+    from fseend_tpu_torch.utils import torch_convert as TC
+
+    g = np.load(Path(__file__).resolve().parent / "tests" / "goldens" / "fs_train_ref.npz")
+
+    def sub(prefix):
+        return {k[len(prefix):]: g[k] for k in g.files if k.startswith(prefix)}
+
+    sd, gr, sdN, steps = sub("sd__"), sub("gr__"), sub("sdN__"), g["steps"]
+    gcfg = fs_eend.FSEENDConfig(in_size=23, n_units=32, n_heads=4, enc_n_layers=2,
+                                dec_n_layers=2, enc_dim_feedforward=2048,
+                                dec_dim_feedforward=64, conv_delay=9, max_nspks=5, dropout=0.0)
+    batch = {k: torch.as_tensor(g[k], device="cuda") for k in ("feats", "labels", "lens", "n_spk")}
+    task = TRN.TaskConfig(model="fs", label_mode="fixed")
+    model = TC.fs_from_state_dict(sd, gcfg, "cuda")
+    loss, (_, metrics) = TRN.compute_loss(task, model, batch, None, train=True)
+    loss.backward()
+    for i, k in enumerate(("pit_loss", "emb_loss", "tot_loss")):
+        _allclose(f"fs train golden step 0 {k}", metrics[k].double().cpu(),
+                  torch.tensor(float(steps[0][i]), dtype=torch.float64), 0.0, 1e-4)
+    full = {k: np.zeros_like(v) for k, v in sd.items()}
+    full.update(gr)
+    ref = dict(TC.fs_from_state_dict(full, gcfg, "cuda").named_parameters())
+    # norm12 is allocated and unused (as in the reference): no gradient, the
+    # reference's is zero
+    worst = max(_allclose(f"fs train golden: gradient of {name}",
+                          p.grad if p.grad is not None else torch.zeros_like(p),
+                          ref[name].detach(), 1e-5, 1e-3)
+                for name, p in model.named_parameters())
+    tx = optim.Optimizer("adam", 1e-3)            # torch.optim.Adam's defaults, the golden's
+    model = TC.fs_from_state_dict(sd, gcfg, "cuda")
+    state = TRN.TrainState.create(model, tx)
+    step = TRN.make_train_step(task, gcfg, tx)
+    traj = []
+    for i in range(steps.shape[0]):
+        state, metrics = step(state, batch, 0)
+        traj.append([float(metrics[k]) for k in ("pit_loss", "emb_loss", "tot_loss")])
+        _allclose(f"fs train golden step {i} losses", torch.tensor(traj[-1], dtype=torch.float64),
+                  torch.as_tensor(steps[i], dtype=torch.float64), 0.0, 2e-4)
+    want = TC.fs_from_state_dict(sdN, gcfg, "cuda").state_dict()
+    for name, t in model.state_dict().items():
+        if not name.endswith("num_batches_tracked"):
+            _allclose(f"fs train golden after {steps.shape[0]} steps: {name}", t, want[name],
+                      1e-5 if "running_" in name else 1e-4)
+    log(f"F6 fs train golden (fs_train_ref.npz, B {tuple(batch['feats'].shape)}): step-0 "
+        f"losses within rtol 1e-4, {len(ref)} gradient leaves, worst at {worst:.3f} of "
+        f"atol 1e-5 + rtol 1e-3; {steps.shape[0]} Adam steps' losses {traj} (reference "
+        f"{steps.tolist()}), weights and BatchNorm statistics after them within 1e-4 / 1e-5")
+
+
+def phase_fs_train(fcfg, card):
+    """F7: one FS train step at production width (configs/fs_simu.yaml's
+    model: FSEENDConfig(), dropout 0.1; Noam-Adam, lr 1, warm-up 100000,
+    clip 5) on a batch of FS_TRAIN_B x FS_TRAIN_T frames x FS_TRAIN_SPK
+    speakers of synthetic features and labels from the seed: FS_TRAIN_STEPS
+    steps with finite losses and moving BatchNorm statistics, then the step
+    timed (CUDA events), its peak memory, and a torch.profiler window."""
+    from fseend_tpu_torch.data.loader import pad_collate
+    from fseend_tpu_torch.models import fs_eend
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+
+    tcfg = dataclasses.replace(fcfg, dropout=0.1)
+    task = TRN.TaskConfig(model="fs", label_mode="fixed")
+    tx = optim.build_optimizer("noam", 1.0, d_model=fcfg.n_units, warmup_steps=100_000,
+                               grad_clip=5.0)
+    data = SyntheticSpeech(FS_TRAIN_B, SEED + 2, FS_TRAIN_T, fcfg.in_size, FS_TRAIN_SPK)
+    batch = pad_collate([data[i] for i in range(FS_TRAIN_B)], FS_TRAIN_T, FS_TRAIN_SPK,
+                        fcfg.in_size)
+    batch.pop("recs")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    model = fs_eend.init_fs_eend(tcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    state = TRN.TrainState.create(model, tx)
+    step = TRN.make_train_step(task, tcfg, tx)
+    bn0 = (model.enc.bn.running_mean.clone(), model.enc.bn.running_var.clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(FS_TRAIN_STEPS):
+        state, metrics = step(state, batch, SEED)
+        losses.append(float(metrics["tot_loss"]))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"fs train losses {losses}")
+    moved = [float((a - b).abs().max()) for a, b in
+             zip((model.enc.bn.running_mean, model.enc.bn.running_var), bn0)]
+    if not min(moved) > 0:
+        raise AssertionError(f"fs train: the BatchNorm statistics did not move {moved}")
+    ms = cuda_ms(lambda: step(state, batch, SEED), reps=3)
+    line = {"model": "fs", "B": FS_TRAIN_B, "T": FS_TRAIN_T, "speakers": FS_TRAIN_SPK,
+            "slots": FS_TRAIN_SPK + 2, "dropout": tcfg.dropout, "ms": ms,
+            "frames_per_s": FS_TRAIN_B * FS_TRAIN_T / (ms / 1e3),
+            "first_steps_s": secs, "losses": losses, "bn_moved": moved,
+            "max_memory_allocated": peak}
+    log(f"F7 fs train: {FS_TRAIN_STEPS} steps of {FS_TRAIN_B} x {FS_TRAIN_T} frames x "
+        f"{FS_TRAIN_SPK} speakers in {secs:.2f} s, losses {[round(v, 4) for v in losses]}, "
+        f"BatchNorm statistics moved by {moved}")
+    log(json.dumps({"train_step": line, "card": card}))
+    profile_window(lambda: step(state, batch, SEED), 2, card, "fs train step")
+
+
+def write_wav(path, x, sr=8000):
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def make_kaldi_dir(path, rng, n_recs, dur, sr=8000):
+    """A Kaldi data directory (wav.scp, segments, utt2spk, reco2dur) of
+    `n_recs` mixtures of 2-3 harmonic "speakers" talking in turns over a
+    noise floor, written with the stdlib `wave` (as tools/make_simu_data.py
+    does); the second recording's wav.scp entry is a pipe."""
+    path.mkdir(parents=True)
+    n = int(sr * dur)
+    t = np.arange(n) / sr
+    files = {k: [] for k in ("wav.scp", "segments", "utt2spk", "reco2dur")}
+    for r in range(n_recs):
+        rec = f"rec{r}"
+        audio = 0.02 * rng.standard_normal(n)
+        for s in range(2 + r % 2):
+            f0 = 110.0 * 1.5 ** (s + r % 3)
+            voice = sum(a * np.sin(2 * np.pi * f0 * h * t) for h, a in ((1, 1.0), (2, 0.5)))
+            st, ui = float(rng.uniform(0, 2)), 0
+            while st < dur - 1:
+                ed = min(dur, st + float(rng.uniform(1, 4)))
+                audio[int(st * sr):int(ed * sr)] += 0.2 * voice[int(st * sr):int(ed * sr)]
+                files["segments"].append(f"{rec}_s{s}_{ui:03d} {rec} {st:.2f} {ed:.2f}")
+                files["utt2spk"].append(f"{rec}_s{s}_{ui:03d} {rec}_s{s}")
+                st, ui = ed + float(rng.uniform(0.5, 3)), ui + 1
+        wav = path / f"{rec}.wav"
+        write_wav(wav, audio / max(1.0, np.abs(audio).max()), sr)
+        files["wav.scp"].append(f"{rec} cat {wav} |" if r == 1 else f"{rec} {wav}")
+        files["reco2dur"].append(f"{rec} {dur}")
+    for name, lines in files.items():
+        (path / name).write_text("\n".join(lines) + "\n")
+    return path
+
+
+def phase_kaldi_train(fcfg, rng):
+    """A1: run_training(TaskConfig(model="fs")) at FSEENDConfig() width on
+    a Kaldi data directory synthesized from the seed: DiarizationDataset
+    (logmel23, context 7, subsampling 10, as configs/fs_simu.yaml) for
+    training and the same directory for validation, 2 epochs; losses and the
+    validation DER finite; the last checkpoint reloaded through
+    `load_fs_eend` bit for bit."""
+    import tempfile
+
+    from fseend_tpu_torch.data.dataset import DiarizationDataset, FeatureConfig
+    from fseend_tpu_torch.train import loop as LOOP
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+    from fseend_tpu_torch.utils import checkpoint as CK
+
+    tcfg = dataclasses.replace(fcfg, dropout=0.1)
+    feat = FeatureConfig(input_transform="logmel23")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        data_dir = make_kaldi_dir(Path(tmp) / "data", rng, KALDI_RECS, KALDI_DUR)
+        train = DiarizationDataset(str(data_dir), feat, chunk_size=KALDI_CHUNK)
+        val = DiarizationDataset(str(data_dir), feat, chunk_size=KALDI_CHUNK)
+        logger = LOOP.MetricsLogger(tmp, "kaldi")
+        t0 = time.perf_counter()
+        try:
+            state, ckpt_dir = LOOP.run_training(
+                task=TRN.TaskConfig(model="fs"), model_cfg=tcfg, train_dataset=train,
+                val_dataset=val, tx=optim.build_optimizer("noam", 1.0, d_model=fcfg.n_units,
+                                                          warmup_steps=100_000, grad_clip=5.0),
+                logger=logger, batch_size=KALDI_B, chunk_size=KALDI_CHUNK, max_speakers=3,
+                input_dim=feat.input_dim, max_epochs=2, seed=SEED, log_every=1)
+        finally:
+            logger.close()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = 2 * (len(train) // KALDI_B)
+        if state.step != steps:
+            raise AssertionError(f"kaldi training took {state.step} steps, not {steps}")
+        recs = [json.loads(ln) for ln in (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/tot_loss"] for r in recs if "train/tot_loss" in r]
+        der = [r["val/DER"] for r in recs if "val/DER" in r]
+        if len(losses) != steps or len(der) != 2 or not np.isfinite(losses + der).all():
+            raise AssertionError(f"kaldi training losses {losses}, validation DER {der}")
+        fresh = CK.load_fs_eend(ckpt_dir / "ckpt_epoch=1.npz", tcfg, "cuda")
+        for (name, a), b in zip(state.model.state_dict().items(), fresh.state_dict().values()):
+            if not name.endswith("num_batches_tracked") and not torch.equal(a, b):
+                raise AssertionError(f"kaldi training checkpoint reload: {name} differs")
+    log(f"A1 kaldi training: {KALDI_RECS} recordings x {KALDI_DUR:g} s, {len(train)} chunks of "
+        f"{KALDI_CHUNK} frames ({feat.input_dim} features), batch {KALDI_B}, 2 epochs = "
+        f"{steps} steps in {secs:.2f} s; losses {[round(v, 4) for v in losses]}, validation "
+        f"DER {[round(v, 4) for v in der]}; the last checkpoint reloaded bit for bit")
+
+
+def speech_audio(rng, lanes, n, sr=8000):
+    """(lanes, n) float32 audio: a harmonic voice per lane in bursts over a
+    noise floor, the first quarter second silent (exact zeros: the log10
+    floor of the front end)."""
+    t = np.arange(n) / sr
+    out = np.empty((lanes, n), np.float32)
+    for b in range(lanes):
+        f0 = 100.0 + 4.0 * b
+        gate = np.zeros(n, np.float32)
+        for st in rng.integers(0, n, max(2, n // sr // 3)):
+            gate[st:st + int(rng.integers(sr // 2, 3 * sr))] = 1.0
+        voice = 0.2 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(4 * np.pi * f0 * t)
+        out[b] = voice * gate + 0.01 * rng.standard_normal(n)
+        out[b, :sr // 4] = 0.0
+    return out
+
+
+def host_features(audio, tf):
+    """The host pipeline (ops/features.py) per lane: (lanes, T, 345)."""
+    from fseend_tpu_torch.ops import features as F
+
+    return np.stack([F.subsample(F.splice(F.transform(F.stft(a, 200, 80), tf), 7),
+                                 subsampling=10) for a in audio])
+
+
+def phase_raw_audio(cfg, fcfg, fmodel, rng, card):
+    """A2: RawAudioPipeline (StreamingLogmel on the card, then the
+    blockwise server) over BlockStreamingServer(kind="ls") at 128 lanes, K
+    128, the "fused" route (B4), logmel23_cummn (configs/ls_infer.yaml),
+    then over BlockStreamingServer(kind="fs") at 64 lanes, K 128, capacity
+    2048, the kernel route (B7), logmel23 (configs/fs_infer.yaml): 8 kHz
+    audio from the seed in blocks of K x 80 x 10 samples, RAW_BLOCKS blocks
+    and a ragged remainder into the flush.  The streamed features within
+    2e-4 of the host pipeline; the probabilities within SERVE_ATOL of the
+    same server fed the host features; B4 / B7 launched on this path (counts
+    set to 0 just before it) and their last call held against plain; the
+    front end's ms per audio block alone and the pipeline's, CUDA events.
+    Returns each kernel's largest error."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.kernels import retention_layer as RL
+    from fseend_tpu_torch.ops.features_tpu import StreamingLogmel
+    from fseend_tpu_torch.serving.raw_audio import RawAudioPipeline
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer
+
+    errs = {}
+    for kind, lanes, tf in (("ls", LANES, "logmel23_cummn"), ("fs", FS_LANES, "logmel23")):
+        if kind == "ls":
+            mcfg, model, mod, name = cfg, make_model(cfg, rng), RL, "retention_layer"
+            per_block, on_flush = cfg.enc_n_layers + cfg.dec_n_layers, cfg.dec_n_layers
+        else:
+            mcfg, model, mod, name = fcfg, fmodel, CA, "cached_attention"
+            per_block, on_flush = fcfg.enc_n_layers, 0
+
+        def server():
+            return BlockStreamingServer(kind=kind, cfg=mcfg, model=model, n_lanes=lanes,
+                                        n_slots=mcfg.max_nspks, block=BLOCK, capacity=FS_CAP,
+                                        device="cuda")
+
+        S = BLOCK * 80 * 10
+        audio = speech_audio(rng, lanes, RAW_BLOCKS * S + RAW_RAGGED)
+        audio_dev = torch.as_tensor(audio, device="cuda")
+        pipe = RawAudioPipeline(server(), context_size=7, input_transform=tf)
+        feats = []
+        fe_block, fe_flush = pipe.fe.process_block, pipe.fe.flush
+        pipe.fe.process_block = lambda b: feats.append(fe_block(b)) or feats[-1]
+        pipe.fe.flush = lambda last=None: feats.append(fe_flush(last)) or feats[-1]
+        outs = []
+
+        def run():
+            for i in range(RAW_BLOCKS):
+                outs.append(pipe.process_audio(audio_dev[:, i * S:(i + 1) * S]))
+            outs.append(pipe.flush(audio_dev[:, RAW_BLOCKS * S:]))
+
+        mod.launches = 0
+        t0 = time.perf_counter()
+        captured = capture_kernel_inputs(run, [(mod, name)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = mod.launches
+        probs = torch.cat(outs, dim=1)
+        T = probs.shape[1]
+        want_launches = pipe._fed * per_block + on_flush
+        log(f"A2 raw audio, {kind}: {lanes} lanes x {audio.shape[1]} samples ({RAW_BLOCKS} "
+            f"blocks of {S} + {RAW_RAGGED}) -> {T} frames in {secs:.2f} s; {pipe._fed} model "
+            f"blocks + 1 flush; {name} launches {launches}")
+        if launches != want_launches or launches == 0:
+            raise AssertionError(f"{name} launched {launches} times on the raw-audio path, "
+                                 f"not {want_launches}")
+        host = host_features(audio, tf)
+        got = torch.cat(feats, dim=1).cpu().numpy()
+        if got.shape != host.shape or probs.shape != (lanes, T, mcfg.max_nspks - 1) \
+                or host.shape[1] != T:
+            raise AssertionError(f"raw audio {kind}: features {got.shape} vs host "
+                                 f"{host.shape}, probabilities {tuple(probs.shape)}")
+        err = float(np.abs(got - host).max())
+        log(f"  streamed features vs the host pipeline: max abs diff {err:.3e} (tol 2e-4)")
+        if not err <= 2e-4:
+            raise AssertionError(f"raw audio {kind}: features differ by {err}")
+        srv = server()
+        pad = (-T) % BLOCK
+        xs = torch.as_tensor(np.concatenate([host, np.zeros((lanes, pad, host.shape[2]),
+                                                            np.float32)], axis=1), device="cuda")
+        ref = [srv.process_block(xs[:, st:st + BLOCK], h_mask=np.arange(st, st + BLOCK) < T)
+               for st in range(0, T + pad, BLOCK)]
+        ref.append(srv.process_block(torch.zeros_like(xs[:, :BLOCK]), flush=True))
+        fs_check("probabilities vs the server fed the host features", probs.cpu().numpy(),
+                 torch.cat(ref[1:], dim=1)[:, :T].cpu().numpy(), SERVE_ATOL)
+        args, _ = captured[name]
+        if kind == "ls":
+            errs[name], _ = compare_chunk_kernel(name, args, "last call of the raw-audio path")
+        else:
+            got_ca = CA.cached_attention(*args)
+            torch.cuda.synchronize()
+            errs[name] = compare(f"{name}[last call of the raw-audio path]", [got_ca],
+                                 [CA.cached_attention_plain(*args)], ("out",), atol=TC_ATOL)
+
+        # times: the front end alone on one audio block in steady state, and
+        # the pipeline's block (front end + server) from its second block on
+        fe = StreamingLogmel(lanes, S, context_size=7, input_transform=tf, device="cuda")
+        fe.process_block(audio_dev[:, :S])
+        fe_ms = cuda_ms(lambda: fe.process_block(audio_dev[:, S:2 * S]), reps=5)
+        timed = RawAudioPipeline(server(), context_size=7, input_transform=tf)
+        timed.process_audio(audio_dev[:, :S])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(1, RAW_BLOCKS):
+            timed.process_audio(audio_dev[:, i * S:(i + 1) * S])
+        end.record()
+        torch.cuda.synchronize()
+        pipe_ms = start.elapsed_time(end) / (RAW_BLOCKS - 1)
+        log(json.dumps({"raw_audio": {
+            "server": f"{kind} blockwise, {'fused' if kind == 'ls' else 'kernel'} route",
+            "lanes": lanes, "K": BLOCK, "transform": tf, "audio_block_samples": S,
+            "frontend_ms": fe_ms, "pipeline_ms": pipe_ms, "frontend_share": fe_ms / pipe_ms,
+            "audio_s_per_s": lanes * S / 8000 / (pipe_ms / 1e3),
+            "frontend_audio_s_per_s": lanes * S / 8000 / (fe_ms / 1e3),
+            "feature_max_abs_err": err, "launches": {name: launches}}, "card": card}))
+        del pipe, timed, srv, xs, audio_dev, model
+    torch.cuda.empty_cache()
+    return errs
+
 
 def one_pass_sources():
     """A copy of the kernel sources under build/one_pass/ whose 3xTF32
@@ -2243,6 +2640,11 @@ def main() -> int:
     for name, row in fs_rows.items():
         errs[name] = max(fs_errs[name], row.pop("max_abs_err"))
         rows[name] = row
+    phase_fs_train_golden()
+    phase_fs_train(fcfg, card)
+    phase_kaldi_train(fcfg, rng)
+    for name, err in phase_raw_audio(cfg, fcfg, fmodel, rng, card).items():
+        errs[name] = max(errs[name], err)
     sources = {
         "enc_frame_scan": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
                            "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),

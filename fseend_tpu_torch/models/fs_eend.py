@@ -1,14 +1,16 @@
 """FS-EEND: transformer encoder, look-ahead cnn and the non-autoregressive
 attractor decoder, in four inference modes over one `FSEEND`.
 
-Port of `fseend_tpu/models/fs_eend.py` (evaluation only; training is queued,
-ROADMAP A9).  Parameters live in `FSEEND`, an `nn.Module` whose submodule
-paths follow the JAX parameter pytree (`enc.bn`, `enc.layers.{i}.self_attn`,
-`dec.layers.{i}.time_attn`, ...); the input BatchNorm's running statistics
-(the JAX `model_state["bn"]`) are its buffers.  `dec.layers.{i}.norm12` is
+Port of `fseend_tpu/models/fs_eend.py`.  Parameters live in `FSEEND`, an
+`nn.Module` whose submodule paths follow the JAX parameter pytree (`enc.bn`,
+`enc.layers.{i}.self_attn`, `dec.layers.{i}.time_attn`, ...); the input
+BatchNorm's running statistics (the JAX `model_state["bn"]`) are its
+buffers.  `dec.layers.{i}.norm12` is
 allocated and unused, as in the reference.
 
-1. Batch (`fs_forward`, `fs_test`): whole recordings, causal masks.
+1. Batch (`fs_forward`, `fs_test`): whole recordings, causal masks; with
+   train=True the training pass (train-mode BatchNorm, dropout from a
+   `torch.Generator`, autograd).
 2. Per-frame streaming (`fs_stream_step` / `fs_stream_scan`): one frame per
    step against fixed-capacity KV caches at per-lane clocks; the oracle the
    fast block is held to.
@@ -45,6 +47,7 @@ conv_delay within the capacity, block-aligned.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -69,7 +72,7 @@ class FSEENDConfig:
     dec_n_layers: int = 2
     enc_dim_feedforward: int = 2048
     dec_dim_feedforward: int = 2048
-    dropout: float = 0.1               # training only (not ported)
+    dropout: float = 0.1               # training only
     conv_delay: int = 9
     mask_delay: int = 0
     max_nspks: int = 6                 # attractor slots: max_speakers + 2
@@ -195,13 +198,18 @@ def _check_dtype(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: {x.dtype}; the port runs float32 only")
 
 
-def fusion_layer(p: FusionLayer, x: torch.Tensor, t_mask: torch.Tensor) -> torch.Tensor:
+def fusion_layer(p: FusionLayer, x: torch.Tensor, t_mask: torch.Tensor, rate: float = 0.0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
     """x (B, T, C, D): causal attention over T per slot, full attention over
-    C per frame, shared FFN, post-norm."""
+    C per frame, shared FFN, post-norm.  In training, dropout on both
+    attentions' weights and outputs; the FFN has none, as in the JAX
+    `fusion_layer` (its `ff_block` gets no key)."""
     xt = x.transpose(1, 2)                                      # (B, C, T, D)
-    xt = _ln(p.norm11, xt + tnn.mha(p.time_attn, xt, xt, xt, mask=t_mask))
+    a = tnn.mha(p.time_attn, xt, xt, xt, rate, generator, mask=t_mask)
+    xt = _ln(p.norm11, xt + tnn.dropout(a, rate, generator))
     x = xt.transpose(1, 2)
-    x = _ln(p.norm21, x + tnn.mha(p.spk_attn, x, x, x))
+    a = tnn.mha(p.spk_attn, x, x, x, rate, generator)
+    x = _ln(p.norm21, x + tnn.dropout(a, rate, generator))
     return _ln(p.norm22, x + tnn.ff_block(x, p.linear1, p.linear2))
 
 
@@ -211,18 +219,27 @@ def _enc_in(model: FSEEND, xs: torch.Tensor) -> torch.Tensor:
     return _ln(model.enc.norm, _lin(model.enc.proj, h))
 
 
-def encode(model: FSEEND, xs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """xs (B, T, in_size) padded, lens (B,) -> emb (B, T, D).  The
-    BatchNorm sees pad value -1 and the output is re-padded with 0 before
-    the cnn, as the reference does."""
+def encode(model: FSEEND, xs: torch.Tensor, lens: torch.Tensor, train: bool = False,
+           generator: torch.Generator | None = None):
+    """xs (B, T, in_size) padded, lens (B,) -> (emb (B, T, D), BatchNorm
+    state {"bn": {"mean", "var"}}).  The BatchNorm sees pad value -1 (in
+    training its batch statistics count the padded frames, as the reference
+    does) and the output is re-padded with 0 before the cnn."""
     cfg = model.cfg
     T = xs.shape[1]
     len_mask = (torch.arange(T, device=xs.device)[None, :] < lens[:, None])[..., None]
-    h = _enc_in(model, torch.where(len_mask, xs, xs.new_tensor(-1.0)))
+    xs = torch.where(len_mask, xs, xs.new_tensor(-1.0))
+    bn = model.enc.bn
+    if train:
+        h, bn_state = tnn.batch_norm_train(xs, bn)
+    else:
+        h, bn_state = tnn.batch_norm(xs, bn), {"mean": bn.running_mean, "var": bn.running_var}
+    h = _ln(model.enc.norm, _lin(model.enc.proj, h))
+    rate = cfg.dropout if train else 0.0
     t_mask = tnn.causal_mask(T, cfg.mask_delay, xs.device)
     for lp in model.enc.layers:
-        h = tnn.transformer_layer(lp, h, t_mask)
-    return torch.where(len_mask, h, h.new_zeros(()))
+        h = tnn.transformer_layer(lp, h, t_mask, rate, generator)
+    return torch.where(len_mask, h, h.new_zeros(())), {"bn": bn_state}
 
 
 def _slot_queries(model: FSEEND, emb: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -235,37 +252,40 @@ def _slot_queries(model: FSEEND, emb: torch.Tensor, n_slots: int) -> torch.Tenso
     return _lin(model.dec.convert, x)
 
 
-def decode(model: FSEEND, emb: torch.Tensor, n_slots: int) -> torch.Tensor:
+def decode(model: FSEEND, emb: torch.Tensor, n_slots: int, train: bool = False,
+           generator: torch.Generator | None = None) -> torch.Tensor:
     """emb (B, T, D) -> attractors (B, T, n_slots, D), before the l2 norm."""
     x = _slot_queries(model, emb, n_slots)
     t_mask = tnn.causal_mask(emb.shape[1], model.cfg.mask_delay, emb.device)
+    rate = model.cfg.dropout if train else 0.0
     for lp in model.dec.layers:
-        x = fusion_layer(lp, x, t_mask)
+        x = fusion_layer(lp, x, t_mask, rate, generator)
     return x
 
 
-@torch.no_grad()
-def fs_forward(model: FSEEND, xs, lens, n_slots: int, *, train: bool = False) -> dict:
+def fs_forward(model: FSEEND, xs, lens, n_slots: int, *, train: bool = False,
+               generator: torch.Generator | None = None) -> dict:
     """Full batch pass on the device that holds `model`.  Returns logits
     (B, T, n_slots), emb (B, T, D) after the cnn and the l2 norm,
     attractors (B, T, n_slots, D) after the l2 norm, and "state", the
-    BatchNorm running statistics {"bn": {"mean", "var"}}."""
-    if train:
-        raise NotImplementedError("FS-EEND training is not ported yet (ROADMAP A9: "
-                                  "fs_forward(train=True), FS in make_train_step)")
-    cfg = model.cfg
-    device = model.cnn.weight.device
-    xs = torch.as_tensor(xs).to(device)
-    _check_dtype(xs, "fs_forward")
-    lens = torch.as_tensor(lens).to(device)
-    h = encode(model, xs, lens)
-    emb = tnn.l2_normalize(tnn.lookahead_conv(h, model.cnn.weight, model.cnn.bias,
-                                              cfg.conv_delay))
-    attractors = tnn.l2_normalize(decode(model, emb, n_slots))
-    logits = torch.einsum("btd,btcd->btc", emb, attractors)
-    bn = model.enc.bn
-    return {"logits": logits, "emb": emb, "attractors": attractors,
-            "state": {"bn": {"mean": bn.running_mean, "var": bn.running_var}}}
+    BatchNorm running statistics {"bn": {"mean", "var"}}, updated from this
+    batch in training.
+
+    train=True is the training pass (differentiable; dropout from
+    `generator`, which lives on the model's device, none without one);
+    otherwise the pass runs without autograd."""
+    with contextlib.nullcontext() if train else torch.no_grad():
+        cfg = model.cfg
+        device = model.cnn.weight.device
+        xs = torch.as_tensor(xs).to(device)
+        _check_dtype(xs, "fs_forward")
+        lens = torch.as_tensor(lens).to(device)
+        h, state = encode(model, xs, lens, train, generator)
+        emb = tnn.l2_normalize(tnn.lookahead_conv(h, model.cnn.weight, model.cnn.bias,
+                                                  cfg.conv_delay))
+        attractors = tnn.l2_normalize(decode(model, emb, n_slots, train, generator))
+        logits = torch.einsum("btd,btcd->btc", emb, attractors)
+        return {"logits": logits, "emb": emb, "attractors": attractors, "state": state}
 
 
 def fs_test(model: FSEEND, xs, lens, max_nspks: int | None = None) -> dict:

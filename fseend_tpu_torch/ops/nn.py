@@ -1,14 +1,13 @@
 """Core neural building blocks as plain functions on tensors, plus the small
 `nn.Module` parameter holders the models are built from.
 
-Port of the subset of `fseend_tpu/ops/nn.py` that LS-EEND runs (inference,
-batch, blockwise and per-frame, and training: dropout from a
-`torch.Generator`, train-mode BatchNorm, attention dropout) and FS-EEND's
-masked attention and post-norm transformer layer (inference).  Numerics
-follow the JAX functions (and through them the torch modules
-of the reference): layer norm is written out as mean / biased variance /
-rsqrt, the l2 norm has no eps, attention scales by 1/sqrt(head_dim) after the
-dot product.  Convolutions are written as matmuls over an unfolded window,
+Port of the subset of `fseend_tpu/ops/nn.py` that LS-EEND and FS-EEND run
+(inference, batch, blockwise and per-frame, and training: dropout from a
+`torch.Generator`, train-mode BatchNorm, attention dropout, the post-norm
+transformer layer with its dropout sites).  Numerics follow the JAX
+functions (and through them the torch modules of the reference): layer
+norm is written out as mean / biased variance / rsqrt, the l2 norm has no
+eps, attention scales by 1/sqrt(head_dim) after the dot product.  Convolutions are written as matmuls over an unfolded window,
 so that no float32 convolution goes through cuDNN (whose TF32 default would
 round the inputs to 10 mantissa bits on the card).
 """
@@ -151,12 +150,16 @@ def ff_block(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear, rate: floa
 
 
 def transformer_layer(p: "TransformerLayer", x: torch.Tensor,
-                      mask: torch.Tensor | None = None) -> torch.Tensor:
+                      mask: torch.Tensor | None = None, rate: float = 0.0,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
     """Post-norm encoder layer (torch TransformerEncoderLayer,
-    norm_first=False), eval: x = LN1(x + attn(x)); x = LN2(x + FF(x))."""
-    a = mha(p.self_attn, x, x, x, mask=mask)
-    x = layer_norm(x + a, p.norm1.weight, p.norm1.bias)
-    return layer_norm(x + ff_block(x, p.linear1, p.linear2), p.norm2.weight, p.norm2.bias)
+    norm_first=False): x = LN1(x + attn(x)); x = LN2(x + FF(x)).  In
+    training, dropout on the attention weights, on the attention output and
+    twice in the FFN, as the JAX `transformer_layer` draws it."""
+    a = mha(p.self_attn, x, x, x, rate, generator, mask=mask)
+    x = layer_norm(x + dropout(a, rate, generator), p.norm1.weight, p.norm1.bias)
+    return layer_norm(x + ff_block(x, p.linear1, p.linear2, rate, generator),
+                      p.norm2.weight, p.norm2.bias)
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,

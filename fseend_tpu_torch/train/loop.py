@@ -1,4 +1,4 @@
-"""The epoch loop of LS-EEND training.
+"""The epoch loop of LS-EEND and FS-EEND training.
 
 Port of `fseend_tpu/train/loop.py`: deterministic sharded sampling,
 per-step scalar logging, validation with DER aggregation each
@@ -8,9 +8,10 @@ statistics, Adam moments and the step count), a checkpoint on SIGTERM, and
 the uniform average of an epoch range of checkpoints afterwards.
 
 The datasets are any objects with `__len__` and a `__getitem__` that
-returns (feats (T, F), labels (T, S), recording id); the raw-audio datasets
-of the JAX package come with ROADMAP A8.  Checkpoints are the JAX package's
-npz format (`utils/checkpoint.py`).
+returns (feats (T, F), labels (T, S), recording id): `data/dataset.py`'s
+`DiarizationDataset` and `OnTheFlyDiarizationDataset` over a Kaldi data
+directory, or an in-memory one.  Checkpoints are the JAX package's npz
+format for the family (`utils/checkpoint.py` reads both).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from fseend_tpu_torch.data.loader import Prefetcher, batched
 from fseend_tpu_torch.data.sampler import ShardedSampler
-from fseend_tpu_torch.models import ls_eend
+from fseend_tpu_torch.models import fs_eend, ls_eend
 from fseend_tpu_torch.train import trainer as trainer_lib
 from fseend_tpu_torch.utils import checkpoint as ckpt_lib
 from fseend_tpu_torch.utils import convert
@@ -60,9 +61,14 @@ def _to_float(v):
         return v
 
 
+def _is_fs(model) -> bool:
+    return isinstance(model, fs_eend.FSEEND)
+
+
 def save_train_state(path, state: trainer_lib.TrainState, extra: dict) -> None:
     """The JAX layout's params and model_state, the port's opt_state."""
-    params, model_state = convert.ls_params_to_jax(state.model)
+    to_jax = convert.fs_params_to_jax if _is_fs(state.model) else convert.ls_params_to_jax
+    params, model_state = to_jax(state.model)
     ckpt_lib.save_pytree(path, {"params": params, "model_state": model_state,
                                 "opt_state": ckpt_lib.opt_state_tree(state.model,
                                                                      state.opt_state)},
@@ -70,16 +76,19 @@ def save_train_state(path, state: trainer_lib.TrainState, extra: dict) -> None:
 
 
 @torch.no_grad()
-def _load_weights(model: ls_eend.LSEEND, path) -> None:
+def _load_weights(model, path) -> None:
     """A checkpoint's params (and model_state, when it has one) into
-    `model`; a file of bare params (no "params/" level) is accepted too."""
+    `model` (either family); a file of bare params (no "params/" level) is
+    accepted too."""
     cfg = model.cfg
     params = ckpt_lib.load_pytree(path, "params") if ckpt_lib.has_subtree(path, "params") \
         else ckpt_lib.load_pytree(path, "")
+    to_jax, from_jax = ((convert.fs_params_to_jax, convert.fs_params_from_jax) if _is_fs(model)
+                        else (convert.ls_params_to_jax, convert.ls_params_from_jax))
     mstate = ckpt_lib.load_pytree(path, "model_state")
     if mstate is None:
-        _, mstate = convert.ls_params_to_jax(model)
-    loaded = convert.ls_params_from_jax(params, mstate, cfg, "cpu")
+        _, mstate = to_jax(model)
+    loaded = from_jax(params, mstate, cfg, "cpu")
     for dst, src in zip(model.state_dict().values(), loaded.state_dict().values()):
         dst.copy_(src)
 
@@ -88,21 +97,24 @@ def _to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def run_training(*, task: trainer_lib.TaskConfig, model_cfg: ls_eend.LSEENDConfig,
+def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
                  train_dataset, val_dataset, tx, logger: MetricsLogger, batch_size: int,
                  chunk_size: int, max_speakers: int, input_dim: int, max_epochs: int,
                  seed: int = 777, early_stop_patience: int | None = None,
                  val_interval: int = 1, init_ckpt: str | None = None,
-                 resume_from: str | None = None, mesh=None, log_every: int = 100,
-                 device=None):
-    """Returns (final TrainState, checkpoint dir).  The model is
-    `init_ls_eend(model_cfg, ...)` on `device`, the card unless the caller
-    names another."""
+                 resume_from: str | None = None, on_the_fly: bool = False, mesh=None,
+                 log_every: int = 100, device=None):
+    """Returns (final TrainState, checkpoint dir).  The model is the family
+    `task.model` names, `init_fs_eend` or `init_ls_eend` of `model_cfg`, on
+    `device`, the card unless the caller names another.  With `on_the_fly`
+    the training items are fetched as dataset[(index, item seed)] (an
+    `OnTheFlyDiarizationDataset` draws its random crop from the seed)."""
     if mesh is not None:
         raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A11)")
     device = ls_eend.resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    model = ls_eend.init_ls_eend(model_cfg, gen, device=device)
+    init = fs_eend.init_fs_eend if task.model == "fs" else ls_eend.init_ls_eend
+    model = init(model_cfg, gen, device=device)
     if init_ckpt:
         _load_weights(model, init_ckpt)
     state = trainer_lib.TrainState.create(model, tx)
@@ -137,7 +149,7 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg: ls_eend.LSEENDConfi
             chunk_size=chunk_size, max_speakers=max_speakers, input_dim=input_dim,
             max_epochs=max_epochs, seed=seed, start_epoch=start_epoch,
             early_stop_patience=early_stop_patience, val_interval=val_interval,
-            log_every=log_every, preempt=preempt, device=device)
+            on_the_fly=on_the_fly, log_every=log_every, preempt=preempt, device=device)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -145,8 +157,8 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg: ls_eend.LSEENDConfi
 
 def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val_dataset,
                        batch_size, chunk_size, max_speakers, input_dim, max_epochs, seed,
-                       start_epoch, early_stop_patience, val_interval, log_every, preempt,
-                       device):
+                       start_epoch, early_stop_patience, val_interval, on_the_fly, log_every,
+                       preempt, device):
     train_step = trainer_lib.make_train_step(task, model_cfg, tx, device=device)
     eval_step = trainer_lib.make_eval_step(task, model_cfg)
 
@@ -158,7 +170,7 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
     best = (np.inf, -1)
     for epoch in range(start_epoch, max_epochs):
         sampler.set_epoch(epoch)
-        idx_iter = (i for i, _ in sampler.indices())
+        idx_iter = (i if on_the_fly else i[0] for i in sampler.indices())
 
         def make_iter():
             return batched(train_dataset, idx_iter, batch_size, chunk_size, max_speakers,

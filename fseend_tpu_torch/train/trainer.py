@@ -1,10 +1,10 @@
-"""The LS-EEND train and eval steps.
+"""The LS-EEND and FS-EEND train and eval steps.
 
-Port of `fseend_tpu/train/trainer.py` (the LS family).  One train step is
-label protocol -> train-mode forward -> (PIT or fixed-order) BCE +
-embedding-consistency loss -> gradients -> optimizer update.  PyTorch runs
-eagerly, so a step is a plain function over a `TrainState` that it updates
-in place.
+Port of `fseend_tpu/train/trainer.py` (both families; EEND-EDA is queued).
+One train step is label protocol -> train-mode forward -> (PIT or
+fixed-order) BCE + embedding-consistency loss -> gradients -> optimizer
+update.  PyTorch runs eagerly, so a step is a plain function over a
+`TrainState` that it updates in place.
 
 Batches are fixed-shape dicts of tensors on the model's device:
   feats  (B, T, F)   features
@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from fseend_tpu_torch.models import ls_eend
+from fseend_tpu_torch.models import fs_eend, ls_eend
 from fseend_tpu_torch.train import labels as labels_lib
 from fseend_tpu_torch.train import losses
 from fseend_tpu_torch.train.optim import Optimizer, global_norm
@@ -30,21 +30,22 @@ class TrainState:
     """The module (its parameters and, as buffers, the BatchNorm running
     statistics: the JAX `model_state`), the optimizer state and the number
     of steps taken."""
-    model: ls_eend.LSEEND
+    model: ls_eend.LSEEND | fs_eend.FSEEND
     opt_state: dict
     step: int = 0
 
     @classmethod
-    def create(cls, model: ls_eend.LSEEND, tx: Optimizer) -> "TrainState":
+    def create(cls, model, tx: Optimizer) -> "TrainState":
         return cls(model, tx.init(list(model.parameters())), 0)
 
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
-    """The label and loss protocol.  label_mode: "fixed" (first-appearance
-    order, standard BCE), "spk_pit" (rolled PIT over the speaker columns,
-    silence and none pinned) or "spk_pit_hungarian" (Hungarian assignment
-    over the speakers)."""
+    """The model family ("ls" or "fs"; the JAX package defaults to "fs",
+    the port to "ls") and the label and loss protocol.  label_mode: "fixed"
+    (first-appearance order, standard BCE), "spk_pit" (rolled PIT over the
+    speaker columns, silence and none pinned) or "spk_pit_hungarian"
+    (Hungarian assignment over the speakers)."""
     model: str = "ls"
     label_mode: str = "fixed"
     label_delay: int = 0
@@ -54,11 +55,9 @@ class TaskConfig:
     compute_dtype: str = "f32"
 
     def __post_init__(self):
-        if self.model == "fs":
-            raise NotImplementedError("FS-EEND training is not ported yet (ROADMAP A9)")
         if self.model == "eda":
             raise NotImplementedError("EEND-EDA training is not ported yet (ROADMAP A10)")
-        if self.model != "ls":
+        if self.model not in ("ls", "fs"):
             raise ValueError(f"unknown model family {self.model!r}")
         if self.compute_dtype != "f32":
             raise NotImplementedError(
@@ -68,15 +67,20 @@ class TaskConfig:
             raise ValueError(f"unknown label_mode {self.label_mode!r}")
 
 
-def compute_loss(task: TaskConfig, model: ls_eend.LSEEND, batch: dict,
+def _forward(task: TaskConfig, model, feats, lens, n_slots: int, train: bool, generator):
+    forward = fs_eend.fs_forward if task.model == "fs" else ls_eend.ls_forward
+    return forward(model, feats, lens, n_slots, train=train, generator=generator)
+
+
+def compute_loss(task: TaskConfig, model, batch: dict,
                  generator: torch.Generator | None = None, *, train: bool):
-    """Returns (loss, (new BatchNorm state, metrics)).  In training the
-    loss carries the graph back to the module's parameters; dropout draws
-    from `generator`."""
+    """Returns (loss, (new BatchNorm state, metrics)) for the model of
+    `task.model`'s family.  In training the loss carries the graph back to
+    the module's parameters; dropout draws from `generator`."""
     feats, labels, lens, n_spk = batch["feats"], batch["labels"], batch["lens"], batch["n_spk"]
     S = labels.shape[2]
     slot_labels, slot_mask = labels_lib.prepare_labels(labels, lens, n_spk)
-    out = ls_eend.ls_forward(model, feats, lens, S + 2, train=train, generator=generator)
+    out = _forward(task, model, feats, lens, S + 2, train, generator)
     logits = out["logits"].float()
 
     if task.label_mode == "fixed":
@@ -114,18 +118,32 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 @torch.no_grad()
-def _set_bn(model: ls_eend.LSEEND, bn_state: list) -> None:
-    for blk, st in zip(model.enc.blocks, bn_state):
-        blk.conv.bn.running_mean.copy_(st["mean"])
-        blk.conv.bn.running_var.copy_(st["var"])
+def _set_bn(model, bn_state: dict) -> None:
+    """The new BatchNorm running statistics into the module's buffers: the
+    conformer blocks' (LS, `bn_state["conv_bn"]`) or the input one's (FS,
+    `bn_state["bn"]`)."""
+    if "bn" in bn_state:
+        pairs = [(model.enc.bn, bn_state["bn"])]
+    else:
+        pairs = [(blk.conv.bn, st) for blk, st in zip(model.enc.blocks, bn_state["conv_bn"])]
+    for bn, st in pairs:
+        bn.running_mean.copy_(st["mean"])
+        bn.running_var.copy_(st["var"])
 
 
-def make_train_step(task: TaskConfig, cfg: ls_eend.LSEENDConfig, tx: Optimizer, mesh=None,
-                    device=None):
+def _check_family(task: TaskConfig, cfg) -> None:
+    want = fs_eend.FSEENDConfig if task.model == "fs" else ls_eend.LSEENDConfig
+    if not isinstance(cfg, want):
+        raise TypeError(f"TaskConfig(model={task.model!r}) needs a {want.__name__}, "
+                        f"got {type(cfg).__name__}")
+
+
+def make_train_step(task: TaskConfig, cfg, tx: Optimizer, mesh=None, device=None):
     """step(state, batch, seed) -> (state, metrics): one optimizer step on
     the model held by `state` (on `device`: the card unless the caller names
-    another), with `cfg` deciding the model's routes and dropout.  The
-    state is updated in place and returned."""
+    another), with `cfg` (the family's config) deciding the model's routes
+    and dropout.  The state is updated in place and returned."""
+    _check_family(task, cfg)
     if mesh is not None:
         raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A11)")
     device = ls_eend.resolve_device(device)
@@ -144,15 +162,16 @@ def make_train_step(task: TaskConfig, cfg: ls_eend.LSEENDConfig, tx: Optimizer, 
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         metrics["grad_norm"] = global_norm(grads)
         tx.step(params, grads, state.opt_state)
-        _set_bn(model, bn_state["conv_bn"])
+        _set_bn(model, bn_state)
         state.step += 1
         return state, metrics
 
     return step
 
 
-def make_eval_step(task: TaskConfig, cfg: ls_eend.LSEENDConfig):
+def make_eval_step(task: TaskConfig, cfg):
     """step(state, batch) -> metrics, without dropout or gradients."""
+    _check_family(task, cfg)
 
     def step(state: TrainState, batch: dict) -> dict:
         _, (_, metrics) = compute_loss(task, ls_eend.with_cfg(state.model, cfg), batch,

@@ -115,8 +115,11 @@ def test_fs_forward_and_fs_test_match_jax(pair):
     np.testing.assert_array_equal(got["state"]["bn"]["mean"].numpy(), _np(mstate["bn"]["mean"]))
     test = T.fs_test(model, torch.as_tensor(xs), torch.as_tensor(lens))
     assert test["logits"].shape == (2, 16, JCFG.max_nspks)
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.fs_forward(model, torch.as_tensor(xs), torch.as_tensor(lens), C, train=True)
+    # the training pass is ported (tests/test_torch_port_fs_train.py): it
+    # carries autograd, the evaluation pass does not
+    assert not got["logits"].requires_grad
+    assert T.fs_forward(model, torch.as_tensor(xs), torch.as_tensor(lens), C,
+                        train=True)["logits"].requires_grad
     with pytest.raises(ValueError, match="float32"):
         T.fs_forward(model, torch.as_tensor(xs).double(), torch.as_tensor(lens), C)
 

@@ -629,3 +629,99 @@ def test_fs_servers_kernel_route_match_plain_route(cuda):
         assert CA.launches - n0 == (3 * FS_CFG.enc_n_layers if label == "kernel" else 0)
         outs[label] = torch.cat(ys[1:], dim=1)
     torch.testing.assert_close(outs["kernel"], outs["plain"], atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# FS-EEND training, the device front end, the FLAC helper's build
+# ---------------------------------------------------------------------------
+
+
+def test_fs_train_step_gradients_on_cuda_match_cpu(cuda):
+    """One FS training pass (train-mode BatchNorm over padded frames,
+    dropout 0): the loss, the new BatchNorm statistics and every gradient
+    on the card against the same pass on the CPU."""
+    cfg = dataclasses.replace(FS_CFG, dropout=0.0)
+    rng = np.random.default_rng(21)
+    Bt, Tt, S = 3, 40, 2
+    batch = {"feats": rng.standard_normal((Bt, Tt, cfg.in_size)).astype(np.float32),
+             "labels": (rng.uniform(size=(Bt, Tt, S)) > 0.6).astype(np.float32),
+             "lens": np.array([40, 29, 13]), "n_spk": np.array([2, 2, 1])}
+    task = TRN.TaskConfig(model="fs")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = fs_eend.init_fs_eend(cfg, torch.Generator().manual_seed(8), device=dev)
+        loss, (bn, metrics) = TRN.compute_loss(
+            task, model, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+            train=True)
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()), bn["bn"]["var"].cpu(),
+                         {n: p.grad.cpu() for n, p in model.named_parameters()
+                          if p.grad is not None})
+    (l_c, v_c, g_c), (l_g, v_g, g_g) = out["cpu"], out[str(cuda)]
+    assert abs(l_c - l_g) <= 1e-5 * abs(l_c)
+    torch.testing.assert_close(v_g, v_c, atol=1e-5, rtol=0)
+    assert g_c.keys() == g_g.keys()
+    for name, g in g_c.items():
+        torch.testing.assert_close(g_g[name], g, atol=1e-5, rtol=1e-3, msg=name)
+
+
+def test_logmel_frontend_on_cuda_matches_the_host_pipeline(cuda):
+    """The device front end on the card, every transform and the streaming
+    form with a ragged end, against the host pipeline (2e-4, the JAX
+    package's bound)."""
+    from fseend_tpu_torch.ops import features as F
+    from fseend_tpu_torch.ops import features_tpu as FT
+
+    rng = np.random.default_rng(4)
+    n = 8 * 800 + 37
+    audio = (0.2 * rng.standard_normal((2, n))).astype(np.float32)
+    audio[:, :1000] = 0.0                                   # silence: log10 of the floor
+    for tf in ("logmel23", "logmel23_mn", "logmel23_mvn", "logmel23_cummn"):
+        got = FT.logmel_frontend(audio, input_transform=tf, device=cuda).cpu().numpy()
+        for b in range(2):
+            host = F.subsample(F.splice(F.transform(F.stft(audio[b], 200, 80), tf), 7),
+                               subsampling=10)
+            np.testing.assert_allclose(got[b], host, atol=2e-4, err_msg=tf)
+    sl = FT.StreamingLogmel(2, 800, input_transform="logmel23_cummn", device=cuda)
+    outs = [sl.process_block(audio[:, i * 800:(i + 1) * 800]) for i in range(8)]
+    outs.append(sl.flush(audio[:, 8 * 800:]))
+    got = torch.cat(outs, dim=1).cpu().numpy()
+    for b in range(2):
+        host = F.subsample(F.splice(F.transform(F.stft(audio[b], 200, 80), "logmel23_cummn"),
+                                    7), subsampling=10)
+        np.testing.assert_allclose(got[b], host, atol=2e-4)
+
+
+def _rice_bits(values, param: int) -> bytes:
+    """A one-partition Rice-coded residual section (partition order 0, a
+    4-bit parameter) of `values`, as FLAC writes it."""
+    bits = [0, 0, 0, 0] + [int(c) for c in format(param, "04b")]
+    for v in values:
+        z = (v << 1) ^ (v >> 63)                         # zigzag
+        bits += [0] * (z >> param) + [1]
+        bits += [int(c) for c in format(z & ((1 << param) - 1), f"0{param}b")]
+    bits += [0] * (-len(bits) % 8)
+    return bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+
+
+def test_native_flac_helper_builds_into_build():
+    """The FLAC decoder's C hot path compiles with the system compiler into
+    the repository's build/ (no card needed) and decodes a Rice residual
+    as the pure-Python path does."""
+    from fseend_tpu_torch.data import _native as NAT
+    from fseend_tpu_torch.data import flac as FL
+    from fseend_tpu_torch.kernels._build import BUILD_DIR
+
+    assert NAT.load() is not None, "no working C compiler"
+    assert NAT.lib_path().parent == BUILD_DIR and NAT.lib_path().exists()
+    values = [int(v) for v in np.random.default_rng(2).integers(-40, 40, 64)]
+    data = _rice_bits(values, 3)
+    bits = FL._Bits(data)
+    got = NAT.rice_residual(bits, 64, 0, 4)
+    assert got.tolist() == values
+    nat = FL._nat
+    FL._nat = None
+    try:
+        assert FL._rice_residual(FL._Bits(data), 64, 0, 4).tolist() == values
+    finally:
+        FL._nat = nat

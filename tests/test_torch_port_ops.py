@@ -205,7 +205,9 @@ def test_port_imports_without_jax():
                   "kernels.dec_train_fusion", "kernels.cached_attention", "utils.checkpoint",
                   "utils.torch_convert", "ops.retention", "models.ls_eend", "models.fs_eend",
                   "train.labels", "train.losses", "train.optim", "train.trainer",
-                  "train.loop", "data.loader", "data.sampler"):
+                  "train.loop", "data.loader", "data.sampler", "data.kaldi", "data.dataset",
+                  "data.flac", "data._native", "ops.features", "ops.features_tpu",
+                  "ops.enhancement", "serving.raw_audio"):
             assert "fseend_tpu_torch." + n in names, (n, names)
         print(len(names))
     """)

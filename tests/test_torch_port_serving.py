@@ -147,10 +147,9 @@ def test_unported_modes_say_where_they_are_queued(setup):
     with pytest.raises(TypeError, match="FSEEND"):
         RT.BlockStreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
                                 device="cpu")
-    # training is ported (ROADMAP A6); its FS-EEND, EEND-EDA and multi-GPU
-    # forms are not
-    with pytest.raises(NotImplementedError, match="A9"):
-        TRN.TaskConfig(model="fs")
+    # training is ported for LS-EEND and FS-EEND (tests/test_torch_port_fs_train.py);
+    # its EEND-EDA and multi-GPU forms are not
+    assert TRN.TaskConfig(model="fs").model == "fs"
     with pytest.raises(NotImplementedError, match="A10"):
         TRN.TaskConfig(model="eda")
     with pytest.raises(NotImplementedError, match="A11"):

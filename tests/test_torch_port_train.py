@@ -254,8 +254,8 @@ def test_optimizers_match_optax(opt, accum):
 
 
 def test_unported_families_say_where_they_are_queued():
-    with pytest.raises(NotImplementedError, match="A9"):
-        TRN.TaskConfig(model="fs")
+    # FS-EEND training is ported (tests/test_torch_port_fs_train.py)
+    assert TRN.TaskConfig(model="fs").model == "fs"
     with pytest.raises(NotImplementedError, match="A10"):
         TRN.TaskConfig(model="eda")
     with pytest.raises(NotImplementedError, match="B9"):
