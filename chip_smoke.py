@@ -7,8 +7,10 @@ blockwise streaming server, batch pass), its LS training path (the train
 step and the epoch loop), FS-EEND serving (per-frame fast-block server,
 blockwise server, the batch pass against the reference), FS-EEND training
 (the reference's train golden, a production-width step, the epoch loop on
-a Kaldi data directory) and raw-audio serving (the device front end before
-both blockwise servers), and times the kernels, the servers and the steps.
+a Kaldi data directory), raw-audio serving (the device front end before
+both blockwise servers) and EEND-EDA (its train step, the epoch loop on a
+Kaldi data directory, FLEX-STB block streaming and the DER of what it
+streams), and times the kernels, the servers and the steps.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
@@ -145,9 +147,31 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      host features, each kernel launched on this path (counted from 0) and
      its last call held against plain; the front end's ms per audio block
      alone and the pipeline's (CUDA events)
+ 21. E1, the EEND-EDA train step at configs/eda_offline.yaml (read by the
+     port's utils/config.py: EDAConfig(in 345, 256 units, 4 heads, 4
+     layers, FFN 2048, dropout 0.1), Noam-Adam, batch 32 x 500 frames x 4
+     speakers of synthetic features from the seed): the loss and every
+     gradient at dropout 0 within atol 1e-5 + rtol 1e-3 of the same pass
+     on the CPU (4 of the 32 samples); 3 steps with finite losses; two
+     seeded steps at dropout 0.1 the same bits; the step and the attractor
+     LSTMs' forward + backward timed in turns (their share of the step),
+     peak memory, a torch.profiler window over each (device busy, kernels)
+ 22. E2, run_training(TaskConfig(model="eda")) on a Kaldi directory of 3
+     recordings of 150 s (500-frame chunks, batch 4, 2 epochs), the last
+     checkpoint reloaded through load_eend_eda bit for bit; FlexSTB with
+     configs/stb.yaml's buffer 1000, block 100 and "v1" weights over a
+     1,500-frame recording with the trained model (two runs the same bits;
+     ms per block, the real-time factor), its "fifo" probabilities within
+     1e-3 of the model on the CPU, the scorer and its LSTMs at buffer +
+     block timed in turns, eda_test on stb.yaml's 10,000-frame chunk
+ 23. E3, E2's probabilities through make_rttm and read_rttm (the turns
+     written read back), der_components against the directory's turns
+     (segments, utt2spk) with a 0.5 s collar, the reference against itself
+     DER 0, score_frames on the 100 Hz labels, oracle-SAD rescoring
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
-the timing lines come before it.  Float32 throughout, TF32 off.  Every
+the timing lines come before it.  E1-E3 launch none of the port's kernels
+(the JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout, TF32 off.  Every
 kernel but the per-lane cached attention at K = 1 runs its products on the
 tensor cores, and every kernel is held within 1e-4 of its plain version
 (the fusion layer's forward on y, its backward on dx, the chunkwise kernels
@@ -224,6 +248,16 @@ FS_TRAIN_B, FS_TRAIN_T, FS_TRAIN_SPK, FS_TRAIN_STEPS = 32, 500, 4, 4
 KALDI_RECS, KALDI_DUR, KALDI_CHUNK, KALDI_B = 4, 40.0, 200, 4
 # A2: audio blocks of one model block (K x 80 x 10 samples), and a ragged end
 RAW_BLOCKS, RAW_RAGGED = 3, 12_345
+# E1-E3: configs/eda_offline.yaml's model and batch, configs/stb.yaml's
+# buffer and block.  E1: steps timed and checked; its gradients against the
+# CPU on the first EDA_CPU_B samples of the batch (the CPU's share of the run)
+EDA_TRAIN_STEPS, EDA_CPU_B = 3, 4
+# E2: 3 recordings of 150 s (1,500 frames: the 1,000-frame buffer overflows
+# from the 11th 100-frame block on), trained at batch 4; eda_test on
+# stb.yaml's chunk_size
+EDA_KALDI_RECS, EDA_KALDI_DUR, EDA_KALDI_B = 3, 150.0, 4
+# E3: the reference's collar, 250 ms each side of a boundary
+EDA_COLLAR_S = 0.5
 # published H100 SXM peaks (float32 outside the tensor cores; TF32 dense on
 # the tensor cores; HBM3)
 PEAK_F32_FLOPS = 67e12
@@ -1431,6 +1465,7 @@ def profile_window(fn, reps, card, what, part=None):
         line["part"] = {"kernels": part, "device_ms_per_call": mine,
                         "share_of_busy": mine / busy, "share_of_call": mine / call_ms}
     log(json.dumps({"profile": line, "card": card}))
+    return line
 
 
 FRAME_SCAN_LEAVES = {"enc_frame_scan": ("h", "kv", "s", "ring"),
@@ -2537,6 +2572,345 @@ def phase_raw_audio(cfg, fcfg, fmodel, rng, card):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# EEND-EDA: E1 the train step, E2 training from a Kaldi directory and
+# FLEX-STB streaming, E3 scoring
+# ---------------------------------------------------------------------------
+
+
+def eda_configs():
+    """(EDAConfig, FeatureConfig, eda_offline.yaml, stb.yaml) from the
+    repository's configs, read by the port's `utils/config.py`, as the
+    JAX package's cli/train.py and cli/stb_eval.py build them."""
+    from fseend_tpu_torch.data.dataset import FeatureConfig
+    from fseend_tpu_torch.models import eend_eda
+    from fseend_tpu_torch.utils.config import load_config
+
+    root = Path(__file__).resolve().parent / "configs"
+    off, stb = load_config(root / "eda_offline.yaml"), load_config(root / "stb.yaml")
+    data, p = off["data"], off["model"]["params"]
+    feat = FeatureConfig(context_size=data["context_recp"], subsampling=data["subsampling"],
+                         input_transform=data["feat_type"])
+    ecfg = eend_eda.EDAConfig(in_size=feat.input_dim, n_units=p["n_units"],
+                              n_heads=p["n_heads"], n_layers=p["enc_n_layers"],
+                              dropout=p["dropout"])
+    return ecfg, feat, off, stb
+
+
+def medians_in_turns(a, b, rounds):
+    """Two host-bound calls timed a, b, b, a (CUDA events around one call
+    each), `rounds` times: (median ms of a, median ms of b).  A call of
+    thousands of small launches spreads by 15 % between readings, so a part
+    timed apart from its whole is timed beside it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def once(fn):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    ta, tb = [], []
+    for _ in range(rounds):
+        ta.append(once(a))
+        tb += [once(b), once(b)]
+        ta.append(once(a))
+    return float(np.median(ta)), float(np.median(tb))
+
+
+def eda_optimizer(off, ecfg):
+    from fseend_tpu_torch.train import optim
+
+    tr = off["training"]
+    return optim.build_optimizer(tr["opt"], tr["lr"], d_model=ecfg.n_units,
+                                 warmup_steps=tr["warm_steps"],
+                                 schedule_scale=tr["schedule_scale"], grad_clip=tr["grad_clip"])
+
+
+def phase_eda_train(ecfg, off, card):
+    """E1: the EEND-EDA train step at eda_offline.yaml's model and batch
+    (32 x 500 frames x 4 speakers, dropout 0.1, Noam-Adam with clip 5) on
+    synthetic features and labels from the seed: the loss and every
+    gradient at dropout 0 within atol 1e-5 + rtol 1e-3 of the same pass on
+    the CPU (the batch's first EDA_CPU_B samples); EDA_TRAIN_STEPS steps
+    with finite losses; two seeded steps at dropout 0.1 from the same
+    weights the same bits; then the step timed (CUDA events), its peak
+    memory, a torch.profiler window, and the attractor LSTMs' forward and
+    backward alone (their wall and device share of the step)."""
+    from fseend_tpu_torch.data.loader import pad_collate
+    from fseend_tpu_torch.models import eend_eda
+    from fseend_tpu_torch.train import trainer as TRN
+
+    t_phase = time.perf_counter()
+    data = off["data"]
+    B, T, S = off["training"]["batch_size"], data["chunk_size"], data["max_speakers"]
+    task = TRN.TaskConfig(model="eda", label_mode=off["task"]["label_mode"])
+    tx = eda_optimizer(off, ecfg)
+    items = SyntheticSpeech(B, SEED + 3, T, ecfg.in_size, S)
+    batch_np = pad_collate([items[i] for i in range(B)], T, S, ecfg.in_size)
+    batch_np.pop("recs")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch_np.items()}
+
+    # the gradients at dropout 0 on the card against the CPU
+    zcfg = dataclasses.replace(ecfg, dropout=0.0)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = eend_eda.init_eend_eda(zcfg, torch.Generator().manual_seed(SEED), device=dev)
+        loss, _ = TRN.compute_loss(task, m, {k: torch.as_tensor(v[:EDA_CPU_B], device=dev)
+                                             for k, v in batch_np.items()}, train=True)
+        loss.backward()
+        got[dev] = (loss.detach().double().cpu(),
+                    {n: p.grad.cpu() for n, p in m.named_parameters()})
+        del m, loss
+    _allclose("eda train loss, card vs CPU", got["cuda"][0], got["cpu"][0], 0.0, 1e-5)
+    worst = max(_allclose(f"eda train gradient of {n}, card vs CPU", g, got["cpu"][1][n],
+                          1e-5, 1e-3) for n, g in got["cuda"][1].items())
+    n_grads = len(got["cpu"][1])
+    del got
+
+    model = eend_eda.init_eend_eda(ecfg, torch.Generator().manual_seed(SEED), device="cuda")
+    state = TRN.TrainState.create(model, tx)
+    step = TRN.make_train_step(task, ecfg, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(EDA_TRAIN_STEPS):
+        state, metrics = step(state, batch, SEED)
+        losses.append(float(metrics["tot_loss"]))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"eda train losses {losses}")
+
+    # a seeded step at dropout 0.1, twice from the same weights: the same bits
+    after = []
+    for _ in range(2):
+        m = eend_eda.init_eend_eda(ecfg, torch.Generator().manual_seed(SEED + 1), device="cuda")
+        st, _ = step(TRN.TrainState.create(m, tx), batch, SEED + 5)
+        after.append({k: v.clone() for k, v in m.state_dict().items()})
+        del m, st
+    for name, a in after[0].items():
+        if not torch.equal(a, after[1][name]):
+            raise AssertionError(f"eda train: two seeded steps differ in {name}")
+    del after
+
+    emb = torch.randn(B, T, ecfg.n_units, device="cuda", requires_grad=True,
+                      generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+    def lstms():
+        attractors, exist = eend_eda.eda_attractors(model, emb, S + 1)
+        (attractors.sum() + exist.sum()).backward()
+
+    ms, lstm_ms = medians_in_turns(lambda: step(state, batch, SEED), lstms, 2)
+    prof = profile_window(lambda: step(state, batch, SEED), 2, card, "eda train step")
+    lstm_prof = profile_window(lstms, 2, card, "eda attractor lstms, forward + backward")
+    line = {"model": "eda", "B": B, "T": T, "speakers": S, "attractors": S + 1,
+            "dropout": ecfg.dropout, "ms": ms, "frames_per_s": B * T / (ms / 1e3),
+            "first_steps_s": secs, "losses": losses, "max_memory_allocated": peak,
+            "device_busy_ms": prof["device_busy_ms_per_call"],
+            "device_idle_share": 1 - prof["device_busy_ms_per_call"] / ms,
+            "device_idle_share_profiled": prof["device_idle_share"],
+            "device_kernels_per_step": prof["device_kernels_per_call"],
+            "lstm": {"serial_steps": T + S + 1, "ms": lstm_ms, "share_of_step": lstm_ms / ms,
+                     "device_busy_ms": lstm_prof["device_busy_ms_per_call"],
+                     "share_of_step_busy": lstm_prof["device_busy_ms_per_call"]
+                     / prof["device_busy_ms_per_call"],
+                     "device_kernels": lstm_prof["device_kernels_per_call"]},
+            "phase_s": time.perf_counter() - t_phase}
+    log(f"E1 eda train: loss and {n_grads} gradient leaves on the card within atol 1e-5 + "
+        f"rtol 1e-3 of the CPU ({EDA_CPU_B} x {T} frames, dropout 0; worst at {worst:.3f} of "
+        f"the bound); {EDA_TRAIN_STEPS} steps of {B} x {T} frames x {S} speakers in "
+        f"{secs:.2f} s, losses {[round(v, 4) for v in losses]}; two seeded steps at dropout "
+        f"{ecfg.dropout} the same bits")
+    log(json.dumps({"train_step": line, "card": card}))
+    del state, model, batch, emb
+    torch.cuda.empty_cache()
+
+
+def phase_eda_kaldi(ecfg, feat, off, stb, rng, card):
+    """E2: run_training(TaskConfig(model="eda")) at eda_offline.yaml's
+    model on a Kaldi directory synthesized from the seed (EDA_KALDI_RECS
+    recordings of EDA_KALDI_DUR s, 500-frame chunks, batch EDA_KALDI_B), 2
+    epochs, the last checkpoint reloaded through `load_eend_eda` bit for
+    bit; then FlexSTB with stb.yaml's buffer, block and weights ("v1") over
+    the first recording with the trained model on the card (ms per block,
+    the real-time factor), its "fifo" probabilities within 1e-3 of the same
+    model on the CPU, the attractor LSTMs' share of a full buffer + block,
+    and eda_test on stb.yaml's chunk_size frames.  Returns what E3 scores."""
+    import tempfile
+
+    from fseend_tpu_torch.data.dataset import DiarizationDataset
+    from fseend_tpu_torch.models import eend_eda
+    from fseend_tpu_torch.serving.flex_stb import FlexSTB
+    from fseend_tpu_torch.train import loop as LOOP
+    from fseend_tpu_torch.train import trainer as TRN
+    from fseend_tpu_torch.utils import checkpoint as CK
+
+    t_phase = time.perf_counter()
+    data, sd = off["data"], stb["data"]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        data_dir = make_kaldi_dir(Path(tmp) / "data", rng, EDA_KALDI_RECS, EDA_KALDI_DUR)
+        train = DiarizationDataset(str(data_dir), feat, chunk_size=data["chunk_size"])
+        logger = LOOP.MetricsLogger(tmp, "eda")
+        t0 = time.perf_counter()
+        try:
+            state, ckpt_dir = LOOP.run_training(
+                task=TRN.TaskConfig(model="eda", label_mode=off["task"]["label_mode"]),
+                model_cfg=ecfg, train_dataset=train, val_dataset=train,
+                tx=eda_optimizer(off, ecfg), logger=logger, batch_size=EDA_KALDI_B,
+                chunk_size=data["chunk_size"], max_speakers=data["max_speakers"],
+                input_dim=feat.input_dim, max_epochs=2, seed=SEED, log_every=1)
+        finally:
+            logger.close()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        steps = 2 * (len(train) // EDA_KALDI_B)
+        if state.step != steps:
+            raise AssertionError(f"eda kaldi training took {state.step} steps, not {steps}")
+        recs = [json.loads(ln) for ln in (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/tot_loss"] for r in recs if "train/tot_loss" in r]
+        der = [r["val/DER"] for r in recs if "val/DER" in r]
+        if len(losses) != steps or len(der) != 2 or not np.isfinite(losses + der).all():
+            raise AssertionError(f"eda kaldi training losses {losses}, validation DER {der}")
+        ckpt = ckpt_dir / "ckpt_epoch=1.npz"
+        model = CK.load_eend_eda(ckpt, ecfg, "cuda")
+        for (name, a), b in zip(state.model.state_dict().items(), model.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"eda kaldi training checkpoint reload: {name} differs")
+        cpu_model = CK.load_eend_eda(ckpt, ecfg, "cpu")
+        # whole recordings: one chunk each (stb.yaml's chunk_size is longer)
+        whole = DiarizationDataset(str(data_dir), feat, chunk_size=sd["chunk_size"])
+        feats, _, rec = whole[0]
+        ref100, _ = whole.full_labels(0)
+        turns = [(whole.data.utt2spk[seg["utt"]], seg["st"], seg["et"])
+                 for seg in whole.data.segments[rec]]
+    del state
+
+    S, buf, blk = sd["max_speakers"], sd["buffer_size"], sd["block_size"]
+
+    def stb_run(m, weights, timed=None):
+        stb_ = FlexSTB(m, ecfg, S, buf_size=buf, block_size=blk,
+                       seed=stb["training"]["seed"], buffer_weights=weights)
+        if timed is not None:
+            score = stb_.score
+
+            def clocked(inp):
+                t = time.perf_counter()
+                out = score(inp)
+                timed.append((len(inp), time.perf_counter() - t))
+                return out
+
+            stb_.score = clocked
+        return stb_.run(feats)
+
+    probs = stb_run(model, sd["buffer_weights"])          # warm-up and the result
+    blocks = []
+    t0 = time.perf_counter()
+    again = stb_run(model, sd["buffer_weights"], blocks)
+    run_s = time.perf_counter() - t0
+    if not (np.isfinite(probs).all() and probs.shape == (len(feats), S)):
+        raise AssertionError(f"FLEX-STB probabilities {probs.shape}, finite "
+                             f"{np.isfinite(probs).all()}")
+    if not np.array_equal(probs, again):
+        raise AssertionError("FLEX-STB: two runs of the same recording differ")
+    fifo = stb_run(model, "fifo")
+    fifo_cpu = stb_run(cpu_model, "fifo")
+    fifo_err = _allclose("FLEX-STB fifo probabilities, card vs CPU", torch.as_tensor(fifo),
+                         torch.as_tensor(fifo_cpu), SERVE_ATOL)
+    frame_s = feat.frame_shift * feat.subsampling / feat.rate
+    full = [s for n, s in blocks if n == buf + blk]
+    block_ms = 1e3 * run_s / len(blocks)
+    full_ms = 1e3 * float(np.median(full))
+    x = torch.as_tensor(feats[None, :buf + blk], device="cuda")
+    emb = eend_eda.eda_test(model, x, n_attractors=S)["emb"]
+    with torch.no_grad():
+        test_ms, lstm_ms = medians_in_turns(
+            lambda: eend_eda.eda_test(model, x, n_attractors=S),
+            lambda: eend_eda.eda_attractors(model, emb, S), 3)
+    prof = profile_window(lambda: eend_eda.eda_test(model, x, n_attractors=S), 2, card,
+                          "FLEX-STB scorer, buffer + block")
+    xl = torch.randn(1, sd["chunk_size"], ecfg.in_size, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(SEED))
+    long_ms = cuda_ms(lambda: eend_eda.eda_test(model, xl, n_attractors=S), reps=1)
+    out = eend_eda.eda_test(model, xl, n_attractors=S)
+    if not (torch.isfinite(out["logits"]).all() and out["logits"].shape == (1, len(xl[0]), S)):
+        raise AssertionError("eda_test on a long recording: non-finite or misshapen logits")
+    log(f"E2 eda kaldi training: {EDA_KALDI_RECS} recordings x {EDA_KALDI_DUR:g} s, "
+        f"{len(train)} chunks of {data['chunk_size']} frames, batch {EDA_KALDI_B}, 2 epochs = "
+        f"{steps} steps in {train_s:.2f} s; losses {[round(v, 4) for v in losses]}, validation "
+        f"DER {[round(v, 4) for v in der]}; the last checkpoint reloaded bit for bit; FLEX-STB "
+        f"({sd['buffer_weights']}, buffer {buf}, block {blk}) over {rec} ({len(feats)} frames, "
+        f"{len(blocks)} blocks) twice the same bits; fifo within {fifo_err:.3f} of 1e-3 of "
+        f"the CPU")
+    log(json.dumps({"flex_stb": {
+        "buffer": buf, "block": blk, "weights": sd["buffer_weights"], "speakers": S,
+        "frames": len(feats), "blocks": len(blocks), "ms_per_block": block_ms,
+        "ms_per_full_block": full_ms, "full_blocks": len(full),
+        "real_time_factor": block_ms / (1e3 * blk * frame_s),
+        "real_time_factor_full": full_ms / (1e3 * blk * frame_s),
+        "eda_test_ms_at_buffer_plus_block": test_ms, "lstm_ms_at_buffer_plus_block": lstm_ms,
+        "lstm_share": lstm_ms / test_ms, "lstm_serial_steps": buf + blk + S,
+        "device_busy_ms_at_buffer_plus_block": prof["device_busy_ms_per_call"],
+        "device_kernels_at_buffer_plus_block": prof["device_kernels_per_call"],
+        "eda_test_frames": sd["chunk_size"], "eda_test_ms": long_ms,
+        "fifo_max_abs_err_vs_cpu": float(np.abs(fifo - fifo_cpu).max()),
+        "phase_s": time.perf_counter() - t_phase}, "card": card}))
+    del model, x, xl, emb, out
+    torch.cuda.empty_cache()
+    return rec, probs, ref100, turns, feat
+
+
+def phase_eda_score(rec, probs, ref100, turns, feat):
+    """E3: E2's FLEX-STB probabilities through the port's scoring:
+    make_rttm to a file, read_rttm back to the turns it wrote (2-decimal
+    seconds), der_components against the directory's reference turns
+    (segments + utt2spk) with the reference's collar, the reference
+    against itself (DER 0), score_frames on the 100 Hz labels, and
+    oracle-SAD rescoring.  (The h5 export needs h5py, which the card's
+    machine lacks; the CPU tests hold it.)"""
+    import tempfile
+
+    from fseend_tpu_torch.utils import metrics as MET
+    from fseend_tpu_torch.utils import postprocess as PP
+    from fseend_tpu_torch.utils import rttm as RTTM
+
+    scale = feat.frame_shift * feat.subsampling / feat.rate
+    build = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = Path(tmp) / "hyp.rttm"
+        text = RTTM.make_rttm(rec, probs, feat.frame_shift, feat.subsampling, feat.rate,
+                              out_rttm_file=path)
+        hyp = RTTM.read_rttm(path).get(rec, [])
+    want = [(f"{rec}_{spk}", st * scale, ed * scale)
+            for spk, segs in RTTM.pred_to_segments(probs).items() for st, ed in segs]
+    if len(hyp) != len(want) or len(text.splitlines()) != len(want) or any(
+            h[0] != w[0] or abs(h[1] - w[1]) > 0.005 + 1e-9 or abs(h[2] - w[2]) > 0.01 + 1e-9
+            for h, w in zip(hyp, want)):
+        raise AssertionError(f"RTTM read back: {len(hyp)} turns, wrote {len(want)}")
+    der = MET.der_components(turns, hyp, collar=EDA_COLLAR_S)
+    self_der = MET.der_components(turns, turns, collar=EDA_COLLAR_S)
+    if not (self_der.total > 0 and self_der.der == 0.0):
+        raise AssertionError(f"the reference against itself: DER {self_der.der}")
+    if not (np.isfinite(der.der) and np.isclose(der.total, self_der.total, rtol=1e-9)):
+        raise AssertionError(f"DER {der}")
+    frames = MET.score_frames(ref100, probs, collar_frames=EDA_COLLAR_S * 100)
+    speech = ref100[::feat.subsampling][:len(probs)].any(axis=1)
+    sad = MET.score_frames(ref100, PP.oracle_sad_rescore(probs, speech),
+                           collar_frames=EDA_COLLAR_S * 100)
+    log(f"E3 scoring {rec}: {len(hyp)} RTTM turns read back as written, the reference "
+        f"({len(turns)} turns) against itself DER 0")
+    log(json.dumps({"eda_scoring": {
+        "rec": rec, "frames": len(probs), "rttm_turns": len(hyp), "reference_turns": len(turns),
+        "collar_s": EDA_COLLAR_S, "der": der.der, "miss": der.miss, "falarm": der.falarm,
+        "confusion": der.confusion, "total": der.total, "score_frames_der": frames.der,
+        "oracle_sad_der": sad.der}}))
+
+
 def one_pass_sources():
     """A copy of the kernel sources under build/one_pass/ whose 3xTF32
     product (tc::mma3) keeps only its a_big b_big pass, with the builder
@@ -2645,6 +3019,12 @@ def main() -> int:
     phase_kaldi_train(fcfg, rng)
     for name, err in phase_raw_audio(cfg, fcfg, fmodel, rng, card).items():
         errs[name] = max(errs[name], err)
+    del fmodel
+    torch.cuda.empty_cache()
+    ecfg, feat, off, stb = eda_configs()
+    log(f"config: {ecfg}")
+    phase_eda_train(ecfg, off, card)
+    phase_eda_score(*phase_eda_kaldi(ecfg, feat, off, stb, rng, card))
     sources = {
         "enc_frame_scan": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
                            "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),

@@ -1,4 +1,4 @@
-"""The epoch loop of LS-EEND and FS-EEND training.
+"""The epoch loop of LS-EEND, FS-EEND and EEND-EDA training.
 
 Port of `fseend_tpu/train/loop.py`: deterministic sharded sampling,
 per-step scalar logging, validation with DER aggregation each
@@ -26,7 +26,7 @@ import torch
 
 from fseend_tpu_torch.data.loader import Prefetcher, batched
 from fseend_tpu_torch.data.sampler import ShardedSampler
-from fseend_tpu_torch.models import fs_eend, ls_eend
+from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.train import trainer as trainer_lib
 from fseend_tpu_torch.utils import checkpoint as ckpt_lib
 from fseend_tpu_torch.utils import convert
@@ -61,14 +61,24 @@ def _to_float(v):
         return v
 
 
-def _is_fs(model) -> bool:
-    return isinstance(model, fs_eend.FSEEND)
+_INIT = {"ls": ls_eend.init_ls_eend, "fs": fs_eend.init_fs_eend,
+         "eda": eend_eda.init_eend_eda}
+
+
+def _converters(model):
+    """(to_jax(model) -> (params, model_state), from_jax(params,
+    model_state, cfg, device) -> module) of the model's family."""
+    if isinstance(model, fs_eend.FSEEND):
+        return convert.fs_params_to_jax, convert.fs_params_from_jax
+    if isinstance(model, eend_eda.EENDEDA):
+        return (convert.eda_params_to_jax,
+                lambda params, _, cfg, device: convert.eda_params_from_jax(params, cfg, device))
+    return convert.ls_params_to_jax, convert.ls_params_from_jax
 
 
 def save_train_state(path, state: trainer_lib.TrainState, extra: dict) -> None:
     """The JAX layout's params and model_state, the port's opt_state."""
-    to_jax = convert.fs_params_to_jax if _is_fs(state.model) else convert.ls_params_to_jax
-    params, model_state = to_jax(state.model)
+    params, model_state = _converters(state.model)[0](state.model)
     ckpt_lib.save_pytree(path, {"params": params, "model_state": model_state,
                                 "opt_state": ckpt_lib.opt_state_tree(state.model,
                                                                      state.opt_state)},
@@ -78,13 +88,12 @@ def save_train_state(path, state: trainer_lib.TrainState, extra: dict) -> None:
 @torch.no_grad()
 def _load_weights(model, path) -> None:
     """A checkpoint's params (and model_state, when it has one) into
-    `model` (either family); a file of bare params (no "params/" level) is
+    `model` (any family); a file of bare params (no "params/" level) is
     accepted too."""
     cfg = model.cfg
     params = ckpt_lib.load_pytree(path, "params") if ckpt_lib.has_subtree(path, "params") \
         else ckpt_lib.load_pytree(path, "")
-    to_jax, from_jax = ((convert.fs_params_to_jax, convert.fs_params_from_jax) if _is_fs(model)
-                        else (convert.ls_params_to_jax, convert.ls_params_from_jax))
+    to_jax, from_jax = _converters(model)
     mstate = ckpt_lib.load_pytree(path, "model_state")
     if mstate is None:
         _, mstate = to_jax(model)
@@ -105,16 +114,16 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
                  resume_from: str | None = None, on_the_fly: bool = False, mesh=None,
                  log_every: int = 100, device=None):
     """Returns (final TrainState, checkpoint dir).  The model is the family
-    `task.model` names, `init_fs_eend` or `init_ls_eend` of `model_cfg`, on
-    `device`, the card unless the caller names another.  With `on_the_fly`
-    the training items are fetched as dataset[(index, item seed)] (an
-    `OnTheFlyDiarizationDataset` draws its random crop from the seed)."""
+    `task.model` names, `init_ls_eend`, `init_fs_eend` or `init_eend_eda`
+    of `model_cfg`, on `device`, the card unless the caller names another.
+    With `on_the_fly` the training items are fetched as dataset[(index,
+    item seed)] (an `OnTheFlyDiarizationDataset` draws its random crop
+    from the seed)."""
     if mesh is not None:
         raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A11)")
     device = ls_eend.resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    init = fs_eend.init_fs_eend if task.model == "fs" else ls_eend.init_ls_eend
-    model = init(model_cfg, gen, device=device)
+    model = _INIT[task.model](model_cfg, gen, device=device)
     if init_ckpt:
         _load_weights(model, init_ckpt)
     state = trainer_lib.TrainState.create(model, tx)
@@ -224,7 +233,7 @@ def average_epoch_range(ckpt_dir, start_epoch: int | None = None,
     """The uniform average of the "params" of the epoch checkpoints in
     [start_epoch, end_epoch] -> (params, model_state, paths), numpy trees in
     the JAX layout; model_state (the BatchNorm statistics) comes from the
-    last checkpoint, None when it has none."""
+    last checkpoint, None when it has none (EEND-EDA)."""
     paths = ckpt_lib.find_epoch_checkpoints(ckpt_dir, start_epoch, end_epoch)
     if not paths:
         raise FileNotFoundError(f"no epoch checkpoints in {ckpt_dir}")

@@ -1,8 +1,7 @@
 """Diarization losses and frame-level DER counters on fixed-shape batches.
 
-Port of `fseend_tpu/train/losses.py` (the LS-EEND half; the EEND-EDA
-`attractor_existence_loss` comes with EEND-EDA).  Batches are padded
-tensors with frame and slot masks:
+Port of `fseend_tpu/train/losses.py`.  Batches are padded tensors with
+frame and slot masks:
 
   * `standard_bce_loss`, `standard_mask_loss`, `standard_loss_sep`
   * `batch_pit_loss`: the rolled-cost PIT with the permutation table and
@@ -10,6 +9,7 @@ tensors with frame and slot masks:
   * `hungarian_pit_permute`: the logsigmoid cost built on the device, the
     assignment solved on the host (scipy), no gradient through it
   * `emb_consistency_loss` (plain and masked) and `emb_consistency_loss_ls`
+  * `attractor_existence_loss` (EEND-EDA)
   * `diarization_error_counters`, `der_from_counters`
 
 All functions take logits (pre-sigmoid) unless noted.
@@ -196,6 +196,24 @@ def emb_consistency_loss_ls(emb, slot_labels, lens):
     fm = (torch.arange(emb.shape[1], device=emb.device)[None] < lens[:, None]).to(emb.dtype)
     sq = (_cos_map(emb * fm[..., None]) - _cos_map(slot_labels)).square()
     return sq.sum() / lens.to(emb.dtype).square().sum().clamp(min=1)
+
+
+# ---------------------------------------------------------------------------
+# attractor existence loss (EEND-EDA)
+# ---------------------------------------------------------------------------
+
+
+def attractor_existence_loss(exist_logits, n_speakers):
+    """exist_logits (B, C) from the EDA counter: BCE over each sample's
+    first n_spk + 1 attractors, labels 1 for the first n_spk and 0 for
+    attractor n_spk, the rest ignored (the reference's
+    offl_tfm_enc_lstm_enc_dec.py:109-127)."""
+    idx = torch.arange(exist_logits.shape[1], device=exist_logits.device)[None, :]
+    n = n_speakers.to(exist_logits.device)[:, None]
+    labels = (idx < n).to(exist_logits.dtype)
+    mask = (idx <= n).to(exist_logits.dtype)
+    cell = bce_with_logits(exist_logits, labels) * mask
+    return cell.sum() / mask.sum().clamp(min=1)
 
 
 # ---------------------------------------------------------------------------

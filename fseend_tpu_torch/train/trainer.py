@@ -1,10 +1,10 @@
-"""The LS-EEND and FS-EEND train and eval steps.
+"""The LS-EEND, FS-EEND and EEND-EDA train and eval steps.
 
-Port of `fseend_tpu/train/trainer.py` (both families; EEND-EDA is queued).
-One train step is label protocol -> train-mode forward -> (PIT or
-fixed-order) BCE + embedding-consistency loss -> gradients -> optimizer
-update.  PyTorch runs eagerly, so a step is a plain function over a
-`TrainState` that it updates in place.
+Port of `fseend_tpu/train/trainer.py`.  One train step is label protocol
+-> train-mode forward -> (PIT or fixed-order) BCE + embedding-consistency
+loss (EEND-EDA: PIT over every speaker column + the attractor-existence
+loss) -> gradients -> optimizer update.  PyTorch runs eagerly, so a step
+is a plain function over a `TrainState` that it updates in place.
 
 Batches are fixed-shape dicts of tensors on the model's device:
   feats  (B, T, F)   features
@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from fseend_tpu_torch.models import fs_eend, ls_eend
+from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.train import labels as labels_lib
 from fseend_tpu_torch.train import losses
 from fseend_tpu_torch.train.optim import Optimizer, global_norm
@@ -30,7 +30,7 @@ class TrainState:
     """The module (its parameters and, as buffers, the BatchNorm running
     statistics: the JAX `model_state`), the optimizer state and the number
     of steps taken."""
-    model: ls_eend.LSEEND | fs_eend.FSEEND
+    model: ls_eend.LSEEND | fs_eend.FSEEND | eend_eda.EENDEDA
     opt_state: dict
     step: int = 0
 
@@ -41,11 +41,13 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
-    """The model family ("ls" or "fs"; the JAX package defaults to "fs",
-    the port to "ls") and the label and loss protocol.  label_mode: "fixed"
-    (first-appearance order, standard BCE), "spk_pit" (rolled PIT over the
-    speaker columns, silence and none pinned) or "spk_pit_hungarian"
-    (Hungarian assignment over the speakers)."""
+    """The model family ("ls", "fs" or "eda"; the JAX package defaults to
+    "fs", the port to "ls") and the label and loss protocol.  label_mode:
+    "fixed" (first-appearance order, standard BCE), "spk_pit" (rolled PIT
+    over the speaker columns, silence and none pinned) or
+    "spk_pit_hungarian" (Hungarian assignment over the speakers).  EEND-EDA
+    has one protocol and does not read label_mode (the JAX package's CLI
+    passes "pit")."""
     model: str = "ls"
     label_mode: str = "fixed"
     label_delay: int = 0
@@ -55,15 +57,14 @@ class TaskConfig:
     compute_dtype: str = "f32"
 
     def __post_init__(self):
-        if self.model == "eda":
-            raise NotImplementedError("EEND-EDA training is not ported yet (ROADMAP A10)")
-        if self.model not in ("ls", "fs"):
+        if self.model not in ("ls", "fs", "eda"):
             raise ValueError(f"unknown model family {self.model!r}")
         if self.compute_dtype != "f32":
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port runs float32 only; bf16 is "
                 "ROADMAP B9")
-        if self.label_mode not in ("fixed", "spk_pit", "spk_pit_hungarian"):
+        if self.model != "eda" and self.label_mode not in ("fixed", "spk_pit",
+                                                           "spk_pit_hungarian"):
             raise ValueError(f"unknown label_mode {self.label_mode!r}")
 
 
@@ -77,6 +78,8 @@ def compute_loss(task: TaskConfig, model, batch: dict,
     """Returns (loss, (new BatchNorm state, metrics)) for the model of
     `task.model`'s family.  In training the loss carries the graph back to
     the module's parameters; dropout draws from `generator`."""
+    if task.model == "eda":
+        return _compute_loss_eda(task, model, batch, generator, train=train)
     feats, labels, lens, n_spk = batch["feats"], batch["labels"], batch["lens"], batch["n_spk"]
     S = labels.shape[2]
     slot_labels, slot_mask = labels_lib.prepare_labels(labels, lens, n_spk)
@@ -111,6 +114,26 @@ def compute_loss(task: TaskConfig, model, batch: dict,
     return total, (out["state"], metrics)
 
 
+def _compute_loss_eda(task: TaskConfig, model, batch: dict, generator, *, train: bool):
+    """The EEND-EDA protocol (the reference's offl_tfm_lstm.py:49-123): PIT
+    over all S speaker columns and the attractor-existence BCE, no silence
+    or none slots; no BatchNorm state ({})."""
+    labels, lens, n_spk = batch["labels"], batch["lens"], batch["n_spk"]
+    S = labels.shape[2]
+    out = eend_eda.eda_forward(model, batch["feats"], S, train=train, generator=generator)
+    logits = out["logits"]
+    pit_loss, labels_perm, _ = losses.batch_pit_loss(logits, labels, lens, n_spk,
+                                                     label_delay=task.label_delay)
+    attr_loss = losses.attractor_existence_loss(out["exist_logits"], n_spk)
+    total = pit_loss + model.cfg.attractor_loss_ratio * attr_loss
+    slot_mask = torch.arange(S, device=lens.device)[None, :] < n_spk[:, None]
+    counters = losses.diarization_error_counters(logits.detach(), labels_perm, lens, slot_mask,
+                                                 label_delay=task.label_delay)
+    metrics = {"pit_loss": pit_loss.detach(), "emb_loss": attr_loss.detach(),
+               "tot_loss": total.detach(), **counters}
+    return total, ({}, metrics)
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The dropout generator of one step: `seed` and the step count decide
     it (the JAX step folds the step into its key)."""
@@ -121,7 +144,9 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def _set_bn(model, bn_state: dict) -> None:
     """The new BatchNorm running statistics into the module's buffers: the
     conformer blocks' (LS, `bn_state["conv_bn"]`) or the input one's (FS,
-    `bn_state["bn"]`)."""
+    `bn_state["bn"]`); EEND-EDA has none (`bn_state` is {})."""
+    if not bn_state:
+        return
     if "bn" in bn_state:
         pairs = [(model.enc.bn, bn_state["bn"])]
     else:
@@ -131,8 +156,11 @@ def _set_bn(model, bn_state: dict) -> None:
         bn.running_var.copy_(st["var"])
 
 
+_CONFIGS = {"ls": ls_eend.LSEENDConfig, "fs": fs_eend.FSEENDConfig, "eda": eend_eda.EDAConfig}
+
+
 def _check_family(task: TaskConfig, cfg) -> None:
-    want = fs_eend.FSEENDConfig if task.model == "fs" else ls_eend.LSEENDConfig
+    want = _CONFIGS[task.model]
     if not isinstance(cfg, want):
         raise TypeError(f"TaskConfig(model={task.model!r}) needs a {want.__name__}, "
                         f"got {type(cfg).__name__}")
@@ -150,12 +178,12 @@ def make_train_step(task: TaskConfig, cfg, tx: Optimizer, mesh=None, device=None
 
     def step(state: TrainState, batch: dict, seed: int):
         model = state.model
-        if model.cnn.weight.device.type != device.type:
-            raise ValueError(f"train step made for {device}, model on {model.cnn.weight.device}")
         params = list(model.parameters())
+        if params[0].device.type != device.type:
+            raise ValueError(f"train step made for {device}, model on {params[0].device}")
         for p in params:
             p.grad = None
-        gen = step_generator(seed, state.step, model.cnn.weight.device)
+        gen = step_generator(seed, state.step, params[0].device)
         loss, (bn_state, metrics) = compute_loss(task, ls_eend.with_cfg(model, cfg), batch, gen,
                                                  train=True)
         loss.backward()

@@ -8,8 +8,10 @@ checkpoint holds "params", "model_state" and "opt_state"; an averaged model
 "params" and "model_state"; the legacy layout "params" alone.
 
 The port writes "params" and "model_state" under the JAX package's own
-keys (`utils/convert.py:ls_params_to_jax`), so either package reads the
-other's weights.  Its Adam state has the port's own layout:
+keys (`utils/convert.py:ls_params_to_jax`, `fs_params_to_jax`,
+`eda_params_to_jax`; EEND-EDA's model_state is empty and stores no leaf),
+so either package reads the other's weights.  Its Adam state has the
+port's own layout:
   opt_state/count                the updates applied so far
   opt_state/{mu,nu}/<name>       Adam's moments of parameter <name> (the
                                  module's dotted parameter name)
@@ -27,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fseend_tpu_torch.models import fs_eend, ls_eend
+from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.utils import convert
 
 
@@ -182,3 +184,11 @@ def load_fs_eend(path: str | Path, cfg: fs_eend.FSEENDConfig, device=None) -> fs
         model_state = {"bn": {"mean": np.zeros(cfg.in_size, np.float32),
                               "var": np.ones(cfg.in_size, np.float32)}}
     return convert.fs_params_from_jax(params, model_state, cfg, device)
+
+
+def load_eend_eda(path: str | Path, cfg: eend_eda.EDAConfig, device=None) -> eend_eda.EENDEDA:
+    """An `EENDEDA` holding the checkpoint's "params"."""
+    params = load_pytree(path, "params")
+    if params is None:
+        raise KeyError(f"{path}: no leaf under 'params/'")
+    return convert.eda_params_from_jax(params, cfg, device)

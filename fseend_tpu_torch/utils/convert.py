@@ -6,9 +6,11 @@ and the BatchNorm running statistics in a separate `model_state`; its
 stream states (per-frame and blockwise) are nested dicts with per-layer
 lists.  These functions take
 those trees as numpy arrays (`jax.tree.map(np.asarray, tree)`) and return
-the port's `LSEEND` / `FSEEND` module or flat state dict, and back
-(`ls_params_to_jax` for the weights, the checkpoints and the gradient
-comparisons; `fs_params_to_jax` for FS-EEND).  No JAX import.
+the port's `LSEEND` / `FSEEND` / `EENDEDA` module or flat state dict, and
+back (`ls_params_to_jax` for the weights, the checkpoints and the gradient
+comparisons; `fs_params_to_jax` for FS-EEND, `eda_params_to_jax` for
+EEND-EDA, whose LSTM weights the JAX package keeps transposed: w_ih (in,
+4H), w_hh (H, 4H)).  No JAX import.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fseend_tpu_torch.models import fs_eend, ls_eend
+from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.models.ls_eend import resolve_device
 
 
@@ -58,6 +60,11 @@ def _load_params(model: nn.Module, params_np: dict, seen: set):
             elif isinstance(child, (nn.LayerNorm, nn.BatchNorm1d)):
                 put(child.weight, sub["scale"], f"{name}.weight")
                 put(child.bias, sub["bias"], f"{name}.bias")
+            elif isinstance(child, eend_eda.LSTM):
+                put(child.weight_ih, np.asarray(sub["w_ih"]).T, f"{name}.weight_ih")
+                put(child.weight_hh, np.asarray(sub["w_hh"]).T, f"{name}.weight_hh")
+                put(child.bias_ih, sub["b_ih"], f"{name}.bias_ih")
+                put(child.bias_hh, sub["b_hh"], f"{name}.bias_hh")
             else:
                 visit(child, sub, f"{name}.")
 
@@ -107,6 +114,19 @@ def fs_params_from_jax(params_np: dict, model_state_np: dict,
     put(bn.running_var, model_state_np["bn"]["var"], "enc.bn.running_var")
     bn.num_batches_tracked.zero_()
     seen.add("enc.bn.num_batches_tracked")
+    _check_all_set(model, seen)
+    return model.to(device)
+
+
+@torch.no_grad()
+def eda_params_from_jax(params_np: dict, cfg: eend_eda.EDAConfig,
+                        device=None) -> eend_eda.EENDEDA:
+    """The port's EENDEDA holding the JAX `init_eend_eda` pytree's values
+    (the model has no `model_state`).  Every parameter must be set."""
+    device = resolve_device(device)
+    model = eend_eda.empty_eend_eda(cfg, "cpu")
+    seen: set = set()
+    _load_params(model, params_np, seen)
     _check_all_set(model, seen)
     return model.to(device)
 
@@ -264,6 +284,9 @@ def _params_tree(mod: nn.Module):
         return out
     if isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
         return {"scale": _val(mod.weight), "bias": _val(mod.bias)}
+    if isinstance(mod, eend_eda.LSTM):
+        return {"w_ih": _val(mod.weight_ih).T.copy(), "w_hh": _val(mod.weight_hh).T.copy(),
+                "b_ih": _val(mod.bias_ih), "b_hh": _val(mod.bias_hh)}
     return {name: _params_tree(child) for name, child in mod.named_children()}
 
 
@@ -283,3 +306,10 @@ def fs_params_to_jax(model: fs_eend.FSEEND):
     bn = model.enc.bn
     return _params_tree(model), {"bn": {"mean": _val(bn.running_mean),
                                         "var": _val(bn.running_var)}}
+
+
+@torch.no_grad()
+def eda_params_to_jax(model: eend_eda.EENDEDA):
+    """The JAX package's (params, model_state) pytrees, numpy leaves, from
+    the port's EENDEDA; model_state is {} (no BatchNorm)."""
+    return _params_tree(model), {}

@@ -1,8 +1,9 @@
 """CUDA kernels of the PyTorch port (the two frame scans, the chunkwise
 retention core, the retention layer, the fusion layer's training forward
 and backward, and the two cached-attention kernels) against their plain
-PyTorch versions, one train step, and FS-EEND serving on both
-cached-attention routes, on the card.  Marked `gpu`: they skip where there is no CUDA
+PyTorch versions, one train step, FS-EEND serving on both cached-attention
+routes, and the EEND-EDA train pass and FLEX-STB against the CPU, on the
+card.  Marked `gpu`: they skip where there is no CUDA
 device.  On a machine with one (and without JAX, which tests/conftest.py
 imports), run them with
 
@@ -29,7 +30,7 @@ from fseend_tpu_torch.kernels import dec_frame_scan as DFS
 from fseend_tpu_torch.kernels import dec_train_fusion as DTF
 from fseend_tpu_torch.kernels import enc_frame_scan as EFS
 from fseend_tpu_torch.kernels import retention_layer as RL
-from fseend_tpu_torch.models import fs_eend, ls_eend
+from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.ops import retention as TR
 from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 from fseend_tpu_torch.serving.scheduler import ContinuousBatcher
@@ -663,6 +664,52 @@ def test_fs_train_step_gradients_on_cuda_match_cpu(cuda):
     assert g_c.keys() == g_g.keys()
     for name, g in g_c.items():
         torch.testing.assert_close(g_g[name], g, atol=1e-5, rtol=1e-3, msg=name)
+
+
+EDA_CFG = eend_eda.EDAConfig(in_size=23, n_units=32, n_heads=4, n_layers=2,
+                             dim_feedforward=64, dropout=0.0)
+
+
+def test_eda_train_step_gradients_on_cuda_match_cpu(cuda):
+    """One EEND-EDA training pass (PIT + the attractor-existence loss,
+    dropout 0, a ragged batch): the loss and every gradient on the card
+    against the same pass on the CPU."""
+    rng = np.random.default_rng(22)
+    Bt, Tt, S = 3, 50, 3
+    batch = {"feats": rng.standard_normal((Bt, Tt, EDA_CFG.in_size)).astype(np.float32),
+             "labels": (rng.uniform(size=(Bt, Tt, S)) > 0.6).astype(np.float32),
+             "lens": np.array([50, 37, 21]), "n_spk": np.array([3, 2, 1])}
+    task = TRN.TaskConfig(model="eda", label_mode="pit")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = eend_eda.init_eend_eda(EDA_CFG, torch.Generator().manual_seed(9), device=dev)
+        loss, (_, metrics) = TRN.compute_loss(
+            task, model, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+            train=True)
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()), float(metrics["emb_loss"]),
+                         {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (l_c, a_c, g_c), (l_g, a_g, g_g) = out["cpu"], out[str(cuda)]
+    assert abs(l_c - l_g) <= 1e-5 * abs(l_c) and abs(a_c - a_g) <= 1e-5 * abs(a_c)
+    assert g_c.keys() == g_g.keys()
+    for name, g in g_c.items():
+        torch.testing.assert_close(g_g[name], g, atol=1e-5, rtol=1e-3, msg=name)
+
+
+def test_flex_stb_fifo_on_cuda_matches_cpu(cuda):
+    """FLEX-STB with the FIFO buffer (deterministic) over 230 frames in
+    40-frame blocks with a 100-frame buffer: the probabilities with the
+    model on the card within 1e-3 of the model on the CPU."""
+    from fseend_tpu_torch.serving.flex_stb import FlexSTB
+
+    rng = np.random.default_rng(23)
+    feats = rng.standard_normal((230, EDA_CFG.in_size)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", cuda):
+        model = eend_eda.init_eend_eda(EDA_CFG, torch.Generator().manual_seed(10), device=dev)
+        got[str(dev)] = FlexSTB(model, EDA_CFG, 3, buf_size=100, block_size=40,
+                                buffer_weights="fifo").run(feats)
+    np.testing.assert_allclose(got[str(cuda)], got["cpu"], atol=1e-3, rtol=0)
 
 
 def test_logmel_frontend_on_cuda_matches_the_host_pipeline(cuda):

@@ -147,11 +147,10 @@ def test_unported_modes_say_where_they_are_queued(setup):
     with pytest.raises(TypeError, match="FSEEND"):
         RT.BlockStreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
                                 device="cpu")
-    # training is ported for LS-EEND and FS-EEND (tests/test_torch_port_fs_train.py);
-    # its EEND-EDA and multi-GPU forms are not
+    # training is ported for LS-EEND, FS-EEND (tests/test_torch_port_fs_train.py)
+    # and EEND-EDA (tests/test_torch_port_eda.py); its multi-GPU form is not
     assert TRN.TaskConfig(model="fs").model == "fs"
-    with pytest.raises(NotImplementedError, match="A10"):
-        TRN.TaskConfig(model="eda")
+    assert TRN.TaskConfig(model="eda", label_mode="pit").model == "eda"
     with pytest.raises(NotImplementedError, match="A11"):
         TRN.make_train_step(TRN.TaskConfig(), dataclasses.replace(TCFG, use_fused_dec=True),
                             None, mesh=object(), device="cpu")

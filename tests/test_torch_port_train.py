@@ -254,10 +254,10 @@ def test_optimizers_match_optax(opt, accum):
 
 
 def test_unported_families_say_where_they_are_queued():
-    # FS-EEND training is ported (tests/test_torch_port_fs_train.py)
+    # FS-EEND and EEND-EDA training are ported (tests/test_torch_port_fs_train.py,
+    # tests/test_torch_port_eda.py)
     assert TRN.TaskConfig(model="fs").model == "fs"
-    with pytest.raises(NotImplementedError, match="A10"):
-        TRN.TaskConfig(model="eda")
+    assert TRN.TaskConfig(model="eda").model == "eda"
     with pytest.raises(NotImplementedError, match="B9"):
         TRN.TaskConfig(compute_dtype="bf16")
     with pytest.raises(NotImplementedError, match="A11"):
