@@ -169,6 +169,46 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      (segments, utt2spk) with a 0.5 s collar, the reference against itself
      DER 0, score_frames on the 100 Hz labels, oracle-SAD rescoring
 
+ 24. B4 and B7 through their custom ops (torch.ops.fseend_tpu_torch.*, what
+     the servers call) against the direct launch at the main path's shapes:
+     the same bits, the time in turns on the device clock and the host's
+     time per call; the host time the ops add to a blockwise block (LS 6
+     calls, FS 4) under 2 % of that block in this run
+ 25. C1, `python -m fseend_tpu_torch.cli.train` as one child on a copy of
+     configs/ls_simu.yaml pointed at a synthesized Kaldi directory (8
+     recordings of 410 s), cut to batch 8, one epoch, 4 steps, one
+     validation batch: an epoch checkpoint and avg_model.npz, both
+     fusion-layer kernels launched in the child
+ 26. C2, cli.infer --wav_dir over those recordings with avg_model.npz and
+     configs/ls_infer.yaml (retention_layer, 6 launches a recording);
+     cli.streaming_infer --check on a 30 s wav, per frame with
+     --frame_kernel (both frame scans) and blockwise with --block 128
+     (retention_layer), each within 1e-3 of the batch pass (the blockwise
+     mode against the batch pass at chunk 128, a copy of ls_infer.yaml;
+     its drift from the 500-frame chunks logged, not checked)
+ 27. C3, cli.serve over 160 wavs of 30 s: LS at 128 lanes (both frame
+     scans), FS at 64 lanes on configs/fs_infer.yaml with use_flash_attn
+     (cached_attention_perlane), 500-frame blocks, capacity 2048; every
+     RTTM the text the servers' own probabilities give (a StreamingServer
+     and ContinuousBatcher driven here); frames/s as the twin prints it
+ 28. C4, cli.convert of tests/goldens/{ls,fs}_model_prod.npz's state dicts
+     (written as .ckpt with torch.save) to .npz; cli.infer on the .ckpt and
+     on the .npz: the same weights, probabilities and RTTM, bit for bit
+ 29. C5, cli.export of the LS server (ls_infer.yaml, C1's model, 128 lanes,
+     block 128) and the FS one (C3's config, 64 lanes, block 128, capacity
+     2048); AotBlockServer in a fresh child that imports no model, config
+     or checkpoint module: three blocks and a flush the live
+     BlockStreamingServer's bits, retention_layer / cached_attention
+     launched by the artifact; a block timed in the child and here
+ 30. C6, cli.train --test_from_folder on C1's checkpoints (ls_infer.yaml:
+     h5 per recording), cli.score on those h5 and on C2's RTTM against the
+     directory's reference RTTM, the reference against itself DER 0;
+     EEND-EDA trained by cli.train on eda_offline.yaml cut to batch 8 x 4
+     steps, cli.stb_eval with stb.yaml over 2 recordings of 150 s, and
+     cli.score on its h5
+     Each C phase logs the kernels its path launched (a child's counts
+     printed by the child).
+
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
 the timing lines come before it.  E1-E3 launch none of the port's kernels
 (the JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout, TF32 off.  Every
@@ -185,9 +225,11 @@ TF32 pass fails these checks.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -333,6 +375,9 @@ PARENT_SOURCES = {
     "retention_layer": (HEAD, ("float* ws, float* y, const float* kv0",)),
 }
 PARENT = {}
+# the blockwise blocks' ms of this run ("ls": the fused route, "fs": the
+# kernel route's last in-capacity block), for the ops' dispatch share
+BLOCK_MS = {}
 
 
 def parent_dir():
@@ -1632,6 +1677,7 @@ def phase_times(cfg, model, rng, card, main_path_args):
             profile_window(lambda: bsrv.process_block(xb), 3, card,
                            "blockwise process_block, fused route")
         if kernel == "fused":
+            BLOCK_MS["ls"] = blocks[kernel]
             in_kernel = (cfg.enc_n_layers * enc_row["ms"]
                          + cfg.dec_n_layers * rows["retention_layer"]["ms"])
             line.update(retention_layer_ms=in_kernel,
@@ -2018,6 +2064,7 @@ def phase_fs_block_serve(fcfg, model, rng, card):
                 "frames_per_s": FS_LANES * FS_K / (ms / 1e3),
                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
         if flash:
+            BLOCK_MS["fs"] = ms
             busy = device_ms_by_kernel(last_block)
             kern = sum(ms for name, ms in busy.items() if name.startswith("ca::"))
             line.update(cached_attention_ms=kern, outside_kernels_ms=ms - kern,
@@ -2911,6 +2958,559 @@ def phase_eda_score(rec, probs, ref100, turns, feat):
         "oracle_sad_der": sad.der}}))
 
 
+# ---------------------------------------------------------------------------
+# the entry points, C1-C6: `fseend_tpu_torch/cli/` on the card at the
+# configs' widths, on Kaldi directories and wavs synthesized from the seed
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+# C1: configs/ls_simu.yaml's 1000-frame chunks, 8 recordings of 410 s: 32
+# full chunks, batch 8 x 4 steps; C6 trains EEND-EDA on the same directory
+CLI_TRAIN_RECS, CLI_TRAIN_DUR = 8, 410.0
+# C2-C5: 160 wavs of 30 s (300 frames), more streams than the 128 lanes
+CLI_WAVS, CLI_WAV_DUR = 160, 30.0
+# C6: FLEX-STB over 2 recordings of 150 s (15 blocks of 100 frames each)
+CLI_STB_RECS, CLI_STB_DUR = 2, 150.0
+# the reference's LS streaming check (LS-EEND/streaming_infer_dia.py:157-160)
+STREAM_CHECK_ATOL = 1e-3
+# the kernels' dispatch through their custom ops, against the direct
+# launch: at most this share of the blockwise block they serve
+OP_DISPATCH_SHARE = 0.02
+# the LS blockwise block on the card before the ops (PERF.md section 5)
+LS_BLOCK_MS_RECORDED = 54.34
+
+CLI_CHILD = """
+import json, runpy, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.argv = {argv!r}
+runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+from chip_smoke import kernel_counts
+print("KERNELS " + json.dumps(kernel_counts()), flush=True)
+"""
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.kernels import chunk_retention as CR
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+    from fseend_tpu_torch.kernels import dec_train_fusion as DTF
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
+    from fseend_tpu_torch.kernels import retention_layer as RL
+
+    return {"enc_frame_scan": EFS.launches, "dec_frame_scan": DFS.launches,
+            "chunk_retention": CR.launches, "retention_layer": RL.launches,
+            "dec_train_fusion_fwd": DTF.fwd_launches, "dec_train_fusion_bwd": DTF.bwd_launches,
+            "cached_attention_perlane": CA.perlane_launches, "cached_attention": CA.launches}
+
+
+def reset_kernel_counts() -> None:
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.kernels import chunk_retention as CR
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+    from fseend_tpu_torch.kernels import dec_train_fusion as DTF
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
+    from fseend_tpu_torch.kernels import retention_layer as RL
+
+    for mod in (EFS, DFS, CR, RL, CA):
+        mod.launches = 0
+    DTF.fwd_launches = DTF.bwd_launches = CA.perlane_launches = 0
+
+
+def launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_child(code: str, what: str, timeout: int = 600):
+    """A python child from the repository root; its output's tail logged,
+    any failure raised.  Returns (stdout, the child's kernel counts)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=timeout)
+    lines = res.stdout.splitlines()
+    for line in [ln for ln in lines if not ln.startswith("SPEAKER")][-12:]:
+        log(f"  | {line}")
+    if res.returncode != 0:
+        log(res.stderr[-6000:])
+        raise AssertionError(f"{what}: the child exited {res.returncode}")
+    counts = json.loads([ln for ln in lines if ln.startswith("KERNELS ")][-1][8:])
+    log(f"{what}: {time.perf_counter() - t0:.1f} s in the child; kernels launched "
+        f"{launched(counts)}")
+    return res.stdout, counts
+
+
+def run_cli(module: str, args, what: str, timeout: int = 600):
+    """`python -m <module> args` as one child process."""
+    argv = [module] + [str(a) for a in args]
+    return run_child(CLI_CHILD.format(argv=argv, module=module), what, timeout)
+
+
+def cli_main(module, args):
+    """A twin's main(argv) in this process: (stdout, kernel counts)."""
+    import io
+
+    reset_kernel_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        module.main([str(a) for a in args])
+    torch.cuda.synchronize()
+    return out.getvalue(), kernel_counts()
+
+
+def config_copy(src, dst, changes: dict):
+    """configs/<src> read by the port's loader, `changes` (dotted paths)
+    applied, written to dst.  Returns dst."""
+    from fseend_tpu_torch.utils.config import dump_config, load_config
+
+    dump_config(load_config(REPO / "configs" / src, changes), dst)
+    return dst
+
+
+def write_wavs(path, rng, n, dur, sr=8000):
+    """n wavs of a harmonic voice in bursts over noise (speech_audio)."""
+    path.mkdir(parents=True)
+    audio = speech_audio(rng, n, int(dur * sr), sr)
+    for i in range(n):
+        write_wav(path / f"rec{i:03d}.wav", audio[i], sr)
+    return path
+
+
+def phase_cli_train(work, rng, card):
+    """C1: `python -m fseend_tpu_torch.cli.train --configs <ls_simu.yaml
+    copy>` as one child: configs/ls_simu.yaml's model (the fused decoder,
+    the plain chunkwise route) and 1000-frame chunks on a synthesized
+    Kaldi directory; cut to batch 8, one epoch of 4 steps, one validation
+    batch.  It must leave an epoch checkpoint and avg_model.npz, and launch
+    both fusion-layer kernels (2 forward and 2 backward a step)."""
+    kaldi = make_kaldi_dir(work / "train_data", rng, CLI_TRAIN_RECS, CLI_TRAIN_DUR)
+    cuts = {"training.batch_size": 8, "training.max_epochs": 1,
+            "debug.limit_train_batches": 4, "debug.limit_val_batches": 1}
+    cfg = config_copy("ls_simu.yaml", work / "ls_simu.yaml", {
+        **cuts, "data.train_data_dir": str(kaldi), "data.val_data_dir": str(kaldi),
+        "log.log_dir": str(work / "logs" / "ls_simu")})
+    out, counts = run_cli("fseend_tpu_torch.cli.train", ["--configs", cfg], "C1 cli.train")
+    epoch = re.search(r"epoch 0: (\d+) steps in ([0-9.]+)s", out)
+    avg = Path(re.search(r"averaged 1 checkpoints -> (\S+)", out).group(1))
+    if epoch is None or int(epoch.group(1)) != 4:
+        raise AssertionError(f"C1: no epoch of 4 steps in the output:\n{out}")
+    if not (avg.exists() and (avg.parent / "ckpt_epoch=0.npz").exists()):
+        raise AssertionError(f"C1: no epoch checkpoint and avg_model.npz beside {avg}")
+    if counts["dec_train_fusion_fwd"] < 8 or counts["dec_train_fusion_bwd"] != 8:
+        raise AssertionError(f"C1: fusion-layer launches {counts}")
+    secs = float(epoch.group(2))
+    log(json.dumps({"C1_cli_train": {
+        "config": "configs/ls_simu.yaml", "cuts": cuts, "recordings": CLI_TRAIN_RECS,
+        "recording_s": CLI_TRAIN_DUR, "steps": 4, "epoch_s": secs,
+        "step_ms_with_data": secs / 4 * 1e3, "train_frames_per_s": 4 * 8 * 1000 / secs,
+        "launches": launched(counts)}, "card": card}))
+    return kaldi, avg
+
+
+def phase_cli_infer(work, kaldi, wavs, avg, card):
+    """C2: cli.infer --wav_dir over C1's recordings with C1's avg_model.npz
+    and configs/ls_infer.yaml (the "fused" route: retention_layer), one
+    RTTM; cli.streaming_infer --check on one wav per frame with
+    --frame_kernel (both frame scans) and blockwise with --block 128
+    (retention_layer): each within STREAM_CHECK_ATOL of the batch pass at
+    the chunk size the mode computes (500, the config's, per frame; 128,
+    the block's, blockwise)."""
+    from fseend_tpu_torch.cli import infer, streaming_infer
+
+    cfg = config_copy("ls_infer.yaml", work / "ls_infer.yaml", {"data.val_data_dir": str(kaldi)})
+    out, counts = cli_main(infer, ["--configs", cfg, "--wav_dir", kaldi, "--ckpt", avg,
+                                   "--out", work / "c2_infer.rttm"])
+    n_turns = len((work / "c2_infer.rttm").read_text().splitlines())
+    if counts["retention_layer"] != CLI_TRAIN_RECS * 6 or n_turns == 0:
+        raise AssertionError(f"C2 cli.infer: {n_turns} RTTM turns, launches {counts}")
+    line = {"infer": {"recordings": CLI_TRAIN_RECS, "rttm_turns": n_turns,
+                      "launches": launched(counts)}}
+    # the blockwise mode is the batch pass at chunk_size = block; against
+    # the config's 500-frame chunks it drifts by the group norm's eps (the
+    # JAX package's own chunk-size caveat, ROADMAP C), logged unchecked
+    cfg_block = config_copy("ls_infer.yaml", work / "ls_infer_chunk128.yaml",
+                            {"model.params.recurrent_chunk_size": BLOCK})
+    wav = wavs / "rec000.wav"
+    for mode, config, need, checked in (
+            (["--frame_kernel"], cfg, ("enc_frame_scan", "dec_frame_scan"), True),
+            (["--block", BLOCK], cfg_block, ("retention_layer",), True),
+            (["--block", BLOCK], cfg, ("retention_layer",), False)):
+        out, counts = cli_main(streaming_infer, ["--configs", config, "--wav_path", wav,
+                                                 "--test_from_file", avg, "--check", *mode])
+        diff = float(re.search(r"max diff (\S+) ->", out).group(1))
+        fps = float(re.search(r"\((\d+) frames/s", out).group(1))
+        if (checked and diff >= STREAM_CHECK_ATOL) or not all(counts[k] for k in need):
+            raise AssertionError(f"C2 streaming_infer {mode}: max diff {diff}, "
+                                 f"launches {counts}")
+        chunk = 500 if config == cfg else BLOCK
+        line[f"streaming_infer {' '.join(map(str, mode))}, batch chunk {chunk}"] = {
+            "max_diff_vs_batch": diff, "checked": checked, "frames_per_s": fps,
+            "launches": launched(counts)}
+    log(json.dumps({"C2_cli_infer": line, "card": card}))
+    return cfg
+
+
+def served_rttms(cfg, ckpt, kind, lanes, wavs):
+    """The RTTMs of the recordings in `wavs` from a StreamingServer and
+    ContinuousBatcher driven here, with the same model, lanes, capacity and
+    block as cli.serve: {rec: rttm text}."""
+    from fseend_tpu_torch.cli.infer import load_model
+    from fseend_tpu_torch.ops.features import extract_fbank
+    from fseend_tpu_torch.serving.runtime import StreamingServer
+    from fseend_tpu_torch.serving.scheduler import ContinuousBatcher
+    from fseend_tpu_torch.utils.config import load_config
+    from fseend_tpu_torch.utils.rttm import make_rttm
+
+    configs = load_config(cfg)
+    data = configs["data"]
+    model_cfg, _, model = load_model(configs, ckpt, "cuda")
+    srv = StreamingServer(kind=kind, cfg=model_cfg, model=model, n_lanes=lanes,
+                          n_slots=data["max_speakers"] + 2, capacity=FS_CAP, device="cuda")
+    cb = ContinuousBatcher(srv, block=500)
+    for path in sorted(wavs.glob("*.wav")):
+        cb.submit(path.stem, extract_fbank(
+            path, context_size=data["context_recp"], frame_size=data["feat"]["win_length"],
+            frame_shift=data["feat"]["hop_length"], input_transform=data["feat_type"],
+            subsampling=data["subsampling"]))
+    return {rec: make_rttm(rec, np.asarray(p), frame_shift=data["feat"]["hop_length"],
+                           subsampling=data["subsampling"],
+                           sampling_rate=data["feat"]["sample_rate"])
+            for rec, p in cb.run().items()}
+
+
+def phase_cli_serve(work, wavs, ls_cfg, avg, card):
+    """C3: cli.serve over the 160 wavs: LS at 128 lanes (C1's model, both
+    frame scans), FS at 64 lanes on configs/fs_infer.yaml with
+    use_flash_attn (the seeded model; cached_attention_perlane), capacity
+    2048, 500-frame blocks.  Every RTTM the same text as the servers'
+    own probabilities give; frames/s as the twin prints it."""
+    from fseend_tpu_torch.cli import serve
+
+    fs_cfg = config_copy("fs_infer.yaml", work / "fs_infer_flash.yaml",
+                         {"model.params.use_flash_attn": True})
+    line = {}
+    for kind, cfg, ckpt, lanes, need in (
+            ("ls", ls_cfg, avg, LANES, ("enc_frame_scan", "dec_frame_scan")),
+            ("fs", fs_cfg, None, FS_LANES, ("cached_attention_perlane",))):
+        out_dir = work / f"c3_{kind}"
+        args = ["--configs", cfg, "--wav_dir", wavs, "--out_dir", out_dir, "--lanes", lanes,
+                "--capacity", FS_CAP] + (["--ckpt", ckpt] if ckpt else [])
+        out, counts = cli_main(serve, args)
+        fps = float(re.search(r"\((\d+) frames/s\)", out).group(1))
+        if not all(counts[k] for k in need):
+            raise AssertionError(f"C3 cli.serve {kind}: launches {counts}")
+        want = served_rttms(cfg, ckpt, kind, lanes, wavs)
+        got = {p.stem: p.read_text() for p in out_dir.glob("*.rttm")}
+        if got != want:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"C3 cli.serve {kind}: RTTMs differ from the server's "
+                                 f"own for {bad[:5]} ({len(bad)} of {len(want)})")
+        line[kind] = {"streams": CLI_WAVS, "frames_each": int(CLI_WAV_DUR * 10),
+                      "lanes": lanes, "block": 500, "frames_per_s": fps,
+                      "rttms_same_as_the_servers": len(got), "launches": launched(counts)}
+    log(json.dumps({"C3_cli_serve": line, "card": card}))
+    return fs_cfg
+
+
+def phase_cli_convert(work, wavs, card):
+    """C4: cli.convert of the reference's production-width state dicts
+    (tests/goldens/{ls,fs}_model_prod.npz, `sd__*`), written as a .ckpt
+    with torch.save, to an .npz; cli.infer on the .ckpt and on the .npz:
+    the same weights, the same probabilities and the same RTTM, bit for
+    bit."""
+    from fseend_tpu_torch.cli import convert, infer
+    from fseend_tpu_torch.cli.infer import batch_probs, load_model
+    from fseend_tpu_torch.ops.features import extract_fbank
+    from fseend_tpu_torch.utils.config import load_config
+
+    line = {}
+    wav = wavs / "rec001.wav"
+    for fam, golden, cfg_name in (("ls", "ls_model_prod.npz", "ls_infer.yaml"),
+                                  ("fs", "fs_model_prod.npz", "fs_infer.yaml")):
+        g = np.load(REPO / "tests" / "goldens" / golden)
+        ckpt, npz = work / f"{fam}_prod.ckpt", work / f"{fam}_prod.npz"
+        torch.save({k[len("sd__"):]: torch.from_numpy(g[k].copy())
+                    for k in g.files if k.startswith("sd__")}, ckpt)
+        cfg = REPO / "configs" / cfg_name
+        out, _ = cli_main(convert, ["--configs", cfg, "--ckpt", ckpt, "--out", npz])
+        rttm, counts = {}, {}
+        for src in (ckpt, npz):
+            _, counts[src.suffix] = cli_main(infer, ["--configs", cfg, "--wav", wav, "--ckpt",
+                                                     src, "--out", work / f"c4_{src.name}.rttm"])
+            rttm[src.suffix] = (work / f"c4_{src.name}.rttm").read_text()
+        configs = load_config(cfg)
+        data = configs["data"]
+        feats = extract_fbank(wav, context_size=data["context_recp"],
+                              frame_size=data["feat"]["win_length"],
+                              frame_shift=data["feat"]["hop_length"],
+                              input_transform=data["feat_type"], subsampling=data["subsampling"])
+        (_, task, a), (_, _, b) = (load_model(configs, str(p), "cuda") for p in (ckpt, npz))
+        for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"C4 {fam}: {name} differs between .ckpt and .npz")
+        pa, pb = (batch_probs(task, m, feats, data["max_speakers"] + 2) for m in (a, b))
+        if not (np.array_equal(pa, pb) and rttm[".ckpt"] == rttm[".npz"]):
+            raise AssertionError(f"C4 {fam}: .ckpt and .npz give other probabilities or RTTMs")
+        line[fam] = {"golden": golden, "config": cfg_name, "converted": out.strip(),
+                     "frames": len(feats), "rttm_turns": len(rttm[".npz"].splitlines()),
+                     "launches": launched(counts[".npz"])}
+    log(json.dumps({"C4_cli_convert": line, "card": card}))
+
+
+AOT_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from fseend_tpu_torch.serving.aot import AotBlockServer
+srv = AotBlockServer({path!r})
+xs = torch.as_tensor(np.load({frames!r})).cuda()
+K = srv.block
+out = [srv.process_block(xs[:, s:s + K]) for s in range(0, xs.shape[1], K)]
+out.append(srv.process_block(torch.zeros_like(xs[:, :K]), flush=True))
+np.save({probs!r}, torch.stack(out).cpu().numpy())
+from chip_smoke import kernel_counts
+counts = kernel_counts()
+srv.reset_all()
+srv.process_block(xs[:, :K])
+torch.cuda.synchronize()
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for s in range(0, xs.shape[1], K):
+    srv.process_block(xs[:, s:s + K])
+end.record()
+torch.cuda.synchronize()
+ms = start.elapsed_time(end) / (xs.shape[1] // K)
+bad = [m for m in sys.modules if m.startswith(("fseend_tpu_torch.models",
+       "fseend_tpu_torch.utils.config", "fseend_tpu_torch.utils.checkpoint"))]
+assert not bad, bad
+print("AOT " + json.dumps({{"block_ms": ms}}))
+print("KERNELS " + json.dumps(counts), flush=True)
+"""
+
+
+def phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card):
+    """C5: cli.export of the LS server (configs/ls_infer.yaml, C1's model,
+    128 lanes, block 128) and of the FS one (C3's use_flash_attn copy of
+    configs/fs_infer.yaml, 64 lanes, block 128, capacity 2048);
+    AotBlockServer in a fresh child that imports no model, config or
+    checkpoint module: three blocks and a flush the same bits as the live
+    BlockStreamingServer's, retention_layer / cached_attention launched by
+    the artifact.  Each block also timed in the child and here."""
+    from fseend_tpu_torch.cli import export
+
+    line = {}
+    for kind, cfg, ckpt, lanes, cap, need, per_block in (
+            ("ls", ls_cfg, avg, LANES, 4096, "retention_layer", 6),
+            ("fs", fs_cfg, None, FS_LANES, FS_CAP, "cached_attention", 4)):
+        path, frames, probs = (work / f"c5_{kind}_{n}" for n in ("srv.npz", "frames.npy",
+                                                                  "probs.npy"))
+        args = ["--configs", cfg, "--out", path, "--lanes", lanes, "--block", BLOCK,
+                "--capacity", cap] + (["--ckpt", ckpt] if ckpt else [])
+        t0 = time.perf_counter()
+        srv = export.main([str(a) for a in args])
+        export_s = time.perf_counter() - t0
+        xs = torch.as_tensor(rng.standard_normal((lanes, 3 * BLOCK, srv.cfg.in_size)),
+                             dtype=torch.float32, device="cuda")
+        np.save(frames, xs.cpu().numpy())
+        out, counts = run_child(AOT_CHILD.format(path=str(path), frames=str(frames),
+                                                 probs=str(probs)), f"C5 AotBlockServer {kind}")
+        live = [srv.process_block(xs[:, s:s + BLOCK]) for s in range(0, 3 * BLOCK, BLOCK)]
+        live.append(srv.process_block(torch.zeros_like(xs[:, :BLOCK]), flush=True))
+        live = torch.stack(live).cpu().numpy()
+        if not np.array_equal(np.load(probs), live):
+            raise AssertionError(f"C5 {kind}: the artifact's probabilities differ from the "
+                                 f"live server's by {np.abs(np.load(probs) - live).max():.3e}")
+        if counts[need] < 3 * per_block:
+            raise AssertionError(f"C5 {kind}: the artifact launched {counts}")
+        srv.reset_all()
+        srv.process_block(xs[:, :BLOCK])
+        live_ms = cuda_ms(lambda: [srv.process_block(xs[:, s:s + BLOCK])
+                                   for s in range(0, 3 * BLOCK, BLOCK)], reps=1) / 3
+        aot_ms = json.loads([ln for ln in out.splitlines() if ln.startswith("AOT ")][-1][4:])
+        line[kind] = {"lanes": lanes, "block": BLOCK, "capacity": cap if kind == "fs" else None,
+                      "artifact_mb": path.stat().st_size / 1e6, "export_s": export_s,
+                      "same_bits_as_live": True, "aot_block_ms": aot_ms["block_ms"],
+                      "live_block_ms": live_ms, "launches_in_child": launched(counts)}
+        del srv, xs
+    log(json.dumps({"C5_cli_export": line, "card": card}))
+
+
+def phase_cli_score(work, rng, kaldi, ls_cfg, avg, card):
+    """C6: `cli.train --test_from_folder` on C1's checkpoint folder with
+    configs/ls_infer.yaml (h5 per recording), cli.score on those h5 files
+    and on C2's RTTM against the directory's reference RTTM, the reference
+    against itself DER 0; EEND-EDA trained by cli.train on
+    configs/eda_offline.yaml cut to batch 8 x 4 steps, then cli.stb_eval
+    (configs/stb.yaml: buffer 1000, block 100, "v1") over 2 recordings of
+    150 s and cli.score on its h5."""
+    from fseend_tpu_torch.cli import score, stb_eval, train
+
+    line = {}
+    out, counts = cli_main(train, ["--configs", ls_cfg, "--test_from_folder", avg.parent])
+    h5 = avg.parent / "preds_h5"
+    if len(list(h5.glob("*.h5"))) != CLI_TRAIN_RECS or not counts["retention_layer"]:
+        raise AssertionError(f"C6 --test_from_folder: {out}")
+    line["test_from_folder"] = {"h5": CLI_TRAIN_RECS, "launches": launched(counts)}
+    out, _ = cli_main(score, ["--configs", ls_cfg, "--hyp_dir", h5])
+    line["score_h5_mean_der"] = float(re.search(r"mean der: (\S+)", out).group(1))
+    ref = work / "c6_ref.rttm"
+    utt2spk = dict(ln.split() for ln in (kaldi / "utt2spk").read_text().splitlines())
+    ref.write_text("".join(
+        f"SPEAKER {rec} 1 {float(st):.2f} {float(ed) - float(st):.2f} <NA> <NA> "
+        f"{utt2spk[utt]} <NA>\n"
+        for utt, rec, st, ed in (ln.split() for ln in (kaldi / "segments").read_text()
+                                 .splitlines())))
+    for name, hyp in (("infer_rttm", work / "c2_infer.rttm"), ("reference", ref)):
+        out, _ = cli_main(score, ["--ref_rttm", ref, "--hyp_rttm", hyp, "--collar", 0.25])
+        line[f"score_{name}_der"] = float(re.search(r"overall DER: (\S+)", out).group(1))
+    if line["score_reference_der"] != 0.0:
+        raise AssertionError(f"C6: the reference against itself DER {line}")
+
+    cuts = {"training.batch_size": 8, "training.max_epochs": 1, "debug.limit_train_batches": 4,
+            "debug.limit_val_batches": 1}
+    eda_cfg = config_copy("eda_offline.yaml", work / "eda_offline.yaml", {
+        **cuts, "data.train_data_dir": str(kaldi), "data.val_data_dir": str(kaldi),
+        "log.log_dir": str(work / "logs" / "eda")})
+    out, _ = cli_main(train, ["--configs", eda_cfg])
+    eda = Path(re.search(r"averaged 1 checkpoints -> (\S+)", out).group(1))
+    stb_data = make_kaldi_dir(work / "stb_data", rng, CLI_STB_RECS, CLI_STB_DUR)
+    stb_cfg = config_copy("stb.yaml", work / "stb.yaml", {"data.val_data_dir": str(stb_data)})
+    out, counts = cli_main(stb_eval, ["--configs", stb_cfg, "--ckpt", eda, "--out_dir",
+                                      work / "c6_stb"])
+    rtf = [float(v) for v in re.findall(r"RTF (\S+)\)", out)]
+    if len(rtf) != CLI_STB_RECS or launched(counts):
+        raise AssertionError(f"C6 stb_eval: {out} {counts}")
+    out, _ = cli_main(score, ["--configs", stb_cfg, "--hyp_dir", work / "c6_stb"])
+    line["eda"] = {"cuts": cuts, "stb_rtf": rtf,
+                   "stb_score_mean_der": float(re.search(r"mean der: (\S+)", out).group(1))}
+    log(json.dumps({"C6_cli_score": line, "card": card}))
+
+
+@contextlib.contextmanager
+def h5_files():
+    """The h5 files the scoring entry points write and read.  The card's
+    machine has no h5py: there they hold the probabilities as an .npy
+    payload under the .h5 name for the duration (the CPU tests hold the h5
+    container against the JAX package's)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        yield "h5"
+        return
+    from fseend_tpu_torch.utils import postprocess as PP
+
+    def save(path, probs):
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "wb") as f:
+            np.save(f, np.asarray(probs, np.float32))
+
+    def load(path):
+        with open(path, "rb") as f:
+            return np.load(f)
+
+    saved = PP.save_h5_probs, PP.load_h5_probs
+    PP.save_h5_probs, PP.load_h5_probs = save, load
+    try:
+        yield "npy payload (no h5py on this machine)"
+    finally:
+        PP.save_h5_probs, PP.load_h5_probs = saved
+
+
+def phase_cli(card):
+    """C1-C6 in one working directory under build/."""
+    import tempfile
+
+    rng = np.random.default_rng(SEED + 11)
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        work = Path(tmp)
+        kaldi, avg = phase_cli_train(work, rng, card)
+        wavs = write_wavs(work / "wavs", rng, CLI_WAVS, CLI_WAV_DUR)
+        ls_cfg = phase_cli_infer(work, kaldi, wavs, avg, card)
+        fs_cfg = phase_cli_serve(work, wavs, ls_cfg, avg, card)
+        phase_cli_convert(work, wavs, card)
+        phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card)
+        with h5_files() as h5:
+            log(f"C6 h5 files: {h5}")
+            phase_cli_score(work, rng, kaldi, ls_cfg, avg, card)
+    log(f"C1-C6 entry points: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_op_dispatch(cfg, card, rl_dec, b7_args):
+    """B4 and B7 through their custom ops against the direct launch (the
+    wrapper's checks and the ctypes call, as before the ops) at the main
+    path's shapes (B4 at the decoder's call and at the encoder's, B7 at the
+    blockwise encoder's): the same bits; the time in turns on the device
+    clock, and the host's time per call (the enqueue, the card kept busy).
+    The host time the ops add to a block (its calls times the extra per
+    call) must stay under OP_DISPATCH_SHARE of the block of this run."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.kernels import retention_layer as RL
+    from fseend_tpu_torch.ops import retention as R
+
+    def host_us(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    def b4_direct(a):
+        RL._check(*a)
+        return RL._launch(*a)
+
+    def b7_direct(q, k, v, start):
+        CA._check("cached_attention", q, k, v)
+        return CA._launch(q, k, v, CA._start_tensor(start, q.device, 1), q.shape[0], 0,
+                          perlane=False)
+
+    st = R.chunk_state_init(cfg.ret_cfg, LANES, device="cuda")
+    rl_enc = (rl_dec[0], rl_dec[1][:LANES].contiguous(), rl_dec[2], st["kv"], st["scale"],
+              BLOCK)
+    # (kernel, call, its input, direct, op, calls per block, server)
+    cases = [("retention_layer", "decoder", rl_dec[1], lambda: b4_direct(rl_dec),
+              lambda: RL.retention_layer(*rl_dec), cfg.dec_n_layers, "ls"),
+             ("retention_layer", "encoder", rl_enc[1], lambda: b4_direct(rl_enc),
+              lambda: RL.retention_layer(*rl_enc), cfg.enc_n_layers, "ls"),
+             ("cached_attention", "encoder", b7_args[0], lambda: b7_direct(*b7_args),
+              lambda: CA.cached_attention(*b7_args), 4, "fs")]
+    extra_us = {"ls": 0.0, "fs": 0.0}
+    for name, label, x, direct, op, n, kind in cases:
+        got, want = op(), direct()
+        got, want = (r if isinstance(r, tuple) else (r,) for r in (got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} {label}: the op and the direct launch differ")
+        ms = []
+        for _ in range(2):
+            ms += [cuda_ms(direct, 10), cuda_ms(op, 10), cuda_ms(op, 10), cuda_ms(direct, 10)]
+        host = [host_us(direct), host_us(op), host_us(op), host_us(direct)]
+        d_us, o_us = float(np.median(host[0::3])), float(np.median(host[1:3]))
+        extra_us[kind] += n * max(0.0, o_us - d_us)
+        log(json.dumps({"op_vs_direct": {
+            "kernel": name, "call": label, "shape": list(x.shape), "calls_per_block": n,
+            "ms_in_turns": ms, "direct_ms": float(np.median(ms[0::4] + ms[3::4])),
+            "op_ms": float(np.median(ms[1::4] + ms[2::4])), "host_us_in_turns": host,
+            "direct_host_us": d_us, "op_host_us": o_us, "same_bits": True}, "card": card}))
+    for kind in ("ls", "fs"):
+        share = extra_us[kind] / 1e3 / BLOCK_MS[kind]
+        log(json.dumps({"op_dispatch": {
+            "server": f"{kind} blockwise", "block_ms": BLOCK_MS[kind],
+            "extra_host_ms_per_block": extra_us[kind] / 1e3, "share_of_block": share,
+            "share_of_recorded_ls_block": (extra_us[kind] / 1e3 / LS_BLOCK_MS_RECORDED
+                                      if kind == "ls" else None)}, "card": card}))
+        if share >= OP_DISPATCH_SHARE:
+            raise AssertionError(f"{kind}: the ops' dispatch costs {share:.1%} of the block")
+
+
 def one_pass_sources():
     """A copy of the kernel sources under build/one_pass/ whose 3xTF32
     product (tc::mma3) keeps only its a_big b_big pass, with the builder
@@ -3011,6 +3611,7 @@ def main() -> int:
     launches["cached_attention"], block_args = phase_fs_block_serve(fcfg, fmodel, rng, card)
     phase_fs_golden(fcfg)
     fs_rows = phase_fs_times(fcfg, fmodel, rng, card, block_args)
+    phase_op_dispatch(cfg, card, main_path_args["retention_layer"], block_args)
     for name, row in fs_rows.items():
         errs[name] = max(fs_errs[name], row.pop("max_abs_err"))
         rows[name] = row
@@ -3025,6 +3626,8 @@ def main() -> int:
     log(f"config: {ecfg}")
     phase_eda_train(ecfg, off, card)
     phase_eda_score(*phase_eda_kaldi(ecfg, feat, off, stb, rng, card))
+    torch.cuda.empty_cache()
+    phase_cli(card)
     sources = {
         "enc_frame_scan": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
                            "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),

@@ -21,6 +21,11 @@ cores, float32-exact, for both forms; the per-lane form's K = 1 calls
 the rows alone do not fill the card, into scratch allocated here); on a CPU
 tensor it runs the plain version, the masked `mha_core` form the JAX
 package's non-flash paths use.  Forward only; float32 only; hd <= 128.
+The shared-head form is the custom op `torch.ops.fseend_tpu_torch.cached_attention`
+(CUDA implementation: the launch; CPU: the plain version; fake: the output
+shape), so that `torch.export` can trace the blockwise FS server through it
+(`serving/aot.py`); the per-lane form serves only the per-frame server,
+which is not exported, and stays a direct call.
 
 Layouts: q (R, K, hd); k, v (R, cap, hd) with the block's keys and values
 already written; rows lane-major (`rows_per_lane` consecutive rows share a
@@ -49,11 +54,27 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Shared write head `start` (an int or a one-element int tensor):
     query i reads positions <= start + i.  Launches the kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    R = _check("cached_attention", q, k, v)
-    start = _start_tensor(start, q.device, 1)
-    if q.device.type == "cpu":
-        return cached_attention_plain(q, k, v, start)
-    return _launch(q, k, v, start, R, 0, perlane=False)
+    _check("cached_attention", q, k, v)
+    return cached_attention_op(q, k, v, _start_tensor(start, q.device, 1))
+
+
+@torch.library.custom_op("fseend_tpu_torch::cached_attention", mutates_args=(),
+                         device_types="cpu")
+def cached_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        start: torch.Tensor) -> torch.Tensor:
+    """The custom op; this body is its CPU implementation (the plain
+    version)."""
+    return cached_attention_plain(q, k, v, start)
+
+
+@cached_attention_op.register_kernel("cuda")
+def _op_cuda(q, k, v, start):
+    return _launch(q, k, v, start, q.shape[0], 0, perlane=False)
+
+
+@cached_attention_op.register_fake
+def _op_fake(q, k, v, start):
+    return torch.empty_like(q)
 
 
 def cached_attention_perlane(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,9 +10,14 @@ the out projection (+bias).  One call per layer and block of frames.
 On a CUDA tensor the wrapper launches `csrc/retention_layer.cu` (the two
 projections and the chunkwise core of this repository behind one call; see
 the note there); on a CPU tensor it runs `retention_layer_plain`.  Neither
-touches the incoming state.  Float32 only.  When a gradient is wanted the call goes through
-`_RetentionLayerFn`, whose backward re-runs `retention_layer_plain` under
-autograd (the recompute backward of `retention_layer_pallas.py:261-280`).
+touches the incoming state.  Float32 only.  Without a gradient the call is
+the custom op `torch.ops.fseend_tpu_torch.retention_layer` (flat tensor and
+int arguments; its CUDA implementation is the launch, its CPU one the plain
+version, its fake one gives the output shapes), so that `torch.export` can
+trace a server through it (`serving/aot.py`).  When a gradient is wanted the
+call goes through `_RetentionLayerFn`, whose backward re-runs
+`retention_layer_plain` under autograd (the recompute backward of
+`retention_layer_pallas.py:261-280`).
 
 Layouts: gammas (H,); x (B, T, D); kv0 (B, H, dk, dv); s0 (B, H, 1, 1);
 T % chunk == 0.  Returns (y (B, T, D), kv_f, s_f).
@@ -64,7 +69,7 @@ def retention_layer(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,
         raise ValueError(f"retention_layer: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kv0, s0) + tuple(w)):
         return _RetentionLayerFn.apply(gammas, x, *w, kv0, s0, chunk)
-    return _forward(gammas, x, w, kv0, s0, chunk)
+    return tuple(retention_layer_op(gammas, x, *w, kv0, s0, chunk))
 
 
 def _forward(gammas, x, w, kv0, s0, chunk):
@@ -76,6 +81,27 @@ def _forward(gammas, x, w, kv0, s0, chunk):
 def _plain_flat(gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0, chunk):
     return retention_layer_plain(gammas, x, RetLayerWeights(wqkvg, bqkvg, wo, bo), kv0, s0,
                                  chunk)
+
+
+@torch.library.custom_op("fseend_tpu_torch::retention_layer", mutates_args=(),
+                         device_types="cpu")
+def retention_layer_op(gammas: torch.Tensor, x: torch.Tensor, wqkvg: torch.Tensor,
+                       bqkvg: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                       kv0: torch.Tensor, s0: torch.Tensor,
+                       chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The custom op; this body is its CPU implementation (the plain
+    version)."""
+    return _plain_flat(gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0, chunk)
+
+
+@retention_layer_op.register_kernel("cuda")
+def _op_cuda(gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0, chunk):
+    return _launch(gammas, x, RetLayerWeights(wqkvg, bqkvg, wo, bo), kv0, s0, chunk)
+
+
+@retention_layer_op.register_fake
+def _op_fake(gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0, chunk):
+    return torch.empty_like(x), torch.empty_like(kv0), torch.empty_like(s0)
 
 
 class _RetentionLayerFn(torch.autograd.Function):

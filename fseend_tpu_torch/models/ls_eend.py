@@ -635,12 +635,16 @@ def pack_weights(model: LSEEND):
 
 @torch.no_grad()
 def ls_stream_block_fused(model: LSEEND, state: dict, xs: torch.Tensor,
-                          flush: torch.Tensor, n_slots: int, packed=None):
+                          flush: torch.Tensor, n_slots: int, packed=None,
+                          enc_kernel: bool = True):
     """A K-frame block with per-frame streaming semantics, the encoder and
     the decoder each in one frame-scan call (`kernels/`); the same result as
     scanning `ls_stream_step` over the block, per-lane flush and clocks
     included.  xs (B, K, in_size); flush (K, B) bool; `packed` is
-    `pack_weights(model)` (computed here when None).
+    `pack_weights(model)` (computed here when None).  With
+    `enc_kernel=False` the encoder runs the plain per-frame scan of
+    `ls_stream_step` and only the decoder is a kernel call (the JAX
+    package's `enc_kernel`).
 
     The state's retention tensors and conv history are updated IN PLACE (the
     decoder state alone is ~170 MB at 128 lanes); the returned state shares
@@ -652,10 +656,13 @@ def ls_stream_block_fused(model: LSEEND, state: dict, xs: torch.Tensor,
     dt = state["cnn_buf"].dtype
     flush_bt = flush.T.contiguous()                            # (B, T)
 
-    # --- encoder: one frame-scan over all conformer blocks ---
-    h0 = _ln(model.enc.norm, _lin(model.enc.proj, xs)).to(dt).contiguous()
-    h = EFS.enc_frame_scan(h0, flush_bt.to(dt), ew, state["enc_kv"],
-                           state["enc_scale"], state["enc_conv"], ffac=cfg.ff_factor)
+    if enc_kernel:
+        # --- encoder: one frame-scan over all conformer blocks ---
+        h0 = _ln(model.enc.norm, _lin(model.enc.proj, xs)).to(dt).contiguous()
+        h = EFS.enc_frame_scan(h0, flush_bt.to(dt), ew, state["enc_kv"],
+                               state["enc_scale"], state["enc_conv"], ffac=cfg.ff_factor)
+    else:
+        h = _enc_frame_by_frame(model, state, xs, flush).to(dt)
     h = torch.where(flush_bt[..., None], torch.zeros((), dtype=h.dtype, device=h.device), h)
 
     # --- look-ahead cnn as one valid conv over the carried window ---
@@ -676,6 +683,29 @@ def ls_stream_block_fused(model: LSEEND, state: dict, xs: torch.Tensor,
                                 dw, state["dec_kv"], state["dec_scale"])
     new_state = dict(state, t=t0 + T, cnn_buf=new_cnn_buf)
     return new_state, (logits.transpose(0, 1), valid)
+
+
+def _enc_frame_by_frame(model: LSEEND, state: dict, xs: torch.Tensor,
+                        flush: torch.Tensor) -> torch.Tensor:
+    """The encoder of `ls_stream_step` over a K-frame block, frame by frame;
+    the encoder state is written back in place, as the frame scan writes
+    it.  Returns the (B, K, D) encoder outputs (flush frames not zeroed)."""
+    cfg = model.cfg
+    kv, scale, conv = ([t[l] for l in range(cfg.enc_n_layers)]
+                       for t in (state["enc_kv"], state["enc_scale"], state["enc_conv"]))
+    hs = []
+    for k in range(xs.shape[1]):
+        h = _ln(model.enc.norm, _lin(model.enc.proj, xs[:, k]))
+        for l, bp in enumerate(model.enc.blocks):
+            st = {"ret": {"kv": kv[l], "scale": scale[l]}, "conv": conv[l]}
+            h, new = _block_step(bp, h, st, cfg)
+            kv[l] = _keep(flush[k], new["ret"]["kv"], kv[l])
+            scale[l] = _keep(flush[k], new["ret"]["scale"], scale[l])
+            conv[l] = _keep(flush[k], new["conv"], conv[l])
+        hs.append(h)
+    for key, leaves in (("enc_kv", kv), ("enc_scale", scale), ("enc_conv", conv)):
+        state[key].copy_(torch.stack(leaves))
+    return torch.stack(hs, dim=1)
 
 
 def ls_stream_scan_fused(model: LSEEND, state: dict, xs: torch.Tensor, n_slots: int,

@@ -11,7 +11,8 @@ flush schedule; lanes are reset one by one when a new stream takes them.
 LS-EEND: with `frame_kernel` (the default) a block runs through
 `ls_eend.ls_stream_block_fused`: on the card, the encoder and the decoder
 are one CUDA frame-scan launch each per block, and `step()` is a block of
-one frame, so no plain per-frame code serves on the card.  With
+one frame (`frame_kernel_enc=False` keeps the decoder's kernel and runs
+the encoder as the plain per-frame scan).  With
 `frame_kernel=False` a block is the plain per-frame scan of
 `ls_stream_step`, the oracle the kernel path is tested against.
 
@@ -65,6 +66,9 @@ class StreamingServer:
     # LS only: the frame-scan kernels.  None = on for LS; asking for it with
     # FS raises (FS per-frame serving is the fast block, `fs_fast`)
     frame_kernel: bool | None = None
+    # with frame_kernel: the encoder's frame scan too (False: the plain
+    # per-frame encoder scan, the decoder still one kernel call per block)
+    frame_kernel_enc: bool = True
     device: Any = None        # None: the card ("cuda"); "cpu" for the tests
     mesh: Any = None          # multi-GPU lane sharding: ROADMAP A11
     capacity: int = 4096      # FS only: KV positions per lane (frames per call + delay)
@@ -148,7 +152,8 @@ class StreamingServer:
             return self._fs_fast_block(xs, flush)
         if self.frame_kernel:
             self.state, (logits, valid) = ls_eend.ls_stream_block_fused(
-                self.model, self.state, xs, flush, self.n_slots, self._packed)
+                self.model, self.state, xs, flush, self.n_slots, self._packed,
+                enc_kernel=self.frame_kernel_enc)
             return self._probs(logits.transpose(0, 1)), valid
         step = fs_eend.fs_stream_step if self.kind == "fs" else ls_eend.ls_stream_step
         logits, valid = [], []
@@ -292,14 +297,22 @@ class BlockStreamingServer:
                         f"frames fed + block {self.block} > capacity {self.capacity}; "
                         f"raise `capacity` or reset_all() between calls")
                 self._frames_fed += self.block
-            self.state, logits = fs_eend.fs_blockstream_step(
-                self.model, self.state, xs, self.n_slots, enc_bypass=bool(flush),
-                h_mask=h_mask)
+        self.state, probs = self.block_step(self.state, xs, bool(flush), h_mask)
+        return probs
+
+    def block_step(self, state: dict, xs: torch.Tensor, flush: bool, h_mask):
+        """One block as a function of the state: (state, frames (n_lanes,
+        block, in_size) on the device, flush, h_mask or None) -> (new state,
+        probabilities with the silence slot dropped).  `process_block` runs
+        it; `serving/aot.py` exports it (once with flush, once without)."""
+        if self.kind == "fs":
+            state, logits = fs_eend.fs_blockstream_step(
+                self.model, state, xs, self.n_slots, enc_bypass=flush, h_mask=h_mask)
         else:
-            self.state, logits = ls_eend.ls_blockstream_step(
-                self.model, self.state, xs, self.n_slots, enc_bypass=bool(flush),
-                h_mask=h_mask, packed=self._packed)
-        return torch.sigmoid(logits[..., 1:])       # the silence slot dropped
+            state, logits = ls_eend.ls_blockstream_step(
+                self.model, state, xs, self.n_slots, enc_bypass=flush, h_mask=h_mask,
+                packed=self._packed)
+        return state, torch.sigmoid(logits[..., 1:])
 
     def blocks_consumed(self) -> int:
         return int(self.state["m"].max())

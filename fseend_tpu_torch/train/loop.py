@@ -86,7 +86,7 @@ def save_train_state(path, state: trainer_lib.TrainState, extra: dict) -> None:
 
 
 @torch.no_grad()
-def _load_weights(model, path) -> None:
+def load_weights(model, path) -> None:
     """A checkpoint's params (and model_state, when it has one) into
     `model` (any family); a file of bare params (no "params/" level) is
     accepted too."""
@@ -112,20 +112,23 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
                  seed: int = 777, early_stop_patience: int | None = None,
                  val_interval: int = 1, init_ckpt: str | None = None,
                  resume_from: str | None = None, on_the_fly: bool = False, mesh=None,
-                 log_every: int = 100, device=None):
+                 log_every: int = 100, limit_train_batches: int | None = None,
+                 limit_val_batches: int | None = None, device=None):
     """Returns (final TrainState, checkpoint dir).  The model is the family
     `task.model` names, `init_ls_eend`, `init_fs_eend` or `init_eend_eda`
     of `model_cfg`, on `device`, the card unless the caller names another.
     With `on_the_fly` the training items are fetched as dataset[(index,
     item seed)] (an `OnTheFlyDiarizationDataset` draws its random crop
-    from the seed)."""
+    from the seed).  `limit_train_batches` / `limit_val_batches` end an
+    epoch's training / validation after that many batches (the configs'
+    `debug:` section)."""
     if mesh is not None:
         raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A11)")
     device = ls_eend.resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = _INIT[task.model](model_cfg, gen, device=device)
     if init_ckpt:
-        _load_weights(model, init_ckpt)
+        load_weights(model, init_ckpt)
     state = trainer_lib.TrainState.create(model, tx)
     start_epoch = 0
     if resume_from:
@@ -133,7 +136,7 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
         # Noam schedule's position); a file without the port's opt_state
         # resumes with fresh moments
         extra = ckpt_lib.load_extra(resume_from)
-        _load_weights(model, resume_from)
+        load_weights(model, resume_from)
         if "opt_state/count" in ckpt_lib.load_flat(resume_from):
             state.opt_state = ckpt_lib.load_opt_state(resume_from, model, state.opt_state)
         state.step = int(extra.get("step", 0))
@@ -158,7 +161,9 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
             chunk_size=chunk_size, max_speakers=max_speakers, input_dim=input_dim,
             max_epochs=max_epochs, seed=seed, start_epoch=start_epoch,
             early_stop_patience=early_stop_patience, val_interval=val_interval,
-            on_the_fly=on_the_fly, log_every=log_every, preempt=preempt, device=device)
+            on_the_fly=on_the_fly, log_every=log_every,
+            limit_train_batches=limit_train_batches, limit_val_batches=limit_val_batches,
+            preempt=preempt, device=device)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -167,7 +172,7 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
 def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val_dataset,
                        batch_size, chunk_size, max_speakers, input_dim, max_epochs, seed,
                        start_epoch, early_stop_patience, val_interval, on_the_fly, log_every,
-                       preempt, device):
+                       limit_train_batches, limit_val_batches, preempt, device):
     train_step = trainer_lib.make_train_step(task, model_cfg, tx, device=device)
     eval_step = trainer_lib.make_eval_step(task, model_cfg)
 
@@ -201,6 +206,8 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
                 logger.log(state.step, {k: metrics[k] for k in
                                         ("pit_loss", "emb_loss", "tot_loss", "grad_norm")},
                            prefix="train/")
+            if limit_train_batches and n_steps >= limit_train_batches:
+                break
         dt = time.time() - t0
 
         val_der = None
@@ -211,6 +218,8 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
                 batch.pop("recs")
                 vms.append({k: float(v) for k, v in
                             eval_step(state, _to_device(batch, device)).items()})
+                if limit_val_batches and len(vms) >= limit_val_batches:
+                    break
             agg = trainer_lib.aggregate_metrics(vms)
             val_der = agg.get("DER", np.inf)
             logger.log(state.step, agg, prefix="val/")

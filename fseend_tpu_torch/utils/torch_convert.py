@@ -2,8 +2,8 @@
 `LSEEND` / `FSEEND`.
 
 The port's own copy of `fseend_tpu/utils/torch_convert.py`
-(`normalize_keys`, `ls_from_state_dict`, `fs_from_state_dict` and their
-helpers), so that a released reference checkpoint, or a committed golden,
+(`load_torch_ckpt`, `average_state_dicts`, `normalize_keys`,
+`ls_from_state_dict`, `fs_from_state_dict` and their helpers), so that a released reference checkpoint, or a committed golden,
 reaches the port without the JAX package.  The helpers build the JAX
 package's parameter pytree (numpy leaves, linear kernels (in, out));
 `utils/convert.py:{ls,fs}_params_from_jax` puts it on the module.  Accepts the "model." prefix and the legacy
@@ -16,6 +16,25 @@ import numpy as np
 
 from fseend_tpu_torch.models import fs_eend, ls_eend
 from fseend_tpu_torch.utils import convert
+
+
+def load_torch_ckpt(path: str) -> dict:
+    """A torch .ckpt/.pt/.pth file -> {name: np.ndarray}: a Lightning
+    {"state_dict": ...} is unwrapped and the keys normalized
+    (`normalize_keys`)."""
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+    return {k: v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+            for k, v in normalize_keys(sd).items()}
+
+
+def average_state_dicts(sds: list[dict]) -> dict:
+    """The uniform average of numpy state dicts (the reference's avg_ckpt),
+    in float64, cast back to the first dict's dtypes."""
+    return {k: np.mean([sd[k].astype(np.float64) for sd in sds], axis=0)
+            .astype(sds[0][k].dtype) for k in sds[0]}
 
 
 def normalize_keys(sd: dict) -> dict:

@@ -772,3 +772,67 @@ def test_native_flac_helper_builds_into_build():
         assert FL._rice_residual(FL._Bits(data), 64, 0, 4).tolist() == values
     finally:
         FL._nat = nat
+
+
+def test_custom_ops_on_cuda_match_their_cpu_implementation(cuda):
+    """`torch.ops.fseend_tpu_torch.retention_layer` (B4) and
+    `.cached_attention` (B7) on the card: the same bits as the direct
+    launch (the op's CUDA implementation is that launch, counted once),
+    within ATOL of the op's CPU implementation (the plain version), and
+    through `opcheck` (schema, fake implementation)."""
+    rng = np.random.default_rng(31)
+    B, T, D, H, L = 3, 32, 64, 4, 16
+    args = [torch.ones(H, device=cuda), _randn(rng, B, T, D, dev=cuda),
+            _randn(rng, D, 4 * D, scale=0.1, dev=cuda), _randn(rng, 4 * D, dev=cuda),
+            _randn(rng, D, D, scale=0.1, dev=cuda), _randn(rng, D, dev=cuda),
+            _randn(rng, B, H, D // H, D // H, dev=cuda),
+            _randn(rng, B, H, 1, 1, dev=cuda).abs() + 1, L]
+    n0 = RL.launches
+    got = RL.retention_layer_op(*args)
+    direct = RL._launch(args[0], args[1], RL.RetLayerWeights(*args[2:6]), args[6], args[7], L)
+    torch.cuda.synchronize()
+    assert RL.launches == n0 + 2
+    cpu = RL.retention_layer_op(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+    for g, d, c in zip(got, direct, cpu):
+        assert torch.equal(g, d)
+        torch.testing.assert_close(g.cpu(), c, atol=ATOL, rtol=1e-5)
+    torch.library.opcheck(RL.retention_layer_op, args)
+
+    q, k, v = (_randn(rng, 8, n, 64, dev=cuda) for n in (128, 512, 512))
+    start = torch.tensor([300], dtype=torch.int32, device=cuda)
+    n0 = CA.launches
+    got = CA.cached_attention_op(q, k, v, start)
+    direct = CA._launch(q, k, v, start, q.shape[0], 0, perlane=False)
+    torch.cuda.synchronize()
+    assert CA.launches == n0 + 2 and torch.equal(got, direct)
+    torch.testing.assert_close(got.cpu(), CA.cached_attention_op(q.cpu(), k.cpu(), v.cpu(),
+                                                                 start.cpu()), atol=ATOL, rtol=0)
+    torch.library.opcheck(CA.cached_attention_op, (q, k, v, start))
+
+
+def test_aot_artifact_on_cuda_launches_both_ops(cuda, tmp_path):
+    """An LS ("fused" route) and an FS (kernel route) blockwise server
+    exported on the card and reloaded: the live servers' bits, B4 and B7
+    launched by the artifact."""
+    from fseend_tpu_torch.serving.aot import AotBlockServer, save_server
+
+    rng = np.random.default_rng(32)
+    fcfg = fs_eend.FSEENDConfig(in_size=20, n_units=64, n_heads=4, enc_n_layers=2,
+                                dec_n_layers=1, enc_dim_feedforward=64,
+                                dec_dim_feedforward=64, conv_delay=2, max_nspks=3)
+    for kind, cfg, model, counter in (
+            ("ls", dataclasses.replace(CFG, chunk_size=8), _model(cuda), "RL"),
+            ("fs", fcfg, fs_eend.init_fs_eend(fcfg, torch.Generator().manual_seed(6),
+                                              device=cuda), "CA")):
+        live = BlockStreamingServer(kind=kind, cfg=cfg, model=model, n_lanes=B, n_slots=C,
+                                    block=8, capacity=64, device=cuda)
+        save_server(live, str(tmp_path / f"{kind}.npz"))
+        aot = AotBlockServer(str(tmp_path / f"{kind}.npz"))
+        mod = RL if counter == "RL" else CA
+        n0 = mod.launches
+        for i in range(3):
+            x = _randn(rng, B, 8, cfg.in_size, dev=cuda)
+            assert torch.equal(aot.process_block(x), live.process_block(x))
+        z = torch.zeros(B, 8, cfg.in_size, device=cuda)
+        assert torch.equal(aot.process_block(z, flush=True), live.process_block(z, flush=True))
+        assert mod.launches > n0

@@ -199,7 +199,8 @@ def test_port_imports_without_jax():
                                                        "fseend_tpu_torch.")]
         for n in names:
             importlib.import_module(n)
-        bad = [m for m in sys.modules if m == "fseend_tpu" or m.startswith("fseend_tpu.")]
+        bad = [m for m in sys.modules if m in ("fseend_tpu", "cli")
+               or m.startswith(("fseend_tpu.", "cli."))]
         assert not bad, bad
         for n in ("serving.runtime", "kernels.chunk_retention", "kernels.retention_layer",
                   "kernels.dec_train_fusion", "kernels.cached_attention", "utils.checkpoint",
@@ -209,11 +210,14 @@ def test_port_imports_without_jax():
                   "data.flac", "data._native", "ops.features", "ops.features_tpu",
                   "ops.enhancement", "serving.raw_audio", "models.eend_eda",
                   "serving.flex_stb", "utils.rttm", "utils.metrics", "utils.postprocess",
-                  "utils.config", "train.aux_utils"):
+                  "utils.config", "train.aux_utils", "utils.profiling", "serving.aot",
+                  "cli", "cli.common", "cli.train", "cli.infer", "cli.streaming_infer",
+                  "cli.serve", "cli.score", "cli.sad_postprocess", "cli.stb_eval",
+                  "cli.convert", "cli.export"):
             assert "fseend_tpu_torch." + n in names, (n, names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 34
+    assert int(out.stdout.strip()) >= 58
