@@ -10,7 +10,9 @@ blockwise server, the batch pass against the reference), FS-EEND training
 a Kaldi data directory), raw-audio serving (the device front end before
 both blockwise servers) and EEND-EDA (its train step, the epoch loop on a
 Kaldi data directory, FLEX-STB block streaming and the DER of what it
-streams), and times the kernels, the servers and the steps.
+streams) and LS-EEND serving in bf16 (the bf16 forms of both frame scans
+and of the retention layer), and times the kernels, the servers and the
+steps.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
@@ -30,7 +32,7 @@ streams), and times the kernels, the servers and the steps.
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
   2. build: the seven CUDA sources (eight kernels) with nvcc into build/,
-     all started together
+     and the bf16 forms of three of them (FS_BF16), all started together
   3. frame-scan kernels vs plain: B=128 lanes, K=64 frames, C=10 slots, the
      full LSEENDConfig(); random weights from a seed with non-trivial
      BatchNorm statistics; non-zero incoming state; staggered per-lane
@@ -93,6 +95,30 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      fusion-layer forward and backward (the same bits) and both chunkwise
      kernels at each of their main-path shapes against this tree's
      (earlier, this, this, earlier)
+ H1. bf16 kernels vs plain at production width, on the bf16 servers' own
+     calls: both frame scans on a 128-lane per-frame server's K 128 block
+     (staggered clocks, lanes flushing part-way) and its step() (K 1); the
+     retention layer on a 128-lane blockwise server's decoder (1280, 128,
+     256) and encoder (128, 128, 256) calls from a carried state; each
+     output and state leaf against its bf16 plain version and, on the same
+     values, its float32 plain version (`bf16_guard`: the JAX package's
+     drift rule, not a float32 computation, and on the one-frame calls and
+     the retention layer closer to bf16 plain than half its distance from
+     float32, over the mean); every state bf16
+ H2. bf16 servers, the launch counts from 0 just before: the per-frame
+     server over 128 lanes x 16 blocks of 128 frames (2,048 a lane; both
+     frame scans 16 launches), the same bits on a second server, probabilities
+     within 0.1 of the float32 server, its state bf16 and finite after every
+     block, its first two blocks against its own plain route by the drift
+     rule; a step() sequence of 300 frames (300 launches each) whose counts
+     stop at 256 as the JAX package's do; the blockwise server over 16
+     blocks and the flush (the retention layer 6 a block, 2 on the flush)
+     against the float32 server and, over two blocks, its plain route
+ H3. bf16 against float32 in turns on one card: both servers' blocks and
+     step(); the stream state's bytes in both dtypes; each bf16 kernel at
+     its main-path shape beside its bf16 plain version and its bound (bf16
+     bytes over 3.35 TB/s or operations over the bf16 peak, 989 TFLOP/s),
+     both frame scans also at step()'s K 1
  12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
      cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
      cached_attention_perlane at R 256 and 1536, K 125, 128, 129 and 1,
@@ -195,8 +221,8 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      (written as .ckpt with torch.save) to .npz; cli.infer on the .ckpt and
      on the .npz: the same weights, probabilities and RTTM, bit for bit
  29. C5, cli.export of the LS server (ls_infer.yaml, C1's model, 128 lanes,
-     block 128) and the FS one (C3's config, 64 lanes, block 128, capacity
-     2048); AotBlockServer in a fresh child that imports no model, config
+     block 128), in float32 and in bf16 (--dtype bf16), and the FS one (C3's
+     config, 64 lanes, block 128, capacity 2048); AotBlockServer in a fresh child that imports no model, config
      or checkpoint module: three blocks and a flush the live
      BlockStreamingServer's bits, retention_layer / cached_attention
      launched by the artifact; a block timed in the child and here
@@ -209,9 +235,11 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      Each C phase logs the kernels its path launched (a child's counts
      printed by the child).
 
-The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
-the timing lines come before it.  E1-E3 launch none of the port's kernels
-(the JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout, TF32 off.  Every
+The last line is {"ok": true, "device": {...}}; the kernels' JSON line
+(eleven entries: the eight kernels and the bf16 forms of three) and the
+timing lines come before it.  E1-E3 launch none of the port's kernels (the
+JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout
+but H1-H3 and C5's bf16 artifact, TF32 off.  Every
 kernel but the per-lane cached attention at K = 1 runs its products on the
 tensor cores, and every kernel is held within 1e-4 of its plain version
 (the fusion layer's forward on y, its backward on dx, the chunkwise kernels
@@ -305,6 +333,7 @@ EDA_COLLAR_S = 0.5
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TC_PASSES = 3                      # 3xTF32: three TF32 products per float32 product
+PEAK_BF16_FLOPS = 989e12           # bf16 dense on the tensor cores (the bf16 forms)
 PEAK_BYTES = 3.35e12
 # the kernels whose products run on the tensor cores (csrc/tc_f32.cuh); the
 # per-lane cached attention's K = 1 calls run on the FMA pipe (bound by bytes)
@@ -347,10 +376,14 @@ def phase_build():
     t0 = time.perf_counter()
     src = parent_dir()
     procs = start_parent_build(src) if src else None
+    bf16 = {"FS_BF16": 1}
     secs = _build.build([("enc_frame_scan", DTF), ("dec_frame_scan", DTF),
                          ("chunk_retention", HEAD), ("retention_layer", HEAD),
                          ("dec_train_fusion_fwd", DTF), ("dec_train_fusion_bwd", DTF),
-                         ("cached_attention", {"CA_HD": FS_HD})],
+                         ("cached_attention", {"CA_HD": FS_HD}),
+                         ("enc_frame_scan", dict(DTF, **bf16)),
+                         ("dec_frame_scan", dict(DTF, **bf16)),
+                         ("retention_layer", dict(HEAD, **bf16))],
                         verbose=True)
     log(f"build: {secs:.1f} s")
     if procs:
@@ -1335,15 +1368,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def pipe_bounds(name, t_bytes, flops, tensor_cores=None):
+def pipe_bounds(name, t_bytes, flops, tensor_cores=None, bf16=False):
     """(bound_ms, bound_by, pipe, fma_bound_ms): the operations over the
     peak of the pipe the kernel's products run on -- the FMA pipe's float32
     peak, or for the kernels on the tensor cores (TENSOR_CORE_KERNELS, or
     `tensor_cores` where given) the TF32 peak over the three passes of a
-    float32-exact product -- against the bytes; fma_bound_ms is the
-    operations over the FMA pipe's peak."""
+    float32-exact product, or for a bf16 form the bf16 peak -- against the
+    bytes; fma_bound_ms is the operations over the FMA pipe's peak."""
     fma = flops / PEAK_F32_FLOPS * 1e3
-    if name in TENSOR_CORE_KERNELS if tensor_cores is None else tensor_cores:
+    if bf16:
+        t_ops, pipe = flops / PEAK_BF16_FLOPS * 1e3, "tensor cores (bf16)"
+    elif name in TENSOR_CORE_KERNELS if tensor_cores is None else tensor_cores:
         t_ops, pipe = flops * TC_PASSES / PEAK_TF32_FLOPS * 1e3, "tensor cores (3xTF32)"
     else:
         t_ops, pipe = fma, "FMA (float32)"
@@ -1368,13 +1403,17 @@ def kernel_bound(name, args, cfg):
     fma_bound_ms): the bound is the larger of the bytes the call must move
     (each input read once, each output written once) over HBM bandwidth and
     its float32 operations (the matrix products; the elementwise work is of
-    lower order) over the peak of its pipe (`pipe_bounds`).  Design bytes
-    are what this kernel's design moves."""
+    lower order) over the peak of its pipe (`pipe_bounds`; a bf16 call's at
+    the bf16 peak, its bytes at 2-byte widths).  Design bytes are what this
+    kernel's design moves."""
     if name.startswith("cached_attention"):
         return attention_bound(name, args)
     tensors = [a for a in args if torch.is_tensor(a)]
     weights = [t for a in args if isinstance(a, tuple) for t in a]
     nbytes = sum(t.numel() * t.element_size() for t in tensors + weights)
+    data = args[1] if name == "retention_layer" else args[0]
+    bf16 = data.dtype == torch.bfloat16
+    es = data.element_size()                   # the data's width: outputs and states
     D, H = cfg.n_units, cfg.n_heads
     dk = D // H
     if name == "enc_frame_scan":
@@ -1385,7 +1424,7 @@ def kernel_bound(name, args, cfg):
         per = 8 * D * Fh + 16 * D * D + 4 * D * dk + 2 * kc * D
         flops = B * K * L * per
         state = args[3:6]
-        nbytes += args[0].numel() * 4 + sum(t.numel() * 4 for t in state)  # h out + state out
+        nbytes += args[0].numel() * es + sum(t.numel() * es for t in state)  # h + state out
     elif name == "dec_frame_scan":
         B, K, _ = args[0].shape
         C = args[3].shape[0]
@@ -1394,7 +1433,7 @@ def kernel_bound(name, args, cfg):
         per_row = 18 * D * D + 4 * D * Fh + 4 * D * dk + 4 * C * D
         flops = B * K * (L * C * per_row + 4 * C * D)
         state = args[5:7]
-        nbytes += B * K * C * 4 + sum(t.numel() * 4 for t in state)  # logits + state out
+        nbytes += B * K * C * 4 + sum(t.numel() * es for t in state)  # logits + state out
     elif name == "chunk_retention":
         # per row and frame: the causal half of q k^T and of (q k^T) v,
         # (L + 1)(dk + dv), the state read 2 dk dv and the state update 2 dk dv
@@ -1435,7 +1474,7 @@ def kernel_bound(name, args, cfg):
         dv = Fv // H
         flops = B * T * (2 * D * (2 * D + 2 * Fv) + 2 * Fv * D
                          + H * ((L + 1) * (dk + dv) + 4 * dk * dv))
-        nbytes += (x.numel() + kv0.numel() + s0.numel()) * 4         # y + state out
+        nbytes += (x.numel() + kv0.numel() + s0.numel()) * es        # y + state out
         # q | k | v | g written once and read by the core, g written again
         # and read again, and the core's own re-reads
         design = (nbytes + B * T * (2 * (2 * D + 2 * Fv) + 2 * Fv) * 4
@@ -1452,7 +1491,7 @@ def kernel_bound(name, args, cfg):
         # once per layer (in nbytes), and per layer and (lane, slot, frame)
         # row every workspace buffer written and read once: 35 D + 2 F floats
         design = nbytes + wbytes * -(-K // 128) + L * B * C * K * (35 * D + 2 * Fh) * 4
-    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops)
+    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops, bf16=bf16)
     return bound_ms, bound_by, flops, nbytes, design, pipe, fma_ms
 
 
@@ -3003,7 +3042,9 @@ def kernel_counts() -> dict:
     return {"enc_frame_scan": EFS.launches, "dec_frame_scan": DFS.launches,
             "chunk_retention": CR.launches, "retention_layer": RL.launches,
             "dec_train_fusion_fwd": DTF.fwd_launches, "dec_train_fusion_bwd": DTF.bwd_launches,
-            "cached_attention_perlane": CA.perlane_launches, "cached_attention": CA.launches}
+            "cached_attention_perlane": CA.perlane_launches, "cached_attention": CA.launches,
+            "enc_frame_scan_bf16": EFS.launches_bf16, "dec_frame_scan_bf16": DFS.launches_bf16,
+            "retention_layer_bf16": RL.launches_bf16}
 
 
 def reset_kernel_counts() -> None:
@@ -3016,6 +3057,8 @@ def reset_kernel_counts() -> None:
 
     for mod in (EFS, DFS, CR, RL, CA):
         mod.launches = 0
+    for mod in (EFS, DFS, RL):
+        mod.launches_bf16 = 0
     DTF.fwd_launches = DTF.bwd_launches = CA.perlane_launches = 0
 
 
@@ -3292,8 +3335,10 @@ print("KERNELS " + json.dumps(counts), flush=True)
 
 def phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card):
     """C5: cli.export of the LS server (configs/ls_infer.yaml, C1's model,
-    128 lanes, block 128) and of the FS one (C3's use_flash_attn copy of
-    configs/fs_infer.yaml, 64 lanes, block 128, capacity 2048);
+    128 lanes, block 128), in float32 and with --dtype bf16 (the retention
+    layer's bf16 form through its op), and of the FS one (C3's
+    use_flash_attn copy of configs/fs_infer.yaml, 64 lanes, block 128,
+    capacity 2048);
     AotBlockServer in a fresh child that imports no model, config or
     checkpoint module: three blocks and a flush the same bits as the live
     BlockStreamingServer's, retention_layer / cached_attention launched by
@@ -3301,13 +3346,15 @@ def phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card):
     from fseend_tpu_torch.cli import export
 
     line = {}
-    for kind, cfg, ckpt, lanes, cap, need, per_block in (
-            ("ls", ls_cfg, avg, LANES, 4096, "retention_layer", 6),
-            ("fs", fs_cfg, None, FS_LANES, FS_CAP, "cached_attention", 4)):
-        path, frames, probs = (work / f"c5_{kind}_{n}" for n in ("srv.npz", "frames.npy",
+    for kind, cfg, ckpt, lanes, cap, need, per_block, dtype in (
+            ("ls", ls_cfg, avg, LANES, 4096, "retention_layer", 6, "f32"),
+            ("ls", ls_cfg, avg, LANES, 4096, "retention_layer_bf16", 6, "bf16"),
+            ("fs", fs_cfg, None, FS_LANES, FS_CAP, "cached_attention", 4, "f32")):
+        name = kind if dtype == "f32" else f"{kind}_{dtype}"
+        path, frames, probs = (work / f"c5_{name}_{n}" for n in ("srv.npz", "frames.npy",
                                                                   "probs.npy"))
         args = ["--configs", cfg, "--out", path, "--lanes", lanes, "--block", BLOCK,
-                "--capacity", cap] + (["--ckpt", ckpt] if ckpt else [])
+                "--capacity", cap, "--dtype", dtype] + (["--ckpt", ckpt] if ckpt else [])
         t0 = time.perf_counter()
         srv = export.main([str(a) for a in args])
         export_s = time.perf_counter() - t0
@@ -3315,21 +3362,22 @@ def phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card):
                              dtype=torch.float32, device="cuda")
         np.save(frames, xs.cpu().numpy())
         out, counts = run_child(AOT_CHILD.format(path=str(path), frames=str(frames),
-                                                 probs=str(probs)), f"C5 AotBlockServer {kind}")
+                                                 probs=str(probs)), f"C5 AotBlockServer {name}")
         live = [srv.process_block(xs[:, s:s + BLOCK]) for s in range(0, 3 * BLOCK, BLOCK)]
         live.append(srv.process_block(torch.zeros_like(xs[:, :BLOCK]), flush=True))
         live = torch.stack(live).cpu().numpy()
         if not np.array_equal(np.load(probs), live):
-            raise AssertionError(f"C5 {kind}: the artifact's probabilities differ from the "
+            raise AssertionError(f"C5 {name}: the artifact's probabilities differ from the "
                                  f"live server's by {np.abs(np.load(probs) - live).max():.3e}")
         if counts[need] < 3 * per_block:
-            raise AssertionError(f"C5 {kind}: the artifact launched {counts}")
+            raise AssertionError(f"C5 {name}: the artifact launched {counts}")
         srv.reset_all()
         srv.process_block(xs[:, :BLOCK])
         live_ms = cuda_ms(lambda: [srv.process_block(xs[:, s:s + BLOCK])
                                    for s in range(0, 3 * BLOCK, BLOCK)], reps=1) / 3
         aot_ms = json.loads([ln for ln in out.splitlines() if ln.startswith("AOT ")][-1][4:])
-        line[kind] = {"lanes": lanes, "block": BLOCK, "capacity": cap if kind == "fs" else None,
+        line[name] = {"lanes": lanes, "block": BLOCK, "capacity": cap if kind == "fs" else None,
+                      "dtype": dtype,
                       "artifact_mb": path.stat().st_size / 1e6, "export_s": export_s,
                       "same_bits_as_live": True, "aot_block_ms": aot_ms["block_ms"],
                       "live_block_ms": live_ms, "launches_in_child": launched(counts)}
@@ -3566,6 +3614,337 @@ def one_pass_control(card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# H1-H3: LS-EEND serving in bf16 (B1, B2 and B4's bf16 forms)
+# ---------------------------------------------------------------------------
+
+BF16_KERNELS = ("enc_frame_scan_bf16", "dec_frame_scan_bf16", "retention_layer_bf16")
+# H2: the per-frame server over 16 blocks of 128 frames a lane (2,048
+# frames), its plain route over the first BF16_PLAIN_BLOCKS; the blockwise
+# server over 16 blocks and the flush, its plain route over the first
+# BF16_PLAIN_BLOCKS; a step() sequence past bf16's exact integers (256)
+BF16_BLOCKS, BF16_PLAIN_BLOCKS, BF16_STEPS = 16, 2, 300
+# served probabilities in bf16 against float32 (tests/test_serving.py:165-183)
+BF16_PROB_ATOL = 0.1
+
+
+def to_f32(args):
+    def up(a):
+        if isinstance(a, tuple):
+            return type(a)(*(t.float() for t in a))
+        return a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+    return [up(a) for a in args]
+
+
+def bf16_guard(label, got, want16, want32, close=0.5, bf16_form=True):
+    """A bf16 form's output against its bf16 plain version (want16) and the
+    float32 plain version on the same values (want32):
+      - the drift rule of the JAX package's bf16 test: max |got - want32| <=
+        3 max |want16 - want32| + 1e-3;
+      - with `bf16_form`, not a float32 path: mean |got - want32| >= 0.5
+        mean |want16 - want32| (a form that computed in float32 would sit
+        near want32);
+      - with a share `close` (None: not asked), closer to bf16 plain than
+        bf16 plain is to float32: mean |got - want16| <= close * mean
+        |want16 - want32|.
+    The closeness is over the mean, not the max: a stored bf16 value whose
+    rounding flips under another summation order moves by one ulp, where
+    the plain version's whole rounding error is at most half of one.  It is
+    0.5 for one-frame calls (step()) and the retention layer, and 0.8 for
+    the frame scans' 128-frame blocks, over which the recurrence compounds
+    such flips (their readings are about 0.4 to 0.6); a form that rounded
+    elsewhere than the plain version, or loaded or stored a bf16 value
+    wrongly, sits as far from bf16 plain as bf16 plain is from float32, or
+    farther.  Returns the max abs distance from bf16 plain."""
+    g, w16, w32 = (t.float() for t in (got, want16, want32))
+    if g.shape != w32.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: shape {tuple(g.shape)} or non-finite values")
+    d_plain, d16, d32 = ((a - b).abs().max().item() for a, b in ((w16, w32), (g, w16), (g, w32)))
+    m_plain, m16, m32 = ((a - b).abs().mean().item() for a, b in ((w16, w32), (g, w16), (g, w32)))
+    log(f"  {label}: max abs from bf16 plain {d16:.3e}, from float32 {d32:.3e}, bf16 plain "
+        f"from float32 {d_plain:.3e}; means {m16:.3e}, {m32:.3e}, {m_plain:.3e}")
+    if not d32 <= 3 * d_plain + 1e-3:
+        raise AssertionError(f"{label}: {d32:.3e} from float32 breaks the drift rule "
+                             f"({3 * d_plain + 1e-3:.3e})")
+    if bf16_form and not m32 >= 0.5 * m_plain:
+        raise AssertionError(f"{label}: mean {m32:.3e} from float32, closer than half of bf16 "
+                             f"plain's {m_plain:.3e}: a float32 computation")
+    if close is not None and not m16 <= close * m_plain:
+        raise AssertionError(f"{label}: mean {m16:.3e} from bf16 plain, more than {close} of "
+                             f"bf16 plain's {m_plain:.3e} from float32")
+    return d16
+
+
+def bf16_kernel_vs_plain(name, args, kw, leaves, label, close):
+    """One captured bf16 call: the kernel, its bf16 plain version and its
+    float32 plain version on the same values, each on clones; every output
+    leaf (the result and the state it updates in place) through bf16_guard."""
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
+    from fseend_tpu_torch.kernels import retention_layer as RL
+
+    mod = {"enc_frame_scan": EFS, "dec_frame_scan": DFS, "retention_layer": RL}[name]
+    kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    outs = []
+    for fn, a in ((kern, clone_args(args)), (plain, clone_args(args)),
+                  (plain, to_f32(clone_args(args)))):
+        with torch.no_grad():
+            y = fn(*a, **kw)
+        torch.cuda.synchronize()
+        if name == "retention_layer":
+            outs.append(list(y))
+        else:
+            state = [t for t in a if torch.is_tensor(t)][-(len(leaves) - 1):]
+            outs.append([y] + state)
+    if any(t.dtype != torch.bfloat16 for t in outs[0][1:]):
+        raise AssertionError(f"{name}: the bf16 form left a state that is not bf16")
+    worst = 0.0
+    for i, leaf in enumerate(leaves):
+        worst = max(worst, bf16_guard(f"{name} bf16 [{label}].{leaf}", outs[0][i], outs[1][i],
+                                      outs[2][i], close))
+    return worst
+
+
+def state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def check_bf16_state(label, state):
+    for key, t in state.items():
+        if t.is_floating_point() and (t.dtype != torch.bfloat16 or
+                                      not torch.isfinite(t.float()).all()):
+            raise AssertionError(f"{label}: state {key} is {t.dtype} or not finite")
+
+
+def phase_bf16_kernels(cfg, model, rng):
+    """H1: the bf16 forms at production width on the bf16 servers' own calls:
+    B1 and B2 on a per-frame server's process_block (128 lanes, K 128, from a
+    non-zero state) and step() (K 1); B4 on a blockwise server's decoder
+    (1280, 128, 256) and encoder (128, 128, 256) calls; each against its bf16
+    plain version and, on the same values, its float32 plain version
+    (`bf16_guard`).  Returns the largest distance from bf16 plain of each."""
+    from fseend_tpu_torch.kernels import retention_layer as RL
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
+
+    bf = torch.bfloat16
+    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+    srv = StreamingServer(kind="ls", cfg=cfg, model=model, n_lanes=LANES, n_slots=SLOTS,
+                          dtype=bf, device="cuda")
+    xs = torch.as_tensor(rng.standard_normal((LANES, TIME_K, cfg.in_size)),
+                         dtype=torch.float32, device="cuda")
+    srv.process_block(xs)                                  # a non-zero state
+    srv.state["t"][::3] = 0                                # valid flips mid-block on some lanes
+    fl = np.zeros((LANES, TIME_K), bool)
+    fl[1::4, 90:] = True                                   # lanes that flush part-way
+    got = {"K 128": capture_kernel_inputs(lambda: srv.process_block(xs.flip(1), fl)),
+           "step() K 1": capture_kernel_inputs(lambda: srv.step(xs[:, 0]))}
+    for label, calls in got.items():
+        for name, leaves in FRAME_SCAN_LEAVES.items():
+            args, kw = calls[name]
+            errs[name + "_bf16"] = max(errs[name + "_bf16"], bf16_kernel_vs_plain(
+                name, args, kw, leaves, f"B={LANES} {label}",
+                close=0.5 if label.startswith("step()") else 0.8))
+    del srv, got
+    bsrv = BlockStreamingServer(kind="ls", cfg=cfg, model=model, n_lanes=LANES, n_slots=SLOTS,
+                                block=BLOCK, dtype=bf, device="cuda")
+    bsrv.process_block(xs)
+    bsrv.process_block(xs.flip(1))                         # carried decoder state
+    calls = capture_kernel_inputs(lambda: bsrv.process_block(xs),
+                                  [(RL, "retention_layer")],
+                                  key=lambda name, args: tuple(args[1].shape))
+    shapes = sorted(calls, key=lambda s: -s[0])
+    for shape in shapes:
+        args, kw = calls[shape]
+        errs["retention_layer_bf16"] = max(errs["retention_layer_bf16"], bf16_kernel_vs_plain(
+            "retention_layer", args, kw, ("y", "kv", "scale"), f"{shape}", close=0.5))
+    del bsrv
+    return errs, {"retention_layer": calls[shapes[0]], "retention_layer_enc": calls[shapes[-1]]}
+
+
+def phase_bf16_serve(cfg, model, rng):
+    """H2: the bf16 servers on their main paths, the launch counts set to 0
+    just before and read just after.  Per-frame: 128 lanes x 16 blocks of
+    128 frames (2,048 frames a lane) against the float32 server (probabilities
+    within 0.1) and, over the first two blocks, against its own plain route
+    (bf16 `ls_stream_step`) by the drift rule from float32; the state bf16 and
+    finite after every block; then a step() sequence of 300 frames whose
+    retention counts stop at 256, bf16's last exact integer, as the JAX
+    package's do.  Blockwise: 128 lanes x 16 blocks of 128 and the flush on
+    the "fused" route against the float32 server and, over the first two
+    blocks, its plain route.  Returns the launches and the main-path inputs
+    of each bf16 kernel."""
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
+    from fseend_tpu_torch.kernels import retention_layer as RL
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
+
+    bf = torch.bfloat16
+    xs = torch.as_tensor(rng.standard_normal((LANES, BF16_BLOCKS * TIME_K, cfg.in_size)),
+                         dtype=torch.float32, device="cuda")
+    blocks = [xs[:, s:s + TIME_K] for s in range(0, xs.shape[1], TIME_K)]
+
+    def per_frame(dtype, frame_kernel=True):
+        return StreamingServer(kind="ls", cfg=cfg, model=model, n_lanes=LANES, n_slots=SLOTS,
+                               dtype=dtype, device="cuda", frame_kernel=frame_kernel)
+
+    srv, ref, plain = per_frame(bf), per_frame(torch.float32), per_frame(bf, False)
+    launches, worst, worst_plain = {}, 0.0, 0.0
+    outs = []
+
+    def run():
+        for b in blocks:
+            outs.append(srv.process_block(b)[0])
+
+    EFS.launches_bf16 = DFS.launches_bf16 = 0
+    t0 = time.perf_counter()
+    main = capture_kernel_inputs(run)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["enc_frame_scan_bf16"], launches["dec_frame_scan_bf16"] = (EFS.launches_bf16,
+                                                                        DFS.launches_bf16)
+    log(f"H2 per-frame bf16 server: {LANES} lanes x {len(blocks)} blocks of {TIME_K}, "
+        f"{secs:.2f} s; launches {launches}")
+    for name, n in launches.items():
+        if n != len(blocks):
+            raise AssertionError(f"{name} launched {n} times on the bf16 main path")
+    # the same blocks again on the float32 and plain bf16 servers, with the
+    # bf16 server replayed block by block to check its state after each
+    srv2 = per_frame(bf)
+    for i, b in enumerate(blocks):
+        p16 = srv2.process_block(b)[0]
+        if not torch.equal(p16, outs[i]):
+            raise AssertionError(f"H2 per-frame: block {i} not the same bits on a second server")
+        check_bf16_state(f"H2 per-frame block {i}", srv2.state)
+        p32 = ref.process_block(b)[0]
+        worst = max(worst, (p16 - p32).abs().max().item())
+        if i < BF16_PLAIN_BLOCKS:
+            pp = plain.process_block(b)[0]
+            worst_plain = max(worst_plain, bf16_guard(f"H2 per-frame block {i} probs vs plain "
+                                                      f"route", p16, pp, p32, None, False))
+    log(f"  per-frame bf16 vs float32 server over {xs.shape[1]} frames a lane: max abs diff "
+        f"{worst:.3e} (tol {BF16_PROB_ATOL})")
+    if not worst <= BF16_PROB_ATOL:
+        raise AssertionError(f"H2 per-frame bf16 server differs from float32 by {worst}")
+    del srv2, plain
+    # step(): K = 1 blocks (B2's bf16 CUDA graph) past 256 frames
+    stp, stp32 = per_frame(bf), per_frame(torch.float32)
+    EFS.launches_bf16 = DFS.launches_bf16 = 0
+    worst = 0.0
+    for k in range(BF16_STEPS):
+        p16, _ = stp.step(xs[:, k % xs.shape[1]])
+        p32, _ = stp32.step(xs[:, k % xs.shape[1]])
+        worst = max(worst, (p16 - p32).abs().max().item())
+    torch.cuda.synchronize()
+    counts = {key: stp.state[key].float().max().item() for key in ("enc_scale", "dec_scale")}
+    log(f"  step() x {BF16_STEPS}: launches enc {EFS.launches_bf16} dec {DFS.launches_bf16}; "
+        f"probs vs float32 max abs diff {worst:.3e}; counts {counts} (float32 "
+        f"{ {k: stp32.state[k].max().item() for k in counts} })")
+    if (EFS.launches_bf16, DFS.launches_bf16) != (BF16_STEPS, BF16_STEPS) or \
+            not worst <= BF16_PROB_ATOL or counts != {"enc_scale": 256.0, "dec_scale": 256.0}:
+        raise AssertionError("H2 step(): launches, probabilities or counts off")
+    check_bf16_state("H2 step()", stp.state)
+    del stp, stp32
+
+    def blockwise(dtype, kernel="fused"):
+        return BlockStreamingServer(kind="ls", cfg=dataclasses.replace(cfg, kernel=kernel),
+                                    model=model, n_lanes=LANES, n_slots=SLOTS, block=BLOCK,
+                                    dtype=dtype, device="cuda")
+
+    bsrv, bref, bplain = blockwise(bf), blockwise(torch.float32), blockwise(bf, "plain")
+    RL.launches_bf16 = 0
+    outs16 = [bsrv.process_block(b) for b in blocks]
+    outs16.append(bsrv.process_block(torch.zeros_like(blocks[0]), flush=True))
+    torch.cuda.synchronize()
+    launches["retention_layer_bf16"] = RL.launches_bf16
+    n_layers = cfg.enc_n_layers + cfg.dec_n_layers
+    want = len(blocks) * n_layers + cfg.dec_n_layers
+    log(f"H2 blockwise bf16 server: {LANES} lanes x {len(blocks)} blocks of {BLOCK} + flush; "
+        f"retention_layer_bf16 launches {RL.launches_bf16} (want {want})")
+    if RL.launches_bf16 != want:
+        raise AssertionError("retention_layer_bf16 launch count off on the bf16 main path")
+    check_bf16_state("H2 blockwise", bsrv.state)
+    worst = 0.0
+    for i, b in enumerate(blocks + [None]):
+        flush = b is None
+        b = torch.zeros_like(blocks[0]) if flush else b
+        p32 = bref.process_block(b, flush=flush)
+        if i:                                              # a lane's first emission is warm-up
+            worst = max(worst, (outs16[i] - p32).abs().max().item())
+        if 0 < i <= BF16_PLAIN_BLOCKS:
+            worst_plain = max(worst_plain, bf16_guard(
+                f"H2 blockwise block {i} probs vs plain route", outs16[i],
+                bplain.process_block(b), p32, None, False))
+        elif i == 0:
+            bplain.process_block(b)
+    log(f"  blockwise bf16 vs float32 over {len(blocks)} blocks and the flush: max abs diff "
+        f"{worst:.3e} (tol {BF16_PROB_ATOL})")
+    if not worst <= BF16_PROB_ATOL:
+        raise AssertionError(f"H2 blockwise bf16 server differs from float32 by {worst}")
+    return launches, main
+
+
+def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
+    """H3: in turns (float32, bf16, bf16, float32 on one card) the per-frame
+    server's process_block at 128 lanes x K 128 and its step(), the blockwise
+    server's block; each bf16 kernel at its main-path shape beside its bf16
+    plain version and its bound (bf16 bytes, bf16 tensor-core peak), B1 and
+    B2 also at step()'s K 1; the stream state's bytes in both dtypes.
+    Returns the kernels line's rows of the bf16 forms."""
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
+
+    xs = torch.as_tensor(rng.standard_normal((LANES, TIME_K, cfg.in_size)),
+                         dtype=torch.float32, device="cuda")
+    line = {}
+    for what, make in (
+            ("per-frame process_block", lambda dt: StreamingServer(
+                kind="ls", cfg=cfg, model=model, n_lanes=LANES, n_slots=SLOTS, dtype=dt,
+                device="cuda")),
+            ("blockwise process_block", lambda dt: BlockStreamingServer(
+                kind="ls", cfg=cfg, model=model, n_lanes=LANES, n_slots=SLOTS, block=BLOCK,
+                dtype=dt, device="cuda"))):
+        s32, s16 = make(torch.float32), make(torch.bfloat16)
+        for s in (s32, s16):
+            s.process_block(xs)
+        ms = []
+        for _ in range(2):
+            ms += [cuda_ms(lambda: s32.process_block(xs), 5), cuda_ms(lambda: s16.process_block(xs), 5),
+                   cuda_ms(lambda: s16.process_block(xs), 5), cuda_ms(lambda: s32.process_block(xs), 5)]
+        f32_ms, bf_ms = float(np.median(ms[0::4] + ms[3::4])), float(np.median(ms[1::4] + ms[2::4]))
+        line[what] = {"ms_in_turns": ms, "float32_ms": f32_ms, "bf16_ms": bf_ms,
+                      "float32_frames_per_s": LANES * TIME_K / (f32_ms / 1e3),
+                      "bf16_frames_per_s": LANES * TIME_K / (bf_ms / 1e3),
+                      "state_mb": {"float32": state_bytes(s32.state) / 1e6,
+                                   "bf16": state_bytes(s16.state) / 1e6}}
+        if what.startswith("per-frame"):
+            ms = []
+            for _ in range(3):
+                ms += [cuda_ms(lambda: s32.step(xs[:, 0]), 20), cuda_ms(lambda: s16.step(xs[:, 0]), 20),
+                       cuda_ms(lambda: s16.step(xs[:, 0]), 20), cuda_ms(lambda: s32.step(xs[:, 0]), 20)]
+            line["step()"] = {"ms_in_turns": ms, "float32_ms": float(np.median(ms[0::4] + ms[3::4])),
+                              "bf16_ms": float(np.median(ms[1::4] + ms[2::4]))}
+            step_got = capture_kernel_inputs(lambda: s16.step(xs[:, 0]))
+        del s32, s16
+    log(json.dumps({"bf16_vs_float32": line, "card": card}))
+    rows = {}
+    for mod, name in frame_scans():
+        args, kw = main[name]
+        rows[name + "_bf16"] = time_kernel(name, f"bf16 B={LANES} K={TIME_K}", getattr(mod, name),
+                                           getattr(mod, name + "_plain"), args, kw, cfg, card)
+        args, kw = step_got[name]
+        time_kernel(name, f"bf16 step() B={LANES} K=1", getattr(mod, name),
+                    getattr(mod, name + "_plain"), args, kw, cfg, card)
+    for key, label in (("retention_layer", "decoder"), ("retention_layer_enc", "encoder")):
+        args, kw = rl_calls[key]
+        _, kern, plain = chunk_kernels()["retention_layer"]
+        with torch.no_grad():                  # as the server calls it (its op)
+            row = time_kernel("retention_layer",
+                              f"bf16 {label} {tuple(args[1].shape)} L={args[-1]}", kern, plain,
+                              args, kw, cfg, card, plain_reps=3)
+        if label == "decoder":
+            rows["retention_layer_bf16"] = row
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -3596,6 +3975,12 @@ def main() -> int:
     rows = phase_times(cfg, model, rng, card, main_path_args)
     for name in FRAME_SCAN_LEAVES:
         errs[name] = max(errs[name], rows[name].pop("max_abs_err"))
+    bf16_errs, rl_calls = phase_bf16_kernels(cfg, model, rng)
+    bf16_launches, bf16_main = phase_bf16_serve(cfg, model, rng)
+    rows.update(phase_bf16_times(cfg, model, rng, card, bf16_main, rl_calls))
+    launches.update(bf16_launches)
+    errs.update(bf16_errs)
+    del bf16_main, rl_calls
     train_rows, train_errs = phase_train_times(cfg, card, train_calls)
     rows.update(train_rows)
     for name in dec_errs:
@@ -3645,6 +4030,12 @@ def main() -> int:
                                      "fseend_tpu/kernels/cached_attention_pallas.py:223"),
         "cached_attention": ("fseend_tpu_torch/kernels/csrc/cached_attention.cu",
                              "fseend_tpu/kernels/cached_attention_pallas.py:101"),
+        "enc_frame_scan_bf16": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
+                                "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),
+        "dec_frame_scan_bf16": ("fseend_tpu_torch/kernels/csrc/dec_frame_scan.cu",
+                                "fseend_tpu/kernels/dec_frame_scan_pallas.py:186"),
+        "retention_layer_bf16": ("fseend_tpu_torch/kernels/csrc/retention_layer.cu",
+                                 "fseend_tpu/kernels/retention_layer_pallas.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name]}

@@ -57,9 +57,26 @@
 // a warp's prefix over the chunk, not from one thread.  FINISH (B4): the
 // group norm over the head's dv values (eps 1e-6, non-affine) and the
 // silu(g) gate in the epilogue, written over g.
+//
+// The bf16 form (E = bf16, B4's, built with FS_BF16 by retention_layer.cu;
+// every float32 instantiation is the code above): q, k, v, the gate g and
+// the output, and the incoming and stored state (kv, scale) are bf16 in
+// device memory.  The scores q k^T are one bf16 tensor-core pass with
+// float32 accumulation (tc_bf16.cuh; each 16-deep step into a fresh
+// accumulator added on the FMA pipe); the rest of the core runs in float32
+// as the TPU kernel runs it (retention_layer_pallas.py:96-139: the masked
+// scores, S V, the cross read q KV and the state update take float32
+// operands there): 3xTF32 on the tensor cores, v and q read to float32.  The
+// state is carried in float32 within the call and rounded to bf16 once,
+// when it is stored (:63-64, :154-155).  The epilogue rounds the core's
+// output to bf16 before the group norm, the norm's output before the gate
+// and the gated value (:124-150).
 #pragma once
 
+#include <type_traits>
+
 #include "frame_scan_common.cuh"
+#include "tc_bf16.cuh"
 #include "tc_f32.cuh"
 
 namespace crt {
@@ -68,21 +85,24 @@ constexpr int kTile = 64;      // frames of a query tile and of a k/v tile
 constexpr int kThreads = 256;  // 8 warps
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Args {
+// E: the element type of q, k, v, out and the state (float32, or bf16)
+template <typename E>
+struct ArgsE {
   // q, k, v and out are matrices of B*T rows; the row of frame t of batch b
   // starts at p + (b*T + t)*ld, head h at column h*dk (h*dv for v and out)
-  const float *q, *k, *v;
+  const E *q, *k, *v;
   int ldq, ldk, ldv;
-  float* out;  // plain: the core's output.  FINISH: holds the gate g on
-  int ldo;     // entry and silu(g) * groupnorm(core output) on exit
+  E* out;   // plain: the core's output.  FINISH: holds the gate g on
+  int ldo;  // entry and silu(g) * groupnorm(core output) on exit
   const float* gamma;  // decay of row bh is gamma[bh % gmod]
   int gmod;
-  const float *kv0, *s0;  // (B*H, dk, dv), (B*H)
-  float *kvf, *sf;        // the new state, same shapes
-  // T > L only: (B*H, T/L, dk, dv) and (B*H, T/L) scratch
+  const E *kv0, *s0;  // (B*H, dk, dv), (B*H)
+  E *kvf, *sf;        // the new state, same shapes
+  // T > L only: (B*H, T/L, dk, dv) and (B*H, T/L) float32 scratch
   float *kvbuf, *cbuf;
   int H, T, L;
 };
+using Args = ArgsE<float>;
 
 // sum_{m < n} gamma^m over one warp (lanes stride over m, then a butterfly,
 // which leaves the same value in every lane)
@@ -108,6 +128,33 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, size_t l
   }
 }
 
+// the same from bf16 rows, read to float32 (plain loads, done when the
+// caller's next barrier is)
+template <int W, int LD = W + 4>
+__device__ __forceinline__ void load_rows(float* dst, const fs::bf16* src, size_t ld, int nrows,
+                                          int valid) {
+  constexpr int kC = W / 4;
+  for (int idx = threadIdx.x; idx < nrows * kC; idx += kThreads) {
+    const int r = idx / kC, c = (idx % kC) * 4;
+    const float4 x = r < valid ? fs::load4(src + (size_t)r * ld + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+  }
+}
+
+// nrows bf16 rows of width W (a multiple of 8) into a bf16 tile of row
+// stride LD elements by 16-byte cp.async; rows at or past `valid` are
+// zero-filled
+template <int W, int LD>
+__device__ __forceinline__ void load_rows_b16(fs::bf16* dst, const fs::bf16* src, size_t ld,
+                                              int nrows, int valid) {
+  constexpr int kC = W / 8;
+  for (int idx = threadIdx.x; idx < nrows * kC; idx += kThreads) {
+    const int r = idx / kC, c = (idx % kC) * 8;
+    const bool ok = r < valid;
+    tc::cp_async16(dst + r * LD + c, ok ? src + (size_t)r * ld + c : src, ok);
+  }
+}
+
 // Row strides.  A warp's fragment loads hit 32 distinct banks when a row
 // read as (lane % 4) + 4 (lane / 4) or 8 (lane % 4) + lane / 4 words in:
 // the q and k tiles of (c) (rows by lane / 4) and the v tile of (c) (rows 2
@@ -126,12 +173,16 @@ struct Tiles {
   static constexpr int kSStage = kTile * kSLdk + kTile * kSLdv;
   static constexpr int kStateFloats = 2 * kSStage;
   static_assert(4 * kComb <= kStage && DK * DV <= kStateFloats, "epilogue buffers");
+  // the bf16 form's q and k tiles in (c), bf16 elements: the 32-bit
+  // fragment reads of a warp (rows lane / 4, pairs lane % 4) hit 32 banks
+  static constexpr int kLdh = DK + 8;
+  static_assert(kTile * kLdh / 2 <= kTile * kLdk, "a bf16 tile in a float tile's place");
 };
 
 // ---- (a) U_m, or for a single chunk the new state ----
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads, 2) state_kernel(Args a, int N) {
+template <int DK, int DV, typename E>
+__global__ void __launch_bounds__(kThreads, 2) state_kernel(ArgsE<E> a, int N) {
   using S = Tiles<DK, DV>;
   constexpr int kMt = DK / 16, kItems = kMt * (DV / 16), kPer = (kItems + 7) / 8;
   extern __shared__ __align__(16) float sm[];
@@ -144,8 +195,8 @@ __global__ void __launch_bounds__(kThreads, 2) state_kernel(Args a, int N) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float lg = logf(a.gamma[bh % a.gmod]);  // gamma = 1: every decay term is exp(0) = 1
   const size_t row0 = (size_t)b * a.T + (size_t)n * L;
-  const float* kn = a.k + row0 * a.ldk + h * DK;
-  const float* vn = a.v + row0 * a.ldv + h * DV;
+  const E* kn = a.k + row0 * a.ldk + h * DK;
+  const E* vn = a.v + row0 * a.ldv + h * DV;
   const int ntile = (L + kTile - 1) / kTile;
 
   if (warp == 0) {
@@ -245,12 +296,12 @@ __global__ void __launch_bounds__(kThreads, 2) state_kernel(Args a, int N) {
     return;
   }
   const float cd = expf(lg * L);
-  const float* kv0 = a.kv0 + (size_t)bh * DK * DV;
-  float* kvf = a.kvf + (size_t)bh * DK * DV;
+  const E* kv0 = a.kv0 + (size_t)bh * DK * DV;
+  E* kvf = a.kvf + (size_t)bh * DK * DV;
   for (int i = threadIdx.x; i < DK * DV; i += kThreads) {
-    const float x = fmaf(kv0[i], cd, u[i]);
+    const float x = fmaf(fs::f32(kv0[i]), cd, u[i]);
     u[i] = x;
-    kvf[i] = x;
+    kvf[i] = fs::As<E>::from(x);
   }
   __syncthreads();
   for (int v = threadIdx.x; v < DV; v += kThreads) {
@@ -264,30 +315,34 @@ __global__ void __launch_bounds__(kThreads, 2) state_kernel(Args a, int N) {
     for (int v = lane; v < DV; v += 32) m = fmaxf(m, col[v]);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
-    if (lane == 0) a.sf[bh] = m;
+    if (lane == 0) a.sf[bh] = fs::As<E>::from(m);
   }
 }
 
 // ---- (b) the state before each chunk, in chunk order ----
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads) scan_kernel(Args a, int N) {
+template <int DK, int DV, typename E>
+__global__ void __launch_bounds__(kThreads) scan_kernel(ArgsE<E> a, int N) {
   constexpr int kE = DK * DV, kPerT = (kE + kThreads - 1) / kThreads;
   extern __shared__ __align__(16) float kv[];  // (DK, DV): this step's state
   __shared__ float col[DV];
   const int bh = blockIdx.x, lane = threadIdx.x & 31;
   const float cd = expf(logf(a.gamma[bh % a.gmod]) * a.L);
-  const float* kv0 = a.kv0 + (size_t)bh * kE;
+  const E* kv0 = a.kv0 + (size_t)bh * kE;
   float* buf = a.kvbuf + (size_t)bh * N * kE;
+  // the new state: in place for float32; bf16 takes it from U_{N-1}'s slot
+  // (free once read) and rounds it there at the end
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  float* fin = kF32 ? reinterpret_cast<float*>(a.kvf) + (size_t)bh * kE : buf + (size_t)(N - 1) * kE;
   float run[kPerT];
 #pragma unroll
   for (int r = 0; r < kPerT; ++r) {
     const int i = threadIdx.x + r * kThreads;
-    run[r] = i < kE ? kv0[i] : 0.f;
+    run[r] = i < kE ? fs::f32(kv0[i]) : 0.f;
   }
   for (int m = 0; m < N; ++m) {
     // slot m holds U_m; it becomes KV_{m+1} (the new state when m = N - 1)
-    float* dst = m + 1 < N ? buf + (size_t)m * kE : a.kvf + (size_t)bh * kE;
+    float* dst = m + 1 < N ? buf + (size_t)m * kE : fin;
 #pragma unroll
     for (int r = 0; r < kPerT; ++r) {
       const int i = threadIdx.x + r * kThreads;
@@ -313,10 +368,14 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a, int N) {
         if (m + 1 < N)
           a.cbuf[(size_t)bh * N + m] = c;
         else
-          a.sf[bh] = c;
+          a.sf[bh] = fs::As<E>::from(c);
       }
     }
     __syncthreads();  // col and kv are rewritten by the next step
+  }
+  if constexpr (!kF32) {  // each thread rounds the elements it wrote
+    E* kvf = a.kvf + (size_t)bh * kE;
+    for (int i = threadIdx.x; i < kE; i += kThreads) kvf[i] = fs::As<E>::from(fin[i]);
   }
 }
 
@@ -336,9 +395,11 @@ __device__ __forceinline__ void mma_into(float (&d)[4], const tc::FragA& a, cons
   }
 }
 
-template <int DK, int DV, bool FINISH>
-__global__ void __launch_bounds__(kThreads, 2) out_kernel(Args a, int nqt, int N) {
+template <int DK, int DV, bool FINISH, typename E>
+__global__ void __launch_bounds__(kThreads, 2) out_kernel(ArgsE<E> a, int nqt, int N) {
   using S = Tiles<DK, DV>;
+  using fs::bf16;
+  constexpr bool kF32 = std::is_same<E, float>::value;
   constexpr int kNv = DV / 8;  // accumulator tiles along dv
   extern __shared__ __align__(16) float sm[];
   __shared__ float rsv[kTile], idec[kTile];
@@ -355,15 +416,28 @@ __global__ void __launch_bounds__(kThreads, 2) out_kernel(Args a, int nqt, int N
   const int rw = warp & 3, hf = warp >> 2;
   const float lg = logf(a.gamma[bh % a.gmod]);
   const size_t row0 = (size_t)b * a.T + (size_t)n * L;
-  const float* kn = a.k + row0 * a.ldk + h * DK;
-  const float* vn = a.v + row0 * a.ldv + h * DV;
-  const float* kvn = n == 0 ? a.kv0 + (size_t)bh * DK * DV
-                            : a.kvbuf + ((size_t)bh * N + n - 1) * DK * DV;
-  const float cs = n == 0 ? a.s0[bh] : a.cbuf[(size_t)bh * N + n - 1];
+  const E* kn = a.k + row0 * a.ldk + h * DK;
+  const E* vn = a.v + row0 * a.ldv + h * DV;
+  const float cs = n == 0 ? fs::f32(a.s0[bh]) : a.cbuf[(size_t)bh * N + n - 1];
+  // the q and k tiles: float32 rows of stride kLdk, or bf16 rows of stride
+  // kLdh (in the same place) for the bf16 scores
+  const bf16* qh = reinterpret_cast<const bf16*>(qs);
 
-  load_rows<DK>(qs, a.q + (row0 + i0) * a.ldq + h * DK, a.ldq, kTile, L - i0);
-  load_rows<DV, S::kLdkv>(kvs, kvn, DV, DK, DK);
-  load_rows<DK>(st0, kn, a.ldk, kTile, L);
+  if constexpr (kF32) {
+    const float* kvn = n == 0 ? a.kv0 + (size_t)bh * DK * DV
+                              : a.kvbuf + ((size_t)bh * N + n - 1) * DK * DV;
+    load_rows<DK>(qs, a.q + (row0 + i0) * a.ldq + h * DK, a.ldq, kTile, L - i0);
+    load_rows<DV, S::kLdkv>(kvs, kvn, DV, DK, DK);
+    load_rows<DK>(st0, kn, a.ldk, kTile, L);
+  } else {
+    load_rows_b16<DK, S::kLdh>(reinterpret_cast<bf16*>(qs), a.q + (row0 + i0) * a.ldq + h * DK,
+                               a.ldq, kTile, L - i0);
+    if (n == 0)
+      load_rows<DV, S::kLdkv>(kvs, a.kv0 + (size_t)bh * DK * DV, DV, DK, DK);
+    else
+      load_rows<DV, S::kLdkv>(kvs, a.kvbuf + ((size_t)bh * N + n - 1) * DK * DV, DV, DK, DK);
+    load_rows_b16<DK, S::kLdh>(reinterpret_cast<bf16*>(st0), kn, a.ldk, kTile, L);
+  }
   load_rows<DV>(st0 + kTile * S::kLdk, vn, a.ldv, kTile, L);
   tc::cp_async_commit();
   if (warp == 0) {  // sv over the tile's rows: a prefix over the chunk
@@ -400,7 +474,13 @@ __global__ void __launch_bounds__(kThreads, 2) out_kernel(Args a, int nqt, int N
 #pragma unroll
     for (int kk = hf * DK / 16; kk < (hf + 1) * DK / 16; ++kk) {
       tc::FragA fa;
-      tc::load_a<FINISH>(fa, qw + kk * 8, S::kLdk);
+      if constexpr (kF32) {
+        tc::load_a<FINISH>(fa, qw + kk * 8, S::kLdk);
+      } else {  // q read to float32: the cross read's operands are float32
+        const bf16* p = qh + rw * 16 * S::kLdh + kk * 8;
+        tc::set_a<FINISH>(fa, fs::f32(p[g * S::kLdh + t]), fs::f32(p[(g + 8) * S::kLdh + t]),
+                          fs::f32(p[g * S::kLdh + t + 4]), fs::f32(p[(g + 8) * S::kLdh + t + 4]));
+      }
 #pragma unroll
       for (int c = 0; c < kNv; ++c) {
         tc::FragB fb;
@@ -425,7 +505,11 @@ __global__ void __launch_bounds__(kThreads, 2) out_kernel(Args a, int nqt, int N
     if (jt < it) {
       float* nx = st0 + ((jt + 1) & 1) * S::kStage;
       const int j0 = (jt + 1) * kTile;
-      load_rows<DK>(nx, kn + (size_t)j0 * a.ldk, a.ldk, kTile, L - j0);
+      if constexpr (kF32)
+        load_rows<DK>(nx, kn + (size_t)j0 * a.ldk, a.ldk, kTile, L - j0);
+      else
+        load_rows_b16<DK, S::kLdh>(reinterpret_cast<bf16*>(nx), kn + (size_t)j0 * a.ldk, a.ldk,
+                                   kTile, L - j0);
       load_rows<DV>(nx + kTile * S::kLdk, vn + (size_t)j0 * a.ldv, a.ldv, kTile, L - j0);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
@@ -442,15 +526,39 @@ __global__ void __launch_bounds__(kThreads, 2) out_kernel(Args a, int nqt, int N
       for (int c = 0; c < 4; ++c)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[c][e] = 0.f;
+      if constexpr (kF32) {
 #pragma unroll
-      for (int kk = 0; kk < DK / 8; ++kk) {
-        tc::FragA fa;
-        tc::load_a<FINISH>(fa, qw + kk * 8, S::kLdk);
+        for (int kk = 0; kk < DK / 8; ++kk) {
+          tc::FragA fa;
+          tc::load_a<FINISH>(fa, qw + kk * 8, S::kLdk);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          tc::FragB fb;
-          tc::load_b<FINISH>(fb, ks + c * 8 * S::kLdk + kk * 8, 1, S::kLdk);
-          mma_into<FINISH>(s[c], fa, fb);
+          for (int c = 0; c < 4; ++c) {
+            tc::FragB fb;
+            tc::load_b<FINISH>(fb, ks + c * 8 * S::kLdk + kk * 8, 1, S::kLdk);
+            mma_into<FINISH>(s[c], fa, fb);
+          }
+        }
+      } else {  // bf16 q k^T: A = the warp's 16 q rows, B(d, j) = k[j][d]
+        const bf16* qa = qh + (rw * 16 + g) * S::kLdh + 2 * t;
+        const bf16* kb = reinterpret_cast<const bf16*>(st0 + (jt & 1) * S::kStage) +
+                         (hf * 32 + g) * S::kLdh + 2 * t;
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk) {
+          uint32_t fa[4];
+          fa[0] = *reinterpret_cast<const uint32_t*>(qa + kk * 16);
+          fa[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * S::kLdh + kk * 16);
+          fa[2] = *reinterpret_cast<const uint32_t*>(qa + kk * 16 + 8);
+          fa[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * S::kLdh + kk * 16 + 8);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            uint32_t fb[2];
+            fb[0] = *reinterpret_cast<const uint32_t*>(kb + c * 8 * S::kLdh + kk * 16);
+            fb[1] = *reinterpret_cast<const uint32_t*>(kb + c * 8 * S::kLdh + kk * 16 + 8);
+            float p[4] = {0.f, 0.f, 0.f, 0.f};
+            tc::mma_bf16(p, fa, fb);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[c][e] += p[e];
+          }
         }
       }
 #pragma unroll
@@ -518,11 +626,11 @@ __global__ void __launch_bounds__(kThreads, 2) out_kernel(Args a, int nqt, int N
   }
   const float alla = fmaxf(fmaxf(suma, 1.f), cs), allb = fmaxf(fmaxf(sumb, 1.f), cs);
 #pragma unroll
-  for (int c = 0; c < kNv; ++c) {
-    acc[c][0] /= alla, acc[c][1] /= alla;
-    acc[c][2] /= allb, acc[c][3] /= allb;
+  for (int c = 0; c < kNv; ++c) {  // bf16: the core's output rounded (:124)
+    acc[c][0] = fs::rnd<E>(acc[c][0] / alla), acc[c][1] = fs::rnd<E>(acc[c][1] / alla);
+    acc[c][2] = fs::rnd<E>(acc[c][2] / allb), acc[c][3] = fs::rnd<E>(acc[c][3] / allb);
   }
-  float* on = a.out + row0 * a.ldo + h * DV + 2 * t;
+  E* on = a.out + row0 * a.ldo + h * DV + 2 * t;
   if (FINISH) {  // group norm over the head's dv values, eps 1e-6, then the gate
     float mua = 0.f, mub = 0.f;
 #pragma unroll
@@ -546,58 +654,54 @@ __global__ void __launch_bounds__(kThreads, 2) out_kernel(Args a, int nqt, int N
     }
     const float rsa = rsqrtf(vara / DV + 1e-6f), rsb = rsqrtf(varb / DV + 1e-6f);
 #pragma unroll
-    for (int c = 0; c < kNv; ++c) {
+    for (int c = 0; c < kNv; ++c) {  // bf16: the norm's output rounded, then the gated value
       if (ia < L) {
-        float2* p = reinterpret_cast<float2*>(on + (size_t)ia * a.ldo + c * 8);
-        const float2 gv = *p;
-        *p = make_float2(fs::silu(gv.x) * ((acc[c][0] - mua) * rsa),
-                         fs::silu(gv.y) * ((acc[c][1] - mua) * rsa));
+        E* p = on + (size_t)ia * a.ldo + c * 8;
+        const float2 gv = fs::load2(p);
+        fs::store2(p, fs::silu(gv.x) * fs::rnd<E>((acc[c][0] - mua) * rsa),
+                   fs::silu(gv.y) * fs::rnd<E>((acc[c][1] - mua) * rsa));
       }
       if (ib < L) {
-        float2* p = reinterpret_cast<float2*>(on + (size_t)ib * a.ldo + c * 8);
-        const float2 gv = *p;
-        *p = make_float2(fs::silu(gv.x) * ((acc[c][2] - mub) * rsb),
-                         fs::silu(gv.y) * ((acc[c][3] - mub) * rsb));
+        E* p = on + (size_t)ib * a.ldo + c * 8;
+        const float2 gv = fs::load2(p);
+        fs::store2(p, fs::silu(gv.x) * fs::rnd<E>((acc[c][2] - mub) * rsb),
+                   fs::silu(gv.y) * fs::rnd<E>((acc[c][3] - mub) * rsb));
       }
     }
   } else {
 #pragma unroll
     for (int c = 0; c < kNv; ++c) {
-      if (ia < L)
-        *reinterpret_cast<float2*>(on + (size_t)ia * a.ldo + c * 8) =
-            make_float2(acc[c][0], acc[c][1]);
-      if (ib < L)
-        *reinterpret_cast<float2*>(on + (size_t)ib * a.ldo + c * 8) =
-            make_float2(acc[c][2], acc[c][3]);
+      if (ia < L) fs::store2(on + (size_t)ia * a.ldo + c * 8, acc[c][0], acc[c][1]);
+      if (ib < L) fs::store2(on + (size_t)ib * a.ldo + c * 8, acc[c][2], acc[c][3]);
     }
   }
 }
 
 // (a), (b) when T > L, (c) on `stream` for `rows` (batch, head) rows;
 // returns the first CUDA error of the launches
-template <int DK, int DV, bool FINISH>
-inline int launch_core(const Args& a, int rows, cudaStream_t stream) {
+template <int DK, int DV, bool FINISH, typename E>
+inline int launch_core(const ArgsE<E>& a, int rows, cudaStream_t stream) {
   using S = Tiles<DK, DV>;
   const int N = a.T / a.L, nqt = (a.L + kTile - 1) / kTile;
   const int smem_a = (int)sizeof(float) * S::kStateFloats;
-  cudaError_t err = cudaFuncSetAttribute(state_kernel<DK, DV>,
+  cudaError_t err = cudaFuncSetAttribute(state_kernel<DK, DV, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
   if (err != cudaSuccess) return err;
-  state_kernel<DK, DV><<<rows * N, kThreads, smem_a, stream>>>(a, N);
+  state_kernel<DK, DV, E><<<rows * N, kThreads, smem_a, stream>>>(a, N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (N > 1) {
     const int smem_b = (int)sizeof(float) * DK * DV;
-    err = cudaFuncSetAttribute(scan_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_b);
+    err = cudaFuncSetAttribute(scan_kernel<DK, DV, E>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
     if (err != cudaSuccess) return err;
-    scan_kernel<DK, DV><<<rows, kThreads, smem_b, stream>>>(a, N);
+    scan_kernel<DK, DV, E><<<rows, kThreads, smem_b, stream>>>(a, N);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const int smem_c = (int)sizeof(float) * S::kOutFloats;
-  err = cudaFuncSetAttribute(out_kernel<DK, DV, FINISH>,
+  err = cudaFuncSetAttribute(out_kernel<DK, DV, FINISH, E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_c);
   if (err != cudaSuccess) return err;
-  out_kernel<DK, DV, FINISH><<<rows * N * nqt, kThreads, smem_c, stream>>>(a, nqt, N);
+  out_kernel<DK, DV, FINISH, E><<<rows * N * nqt, kThreads, smem_c, stream>>>(a, nqt, N);
   return cudaGetLastError();
 }
 

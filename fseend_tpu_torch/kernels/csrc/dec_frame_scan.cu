@@ -44,8 +44,29 @@
 //   logits_kernel      l2norm(x) . embn
 // The row kernels are the training fusion layer's (dec_train_fusion_common
 // .cuh) at dropout 0: their mask multiplier is exactly 1.
+//
+// The bf16 form (built with FS_BF16; the float32 build is the code above
+// unchanged): the weights, embp, embn, pe, the activations between layers
+// and the stored state (kv, s) are bf16; every product is one bf16
+// tensor-core pass with float32 accumulation (tc_bf16.cuh); the norms, the
+// softmax, the gate and the recurrence run in float32.  The data is rounded
+// to bf16 where the TPU kernel rounds it (dec_frame_scan_pallas.py:111,
+// 125, 132, 135, 138, 152, 157, 160, 163, 166): x = embp + pe, q | k | v |
+// g, the group norm's output and the gated value, each LN's output, the
+// slot attention's q | k | v, its products q k and p v and probabilities
+// and its output, the FFN's hidden layer; the out projections' and the
+// FFN's second product stay float32 into the residual add.  The state is
+// carried in float32 within a call (frame_ret.cuh).  The logits are float32.
+// Bound: 1.1 TFLOP a block at 128 lanes x 128 frames, 1.1 ms of the bf16
+// tensor cores.
 #include "frame_ret.cuh"
 #include "tc_f32.cuh"
+#ifdef FS_BF16
+#include "tc_bf16.cuh"
+using T = fs::bf16;
+#else
+using T = float;
+#endif
 
 using namespace dtf;
 using namespace frs;
@@ -54,31 +75,30 @@ namespace {
 
 struct DecWeights {
   // stacked over layers, (in, out) layouts:
-  const float *wqkvg, *bqkvg, *wro, *bro;  // (L, D, 4D), (L, 4D), (L, D, D), (L, D)
-  const float *wmi, *bmi, *wmo, *bmo;      // (L, D, 3D), (L, 3D), (L, D, D), (L, D)
-  const float *wf1, *bf1, *wf2, *bf2;      // (L, D, F), (L, F), (L, F, D), (L, D)
-  const float *lns, *lnb;                  // (L, 3, D): norm11, norm21, norm22
+  const T *wqkvg, *bqkvg, *wro, *bro;  // (L, D, 4D), (L, 4D), (L, D, D), (L, D)
+  const T *wmi, *bmi, *wmo, *bmo;      // (L, D, 3D), (L, 3D), (L, D, D), (L, D)
+  const T *wf1, *bf1, *wf2, *bf2;      // (L, D, F), (L, F), (L, F, D), (L, D)
+  const T *lns, *lnb;                  // (L, 3, D): norm11, norm21, norm22
 };
 constexpr int kNumWeights = 14;
 
 // x[(bc*Kc + k)*D + d] = embp[(b*Kt + k0 + k)*D + d] + pe[c*D + d]
-__global__ void x0_kernel(const float* __restrict__ embp, const float* __restrict__ pe,
-                          float* __restrict__ x, int C, int Kc, int Kt, int k0, long long n4) {
+__global__ void x0_kernel(const T* __restrict__ embp, const T* __restrict__ pe,
+                          T* __restrict__ x, int C, int Kc, int Kt, int k0, long long n4) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / (D / 4);
     const int d = (int)(i % (D / 4)) * 4;
     const int bc = (int)(r / Kc), k = (int)(r % Kc), b = bc / C, c = bc % C;
-    const float4 e = *reinterpret_cast<const float4*>(embp + ((size_t)b * Kt + k0 + k) * D + d);
-    const float4 p = *reinterpret_cast<const float4*>(pe + (size_t)c * D + d);
-    *reinterpret_cast<float4*>(x + r * D + d) =
-        make_float4(e.x + p.x, e.y + p.y, e.z + p.z, e.w + p.w);
+    const float4 e = fs::load4(embp + ((size_t)b * Kt + k0 + k) * D + d);
+    const float4 p = fs::load4(pe + (size_t)c * D + d);
+    fs::store4(x + r * D + d, make_float4(e.x + p.x, e.y + p.y, e.z + p.z, e.w + p.w));
   }
 }
 
 // logits[(b*Kt + k0 + k)*C + c] = (x_r / |x_r|) . embn[b, k0 + k], one warp per row
 __global__ void __launch_bounds__(256)
-logits_kernel(const float* __restrict__ x, const float* __restrict__ embn,
+logits_kernel(const T* __restrict__ x, const T* __restrict__ embn,
               float* __restrict__ logits, int C, int Kc, int Kt, int k0, long long R) {
   DTF_FOR_ROWS(r, R) {
     const int bc = (int)(r / Kc), k = (int)(r % Kc), b = bc / C, c = bc % C;
@@ -120,69 +140,81 @@ extern "C" size_t dec_frame_scan_workspace(int B, int K, int C, int L, int D_, i
 }
 
 // weights: kNumWeights device pointers in DecWeights order.  embp, embn (B,
-// K, D); valid (B, K); pe (C, D); logits (B, K, C); kv (L, B*C, H, dv, dk)
-// and s (L, B*C, H), updated in place; ws of dec_frame_scan_workspace
-// floats.  D and H are this build's (DTF_D, DTF_D / CR_DK).  Returns the
-// first CUDA error of the launches.
-extern "C" int dec_frame_scan_launch(const void* const* weights, const float* embp,
-                                     const float* embn, const float* valid, const float* pe,
-                                     float* logits, float* kv, float* s, float* ws, int B,
-                                     int K, int C, int L, int F, void* stream) {
+// K, D); valid (B, K) float32; pe (C, D); logits (B, K, C) float32; kv (L,
+// B*C, H, dv, dk) and s (L, B*C, H), updated in place; ws of
+// dec_frame_scan_workspace floats.  D and H are this build's (DTF_D, DTF_D /
+// CR_DK), the element type of the rest T (bf16 with FS_BF16, else float).
+// Returns the first CUDA error of the launches.
+extern "C" int dec_frame_scan_launch(const void* const* weights, const T* embp, const T* embn,
+                                     const float* valid, const T* pe, float* logits, T* kv,
+                                     T* s, float* ws, int B, int K, int C, int L, int F,
+                                     void* stream) {
   static_assert(sizeof(DecWeights) == kNumWeights * sizeof(void*), "DecWeights");
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   DecWeights w;
-  const float** dst = reinterpret_cast<const float**>(&w);
-  for (int i = 0; i < kNumWeights; ++i) dst[i] = static_cast<const float*>(weights[i]);
+  const T** dst = reinterpret_cast<const T**>(&w);
+  for (int i = 0; i < kNumWeights; ++i) dst[i] = static_cast<const T*>(weights[i]);
   Bufs bf;
   carve(ws, B, K, C, L, F, &bf);
   const int BC = B * C;
+#ifdef FS_BF16
+  // the TPU kernel scales the bf16 k by dk^-1/2 in bf16
+  const float kscale = __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt((double)DK))));
+#else
   const float kscale = (float)(1.0 / sqrt((double)DK));
+#endif
   const size_t kvl = (size_t)BC * H * DK * DK;  // one layer's state
   const size_t rsmem = sizeof(float) * ret_smem_floats();
   int err;
 #define DFS_TRY(call) \
   if ((err = (call)) != 0) return err
-  DFS_TRY(cudaFuncSetAttribute(ret_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)rsmem));
+  DFS_TRY(cudaFuncSetAttribute(ret_block_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rsmem));
+  // the workspace's row buffers: x0, x1 and big hold T; t1 and t2 hold a
+  // float32 product on its way into an add (a*) or T (h*)
+  T *x0 = reinterpret_cast<T*>(bf.x0), *x1 = reinterpret_cast<T*>(bf.x1);
+  T* big = reinterpret_cast<T*>(bf.big);
+  float *at1 = bf.t1, *at2 = bf.t2;
+  T *ht1 = reinterpret_cast<T*>(bf.t1), *ht2 = reinterpret_cast<T*>(bf.t2);
   for (int k0 = 0; k0 < K; k0 += kSlice) {
     const int Kc = K - k0 < kSlice ? K - k0 : kSlice;
     const long long R = (long long)BC * Kc;
     const Drop dp{0u, 0u, 1.f, C, Kc, Kc};  // no dropout: every multiplier is 1
-    s0_kernel<<<(L * BC + 255) / 256, 256, 0, st>>>(s, bf.s0, L * BC);
+    s0_kernel<T><<<(L * BC + 255) / 256, 256, 0, st>>>(s, bf.s0, L * BC);
     DFS_TRY(cudaGetLastError());
     const long long n4 = R * (D / 4);
-    x0_kernel<<<(int)lmin((n4 + 255) / 256, 132 * 16), 256, 0, st>>>(embp, pe, bf.x0, C, Kc,
-                                                                      K, k0, n4);
+    x0_kernel<<<(int)lmin((n4 + 255) / 256, 132 * 16), 256, 0, st>>>(embp, pe, x0, C, Kc, K, k0,
+                                                                      n4);
     DFS_TRY(cudaGetLastError());
-    float *x = bf.x0, *y = bf.x1;
+    T *x = x0, *y = x1;
     for (int l = 0; l < L; ++l) {
-      const float* lns = w.lns + (size_t)l * 3 * D;
-      const float* lnb = w.lnb + (size_t)l * 3 * D;
+      const T* lns = w.lns + (size_t)l * 3 * D;
+      const T* lnb = w.lnb + (size_t)l * 3 * D;
       DFS_TRY(tc::launch_linear(x, D, w.wqkvg + (size_t)l * D * 4 * D, 4 * D,
-                                w.bqkvg + (size_t)l * 4 * D, bf.big, 4 * D, (int)R, 4 * D, D,
-                                st, D, 2 * D, kscale, bf.part));
-      ret_block_kernel<<<BC * H, 256, rsmem, st>>>(bf.big, valid, bf.t1, kv + l * kvl,
-                                                   s + (size_t)l * BC * H, bf.s0 + l * BC, C,
-                                                   Kc, K, k0);
+                                w.bqkvg + (size_t)l * 4 * D, big, 4 * D, (int)R, 4 * D, D, st, D,
+                                2 * D, kscale, bf.part));
+      ret_block_kernel<T><<<BC * H, 256, rsmem, st>>>(big, valid, at1, kv + l * kvl,
+                                                      s + (size_t)l * BC * H, bf.s0 + l * BC, C,
+                                                      Kc, K, k0);
       DFS_TRY(cudaGetLastError());
-      DFS_TRY(gate_fwd(bf.t1, bf.big + 3 * D, 4 * D, bf.t2, R, st));
-      DFS_TRY(tc::launch_linear(bf.t2, D, w.wro + (size_t)l * D * D, D, w.bro + (size_t)l * D,
-                                bf.t1, D, (int)R, D, D, st, 0, 0, 1.f, bf.part));
-      DFS_TRY(add_drop_ln(x, bf.t1, lns, lnb, nullptr, y, R, dp, kRet, st));
+      DFS_TRY(gate_fwd(at1, big + 3 * D, 4 * D, ht2, R, st));
+      DFS_TRY(tc::launch_linear(ht2, D, w.wro + (size_t)l * D * D, D, w.bro + (size_t)l * D, at1,
+                                D, (int)R, D, D, st, 0, 0, 1.f, bf.part));
+      DFS_TRY(add_drop_ln(x, at1, lns, lnb, nullptr, y, R, dp, kRet, st));
       DFS_TRY(tc::launch_linear(y, D, w.wmi + (size_t)l * D * 3 * D, 3 * D,
-                                w.bmi + (size_t)l * 3 * D, bf.big, 3 * D, (int)R, 3 * D, D,
-                                st, 0, 0, 1.f, bf.part));
-      DFS_TRY(slot_attn(bf.big, nullptr, bf.t1, B, dp, false, st));
-      DFS_TRY(tc::launch_linear(bf.t1, D, w.wmo + (size_t)l * D * D, D, w.bmo + (size_t)l * D,
-                                bf.t2, D, (int)R, D, D, st, 0, 0, 1.f, bf.part));
-      DFS_TRY(add_drop_ln(y, bf.t2, lns + D, lnb + D, nullptr, x, R, dp, kMha, st));
+                                w.bmi + (size_t)l * 3 * D, big, 3 * D, (int)R, 3 * D, D, st, 0,
+                                0, 1.f, bf.part));
+      DFS_TRY(slot_attn(big, nullptr, ht1, B, dp, false, st));
+      DFS_TRY(tc::launch_linear(ht1, D, w.wmo + (size_t)l * D * D, D, w.bmo + (size_t)l * D, at2,
+                                D, (int)R, D, D, st, 0, 0, 1.f, bf.part));
+      DFS_TRY(add_drop_ln(y, at2, lns + D, lnb + D, nullptr, x, R, dp, kMha, st));
       DFS_TRY(tc::launch_linear<tc::kRelu>(x, D, w.wf1 + (size_t)l * D * F, F,
-                                           w.bf1 + (size_t)l * F, bf.big, F, (int)R, F, D,
-                                           st, 0, 0, 1.f, bf.part));
-      DFS_TRY(tc::launch_linear(bf.big, F, w.wf2 + (size_t)l * F * D, D, w.bf2 + (size_t)l * D,
-                                bf.t1, D, (int)R, D, F, st, 0, 0, 1.f, bf.part));
-      DFS_TRY(add_drop_ln(x, bf.t1, lns + 2 * D, lnb + 2 * D, nullptr, y, R, dp, kFfo, st));
-      float* tmp = x;
+                                           w.bf1 + (size_t)l * F, big, F, (int)R, F, D, st, 0, 0,
+                                           1.f, bf.part));
+      DFS_TRY(tc::launch_linear(big, F, w.wf2 + (size_t)l * F * D, D, w.bf2 + (size_t)l * D, at1,
+                                D, (int)R, D, F, st, 0, 0, 1.f, bf.part));
+      DFS_TRY(add_drop_ln(x, at1, lns + 2 * D, lnb + 2 * D, nullptr, y, R, dp, kFfo, st));
+      T* tmp = x;
       x = y;
       y = tmp;
     }

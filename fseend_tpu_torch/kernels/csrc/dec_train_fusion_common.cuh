@@ -14,10 +14,13 @@
 // of 4), so a head's DV columns are the G = DV/NV lanes of an aligned group
 // and its sums are shuffles inside the group.  D (DTF_D) and the head dims
 // (CR_DK = CR_DV) are compile-time.  The frame scans (dec_frame_scan.cu,
-// enc_frame_scan.cu) run the forward row kernels at dropout 0.
+// enc_frame_scan.cu) run the forward row kernels at dropout 0; their bf16
+// forms (built with FS_BF16) instantiate the forward kernels with bf16 data
+// and rounding points (fs::rnd) where the TPU kernel rounds to its data type.
 #pragma once
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "chunk_retention_core.cuh"
 
@@ -73,6 +76,12 @@ __device__ __forceinline__ RowPos row_pos(const Drop& d, long long r) {
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
+// a non-deduced T (a pointer argument that may be null)
+template <typename T>
+struct id {
+  using type = T;
+};
+
 __device__ __forceinline__ void load_row(const float* p, float (&v)[NV]) {
   if constexpr (NV % 4 == 0) {
     const float4* q = reinterpret_cast<const float4*>(p + lane_id() * NV);
@@ -104,6 +113,23 @@ __device__ __forceinline__ void store_row(float* p, const float (&v)[NV]) {
   }
 }
 
+// the bf16 forms: a lane's NV bf16 values read to float, written rounded
+__device__ __forceinline__ void load_row(const fs::bf16* p, float (&v)[NV]) {
+  static_assert(NV % 2 == 0, "bf16 rows in pairs");
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p + lane_id() * NV);
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) {
+    const float2 t = __bfloat1622float2(q[i]);
+    v[2 * i] = t.x, v[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void store_row(fs::bf16* p, const float (&v)[NV]) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p + lane_id() * NV);
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) q[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+}
+
 __device__ __forceinline__ float row_sum(const float (&v)[NV]) {
   float s = 0.f;
 #pragma unroll
@@ -125,11 +151,13 @@ __device__ __forceinline__ float group_sum(float s) {
 
 // y = LN(x + a * mask(site)) with scale/bias (eps 1e-5); the pre-norm sum
 // is written to rsum when it is not null (the backward reads it), y when it
-// is not null
+// is not null.  T: the element type of x, the norm's weights, rsum and y (a
+// is float32); bf16 rounds y where it is written.
+template <typename T>
 __global__ void __launch_bounds__(256)
-add_drop_ln_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ scale, const float* __restrict__ bias,
-                   float* __restrict__ rsum, float* __restrict__ y, long long R, Drop dp,
+add_drop_ln_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                   const T* __restrict__ scale, const T* __restrict__ bias,
+                   T* __restrict__ rsum, T* __restrict__ y, long long R, Drop dp,
                    int site) {
   const int c0 = lane_id() * NV;
   DTF_FOR_ROWS(r, R) {
@@ -148,7 +176,8 @@ add_drop_ln_kernel(const float* __restrict__ x, const float* __restrict__ a,
     for (int i = 0; i < NV; ++i) d2[i] = (v[i] - mu) * (v[i] - mu);
     const float rs = rsqrtf(row_sum(d2) / D + 1e-5f);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) v[i] = (v[i] - mu) * rs * __ldg(scale + c0 + i) + __ldg(bias + c0 + i);
+    for (int i = 0; i < NV; ++i)
+      v[i] = (v[i] - mu) * rs * fs::ldg(scale + c0 + i) + fs::ldg(bias + c0 + i);
     store_row(y + r * D, v);
   }
 }
@@ -216,10 +245,12 @@ __global__ void ln_bwd_reduce_kernel(const float* __restrict__ part, int S,
 }
 
 // per (row, head): gated = silu(g) * groupnorm(oh) (eps 1e-6, non-affine);
-// g has row stride ldg
+// g has row stride ldg.  T: the element type of g and gated; bf16 rounds the
+// group norm's output before the gate, and the gated value
+template <typename T>
 __global__ void __launch_bounds__(256)
-gate_fwd_kernel(const float* __restrict__ oh, const float* __restrict__ g, int ldg,
-                float* __restrict__ gated, long long R) {
+gate_fwd_kernel(const float* __restrict__ oh, const T* __restrict__ g, int ldg,
+                T* __restrict__ gated, long long R) {
   DTF_FOR_ROWS(r, R) {
     float v[NV], gv[NV], t[NV];
     load_row(oh + r * D, v);
@@ -233,7 +264,7 @@ gate_fwd_kernel(const float* __restrict__ oh, const float* __restrict__ g, int l
     for (int i = 0; i < NV; ++i) s += (v[i] - mu) * (v[i] - mu);
     const float rs = rsqrtf(group_sum(s) / DK + 1e-6f);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) t[i] = fs::silu(gv[i]) * ((v[i] - mu) * rs);
+    for (int i = 0; i < NV; ++i) t[i] = fs::silu(gv[i]) * fs::rnd<T>((v[i] - mu) * rs);
     store_row(gated + r * D, t);
   }
 }
@@ -336,32 +367,39 @@ __device__ __forceinline__ void softmax_mask(const Drop& dp, const SlotView& s, 
   __syncwarp();
 }
 
-__device__ __forceinline__ void load_slots(const float* qkv, const Drop& dp, const SlotView& s,
+template <typename T>
+__device__ __forceinline__ void load_slots(const T* qkv, const Drop& dp, const SlotView& s,
                                            float* qs, float* ks, float* vs) {
   for (int c = 0; c < dp.C; ++c) {
-    const float* row = qkv + slot_row(dp, s, c) * 3 * D + s.h * DK;
+    const T* row = qkv + slot_row(dp, s, c) * 3 * D + s.h * DK;
     for (int d = lane_id(); d < DK; d += 32) {
-      qs[c * DK + d] = row[d];
-      ks[c * DK + d] = row[D + d];
-      vs[c * DK + d] = row[2 * D + d];
+      qs[c * DK + d] = fs::f32(row[d]);
+      ks[c * DK + d] = fs::f32(row[D + d]);
+      vs[c * DK + d] = fs::f32(row[2 * D + d]);
     }
   }
   __syncwarp();
 }
 
+// T = bf16: each product q k rounded to bf16 before the float32 sum, as the
+// TPU kernel multiplies in its data type (dec_frame_scan_pallas.py:149)
+template <typename T = float>
 __device__ __forceinline__ void scores(const Drop& dp, const float* qs, const float* ks, float* W) {
   const int C = dp.C;
   const float inv = (float)(1.0 / sqrt((double)DK));
   for (int p = lane_id(); p < C * C; p += 32) {
     const int c = p / C, j = p % C;
     float s = 0.f;
-    for (int d = 0; d < DK; ++d) s += qs[c * DK + d] * ks[j * DK + d];
+    for (int d = 0; d < DK; ++d) s += fs::rnd<T>(qs[c * DK + d] * ks[j * DK + d]);
     W[p] = s * inv;
   }
   __syncwarp();
 }
 
-__global__ void slot_attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ attn, int B,
+// T = bf16: the probabilities rounded to bf16, each product p v too, the
+// sum in float32 rounded to bf16 where it is written (:152-157)
+template <typename T>
+__global__ void slot_attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ attn, int B,
                                      Drop dp) {
   extern __shared__ __align__(16) float sm[];
   const SlotView s = slot_view(dp, B);
@@ -370,14 +408,15 @@ __global__ void slot_attn_fwd_kernel(const float* __restrict__ qkv, float* __res
   float* qs = sm + (threadIdx.x >> 5) * (attn_smem_floats(C, false) / kAttnWarps);
   float *ks = qs + C * DK, *vs = ks + C * DK, *W = vs + C * DK, *M = W + C * C;
   load_slots(qkv, dp, s, qs, ks, vs);
-  scores(dp, qs, ks, W);
+  scores<T>(dp, qs, ks, W);
   softmax_mask(dp, s, W, M);
   for (int c = 0; c < C; ++c) {
-    float* out = attn + slot_row(dp, s, c) * D + s.h * DK;
+    T* out = attn + slot_row(dp, s, c) * D + s.h * DK;
     for (int d = lane_id(); d < DK; d += 32) {
       float o = 0.f;
-      for (int j = 0; j < C; ++j) o += (W[c * C + j] * M[c * C + j]) * vs[j * DK + d];
-      out[d] = o;
+      for (int j = 0; j < C; ++j)
+        o += fs::rnd<T>(fs::rnd<T>(W[c * C + j] * M[c * C + j]) * vs[j * DK + d]);
+      out[d] = fs::As<T>::from(o);
     }
   }
 }
@@ -442,10 +481,12 @@ inline long long lmin(long long a, long long b) { return a < b ? a : b; }
 
 inline int row_grid(long long R) { return (int)lmin((R + 7) / 8, 132 * 8); }
 
-inline int add_drop_ln(const float* x, const float* a, const float* scale, const float* bias,
-                       float* rsum, float* y, long long R, const Drop& dp, int site,
+template <typename T>
+inline int add_drop_ln(const T* x, const float* a, const typename id<T>::type* scale,
+                       const typename id<T>::type* bias, typename id<T>::type* rsum,
+                       typename id<T>::type* y, long long R, const Drop& dp, int site,
                        cudaStream_t st) {
-  add_drop_ln_kernel<<<row_grid(R), 256, 0, st>>>(x, a, scale, bias, rsum, y, R, dp, site);
+  add_drop_ln_kernel<T><<<row_grid(R), 256, 0, st>>>(x, a, scale, bias, rsum, y, R, dp, site);
   return cudaGetLastError();
 }
 
@@ -463,9 +504,10 @@ inline int ln_bwd(const float* dy, const float* rsum, const float* scale, float*
   return cudaGetLastError();
 }
 
-inline int gate_fwd(const float* oh, const float* g, int ldg, float* gated, long long R,
-                    cudaStream_t st) {
-  gate_fwd_kernel<<<row_grid(R), 256, 0, st>>>(oh, g, ldg, gated, R);
+template <typename T>
+inline int gate_fwd(const float* oh, const T* g, int ldg, typename id<T>::type* gated,
+                    long long R, cudaStream_t st) {
+  gate_fwd_kernel<T><<<row_grid(R), 256, 0, st>>>(oh, g, ldg, gated, R);
   return cudaGetLastError();
 }
 
@@ -483,19 +525,25 @@ inline int relu_drop(const float* src, const float* hpre, float* out, long long 
   return cudaGetLastError();
 }
 
-inline int slot_attn(const float* qkv, const float* dattn, float* out, int B, const Drop& dp,
-                     bool bwd, cudaStream_t st) {
+// the backward (bwd) takes float32 only
+template <typename T>
+inline int slot_attn(const T* qkv, const float* dattn, typename id<T>::type* out, int B,
+                     const Drop& dp, bool bwd, cudaStream_t st) {
   const int smem = (int)sizeof(float) * attn_smem_floats(dp.C, bwd);
   const int grid = (B * dp.T * H + kAttnWarps - 1) / kAttnWarps;
-  cudaError_t e = bwd ? cudaFuncSetAttribute(slot_attn_bwd_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-                      : cudaFuncSetAttribute(slot_attn_fwd_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if constexpr (std::is_same<T, float>::value) {
+    if (bwd) {
+      cudaError_t e = cudaFuncSetAttribute(slot_attn_bwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      slot_attn_bwd_kernel<<<grid, 32 * kAttnWarps, smem, st>>>(qkv, dattn, out, B, dp);
+      return cudaGetLastError();
+    }
+  }
+  cudaError_t e = cudaFuncSetAttribute(slot_attn_fwd_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  if (bwd)
-    slot_attn_bwd_kernel<<<grid, 32 * kAttnWarps, smem, st>>>(qkv, dattn, out, B, dp);
-  else
-    slot_attn_fwd_kernel<<<grid, 32 * kAttnWarps, smem, st>>>(qkv, out, B, dp);
+  slot_attn_fwd_kernel<T><<<grid, 32 * kAttnWarps, smem, st>>>(qkv, out, B, dp);
   return cudaGetLastError();
 }
 

@@ -56,12 +56,31 @@
 // CUDA graph: captured at the first call with a set of weights, state and
 // workspace, and replayed at every later call with the same ones; h0, flush
 // and h are staged through the workspace, so that they may change.
+//
+// The bf16 form (built with FS_BF16; the float32 build is the code above
+// unchanged): the weights, h0 and h, the activations between layers, the
+// stored state (kv, s) and the conv ring are bf16; every product is one
+// bf16 tensor-core pass with float32 accumulation (tc_bf16.cuh); LN, silu,
+// GLU, the folded BatchNorm and the recurrence run in float32.  The data is
+// rounded to bf16 where the TPU kernel rounds it (enc_frame_scan_pallas.py:
+// 66-125): each LN's output, the half FF's hidden layer, x after each
+// residual add, q | k | v | g, the group norm's output and the gated value,
+// the GLU output (what the ring keeps), silu of the conv.  pw1's output and
+// the products that go into a residual add stay float32.  The state is
+// carried in float32 within a call (frame_ret.cuh).  Bound: 0.211 TFLOP a
+// block at 128 lanes x 128 frames, 0.21 ms of the bf16 tensor cores.
 #include <cstdint>
 #include <cstring>
 #include <vector>
 
 #include "frame_ret.cuh"
 #include "tc_f32.cuh"
+#ifdef FS_BF16
+#include "tc_bf16.cuh"
+using T = fs::bf16;
+#else
+using T = float;
+#endif
 
 using namespace dtf;
 using namespace frs;
@@ -70,44 +89,44 @@ namespace {
 
 struct EncWeights {
   // stacked over layers, (in, out) layouts:
-  const float *lns, *lnb;                    // (L, 5, D): ff1, ret, conv, ff2, final
-  const float *wf1a, *bf1a, *wf1b, *bf1b;    // (L, D, F), (L, F), (L, F, D), (L, D)
-  const float *wqkvg, *bqkvg, *wro, *bro;    // (L, D, 4D), (L, 4D), (L, D, D), (L, D)
-  const float *wpw1, *bpw1, *dw, *bna, *bnb; // (L, D, 2D), (L, 2D), (L, k, D), (L, D) x2
-  const float *wpw2, *bpw2;                  // (L, D, D), (L, D)
-  const float *wf2a, *bf2a, *wf2b, *bf2b;    // as ff1
+  const T *lns, *lnb;                    // (L, 5, D): ff1, ret, conv, ff2, final
+  const T *wf1a, *bf1a, *wf1b, *bf1b;    // (L, D, F), (L, F), (L, F, D), (L, D)
+  const T *wqkvg, *bqkvg, *wro, *bro;    // (L, D, 4D), (L, 4D), (L, D, D), (L, D)
+  const T *wpw1, *bpw1, *dw, *bna, *bnb; // (L, D, 2D), (L, 2D), (L, k, D), (L, D) x2
+  const T *wpw2, *bpw2;                  // (L, D, D), (L, D)
+  const T *wf2a, *bf2a, *wf2b, *bf2b;    // as ff1
 };
 constexpr int kNumWeights = 21;
 
 // x[(b*Kc + k)*D + d] = h0[(b*Kt + k0 + k)*D + d]; gate[b*Kc + k] = 1 - flush[b*Kt + k0 + k]
-__global__ void enc_in_kernel(const float* __restrict__ h0, const float* __restrict__ flush,
-                              float* __restrict__ x, float* __restrict__ gate, int Kc, int Kt,
+__global__ void enc_in_kernel(const T* __restrict__ h0, const float* __restrict__ flush,
+                              T* __restrict__ x, float* __restrict__ gate, int Kc, int Kt,
                               int k0, long long n4) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / (D / 4);
     const int d = (int)(i % (D / 4)) * 4;
     const size_t f = (size_t)(r / Kc) * Kt + k0 + r % Kc;
-    *reinterpret_cast<float4*>(x + r * D + d) = *reinterpret_cast<const float4*>(h0 + f * D + d);
+    fs::store4(x + r * D + d, fs::load4(h0 + f * D + d));
     if (d == 0) gate[r] = 1.f - flush[f];
   }
 }
 
 // hout[(b*Kt + k0 + k)*D + d] = x[(b*Kc + k)*D + d]
-__global__ void enc_out_kernel(const float* __restrict__ x, float* __restrict__ hout, int Kc,
-                               int Kt, int k0, long long n4) {
+__global__ void enc_out_kernel(const T* __restrict__ x, T* __restrict__ hout, int Kc, int Kt,
+                               int k0, long long n4) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / (D / 4);
     const int d = (int)(i % (D / 4)) * 4;
     const size_t f = (size_t)(r / Kc) * Kt + k0 + r % Kc;
-    *reinterpret_cast<float4*>(hout + f * D + d) = *reinterpret_cast<const float4*>(x + r * D + d);
+    fs::store4(hout + f * D + d, fs::load4(x + r * D + d));
   }
 }
 
 // LayerNorm of a row held by a warp (eps 1e-5), scaled and shifted
-__device__ __forceinline__ void ln_row(float (&v)[NV], const float* __restrict__ scale,
-                                       const float* __restrict__ bias) {
+__device__ __forceinline__ void ln_row(float (&v)[NV], const T* __restrict__ scale,
+                                       const T* __restrict__ bias) {
   const int c0 = lane_id() * NV;
   const float mu = row_sum(v) / D;
   float d2[NV];
@@ -116,15 +135,17 @@ __device__ __forceinline__ void ln_row(float (&v)[NV], const float* __restrict__
   const float rs = rsqrtf(row_sum(d2) / D + 1e-5f);
 #pragma unroll
   for (int i = 0; i < NV; ++i)
-    v[i] = (v[i] - mu) * rs * __ldg(scale + c0 + i) + __ldg(bias + c0 + i);
+    v[i] = (v[i] - mu) * rs * fs::ldg(scale + c0 + i) + fs::ldg(bias + c0 + i);
 }
 
 // v = x + a (a may be null), written to sum when it is not null; y1 =
 // LN(v; s1, b1); y2 = LN(y1; s2, b2) when s2 is not null.  One warp per row.
+// The bf16 form rounds v before it is written and normed, and y1 before
+// the second norm, as the TPU kernel rounds x after each add and each LN.
 __global__ void __launch_bounds__(256)
-add_ln_kernel(const float* __restrict__ x, const float* __restrict__ a, float* __restrict__ sum,
-              const float* __restrict__ s1, const float* __restrict__ b1, float* __restrict__ y1,
-              const float* __restrict__ s2, const float* __restrict__ b2, float* __restrict__ y2,
+add_ln_kernel(const T* __restrict__ x, const float* __restrict__ a, T* __restrict__ sum,
+              const T* __restrict__ s1, const T* __restrict__ b1, T* __restrict__ y1,
+              const T* __restrict__ s2, const T* __restrict__ b2, T* __restrict__ y2,
               long long R) {
   DTF_FOR_ROWS(r, R) {
     float v[NV];
@@ -133,12 +154,14 @@ add_ln_kernel(const float* __restrict__ x, const float* __restrict__ a, float* _
       float av[NV];
       load_row(a + r * D, av);
 #pragma unroll
-      for (int i = 0; i < NV; ++i) v[i] += av[i];
+      for (int i = 0; i < NV; ++i) v[i] = fs::rnd<T>(v[i] + av[i]);
     }
     if (sum) store_row(sum + r * D, v);
     ln_row(v, s1, b1);
     store_row(y1 + r * D, v);
     if (s2) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) v[i] = fs::rnd<T>(v[i]);
       ln_row(v, s2, b2);
       store_row(y2 + r * D, v);
     }
@@ -157,9 +180,8 @@ constexpr int kCg = 32;
 
 __global__ void __launch_bounds__(256)
 conv_kernel(const float* __restrict__ pw, const float* __restrict__ gate,
-            const float* __restrict__ dw, const float* __restrict__ bna,
-            const float* __restrict__ bnb, float* __restrict__ out, float* ring, float* win,
-            int Kc, int kc, bool first, bool last) {
+            const T* __restrict__ dw, const T* __restrict__ bna, const T* __restrict__ bnb,
+            T* __restrict__ out, T* ring, float* win, int Kc, int kc, bool first, bool last) {
   extern __shared__ __align__(16) float sm[];
   float* S = sm;                                      // (kc + Kc, kCg)
   int* pos = reinterpret_cast<int*>(S + (kc + Kc) * kCg);  // (Kc) n_k
@@ -174,7 +196,7 @@ conv_kernel(const float* __restrict__ pw, const float* __restrict__ gate,
   }
   for (int i = tid; i < kc * kCg; i += nt) {
     const int j = i / kCg, c = i % kCg;
-    S[i] = first ? (j == 0 ? 0.f : ring[((size_t)b * (kc - 1) + j - 1) * D + d0 + c])
+    S[i] = first ? (j == 0 ? 0.f : fs::f32(ring[((size_t)b * (kc - 1) + j - 1) * D + d0 + c]))
                  : win[((size_t)b * kc + j) * D + d0 + c];
   }
   __syncthreads();
@@ -182,7 +204,7 @@ conv_kernel(const float* __restrict__ pw, const float* __restrict__ gate,
     const int k = i / kCg, c = i % kCg;
     if (g[k] != 0.f) {
       const float* p = pw + ((size_t)b * Kc + k) * 2 * D + d0 + c;
-      S[(kc - 1 + pos[k]) * kCg + c] = p[0] * fs::sigmoid(p[D]);
+      S[(kc - 1 + pos[k]) * kCg + c] = fs::rnd<T>(p[0] * fs::sigmoid(p[D]));
     }
   }
   __syncthreads();
@@ -190,9 +212,9 @@ conv_kernel(const float* __restrict__ pw, const float* __restrict__ gate,
     const int k = i / kCg, c = i % kCg, d = d0 + c;
     const float* s = S + pos[k] * kCg + c;
     float y = 0.f;
-    for (int j = 0; j < kc; ++j) y = fmaf(s[j * kCg], __ldg(dw + (size_t)j * D + d), y);
-    y = y * __ldg(bna + d) + __ldg(bnb + d);
-    out[((size_t)b * Kc + k) * D + d] = fs::silu(y);
+    for (int j = 0; j < kc; ++j) y = fmaf(s[j * kCg], fs::ldg(dw + (size_t)j * D + d), y);
+    y = y * fs::ldg(bna + d) + fs::ldg(bnb + d);
+    out[((size_t)b * Kc + k) * D + d] = fs::As<T>::from(fs::silu(y));
   }
   const int n = pos[Kc - 1];
   for (int i = tid; i < kc * kCg; i += nt) {
@@ -201,7 +223,7 @@ conv_kernel(const float* __restrict__ pw, const float* __restrict__ gate,
     if (!last)
       win[((size_t)b * kc + j) * D + d0 + c] = v;
     else if (j > 0)
-      ring[((size_t)b * (kc - 1) + j - 1) * D + d0 + c] = v;
+      ring[((size_t)b * (kc - 1) + j - 1) * D + d0 + c] = fs::As<T>::from(v);
   }
 }
 
@@ -236,91 +258,101 @@ size_t carve(float* base, int B, int K, int L, int F, int kc, bool graph, Bufs* 
 }
 
 // the launch sequence of one call
-int enqueue(const EncWeights& w, const float* h0, const float* flush, float* hout, float* kv,
-            float* s, float* ring, float* ws, int B, int K, int L, int F, int kc, float ffac,
-            cudaStream_t st) {
+int enqueue(const EncWeights& w, const T* h0, const float* flush, T* hout, T* kv, T* s, T* ring,
+            float* ws, int B, int K, int L, int F, int kc, float ffac, cudaStream_t st) {
   Bufs bf;
   carve(ws, B, K, L, F, kc, false, &bf);
+#ifdef FS_BF16
+  // the TPU kernel scales the bf16 k by dk^-1/2 in bf16
+  const float kscale = __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt((double)DK))));
+#else
   const float kscale = (float)(1.0 / sqrt((double)DK));
+#endif
   const size_t kvl = (size_t)B * H * DK * DK;  // one layer's state
   const size_t rsmem = sizeof(float) * ret_smem_floats();
   const size_t csmem = sizeof(float) * (kc + kSlice) * kCg + sizeof(int) * kSlice;
   int err;
 #define EFS_TRY(call) \
   if ((err = (call)) != 0) return err
-  EFS_TRY(cudaFuncSetAttribute(ret_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)rsmem));
+  EFS_TRY(cudaFuncSetAttribute(ret_block_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rsmem));
   EFS_TRY(cudaFuncSetAttribute(conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)csmem));
+  // the workspace's row buffers: x0, x1, t, t2 and big hold T (big: pw1's
+  // float32 output in the conv module); a holds a float32 product on its
+  // way into an add
+  T *x0 = reinterpret_cast<T*>(bf.x0), *x1 = reinterpret_cast<T*>(bf.x1);
+  T *t = reinterpret_cast<T*>(bf.t), *t2 = reinterpret_cast<T*>(bf.t2);
+  T* big = reinterpret_cast<T*>(bf.big);
   for (int k0 = 0; k0 < K; k0 += kSlice) {
     const int Kc = K - k0 < kSlice ? K - k0 : kSlice;
     const long long R = (long long)B * Kc;
     const long long n4 = R * (D / 4);
     const int copy_grid = (int)lmin((n4 + 255) / 256, 132 * 16);
     const bool first = k0 == 0, last = k0 + Kc >= K;
-    s0_kernel<<<(L * B + 255) / 256, 256, 0, st>>>(s, bf.s0, L * B);
+    s0_kernel<T><<<(L * B + 255) / 256, 256, 0, st>>>(s, bf.s0, L * B);
     EFS_TRY(cudaGetLastError());
-    enc_in_kernel<<<copy_grid, 256, 0, st>>>(h0, flush, bf.x0, bf.gate, Kc, K, k0, n4);
+    enc_in_kernel<<<copy_grid, 256, 0, st>>>(h0, flush, x0, bf.gate, Kc, K, k0, n4);
     EFS_TRY(cudaGetLastError());
-    float *x = bf.x0, *y = bf.x1;
+    T *x = x0, *y = x1;
     const int rg = row_grid(R);
-    add_ln_kernel<<<rg, 256, 0, st>>>(x, nullptr, nullptr, w.lns, w.lnb, bf.t, nullptr, nullptr,
+    add_ln_kernel<<<rg, 256, 0, st>>>(x, nullptr, nullptr, w.lns, w.lnb, t, nullptr, nullptr,
                                       nullptr, R);
     EFS_TRY(cudaGetLastError());
     for (int l = 0; l < L; ++l) {
-      const float* lns = w.lns + (size_t)l * 5 * D;
-      const float* lnb = w.lnb + (size_t)l * 5 * D;
+      const T* lns = w.lns + (size_t)l * 5 * D;
+      const T* lnb = w.lnb + (size_t)l * 5 * D;
       auto add_ln = [&](int i) {  // x += a, t = LN_i(x)
-        add_ln_kernel<<<rg, 256, 0, st>>>(x, bf.a, y, lns + i * D, lnb + i * D, bf.t, nullptr,
+        add_ln_kernel<<<rg, 256, 0, st>>>(x, bf.a, y, lns + i * D, lnb + i * D, t, nullptr,
                                           nullptr, nullptr, R);
-        float* tmp = x;
+        T* tmp = x;
         x = y;
         y = tmp;
         return (int)cudaGetLastError();
       };
       // ---- half feed-forward #1 ----
-      EFS_TRY(tc::launch_linear<tc::kSilu>(bf.t, D, w.wf1a + (size_t)l * D * F, F,
-                                           w.bf1a + (size_t)l * F, bf.big, F, (int)R, F, D, st,
+      EFS_TRY(tc::launch_linear<tc::kSilu>(t, D, w.wf1a + (size_t)l * D * F, F,
+                                           w.bf1a + (size_t)l * F, big, F, (int)R, F, D, st,
                                            0, 0, 1.f, bf.part));
-      EFS_TRY(tc::launch_linear(bf.big, F, w.wf1b + (size_t)l * F * D, D, w.bf1b + (size_t)l * D,
+      EFS_TRY(tc::launch_linear(big, F, w.wf1b + (size_t)l * F * D, D, w.bf1b + (size_t)l * D,
                                 bf.a, D, (int)R, D, F, st, 0, D, ffac, bf.part));
       EFS_TRY(add_ln(1));
       // ---- retention ----
-      EFS_TRY(tc::launch_linear(bf.t, D, w.wqkvg + (size_t)l * D * 4 * D, 4 * D,
-                                w.bqkvg + (size_t)l * 4 * D, bf.big, 4 * D, (int)R, 4 * D, D, st,
+      EFS_TRY(tc::launch_linear(t, D, w.wqkvg + (size_t)l * D * 4 * D, 4 * D,
+                                w.bqkvg + (size_t)l * 4 * D, big, 4 * D, (int)R, 4 * D, D, st,
                                 D, 2 * D, kscale, bf.part));
-      ret_block_kernel<<<B * H, 256, rsmem, st>>>(bf.big, bf.gate, bf.a, kv + l * kvl,
+      ret_block_kernel<T><<<B * H, 256, rsmem, st>>>(big, bf.gate, bf.a, kv + l * kvl,
                                                   s + (size_t)l * B * H, bf.s0 + l * B, 1, Kc,
                                                   Kc, 0);
       EFS_TRY(cudaGetLastError());
-      EFS_TRY(gate_fwd(bf.a, bf.big + 3 * D, 4 * D, bf.t2, R, st));
-      EFS_TRY(tc::launch_linear(bf.t2, D, w.wro + (size_t)l * D * D, D, w.bro + (size_t)l * D,
+      EFS_TRY(gate_fwd(bf.a, big + 3 * D, 4 * D, t2, R, st));
+      EFS_TRY(tc::launch_linear(t2, D, w.wro + (size_t)l * D * D, D, w.bro + (size_t)l * D,
                                 bf.a, D, (int)R, D, D, st, 0, 0, 1.f, bf.part));
       EFS_TRY(add_ln(2));
       // ---- causal depthwise conv module ----
-      EFS_TRY(tc::launch_linear(bf.t, D, w.wpw1 + (size_t)l * D * 2 * D, 2 * D,
+      EFS_TRY(tc::launch_linear(t, D, w.wpw1 + (size_t)l * D * 2 * D, 2 * D,
                                 w.bpw1 + (size_t)l * 2 * D, bf.big, 2 * D, (int)R, 2 * D, D, st,
                                 0, 0, 1.f, bf.part));
       conv_kernel<<<dim3(B, D / kCg), 256, csmem, st>>>(
           bf.big, bf.gate, w.dw + (size_t)l * kc * D, w.bna + (size_t)l * D,
-          w.bnb + (size_t)l * D, bf.t2, ring + (size_t)l * B * (kc - 1) * D,
+          w.bnb + (size_t)l * D, t2, ring + (size_t)l * B * (kc - 1) * D,
           bf.win + (size_t)l * B * kc * D, Kc, kc, first, last);
       EFS_TRY(cudaGetLastError());
-      EFS_TRY(tc::launch_linear(bf.t2, D, w.wpw2 + (size_t)l * D * D, D, w.bpw2 + (size_t)l * D,
+      EFS_TRY(tc::launch_linear(t2, D, w.wpw2 + (size_t)l * D * D, D, w.bpw2 + (size_t)l * D,
                                 bf.a, D, (int)R, D, D, st, 0, 0, 1.f, bf.part));
       EFS_TRY(add_ln(3));
       // ---- half feed-forward #2, the final LN (and the next layer's first) ----
-      EFS_TRY(tc::launch_linear<tc::kSilu>(bf.t, D, w.wf2a + (size_t)l * D * F, F,
-                                           w.bf2a + (size_t)l * F, bf.big, F, (int)R, F, D, st,
+      EFS_TRY(tc::launch_linear<tc::kSilu>(t, D, w.wf2a + (size_t)l * D * F, F,
+                                           w.bf2a + (size_t)l * F, big, F, (int)R, F, D, st,
                                            0, 0, 1.f, bf.part));
-      EFS_TRY(tc::launch_linear(bf.big, F, w.wf2b + (size_t)l * F * D, D, w.bf2b + (size_t)l * D,
+      EFS_TRY(tc::launch_linear(big, F, w.wf2b + (size_t)l * F * D, D, w.bf2b + (size_t)l * D,
                                 bf.a, D, (int)R, D, F, st, 0, D, ffac, bf.part));
       const bool more = l + 1 < L;
       add_ln_kernel<<<rg, 256, 0, st>>>(x, bf.a, nullptr, lns + 4 * D, lnb + 4 * D, y,
                                         more ? lns + 5 * D : nullptr, more ? lnb + 5 * D : nullptr,
-                                        bf.t, R);
+                                        t, R);
       EFS_TRY(cudaGetLastError());
-      float* tmp = x;
+      T* tmp = x;
       x = y;
       y = tmp;
     }
@@ -342,26 +374,28 @@ extern "C" size_t enc_frame_scan_workspace(int B, int K, int L, int D_, int H_, 
 }
 
 // weights: kNumWeights device pointers in EncWeights order.  h0, hout (B, K,
-// D); flush (B, K); kv (L, B, H, dv, dk), s (L, B, H) and ring (L, B, kc-1,
-// D) updated in place; ws of enc_frame_scan_workspace floats.  D and H are
-// this build's (DTF_D, DTF_D / CR_DK).  With `graph`, the sequence runs as
+// D); flush (B, K) float32; kv (L, B, H, dv, dk), s (L, B, H) and ring (L, B,
+// kc-1, D) updated in place; ws of enc_frame_scan_workspace floats.  D and H
+// are this build's (DTF_D, DTF_D / CR_DK), the element type of the rest T
+// (bf16 with FS_BF16, else float).  With `graph`, the sequence runs as
 // a CUDA graph captured for these weights, state and workspace (at most
 // kMaxGraphs kept), h0 and flush copied into the workspace before it and h
 // out of it after.  Returns the first CUDA error of the launches.
-extern "C" int enc_frame_scan_launch(const void* const* weights, const float* h0,
-                                     const float* flush, float* hout, float* kv, float* s,
-                                     float* ring, float* ws, int B, int K, int L, int F, int kc,
-                                     float ffac, int graph, void* stream) {
+extern "C" int enc_frame_scan_launch(const void* const* weights, const T* h0,
+                                     const float* flush, T* hout, T* kv, T* s, T* ring, float* ws,
+                                     int B, int K, int L, int F, int kc, float ffac, int graph,
+                                     void* stream) {
   static_assert(sizeof(EncWeights) == kNumWeights * sizeof(void*), "EncWeights");
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   EncWeights w;
-  const float** dst = reinterpret_cast<const float**>(&w);
-  for (int i = 0; i < kNumWeights; ++i) dst[i] = static_cast<const float*>(weights[i]);
+  const T** dst = reinterpret_cast<const T**>(&w);
+  for (int i = 0; i < kNumWeights; ++i) dst[i] = static_cast<const T*>(weights[i]);
   if (!graph) return enqueue(w, h0, flush, hout, kv, s, ring, ws, B, K, L, F, kc, ffac, st);
   Bufs bf;
   carve(ws, B, K, L, F, kc, true, &bf);
-  const size_t hbytes = sizeof(float) * B * K * D;
-  cudaError_t e = cudaMemcpyAsync(bf.h0, h0, hbytes, cudaMemcpyDeviceToDevice, st);
+  T *sh0 = reinterpret_cast<T*>(bf.h0), *shout = reinterpret_cast<T*>(bf.hout);
+  const size_t hbytes = sizeof(T) * B * K * D;
+  cudaError_t e = cudaMemcpyAsync(sh0, h0, hbytes, cudaMemcpyDeviceToDevice, st);
   if (e == cudaSuccess)
     e = cudaMemcpyAsync(bf.flush, flush, sizeof(float) * B * K, cudaMemcpyDeviceToDevice, st);
   if (e != cudaSuccess) return e;
@@ -392,7 +426,7 @@ extern "C" int enc_frame_scan_launch(const void* const* weights, const float* h0
       return e;
     }
     const int err =
-        enqueue(w, bf.h0, bf.flush, bf.hout, kv, s, ring, ws, B, K, L, F, kc, ffac, cap);
+        enqueue(w, sh0, bf.flush, shout, kv, s, ring, ws, B, K, L, F, kc, ffac, cap);
     cudaGraph_t g = nullptr;
     e = cudaStreamEndCapture(cap, &g);
     cudaStreamDestroy(cap);
@@ -410,5 +444,5 @@ extern "C" int enc_frame_scan_launch(const void* const* weights, const float* h0
     g_graphs.push_back({key, exec});
   }
   if ((e = cudaGraphLaunch(exec, st)) != cudaSuccess) return e;
-  return cudaMemcpyAsync(hout, bf.hout, hbytes, cudaMemcpyDeviceToDevice, st);
+  return cudaMemcpyAsync(hout, shout, hbytes, cudaMemcpyDeviceToDevice, st);
 }

@@ -12,6 +12,16 @@
 // written back as kv = KV * rsqrt(max(s, 1)): the arithmetic of the plain
 // versions and the TPU kernels' identity, not the renormalized chunkwise form.
 // D, DK and H are the build's (dec_train_fusion_common.cuh).
+//
+// T is the element type of q | k~ | v | g, the stored state kv and the count
+// s: float32, or bf16 for the bf16 forms.  Within a call the state is
+// carried in float32 in shared memory and rounded to T once, when it is
+// stored (kv and s both); a frame's output is float32 until the group norm
+// (gate_fwd) rounds it.  The TPU kernels FMA the bf16 state every frame
+// (dec_frame_scan_pallas.py:126-128, enc_frame_scan_pallas.py:101): that
+// drops a frame's increment once the gamma = 1 sum is about 256 times it,
+// while the carry here loses nothing within a call; the stored state is
+// bf16 in both, and at K = 1 (step()) the two differ by one rounding.
 #pragma once
 
 #include "dec_train_fusion_common.cuh"
@@ -25,9 +35,10 @@ constexpr int kT = 64;       // frames per retention chunk
 
 // s0[l*BC + bc] = s[(l*BC + bc)*H]: every head of a (layer, lane, slot)
 // reads head 0's count, as the plain version does
-__global__ void s0_kernel(const float* __restrict__ s, float* __restrict__ s0, int n) {
+template <typename T>
+__global__ void s0_kernel(const T* __restrict__ s, float* __restrict__ s0, int n) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
-    s0[i] = s[(size_t)i * H];
+    s0[i] = fs::f32(s[(size_t)i * H]);
 }
 
 // The exact gamma = 1 recurrence of one layer for one (b, c, head) per block,
@@ -127,9 +138,10 @@ __device__ __forceinline__ void ret_chunk_out(const RetTiles& t, int nr, float* 
 
 // rows r = seq_of_row * Kc + k of qkvg (stride 4D: q | k~ | v | g) and oh (stride
 // D); sequence bc = seq / H reads its gates at valid[(bc / C) * Kt + k0 + k]
+template <typename T>
 __global__ void __launch_bounds__(256)
-ret_block_kernel(const float* __restrict__ qkvg, const float* __restrict__ valid,
-                 float* __restrict__ oh, float* __restrict__ kv, float* __restrict__ s,
+ret_block_kernel(const T* __restrict__ qkvg, const float* __restrict__ valid,
+                 float* __restrict__ oh, T* __restrict__ kv, T* __restrict__ s,
                  const float* __restrict__ s0, int C, int Kc, int Kt, int k0) {
   extern __shared__ __align__(16) float sm[];
   RetTiles t;
@@ -146,22 +158,22 @@ ret_block_kernel(const float* __restrict__ qkvg, const float* __restrict__ valid
   float srun = s0[bc];
   {
     const float sc = sqrtf(srun);
-    const float* src = kv + (size_t)seq * DK * DK;
-    for (int i = tid; i < DK * DK; i += 256) t.KV[(i / DK) * kLdh + i % DK] = src[i] * sc;
+    const T* src = kv + (size_t)seq * DK * DK;
+    for (int i = tid; i < DK * DK; i += 256) t.KV[(i / DK) * kLdh + i % DK] = fs::f32(src[i]) * sc;
   }
   for (int n0 = 0; n0 < Kc; n0 += kT) {
     const int nr = min(kT, Kc - n0);
     const int live = (nr + 15) / 16 * 16;  // rows of the live row groups
     __syncthreads();  // the previous chunk is done with every tile
-    const float* rows = qkvg + ((size_t)bc * Kc + n0) * 4 * D;
+    const T* rows = qkvg + ((size_t)bc * Kc + n0) * 4 * D;
     for (int idx = tid; idx < live * (DK / 4); idx += 256) {
       const int i = idx / (DK / 4), c = (idx % (DK / 4)) * 4;
       float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), kv4 = qv, vv = qv;
       if (i < nr) {
-        const float* p = rows + (size_t)i * 4 * D + h * DK + c;
-        qv = *reinterpret_cast<const float4*>(p);
-        kv4 = *reinterpret_cast<const float4*>(p + D);
-        vv = *reinterpret_cast<const float4*>(p + 2 * D);
+        const T* p = rows + (size_t)i * 4 * D + h * DK + c;
+        qv = fs::load4(p);
+        kv4 = fs::load4(p + D);
+        vv = fs::load4(p + 2 * D);
       }
       float* q = t.Qs + i * kLdh + c;
       float* k = t.Ks + i * kLdh + c;
@@ -205,9 +217,10 @@ ret_block_kernel(const float* __restrict__ qkvg, const float* __restrict__ valid
   }
   __syncthreads();
   const float norm = rsqrtf(fmaxf(srun, 1.f));
-  float* dst = kv + (size_t)seq * DK * DK;
-  for (int i = tid; i < DK * DK; i += 256) dst[i] = t.KV[(i / DK) * kLdh + i % DK] * norm;
-  if (tid == 0) s[seq] = srun;
+  T* dst = kv + (size_t)seq * DK * DK;
+  for (int i = tid; i < DK * DK; i += 256)
+    dst[i] = fs::As<T>::from(t.KV[(i / DK) * kLdh + i % DK] * norm);
+  if (tid == 0) s[seq] = fs::As<T>::from(srun);
 }
 
 }  // namespace frs

@@ -33,31 +33,51 @@
 // 2D + 2F), Wo (F, D)), packed once per server.  So q, k, v and g make one
 // round trip through device memory (L2 for the encoder's sizes); the core's
 // output and the gated output make none beyond the g columns.
+//
+// The bf16 form (built with FS_BF16; the float32 build is the code above
+// unchanged): x, the weights, y, the workspace (q | k | v | g) and the
+// incoming and stored state (kv, scale) are bf16.  Both projections are one
+// bf16 tensor-core pass with float32 accumulation (tc_bf16.cuh), rounded to
+// bf16 as the TPU kernel rounds them (retention_layer_pallas.py:66-73,
+// 150-152); the core is chunk_retention_tc.cuh's bf16 form (bf16 scores,
+// float32 arithmetic and state carry within the call, the state rounded to
+// bf16 when it is stored).  Bound: the same operations on the bf16 tensor
+// cores (989 TFLOP/s), against half the float32 form's bytes.
 #include "chunk_retention_tc.cuh"
 
 #ifndef CR_DK
 #error "define CR_DK and CR_DV (the key and value dims of a head)"
 #endif
 
-// gamma (H); x, y (B, T, D) with D = H * CR_DK; wqkvg (D, 2D + 2F) = q | k | v
-// | g columns and wo (F, D) in the (in, out) layout, F = H * CR_DV; ws (B*T,
-// 2D + 2F) scratch; scratch (B * H * (T/L) * (CR_DK * CR_DV + 1)) floats when
-// T > L, else may be null; kv0, kvf (B, H, CR_DK, CR_DV); s0, sf (B, H).
-// T % L == 0, B*T <= 128 * 65535.  Returns the first CUDA error of the
-// launches.
-extern "C" int retention_layer_launch(const float* gamma, const float* x,
-                                      const float* wqkvg, const float* bqkvg,
-                                      const float* wo, const float* bo, float* ws,
-                                      float* scratch, float* y, const float* kv0,
-                                      const float* s0, float* kvf, float* sf, int B, int T,
-                                      int L, int H, float kscale, void* stream_) {
+#ifdef FS_BF16
+using E = fs::bf16;
+#else
+using E = float;
+#endif
+
+// gamma (H) float32; x, y (B, T, D) with D = H * CR_DK; wqkvg (D, 2D + 2F) =
+// q | k | v | g columns and wo (F, D) in the (in, out) layout, F = H *
+// CR_DV; ws (B*T, 2D + 2F) scratch; scratch (B * H * (T/L) * (CR_DK * CR_DV
+// + 1)) floats when T > L, else may be null; kv0, kvf (B, H, CR_DK, CR_DV);
+// s0, sf (B, H).  All but gamma and scratch of the element type E (bf16 with
+// FS_BF16, else float).  T % L == 0, B*T <= 128 * 65535.  Returns the first
+// CUDA error of the launches.
+extern "C" int retention_layer_launch(const float* gamma, const E* x, const E* wqkvg,
+                                      const E* bqkvg, const E* wo, const E* bo, E* ws,
+                                      float* scratch, E* y, const E* kv0, const E* s0, E* kvf,
+                                      E* sf, int B, int T, int L, int H, float kscale,
+                                      void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int D = H * CR_DK, F = H * CR_DV, W = 2 * D + 2 * F, M = B * T;
+#ifdef FS_BF16
+  int err = tc::launch_linear(x, D, wqkvg, W, bqkvg, ws, W, M, W, D, stream, D, 2 * D, kscale);
+#else
   int err = tc::launch_linear<tc::kNone, false, true>(x, D, wqkvg, W, bqkvg, ws, W, M, W, D,
                                                       stream, D, 2 * D, kscale);
+#endif
   if (err != 0) return err;
-  float* g = ws + 2 * D + F;
-  crt::Args a{};
+  E* g = ws + 2 * D + F;
+  crt::ArgsE<E> a{};
   a.q = ws, a.k = ws + D, a.v = ws + 2 * D, a.ldq = W, a.ldk = W, a.ldv = W;
   a.out = g, a.ldo = W, a.gamma = gamma, a.gmod = H;
   a.kv0 = kv0, a.s0 = s0, a.kvf = kvf, a.sf = sf;
@@ -66,5 +86,9 @@ extern "C" int retention_layer_launch(const float* gamma, const float* x,
   a.H = H, a.T = T, a.L = L;
   err = crt::launch_core<CR_DK, CR_DV, true>(a, B * H, stream);
   if (err != 0) return err;
+#ifdef FS_BF16
+  return tc::launch_linear(g, W, wo, D, bo, y, D, M, D, F, stream);
+#else
   return tc::launch_linear<tc::kNone, false, true>(g, W, wo, D, bo, y, D, M, D, F, stream);
+#endif
 }

@@ -17,7 +17,15 @@ dims that are multiples of 16, and a workspace of B*C*min(K, 128) rows that
 the wrapper allocates (about 2 GB at 128 lanes x 128 frames, D 256, F
 2048); a longer K is walked in slices of 128 frames that carry the state.
 On a CPU tensor it runs `dec_frame_scan_plain`.  Both update the carried
-state in place.  Float32 only.
+state in place.
+
+Float32 or bf16 (the JAX package serves in bf16): the data tensors (embp,
+embn, pe, the weights, kv, s) share one dtype, valid is float32.  The bf16
+form is the same source built with FS_BF16: bf16 in device memory, one
+bf16 tensor-core pass per product (`csrc/tc_bf16.cuh`), the data rounded
+to bf16 where the TPU kernel rounds it, the state carried in float32
+within a call and rounded when it is stored (`csrc/frame_ret.cuh`); the
+plain version follows the same rounding points.  The logits are float32.
 
 Layouts (lane-major, as the port's stream state holds them):
   embp (B, K, D) = emb @ Wc[:D], the embedding's part of the decoder's
@@ -36,10 +44,13 @@ from typing import NamedTuple
 import torch
 
 from fseend_tpu_torch.kernels import _build
+from fseend_tpu_torch.kernels._dtype import build_defines, check_dtypes, compute, rounding
 from fseend_tpu_torch.ops import nn as tnn
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the count was last set to 0: its
+# float32 form, its bf16 form
 launches = 0
+launches_bf16 = 0
 
 
 class DecWeights(NamedTuple):
@@ -63,7 +74,8 @@ class DecWeights(NamedTuple):
 
 @torch.no_grad()
 def pack_dec_weights(layers) -> DecWeights:
-    """Stack the decoder fusion layers' weights into the kernel's operands."""
+    """Stack the decoder fusion layers' weights into the kernel's operands,
+    in the layers' own dtype."""
     cols = {k: [] for k in DecWeights._fields}
     for lp in layers:
         r = lp.time_ret
@@ -79,7 +91,7 @@ def pack_dec_weights(layers) -> DecWeights:
         norms = (lp.norm11, lp.norm21, lp.norm22)
         cols["ln_s"].append(torch.stack([n.weight for n in norms]))
         cols["ln_b"].append(torch.stack([n.bias for n in norms]))
-    return DecWeights(*(torch.stack(cols[k]).float().contiguous()
+    return DecWeights(*(torch.stack(cols[k]).contiguous()
                         for k in DecWeights._fields))
 
 
@@ -111,17 +123,16 @@ def _check(embp, embn, valid, pe, w, kv, s):
     if H * dv != D or H * dk != D or dk > 64:
         raise ValueError(f"dec_frame_scan: heads {H}x{dv} do not tile D={D} "
                          f"(or key dim {dk} > 64)")
+    check_dtypes("dec_frame_scan", {k: v for k, v in got.items() if k != "valid"},
+                 w._asdict(), {"valid": valid})
     for name, t in list(got.items()) + list(w._asdict().items()):
-        if t.dtype != torch.float32:
-            raise ValueError(f"dec_frame_scan: {name} is {t.dtype}; the kernel "
-                             f"takes float32 only")
         if t.device != embp.device or not t.is_contiguous():
             raise ValueError(f"dec_frame_scan: {name} must be contiguous on "
                              f"{embp.device}")
 
 
 def _launch(embp, embn, valid, pe, w, kv, s):
-    global launches
+    global launches, launches_bf16
     B, K, D = embp.shape
     C = pe.shape[0]
     L, _, H, dv, dk = kv.shape
@@ -130,7 +141,8 @@ def _launch(embp, embn, valid, pe, w, kv, s):
         raise ValueError(f"dec_frame_scan: the CUDA kernel takes D a multiple of 64 up "
                          f"to 512, head dims a multiple of 16 and F a multiple of 4; "
                          f"got D={D}, dk={dk}, F={Fh}")
-    lib = _build.load("dec_frame_scan", {"DTF_D": D, "CR_DK": dk, "CR_DV": dk})
+    lib = _build.load("dec_frame_scan",
+                      build_defines(embp.dtype, DTF_D=D, CR_DK=dk, CR_DV=dk))
     size = lib.dec_frame_scan_workspace
     size.argtypes = [ctypes.c_int] * 7
     size.restype = ctypes.c_size_t
@@ -150,7 +162,10 @@ def _launch(embp, embn, valid, pe, w, kv, s):
                  logits.data_ptr(), kv.data_ptr(), s.data_ptr(), ws.data_ptr(), B, K, C, L,
                  Fh, stream)
     _build.check(lib, err, "dec_frame_scan")
-    launches += 1
+    if embp.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return logits
 
 
@@ -160,44 +175,58 @@ def dec_frame_scan_plain(embp: torch.Tensor, embn: torch.Tensor, valid: torch.Te
                          s: torch.Tensor) -> torch.Tensor:
     """The frame scan's arithmetic frame by frame, in the TPU kernel's
     order: frames and layers in Python loops, lanes and slots batched.  Same
-    in-place contract as dec_frame_scan."""
+    in-place contract as dec_frame_scan.  In bf16 it computes in float32 on
+    the bf16 values (a product of two is exact in float32) and rounds to
+    bf16 where the kernel does; the state is carried in float32 over the
+    call and rounded when it is written back."""
+    dt = embp.dtype
+    r = rounding(dt)
     B, K, D = embp.shape
     C = pe.shape[0]
     L, BC, H, dv, dk = kv.shape
     hd = D // H
-    s_cur = s[..., 0].clone()                                 # (L, B*C)
-    KV = kv * torch.sqrt(s_cur)[..., None, None, None]        # unnormalized
+    w = DecWeights(*(compute(t) for t in w))
+    embp, embn, pe = compute(embp), compute(embn), compute(pe)
+    kscale = float(torch.tensor(dk ** -0.5).to(dt)) if dt == torch.bfloat16 else dk ** -0.5
+    s_cur = compute(s[..., 0]).clone()                        # (L, B*C)
+    KV = compute(kv) * torch.sqrt(s_cur)[..., None, None, None]  # unnormalized
     logits = torch.empty(B, K, C, dtype=torch.float32, device=embp.device)
 
     def ln(x, l, i):
-        return tnn.layer_norm(x, w.ln_s[l, i], w.ln_b[l, i])
+        return r(tnn.layer_norm(x, w.ln_s[l, i], w.ln_b[l, i]))
 
     def heads(t):                                             # (B, C, D) -> (B, H, C, hd)
         return t.reshape(B, C, H, hd).transpose(1, 2)
 
     for k in range(K):
-        x = (embp[:, k, None, :] + pe[None]).reshape(BC, D)
+        x = r(embp[:, k, None, :] + pe[None]).reshape(BC, D)
         mt = valid[:, k].repeat_interleave(C)                 # (B*C,)
         for l in range(L):
-            qkvg = x @ w.w_qkvg[l] + w.b_qkvg[l]
+            qkvg = r(x @ w.w_qkvg[l] + w.b_qkvg[l])
             q = qkvg[:, :D].reshape(BC, H, dk)
-            kk = qkvg[:, D:2 * D].reshape(BC, H, dk) * dk ** -0.5
+            kk = r(qkvg[:, D:2 * D].reshape(BC, H, dk) * kscale)
             v = qkvg[:, 2 * D:3 * D].reshape(BC, H, dv)
             r0 = torch.einsum("nhk,nhvk->nhv", q, KV[l])
             qk = (q * kk).sum(-1, keepdim=True)
             out = (r0 + qk * v) * torch.rsqrt(s_cur[l] + 1.0)[:, None, None]
-            out = tnn.layer_norm(out, eps=1e-6).reshape(BC, D)
+            out = r(tnn.layer_norm(out, eps=1e-6)).reshape(BC, D)
             KV[l] = KV[l] + v[..., :, None] * (kk * mt[:, None, None])[..., None, :]
             s_cur[l] = s_cur[l] + mt
-            a = (torch.nn.functional.silu(qkvg[:, 3 * D:]) * out) @ w.w_ro[l] + w.b_ro[l]
+            a = r(torch.nn.functional.silu(qkvg[:, 3 * D:]) * out) @ w.w_ro[l] + w.b_ro[l]
             x = ln(x + a, l, 0)
             # attention across the C slots of each lane
-            qkv = (x @ w.w_mi[l] + w.b_mi[l]).reshape(B, C, 3 * D)
+            qkv = r(x @ w.w_mi[l] + w.b_mi[l]).reshape(B, C, 3 * D)
             qh, kh, vh = (heads(qkv[..., i * D:(i + 1) * D]) for i in range(3))
-            p = torch.softmax(qh @ kh.transpose(-1, -2) / math.sqrt(hd), dim=-1)
-            att = (p @ vh).transpose(1, 2).reshape(BC, D)
+            if dt != torch.bfloat16:
+                p = torch.softmax(qh @ kh.transpose(-1, -2) / math.sqrt(hd), dim=-1)
+                att = p @ vh
+            else:  # each product rounded before its sum, as the TPU kernel does
+                sc = r(qh[..., :, None, :] * kh[..., None, :, :]).sum(-1)
+                p = r(torch.softmax(sc / math.sqrt(hd), dim=-1))
+                att = r(r(p[..., None] * vh[..., None, :, :]).sum(-2))
+            att = att.transpose(1, 2).reshape(BC, D)
             x = ln(x + att @ w.w_mo[l] + w.b_mo[l], l, 1)
-            hid = torch.relu(x @ w.w_f1[l] + w.b_f1[l])
+            hid = r(torch.relu(x @ w.w_f1[l] + w.b_f1[l]))
             x = ln(x + hid @ w.w_f2[l] + w.b_f2[l], l, 2)
         attr = x * torch.rsqrt(x.square().sum(-1, keepdim=True))
         logits[:, k] = (embn[:, k, None, :] * attr.reshape(B, C, D)).sum(-1)

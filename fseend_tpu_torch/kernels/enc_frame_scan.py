@@ -18,10 +18,14 @@ at 128 lanes x 128 frames, D 256, F 1024); a longer K is walked in slices
 of 128 frames that carry the state.  A K = 1 call (`step()`, bound by the
 launches' host time) runs as a CUDA graph in a workspace the wrapper keeps
 for each shape, so that every call with the same weights and state replays
-one graph.  On a CPU tensor it runs
-`enc_frame_scan_plain`, which repeats the arithmetic frame by frame with
-batched tensor ops.  Both update the carried state in place.  Float32
-only.
+one graph (one per dtype: the two forms are two builds).  On a CPU
+tensor it runs `enc_frame_scan_plain`, which repeats the arithmetic frame
+by frame with batched tensor ops.  Both update the carried state in place.
+
+Float32 or bf16, as `dec_frame_scan` (the data tensors h0, the weights,
+kv, s and ring share one dtype; flush is float32): the bf16 form rounds to
+bf16 where `enc_frame_scan_pallas.py` rounds, and carries the retention
+state in float32 within a call.
 
 Layouts (lane-major, as the port's stream state holds them):
   h0 (B, K, D) after the input projection + LN; flush (B, K) 0/1 float;
@@ -38,13 +42,16 @@ import torch
 import torch.nn.functional as F
 
 from fseend_tpu_torch.kernels import _build
+from fseend_tpu_torch.kernels._dtype import build_defines, check_dtypes, compute, rounding
 from fseend_tpu_torch.ops import nn as tnn
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the count was last set to 0: its
+# float32 form, its bf16 form
 launches = 0
+launches_bf16 = 0
 
-# per (device, B, L, D, H, F, kc): the workspace of the K = 1 calls, which
-# run as a captured CUDA graph keyed by it
+# per (device, dtype, B, L, D, H, F, kc): the workspace of the K = 1 calls,
+# which run as a captured CUDA graph keyed by it
 _graph_ws: dict = {}
 
 
@@ -76,9 +83,11 @@ class EncWeights(NamedTuple):
 
 @torch.no_grad()
 def pack_enc_weights(blocks, eps: float = 1e-5) -> EncWeights:
-    """Stack the conformer blocks' weights into the kernel's operands and fold
-    eval-mode BatchNorm into a per-channel (a, b): a = scale * rsqrt(var + eps),
-    b = bias - mean * a."""
+    """Stack the conformer blocks' weights into the kernel's operands, in
+    the blocks' own dtype, and fold eval-mode BatchNorm into a
+    per-channel (a, b): a = scale * rsqrt(var + eps), b = bias - mean * a,
+    in the model's own dtype (a bf16 model folds in bf16, as the JAX
+    package's `pack_enc_weights` does on a bf16 tree)."""
     def t(lin):
         return lin.weight.T
 
@@ -108,7 +117,7 @@ def pack_enc_weights(blocks, eps: float = 1e-5) -> EncWeights:
         cols["bnb"].append(cv.bn.bias - cv.bn.running_mean * a)
         cols["wpw2"].append(t(cv.pw2))
         cols["bpw2"].append(cv.pw2.bias)
-    return EncWeights(*(torch.stack(cols[k]).float().contiguous()
+    return EncWeights(*(torch.stack(cols[k]).contiguous()
                         for k in EncWeights._fields))
 
 
@@ -140,17 +149,16 @@ def _check(h0, flush, w, kv, s, ring):
     if H * dv != D or H * dk != D or dk > 64:
         raise ValueError(f"enc_frame_scan: heads {H}x{dv} do not tile D={D} "
                          f"(or key dim {dk} > 64)")
+    check_dtypes("enc_frame_scan", {k: v for k, v in got.items() if k != "flush"},
+                 w._asdict(), {"flush": flush})
     for name, t in list(got.items()) + list(w._asdict().items()):
-        if t.dtype != torch.float32:
-            raise ValueError(f"enc_frame_scan: {name} is {t.dtype}; the kernel "
-                             f"takes float32 only")
         if t.device != h0.device or not t.is_contiguous():
             raise ValueError(f"enc_frame_scan: {name} must be contiguous on "
                              f"{h0.device}")
 
 
 def _launch(h0, flush, w, kv, s, ring, ffac):
-    global launches
+    global launches, launches_bf16
     B, K, D = h0.shape
     L, _, H, dv, dk = kv.shape
     Fh = w.wf1a.shape[2]
@@ -159,7 +167,7 @@ def _launch(h0, flush, w, kv, s, ring, ffac):
         raise ValueError(f"enc_frame_scan: the CUDA kernel takes D a multiple of 64 up "
                          f"to 512, head dims a multiple of 16 and F a multiple of 4; "
                          f"got D={D}, dk={dk}, F={Fh}")
-    lib = _build.load("enc_frame_scan", {"DTF_D": D, "CR_DK": dk, "CR_DV": dk})
+    lib = _build.load("enc_frame_scan", build_defines(h0.dtype, DTF_D=D, CR_DK=dk, CR_DV=dk))
     fn, size = lib.enc_frame_scan_launch, lib.enc_frame_scan_workspace
     if fn.argtypes is None:
         size.argtypes = [ctypes.c_int] * 8
@@ -168,7 +176,7 @@ def _launch(h0, flush, w, kv, s, ring, ffac):
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     graph = K == 1
-    key = (h0.device, B, L, D, H, Fh, kc)
+    key = (h0.device, h0.dtype, B, L, D, H, Fh, kc)
     ws = _graph_ws.get(key) if graph else None
     if ws is None:
         n = size(B, K, L, D, H, Fh, kc, int(graph))
@@ -186,7 +194,10 @@ def _launch(h0, flush, w, kv, s, ring, ffac):
                  s.data_ptr(), ring.data_ptr(), ws.data_ptr(), B, K, L, Fh, kc, ffac, int(graph),
                  stream)
     _build.check(lib, err, "enc_frame_scan")
-    launches += 1
+    if h0.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return hout
 
 
@@ -195,51 +206,58 @@ def enc_frame_scan_plain(h0: torch.Tensor, flush: torch.Tensor, w: EncWeights,
                          kv: torch.Tensor, s: torch.Tensor, ring: torch.Tensor, *,
                          ffac: float) -> torch.Tensor:
     """The kernel's arithmetic with batched tensor ops: frames and layers in
-    Python loops, lanes batched.  Same in-place contract as enc_frame_scan."""
+    Python loops, lanes batched.  Same in-place contract as enc_frame_scan.
+    In bf16 it computes in float32 on the bf16 values and rounds to bf16
+    where the kernel does; the retention state is carried in float32 over
+    the call and rounded when it is written back."""
+    dt = h0.dtype
+    r = rounding(dt)
     B, K, D = h0.shape
     L, _, H, dv, dk = kv.shape
-    s_cur = s[..., 0].clone()                                 # (L, B)
-    KV = kv * torch.sqrt(s_cur)[..., None, None, None]        # unnormalized
-    rg = torch.cat([torch.zeros_like(ring[:, :, :1]), ring], dim=2)  # (L, B, k, D)
+    w = EncWeights(*(compute(t) for t in w))
+    kscale = float(torch.tensor(dk ** -0.5).to(dt)) if dt == torch.bfloat16 else dk ** -0.5
+    s_cur = compute(s[..., 0]).clone()                        # (L, B)
+    KV = compute(kv) * torch.sqrt(s_cur)[..., None, None, None]  # unnormalized
+    rg = compute(torch.cat([torch.zeros_like(ring[:, :, :1]), ring], dim=2))  # (L, B, k, D)
 
     def ln(x, l, i):
-        return tnn.layer_norm(x, w.lns[l, i], w.lnb[l, i])
+        return r(tnn.layer_norm(x, w.lns[l, i], w.lnb[l, i]))
 
     def half_ff(x, l, i, wa, ba, wb, bb):
-        h = F.silu(ln(x, l, i) @ wa[l] + ba[l])
-        return x + ffac * (h @ wb[l] + bb[l])
+        h = r(F.silu(ln(x, l, i) @ wa[l] + ba[l]))
+        return r(x + ffac * (h @ wb[l] + bb[l]))
 
     outs = []
     for k in range(K):
-        x = h0[:, k]
+        x = compute(h0[:, k])
         fl = flush[:, k]
         mg = 1.0 - fl
         keep = (fl != 0)[:, None, None]
         for l in range(L):
             x = half_ff(x, l, 0, w.wf1a, w.bf1a, w.wf1b, w.bf1b)
             # retention, one recurrent step in the unnormalized form
-            qkvg = ln(x, l, 1) @ w.wqkvg[l] + w.bqkvg[l]
+            qkvg = r(ln(x, l, 1) @ w.wqkvg[l] + w.bqkvg[l])
             q = qkvg[:, :D].reshape(B, H, dk)
-            kk = qkvg[:, D:2 * D].reshape(B, H, dk) * dk ** -0.5
+            kk = r(qkvg[:, D:2 * D].reshape(B, H, dk) * kscale)
             v = qkvg[:, 2 * D:3 * D].reshape(B, H, dv)
             r0 = torch.einsum("bhk,bhvk->bhv", q, KV[l])
             qk = (q * kk).sum(-1, keepdim=True)
             out = (r0 + qk * v) * torch.rsqrt(s_cur[l] + 1.0)[:, None, None]
-            out = tnn.layer_norm(out, eps=1e-6).reshape(B, D)
+            out = r(tnn.layer_norm(out, eps=1e-6)).reshape(B, D)
             KV[l] = KV[l] + v[..., :, None] * (kk * mg[:, None, None])[..., None, :]
             s_cur[l] = s_cur[l] + mg
-            x = x + (F.silu(qkvg[:, 3 * D:]) * out) @ w.wro[l] + w.bro[l]
+            x = r(x + r(F.silu(qkvg[:, 3 * D:]) * out) @ w.wro[l] + w.bro[l])
             # causal depthwise conv module over the k-slot ring
             pw = ln(x, l, 2) @ w.wpw1[l] + w.bpw1[l]
-            glu = pw[:, :D] * torch.sigmoid(pw[:, D:])
+            glu = r(pw[:, :D] * torch.sigmoid(pw[:, D:]))
             shifted = torch.cat([rg[l, :, 1:], glu[:, None]], dim=1)
             rg[l] = torch.where(keep, rg[l], shifted)
             y = (rg[l] * w.dw[l]).sum(1) * w.bna[l] + w.bnb[l]
-            x = x + F.silu(y) @ w.wpw2[l] + w.bpw2[l]
+            x = r(x + r(F.silu(y)) @ w.wpw2[l] + w.bpw2[l])
             x = half_ff(x, l, 3, w.wf2a, w.bf2a, w.wf2b, w.bf2b)
             x = ln(x, l, 4)
         outs.append(x)
     kv.copy_(KV * torch.rsqrt(s_cur.clamp(min=1.0))[..., None, None, None])
     s.copy_(s_cur[..., None].expand_as(s))
     ring.copy_(rg[:, :, 1:])
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=1).to(dt)

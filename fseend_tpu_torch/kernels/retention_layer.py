@@ -10,14 +10,23 @@ the out projection (+bias).  One call per layer and block of frames.
 On a CUDA tensor the wrapper launches `csrc/retention_layer.cu` (the two
 projections and the chunkwise core of this repository behind one call; see
 the note there); on a CPU tensor it runs `retention_layer_plain`.  Neither
-touches the incoming state.  Float32 only.  Without a gradient the call is
-the custom op `torch.ops.fseend_tpu_torch.retention_layer` (flat tensor and
-int arguments; its CUDA implementation is the launch, its CPU one the plain
-version, its fake one gives the output shapes), so that `torch.export` can
-trace a server through it (`serving/aot.py`).  When a gradient is wanted the
-call goes through `_RetentionLayerFn`, whose backward re-runs
-`retention_layer_plain` under autograd (the recompute backward of
-`retention_layer_pallas.py:261-280`).
+touches the incoming state.  Without a gradient the call is the custom op
+`torch.ops.fseend_tpu_torch.retention_layer` (flat tensor and int
+arguments; its CUDA implementation is the launch, its CPU one the plain
+version, its fake one gives the output shapes and dtypes), so that
+`torch.export` can trace a server through it (`serving/aot.py`).  When a
+gradient is wanted the call goes through `_RetentionLayerFn`, whose
+backward re-runs `retention_layer_plain` under autograd (the recompute
+backward of `retention_layer_pallas.py:261-280`); float32 only.
+
+Float32 or bf16: x, the weights and the state share one dtype, gammas is
+float32.  The bf16 form (the same source built with FS_BF16) computes as
+`retention_layer_pallas.py` does on bf16 data: the projections rounded to
+bf16, the core in float32 on the bf16 values with the state carried in
+float32 within the call and stored in bf16, the core's output, the group
+norm's output, the gated value and y rounded to bf16; its products of bf16
+operands are bf16 tensor-core passes.  The plain version follows the same
+rounding points.
 
 Layouts: gammas (H,); x (B, T, D); kv0 (B, H, dk, dv); s0 (B, H, 1, 1);
 T % chunk == 0.  Returns (y (B, T, D), kv_f, s_f).
@@ -34,10 +43,13 @@ import torch.nn.functional as F
 from fseend_tpu_torch.kernels import _build
 from fseend_tpu_torch.kernels.chunk_retention import (aligned, chunk_retention_plain,
                                                       recompute_grads)
+from fseend_tpu_torch.kernels._dtype import build_defines, check_dtypes, compute, rounding
 from fseend_tpu_torch.ops import nn as tnn
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the count was last set to 0: its
+# float32 form, its bf16 form
 launches = 0
+launches_bf16 = 0
 
 
 class RetLayerWeights(NamedTuple):
@@ -68,6 +80,9 @@ def retention_layer(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"retention_layer: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kv0, s0) + tuple(w)):
+        if x.dtype != torch.float32:
+            raise NotImplementedError("retention_layer: gradients are float32 only (bf16 "
+                                      "training is ROADMAP B9)")
         return _RetentionLayerFn.apply(gammas, x, *w, kv0, s0, chunk)
     return tuple(retention_layer_op(gammas, x, *w, kv0, s0, chunk))
 
@@ -134,16 +149,17 @@ def _check(gammas, x, w, kv0, s0, chunk):
         if tuple(t.shape) != shape:
             raise ValueError(f"retention_layer: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"retention_layer: {name} is {t.dtype}; float32 only")
         if t.device != x.device:
             raise ValueError(f"retention_layer: {name} is on {t.device}, x on {x.device}")
     if chunk <= 0 or T % chunk:
         raise ValueError(f"retention_layer: T={T} is not a multiple of chunk={chunk}")
+    if gammas.dtype != torch.float32:
+        raise ValueError(f"retention_layer: gammas is {gammas.dtype}; float32")
+    check_dtypes("retention_layer", {"x": x, "kv0": kv0, "s0": s0}, w._asdict(), {})
 
 
 def _launch(gammas, x, w, kv0, s0, chunk):
-    global launches
+    global launches, launches_bf16
     B, T, D = x.shape
     H = gammas.shape[0]
     Fv = w.wo.shape[0]
@@ -153,7 +169,7 @@ def _launch(gammas, x, w, kv0, s0, chunk):
                          f"at most 128")
     if B * T > 128 * 65535:
         raise ValueError(f"retention_layer: {B * T} frames exceed one launch's grid")
-    lib = _build.load("retention_layer", {"CR_DK": dk, "CR_DV": dv})
+    lib = _build.load("retention_layer", build_defines(x.dtype, CR_DK=dk, CR_DV=dv))
     fn = lib.retention_layer_launch
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float]
                    + [ctypes.c_void_p])
@@ -163,7 +179,9 @@ def _launch(gammas, x, w, kv0, s0, chunk):
     ws = torch.empty((B * T, 2 * D + 2 * Fv), dtype=x.dtype, device=x.device)
     N = T // chunk
     # the chunks' summaries and scales, when there is more than one chunk
-    scratch = x.new_empty(B * H * N * (dk * dv + 1)) if N > 1 else None
+    scratch = (torch.empty(B * H * N * (dk * dv + 1), device=x.device, dtype=torch.float32)
+               if N > 1 else None)
+    kscale = _in(x.dtype, dk ** -0.5) if x.dtype == torch.bfloat16 else dk ** -0.5
     y = torch.empty_like(x)
     kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
     with torch.cuda.device(x.device):
@@ -172,30 +190,46 @@ def _launch(gammas, x, w, kv0, s0, chunk):
                  w.wo.data_ptr(), w.bo.data_ptr(), ws.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), y.data_ptr(),
                  kv0.data_ptr(), s0.data_ptr(), kv_f.data_ptr(), s_f.data_ptr(),
-                 B, T, chunk, H, dk ** -0.5, stream)
+                 B, T, chunk, H, kscale, stream)
     _build.check(lib, err, "retention_layer")
-    launches += 1
+    if x.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return y, kv_f, s_f
+
+
+def _in(dtype, v: float) -> float:
+    """v rounded to dtype (the TPU kernel's `jnp.asarray(v, dt)`)."""
+    return float(torch.tensor(v).to(dtype))
 
 
 def retention_layer_plain(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,
                           kv0: torch.Tensor, s0: torch.Tensor, chunk: int):
     """The kernel's arithmetic with tensor ops: one stacked projection, the
     plain chunkwise core over (batch x head) rows, group norm, gate, out
-    projection."""
+    projection.  In bf16 it computes in float32 on the bf16 values and
+    rounds to bf16 where the kernel does; the state is carried in float32
+    and rounded to bf16 on the way out."""
+    dt = x.dtype
+    r = rounding(dt)
     B, T, D = x.shape
     H = gammas.shape[0]
     Fv = w.wo.shape[0]
     dk, dv = D // H, Fv // H
-    q, k, v, g = (x @ w.wqkvg + w.bqkvg).split([D, D, Fv, Fv], dim=-1)
+    if dt == torch.bfloat16:
+        x, kv0, s0 = compute(x), compute(kv0), compute(s0)
+        w = RetLayerWeights(*(compute(t) for t in w))
+    kscale = _in(dt, dk ** -0.5) if dt == torch.bfloat16 else dk ** -0.5
+    q, k, v, g = r(x @ w.wqkvg + w.bqkvg).split([D, D, Fv, Fv], dim=-1)
 
     def rows(t, d):                                   # (B, T, H*d) -> (B*H, T, d)
         return t.reshape(B, T, H, d).transpose(1, 2).reshape(B * H, T, d)
 
     out, kv_f, s_f = chunk_retention_plain(
-        gammas.repeat(B), rows(q, dk), rows(k * dk ** -0.5, dk), rows(v, dv),
+        gammas.repeat(B), rows(q, dk), rows(r(k * kscale), dk), rows(v, dv),
         kv0.reshape(B * H, dk, dv), s0.reshape(B * H, 1, 1), chunk)
-    out = out.reshape(B, H, T, dv).transpose(1, 2)    # (B, T, H, dv)
-    out = tnn.layer_norm(out, eps=1e-6).reshape(B, T, Fv)
-    y = (F.silu(g) * out) @ w.wo + w.bo
-    return y, kv_f.reshape(B, H, dk, dv), s_f.reshape(B, H, 1, 1)
+    out = r(out).reshape(B, H, T, dv).transpose(1, 2)  # (B, T, H, dv)
+    out = r(tnn.layer_norm(out, eps=1e-6)).reshape(B, T, Fv)
+    y = r(F.silu(g) * out) @ w.wo + w.bo
+    return (y.to(dt), kv_f.reshape(B, H, dk, dv).to(dt), s_f.reshape(B, H, 1, 1).to(dt))

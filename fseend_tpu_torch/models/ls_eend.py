@@ -596,7 +596,7 @@ def ls_stream_step(model: LSEEND, state: dict, x_t: torch.Tensor, n_slots: int,
         x = _ln(lp.norm21, x + tnn.mha(lp.spk_attn, x, x, x))
         x = _ln(lp.norm22, x + tnn.ff_block(x, lp.linear1, lp.linear2))
     attractors = tnn.l2_normalize(x)
-    logits = torch.einsum("bd,bcd->bc", emb, attractors)
+    logits = torch.einsum("bd,bcd->bc", emb.float(), attractors.float())   # float32 logits
     # the clock counts STEPS (real + flush): a flush step still slides the
     # conv window, so `valid` must keep advancing or a stream shorter than
     # conv_delay would never emit (its outputs all surface during flush)
@@ -628,7 +628,8 @@ def ls_stream_scan(model: LSEEND, state: dict, xs: torch.Tensor, n_slots: int):
 
 
 def pack_weights(model: LSEEND):
-    """The frame-scan kernels' stacked weights (pack once per model)."""
+    """The frame-scan kernels' stacked weights in the model's dtype, which
+    is the stream state's (pack once per model)."""
     return (EFS.pack_enc_weights(model.enc.blocks),
             DFS.pack_dec_weights(model.dec.layers))
 
@@ -641,7 +642,8 @@ def ls_stream_block_fused(model: LSEEND, state: dict, xs: torch.Tensor,
     the decoder each in one frame-scan call (`kernels/`); the same result as
     scanning `ls_stream_step` over the block, per-lane flush and clocks
     included.  xs (B, K, in_size); flush (K, B) bool; `packed` is
-    `pack_weights(model)` (computed here when None).  With
+    `pack_weights(model)` (computed here when None); the model, the packed
+    weights and the state share one dtype (the kernels raise otherwise).  With
     `enc_kernel=False` the encoder runs the plain per-frame scan of
     `ls_stream_step` and only the decoder is a kernel call (the JAX
     package's `enc_kernel`).
@@ -652,14 +654,15 @@ def ls_stream_block_fused(model: LSEEND, state: dict, xs: torch.Tensor,
     cfg = model.cfg
     B, T, _ = xs.shape
     C, D = n_slots, cfg.n_units
-    ew, dw = pack_weights(model) if packed is None else packed
     dt = state["cnn_buf"].dtype
+    ew, dw = pack_weights(model) if packed is None else packed
     flush_bt = flush.T.contiguous()                            # (B, T)
 
     if enc_kernel:
         # --- encoder: one frame-scan over all conformer blocks ---
+        # projection + LN in xs's dtype, then the state's (the JAX order)
         h0 = _ln(model.enc.norm, _lin(model.enc.proj, xs)).to(dt).contiguous()
-        h = EFS.enc_frame_scan(h0, flush_bt.to(dt), ew, state["enc_kv"],
+        h = EFS.enc_frame_scan(h0, flush_bt.float(), ew, state["enc_kv"],
                                state["enc_scale"], state["enc_conv"], ffac=cfg.ff_factor)
     else:
         h = _enc_frame_by_frame(model, state, xs, flush).to(dt)
@@ -679,7 +682,7 @@ def ls_stream_block_fused(model: LSEEND, state: dict, xs: torch.Tensor,
     embp = tnn.linear(emb, wc[:, :D]).contiguous()
     pe = tnn.sinusoidal_table(C, D, device=emb.device).to(emb.dtype)
     pe_part = tnn.linear(pe, wc[:, D:], model.dec.convert.bias).contiguous()
-    logits = DFS.dec_frame_scan(embp, emb, valid.T.to(emb.dtype).contiguous(), pe_part,
+    logits = DFS.dec_frame_scan(embp, emb, valid.T.float().contiguous(), pe_part,
                                 dw, state["dec_kv"], state["dec_scale"])
     new_state = dict(state, t=t0 + T, cnn_buf=new_cnn_buf)
     return new_state, (logits.transpose(0, 1), valid)
@@ -772,7 +775,8 @@ def ls_blockstream_init(cfg: LSEENDConfig, batch: int, n_slots: int | None = Non
 @torch.no_grad()
 def pack_block_weights(model: LSEEND):
     """The retention layers' stacked projections for the "fused" route
-    (pack once per model): (encoder layers, decoder layers)."""
+    (pack once per model): (encoder layers, decoder layers), in the model's
+    dtype."""
     return ([RL.pack_retention(bp.ret) for bp in model.enc.blocks],
             [RL.pack_retention(lp.time_ret) for lp in model.dec.layers])
 
@@ -845,7 +849,7 @@ def ls_blockstream_step(model: LSEEND, state: dict, xs: torch.Tensor, n_slots: i
         x = xt.reshape(B, C, K, D).transpose(1, 2)
         x = _ln(lp.norm21, x + tnn.mha(lp.spk_attn, x, x, x))
         x = _ln(lp.norm22, x + tnn.ff_block(x, lp.linear1, lp.linear2))
-    logits = torch.einsum("bkd,bkcd->bkc", emb, tnn.l2_normalize(x))
+    logits = torch.einsum("bkd,bkcd->bkc", emb.float(), tnn.l2_normalize(x).float())
     new_state.update({k: torch.stack(v) for k, v in dec.items()})
     new_state.update(h_prev=h, h_tail2=state["h_prev"][:, -cfg.conv_delay:],
                      m=state["m"] + 1)

@@ -198,16 +198,17 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
     i = torch.arange(L, dtype=torch.float32, device=x.device)
     inner_decay = (gammas[:, None] ** (i + 1))[:, :, None] / (scale / scale[:, -1:])
 
-    qc = q.reshape(B, H, N, L, dk)
-    kc = k.reshape(B, H, N, L, dk)
-    vc = v.reshape(B, H, N, L, dv)
+    # the core in float32 on bf16 q, k, v (the JAX package's
+    # preferred_element_type=float32), its output back in x's dtype
+    up = torch.float32 if q.dtype == torch.bfloat16 else q.dtype
+    qc, kc, vc = (t.reshape(B, H, N, L, d).to(up) for t, d in ((q, dk), (k, dk), (v, dv)))
     # intra-chunk attention, batched over chunks
     qk = (qc @ kc.transpose(-1, -2)) * mask[:, None]
     inner_scale = qk.detach().abs().sum(-1, keepdim=True).clamp(min=1.0)
     inner_out = (qk / inner_scale) @ vc
     # per-chunk kv summaries k^T (v * last mask row), then the small scan
     kv_chunks = kc.transpose(-1, -2) @ (vc * mask[:, None, -1, :, None])
-    kv_state, kv_scale = state["kv"], state["scale"]
+    kv_state, kv_scale = state["kv"].to(up), state["scale"].to(up)
     kv_rec, cross_scale = [], []
     for n in range(N):
         kv_rec.append(kv_state / kv_scale)
@@ -221,7 +222,8 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
     cross_out = (qc * inner_decay[:, None]) @ kv_rec
     all_scale = torch.maximum(inner_scale, cross_scale)
     out = inner_out * (inner_scale / all_scale) + cross_out * (cross_scale / all_scale)
-    return _finish(p, out.reshape(B, H, T, dv), g), {"kv": kv_state, "scale": kv_scale}
+    return _finish(p, out.reshape(B, H, T, dv).to(x.dtype), g), {
+        "kv": kv_state.to(state["kv"].dtype), "scale": kv_scale.to(state["scale"].dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +260,7 @@ def retention_recurrent_step(p: Retention, x_t: torch.Tensor, state: dict,
     decay_mix = (torch.sqrt(prev_scale) * gammas / torch.sqrt(scale))[..., None, None]
     kv_t = v[..., :, None] * k[..., None, :]               # (B, H, dv, dk)
     kv = state["kv"] * decay_mix + kv_t / torch.sqrt(scale)[..., None, None]
-    out = torch.einsum("bhk,bhvk->bhv", q, kv)
+    out = torch.einsum("bhk,bhvk->bhv", q.to(kv.dtype), kv)   # float32 on a bf16 state
 
     out = tnn.layer_norm(out, eps=1e-6).reshape(B, H * dv).to(x_t.dtype)
     out = torch.nn.functional.silu(g) * out

@@ -20,7 +20,10 @@ inside:
          so it is a program of its own).
 The programs call the kernels as `torch.ops.fseend_tpu_torch.*` ops; a CUDA
 kernel is built from the repository's `kernels/csrc/` at its first launch,
-as in the live server.  An artifact is bound to the device type it was
+as in the live server.  `meta` records the server's dtype ("float32", or
+"bfloat16" for a bf16 LS server, whose programs carry bf16 weights and
+state and call the retention layer's bf16 form through the same op), as
+the JAX package's artifact does.  An artifact is bound to the device type it was
 exported on (export on the card to serve on the card).
 """
 

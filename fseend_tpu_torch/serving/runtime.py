@@ -25,10 +25,18 @@ scan of `fs_stream_step`, the oracle.  The blockwise FS server runs
 `fs_eend.fs_blockstream_step` (its encoder through `cached_attention`).
 The server's `cfg` decides the route, not the config its model was made
 with.
+
+`dtype`: float32, or bf16 for LS-EEND (the JAX package serves in bf16): a
+bf16 server keeps its stream state and a bf16 copy of the model
+(`utils/convert.py:cast_model`), casts the frames to bf16 on the way in,
+runs the bf16 forms of the kernels (both frame scans per frame, the
+retention layer blockwise) or the plain routes in bf16, and returns
+probabilities in float32.  FS-EEND in bf16 raises (ROADMAP B9).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -36,10 +44,28 @@ import numpy as np
 import torch
 
 from fseend_tpu_torch.models import fs_eend, ls_eend
+from fseend_tpu_torch.utils.convert import cast_model
 
 # per-lane state tensors whose lane axis is 0; every other leaf leads with
 # the layer axis and has lanes (or lanes x slots) on axis 1
 _LANE_AXIS0 = ("t", "emitted", "cnn_buf", "conv_buf")
+
+
+def _check_dtype(kind: str, dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype {dtype}: the servers serve float32 or bfloat16")
+    if dtype != torch.float32 and kind == "fs":
+        raise NotImplementedError(
+            "FS-EEND serves float32 only so far: bf16 FS serving (the cached-attention "
+            "kernels' bf16 forms) is ROADMAP B9")
+
+
+def _served_model(model, dtype):
+    """The model a server runs: `model` itself in float32, a bf16 copy for
+    a bf16 server (the caller's module is left as it is)."""
+    if dtype == torch.float32:
+        return model
+    return cast_model(copy.deepcopy(model), dtype)
 
 
 def _check_kind(kind: str, cfg, model) -> None:
@@ -88,10 +114,7 @@ class StreamingServer:
             raise NotImplementedError(
                 "lane sharding over several GPUs is not ported yet (ROADMAP A11, "
                 "multi-GPU)")
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                "the port serves float32 only so far (ROADMAP B: bf16 serving "
-                "for both frame-scan kernels)")
+        _check_dtype(self.kind, self.dtype)
         self.device = ls_eend.resolve_device(self.device)
         if self.kind == "fs":
             self.model = ls_eend.with_cfg(self.model.to(self.device).eval(), self.cfg)
@@ -99,10 +122,11 @@ class StreamingServer:
                                                 self.n_slots, self.dtype, self.device)
             self._packed = None
             return
-        self.model = self.model.to(self.device).eval()
+        self.model = _served_model(self.model.to(self.device).eval(), self.dtype)
         self.state = ls_eend.ls_stream_init(self.cfg, self.n_lanes, self.n_slots,
                                             self.dtype, self.device)
-        self._packed = ls_eend.pack_weights(self.model) if self.frame_kernel else None
+        self._packed = (ls_eend.pack_weights(self.model) if self.frame_kernel
+                        else None)
 
     def _probs(self, logits: torch.Tensor) -> torch.Tensor:
         """sigmoid + silence-slot drop (dia_pred.py:53-56)."""
@@ -234,7 +258,8 @@ class BlockStreamingServer:
     card.  FS lanes carry KV caches of `capacity` positions with one shared
     clock and equal the masked batch pass; with `cfg.use_flash_attn` (the
     default) the encoder's cached attention is one `cached_attention` call
-    per layer."""
+    per layer.  An LS server may be bf16 on the "fused" and "plain" routes
+    (the "core" route's chunkwise kernel is float32 so far)."""
 
     kind: str                 # "ls" | "fs"
     cfg: Any
@@ -248,12 +273,15 @@ class BlockStreamingServer:
 
     def __post_init__(self):
         _check_kind(self.kind, self.cfg, self.model)
-        if self.dtype != torch.float32:
+        _check_dtype(self.kind, self.dtype)
+        if self.dtype != torch.float32 and self.cfg.kernel == "core":
             raise NotImplementedError(
-                "the port serves float32 only so far (ROADMAP B: bf16 serving)")
+                "bf16 blockwise serving takes the 'fused' or 'plain' route; the 'core' "
+                "route's chunk_retention kernel is float32 so far (ROADMAP B9)")
         self.device = ls_eend.resolve_device(self.device)
         # the server's config decides the route, whatever config the model came with
-        self.model = ls_eend.with_cfg(self.model.to(self.device).eval(), self.cfg)
+        self.model = ls_eend.with_cfg(
+            _served_model(self.model.to(self.device).eval(), self.dtype), self.cfg)
         self.reset_all()
         self._packed = (ls_eend.pack_block_weights(self.model)
                         if self.kind == "ls" and self.cfg.kernel == "fused" else None)

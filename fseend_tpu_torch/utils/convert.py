@@ -10,7 +10,8 @@ the port's `LSEEND` / `FSEEND` / `EENDEDA` module or flat state dict, and
 back (`ls_params_to_jax` for the weights, the checkpoints and the gradient
 comparisons; `fs_params_to_jax` for FS-EEND, `eda_params_to_jax` for
 EEND-EDA, whose LSTM weights the JAX package keeps transposed: w_ih (in,
-4H), w_hh (H, 4H)).  No JAX import.
+4H), w_hh (H, 4H)).  `cast_model` casts a model's float32 weights to bf16
+for bf16 serving.  No JAX import.
 """
 
 from __future__ import annotations
@@ -21,6 +22,19 @@ from torch import nn
 
 from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.models.ls_eend import resolve_device
+
+
+@torch.no_grad()
+def cast_model(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Cast every float32 parameter and buffer of `model` to `dtype` in place
+    (the BatchNorm running statistics too; integer buffers stay as they
+    are), as the JAX package casts its parameter and model-state trees for
+    bf16 serving (`bench.py:508-511`, `cli/export.py:44-48`).  Returns
+    `model`."""
+    for t in list(model.parameters()) + list(model.buffers()):
+        if t.dtype == torch.float32:
+            t.data = t.data.to(dtype)
+    return model
 
 
 def _load_params(model: nn.Module, params_np: dict, seen: set):

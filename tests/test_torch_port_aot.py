@@ -200,8 +200,11 @@ def test_the_loader_imports_no_model_config_or_checkpoint_module(models, artifac
     np.testing.assert_array_equal(np.load(tmp_path / "out.npy"), np.stack(want))
 
 
-def test_export_cli_writes_what_the_live_server_serves(models, tmp_path):
-    """`cli.export` from a yaml config and a reference .ckpt."""
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_export_cli_writes_what_the_live_server_serves(models, tmp_path, dtype):
+    """`cli.export` from a yaml config and a reference .ckpt, in float32 and
+    (LS-EEND) in bf16: the artifact records its dtype, and a bf16 artifact
+    serves what a live bf16 server serves, bit for bit."""
     from fseend_tpu_torch.cli import export as TEXP
 
     torch.save({k: torch.from_numpy(v.copy()) for k, v in _sd("ls_model_ref.npz").items()},
@@ -217,11 +220,16 @@ def test_export_cli_writes_what_the_live_server_serves(models, tmp_path):
     (tmp_path / "ls.yaml").write_text(yaml.safe_dump(configs))
     srv = TEXP.main(["--configs", str(tmp_path / "ls.yaml"), "--ckpt", str(tmp_path / "ls.ckpt"),
                      "--out", str(tmp_path / "srv.npz"), "--lanes", str(LANES), "--block",
-                     str(BLOCK), "--device", "cpu"])
+                     str(BLOCK), "--device", "cpu", "--dtype", dtype])
     assert srv.cfg == dataclasses.replace(LS_CFG, dropout=0.1)
     aot = AotBlockServer(str(tmp_path / "srv.npz"))
+    want_dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    assert aot.dtype == srv.dtype == want_dt and aot.meta["dtype"] == str(want_dt)[6:]
+    live = BlockStreamingServer(kind="ls", cfg=LS_CFG, model=models["ls"], n_lanes=LANES,
+                                n_slots=SLOTS, block=BLOCK, dtype=want_dt, device="cpu")
     feats = _frames(5)
-    for got, want in zip(_run(aot, feats), _run(_server(models, "ls"), feats)):
+    for got, want in zip(_run(aot, feats), _run(live, feats)):
+        assert got.dtype == np.float32
         np.testing.assert_array_equal(got, want)
 
 
@@ -237,6 +245,9 @@ def test_both_ops_pass_opcheck():
                 r(D, D, scale=0.2), r(D), r(B, H, D // H, D // H), r(B, H, 1, 1).abs() + 1,
                 chunk)
         torch.library.opcheck(RL.retention_layer_op, args)
+        # the bf16 form: the fake implementation gives bf16 outputs
+        torch.library.opcheck(RL.retention_layer_op, (args[0],) + tuple(
+            a.to(torch.bfloat16) for a in args[1:8]) + (chunk,))
     for start in (0, 5):
         torch.library.opcheck(CA.cached_attention_op,
                               (r(6, 4, 8), r(6, 12, 8), r(6, 12, 8),

@@ -83,8 +83,9 @@ def test_bf16_and_multi_gpu_raise(world, monkeypatch, capsys):
         configs["training"]["precision"] = "bf16"
         with pytest.raises(NotImplementedError, match="B9"):
             TT.build_model(configs)
+    # an LS server exports in bf16 (tests/test_torch_port_aot.py); FS bf16 is B9
     with pytest.raises(NotImplementedError, match="B9"):
-        TEXP.main(["--configs", str(world["ls"]), "--out", str(world["root"] / "x.npz"),
+        TEXP.main(["--configs", str(world["fs"]), "--out", str(world["root"] / "x.npz"),
                    "--dtype", "bf16", "--device", "cpu"])
 
     class Stop(Exception):

@@ -16,7 +16,12 @@ K = 1 path sums on the FMA pipe) and of the fusion layer's forward and
 backward run on the tensor cores in three TF32 passes, float32-exact to
 about 1e-6 relative (`fseend_tpu_torch/kernels/csrc/tc_f32.cuh`): the frame
 scans, the per-lane cached attention, the forward's y and the backward's dx
-are held within TC_ATOL = 1e-4."""
+are held within TC_ATOL = 1e-4.  The bf16 forms of both frame scans and of
+the retention layer against their bf16 plain versions by chip_smoke.py's
+bf16 guards (`_bf16_close`): the drift rule of the JAX package's bf16 test
+from the float32 plain version, not a float32 computation, and on one-frame
+calls and the retention layer at most half as far from bf16 plain (mean
+abs) as bf16 plain is from float32."""
 
 import dataclasses
 
@@ -290,6 +295,117 @@ def test_enc_frame_scan_refuses_what_it_does_not_take(cuda):
     args[0] = args[0].double()
     with pytest.raises(ValueError, match="float32"):
         EFS.enc_frame_scan(*args, ffac=0.5)
+
+
+def _bf16(args, mask: int):
+    """A case's float tensors and weight tuple in bf16; the 0/1 mask (at
+    `mask`) stays float32."""
+    def cast(t):
+        if isinstance(t, tuple):
+            return type(t)(*(u.to(torch.bfloat16) for u in t))
+        return t.to(torch.bfloat16)
+
+    return [t if i == mask else cast(t) for i, t in enumerate(args)]
+
+
+def _bf16_close(got, want16, want32, what, close):
+    """The bf16 guards of chip_smoke.py's `bf16_guard`: the drift rule from
+    float32 (max abs), not a float32 path (mean |got - want32| at least half
+    the bf16 plain version's), and closer to bf16 plain than the share
+    `close` of its distance from float32 (mean abs): 0.5 for one-frame
+    calls and the retention layer; 1.0 for 128-frame blocks, over which
+    these random layers compound every rounding flip of another summation
+    order until even the bf16 plain version run on the CPU sits well over
+    half as far from itself on the card as from float32, while a form
+    whose rounding differs from the plain version's has errors of its own
+    and reads about 1 or more."""
+    g, w16, w32 = (t.float() for t in (got, want16, want32))
+    mean = lambda a, b: float((a - b).abs().mean())          # noqa: E731
+    assert float((g - w32).abs().max()) <= 3 * float((w16 - w32).abs().max()) + 1e-3, what
+    assert mean(g, w32) >= 0.5 * mean(w16, w32), what
+    assert mean(g, w16) <= close * mean(w16, w32), (what, mean(g, w16), mean(w16, w32))
+
+
+@pytest.mark.parametrize("D,F", [(64, 48), (256, 2048)])
+@pytest.mark.parametrize("K", [1, 128])
+def test_dec_frame_scan_bf16_kernel_matches_plain(cuda, D, F, K):
+    """B1's bf16 form against its bf16 plain version over two calls: logits,
+    the stored state bf16 (the counts the same)."""
+    a32 = _dec_case(cuda, D, F, 10, K, seed=D + K)
+    a16 = _bf16(a32, 2)
+    a32 = [t.float() if torch.is_tensor(t) else DFS.DecWeights(*(u.float() for u in t))
+           for t in a16]
+    ak, ap = ([t.clone() if torch.is_tensor(t) else t for t in a16] for _ in range(2))
+    for call in range(2):
+        if call:
+            ak[0] = ap[0] = a16[0].flip(1).contiguous()
+            a32[0] = a16[0].flip(1).float().contiguous()
+        got = DFS.dec_frame_scan(*ak)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and ak[5].dtype == torch.bfloat16
+        want16 = DFS.dec_frame_scan_plain(*ap)
+        want32 = DFS.dec_frame_scan_plain(*a32)
+        close = 0.5 if K == 1 else 1.0
+        _bf16_close(got, want16, want32, "logits", close)
+        _bf16_close(ak[5], ap[5], a32[5], "kv", close)
+        torch.testing.assert_close(ak[6], ap[6], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("D,kc", [(64, 4), (256, 16)])
+@pytest.mark.parametrize("K", [1, 128])
+def test_enc_frame_scan_bf16_kernel_matches_plain(cuda, D, kc, K):
+    """B2's bf16 form (K = 1: its bf16 CUDA graph) against its bf16 plain
+    version over two calls: h and the stored state (kv, ring; the counts
+    the same)."""
+    a32 = _enc_case(cuda, D, kc, K, seed=D + K)
+    a16 = _bf16(a32, 1)
+    a32 = [t.float() if torch.is_tensor(t) else EFS.EncWeights(*(u.float() for u in t))
+           for t in a16]
+    ak, ap = ([t.clone() if torch.is_tensor(t) else t for t in a16] for _ in range(2))
+    for call in range(2):
+        if call:
+            ak[0] = ap[0] = a16[0].flip(1).contiguous()
+            a32[0] = a16[0].flip(1).float().contiguous()
+        got = EFS.enc_frame_scan(*ak, ffac=0.5)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        want16 = EFS.enc_frame_scan_plain(*ap, ffac=0.5)
+        want32 = EFS.enc_frame_scan_plain(*a32, ffac=0.5)
+        close = 0.5 if K == 1 else 1.0
+        _bf16_close(got, want16, want32, "h", close)
+        _bf16_close(ak[3], ap[3], a32[3], "kv", close)
+        _bf16_close(ak[5], ap[5], a32[5], "ring", close)
+        torch.testing.assert_close(ak[4], ap[4], atol=0, rtol=0)
+
+
+def test_retention_layer_bf16_kernel_matches_plain(cuda):
+    """B4's bf16 form against its bf16 plain version: two calls in a row
+    (the second from the carried bf16 state), two chunks per call, at the
+    LS decoder's head dims."""
+    rng = np.random.default_rng(23)
+    B, L, D, H = 6, 64, 256, 4
+    cfg = TR.RetentionConfig(D, H, 1, L)
+    ret = TR.Retention(cfg).to(cuda)
+    with torch.no_grad():
+        for prm in ret.parameters():
+            prm.copy_(_randn(rng, *prm.shape, scale=0.1, dev=cuda))
+    w32 = RL.pack_retention(ret)
+    w16 = RL.RetLayerWeights(*(t.detach().to(torch.bfloat16) for t in w32))
+    w32 = RL.RetLayerWeights(*(t.float() for t in w16))
+    gam = TR.decay_gammas(cfg, cuda)
+    st = TR.chunk_state_init(cfg, B, torch.bfloat16, cuda)
+    kv0, s0 = st["kv"], st["scale"]
+    for _ in range(2):
+        x = _randn(rng, B, 2 * L, D, scale=2.0, dev=cuda).to(torch.bfloat16)
+        with torch.no_grad():
+            got = RL.retention_layer(gam, x, w16, kv0, s0, L)
+        torch.cuda.synchronize()
+        want16 = RL.retention_layer_plain(gam, x, w16, kv0, s0, L)
+        want32 = RL.retention_layer_plain(gam, x.float(), w32, kv0.float(), s0.float(), L)
+        assert all(t.dtype == torch.bfloat16 for t in got)
+        for g, a, b, what in zip(got, want16, want32, ("y", "kv", "scale")):
+            _bf16_close(g, a, b, what, 0.5)
+        kv0, s0 = want16[1], want16[2]
 
 
 def test_wrappers_raise_on_unsupported_dtype(cuda):

@@ -203,6 +203,7 @@ def test_port_imports_without_jax():
                or m.startswith(("fseend_tpu.", "cli."))]
         assert not bad, bad
         for n in ("serving.runtime", "kernels.chunk_retention", "kernels.retention_layer",
+                  "kernels._dtype", "kernels.dec_frame_scan", "kernels.enc_frame_scan",
                   "kernels.dec_train_fusion", "kernels.cached_attention", "utils.checkpoint",
                   "utils.torch_convert", "ops.retention", "models.ls_eend", "models.fs_eend",
                   "train.labels", "train.losses", "train.optim", "train.trainer",

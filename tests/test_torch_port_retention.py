@@ -286,7 +286,7 @@ def test_retention_layer_checks_its_arguments():
     gam = TR.decay_gammas(cfg)
     with pytest.raises(ValueError, match="multiple"):
         RL.retention_layer(gam, torch.zeros(2, L + 1, D), w, st["kv"], st["scale"], L)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="mixed dtypes"):
         RL.retention_layer(gam, torch.zeros(2, L, D, dtype=torch.bfloat16), w, st["kv"],
                            st["scale"], L)
     with pytest.raises(ValueError, match="s0"):

@@ -154,5 +154,8 @@ def test_unported_modes_say_where_they_are_queued(setup):
     with pytest.raises(NotImplementedError, match="A11"):
         TRN.make_train_step(TRN.TaskConfig(), dataclasses.replace(TCFG, use_fused_dec=True),
                             None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        _server(model, dtype=torch.bfloat16)
+    # LS serving in bf16 is ported (ROADMAP B9 part 1; tests/test_torch_port_bf16.py):
+    # the server builds, with a bf16 state and a bf16 copy of the model
+    srv = _server(model, dtype=torch.bfloat16)
+    assert {t.dtype for t in srv.state.values() if t.is_floating_point()} == {torch.bfloat16}
+    assert next(srv.model.parameters()).dtype == torch.bfloat16
