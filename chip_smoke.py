@@ -10,20 +10,24 @@ blockwise server, the batch pass against the reference), FS-EEND training
 a Kaldi data directory), raw-audio serving (the device front end before
 both blockwise servers) and EEND-EDA (its train step, the epoch loop on a
 Kaldi data directory, FLEX-STB block streaming and the DER of what it
-streams) and LS-EEND serving in bf16 (the bf16 forms of both frame scans
-and of the retention layer), and times the kernels, the servers and the
-steps.
+streams), LS-EEND serving in bf16 (the bf16 forms of both frame scans
+and of the retention layer), the LS "core" route and batch pass in bf16
+(the chunkwise core's bf16 form) and FS-EEND serving in bf16 (both
+cached-attention kernels' bf16 forms), and times the kernels, the servers
+and the steps.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
-                                      --parent DIR builds the cached_attention.cu,
+                                      --parent DIR builds the float32
+                                      cached_attention.cu,
                                       dec_train_fusion_{fwd,bwd}.cu,
                                       chunk_retention.cu and retention_layer.cu
                                       found in DIR, an earlier commit's
-                                      kernels/csrc with PR 7's entry points
-                                      (others are refused), times them against
-                                      this tree's in turns, and holds B3's
-                                      outputs to theirs bit for bit)
+                                      kernels/csrc with this tree's entry
+                                      points (others are refused), times them
+                                      against this tree's in turns, and holds
+                                      every output of B3-B7 to theirs bit for
+                                      bit)
     python3 chip_smoke.py --one-pass (a control: phases 5 and 8 on a copy of
                                       the sources whose 3xTF32 product takes
                                       one TF32 pass; each check that fails is
@@ -32,7 +36,8 @@ steps.
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
   2. build: the seven CUDA sources (eight kernels) with nvcc into build/,
-     and the bf16 forms of three of them (FS_BF16), all started together
+     and the bf16 forms of five of them (FS_BF16; six kernels), all started
+     together
   3. frame-scan kernels vs plain: B=128 lanes, K=64 frames, C=10 slots, the
      full LSEENDConfig(); random weights from a seed with non-trivial
      BatchNorm statistics; non-zero incoming state; staggered per-lane
@@ -119,6 +124,17 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      its main-path shape beside its bf16 plain version and its bound (bf16
      bytes over 3.35 TB/s or operations over the bf16 peak, 989 TFLOP/s),
      both frame scans also at step()'s K 1
+ H5 (LS), H4 and H6 for B5: the blockwise server on the "core" route in
+     bf16 (128 lanes x 4 blocks of 128 + flush; chunk_retention_bf16 6 a
+     block, 2 on the flush, counted from 0) against the float32 server
+     (probabilities within 0.1) and its bf16 "plain" route (drift rule),
+     the state bf16; ls_test in bf16 (a cast_model copy, phase 7's
+     recordings) on the "core" route (6 launches) against its "plain"
+     route; B5's captured calls (the batch decoder (80, 3000, 64) and
+     encoder (8, 3000, 64) at L 500 from the fresh state, the blockwise
+     calls from their carried state; every state bf16) against their bf16
+     and float32 plain versions (`bf16_guard`, close 0.5); B5 bf16 timed
+     at the batch calls
  12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
      cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
      cached_attention_perlane at R 256 and 1536, K 125, 128, 129 and 1,
@@ -148,6 +164,23 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      against the earlier cached_attention.cu: the per-lane kernel at those
      four shapes, the three blocks, step() (five rounds), and the shared
      head at the blockwise encoder's shape
+ H5 (FS), H4 and H6 for B6 and B7: the per-frame server in bf16 at F5's
+     shape (three 500-frame blocks from a fresh state, then 20 step()s;
+     cached_attention_perlane_bf16 24 a block, 6 a step, counted from 0)
+     and the blockwise server in bf16 (K 128 to the last in-capacity block
+     at 1,920, then the flush; cached_attention_bf16 4 a block), each
+     against its float32 server (within 0.1), its state bf16 and finite,
+     its first block against its bf16 plain route (drift rule); both bf16
+     kernels against their bf16 plain versions over the kernels' own tiles
+     and splits and their float32 plain versions (`bf16_guard`,
+     CA_BF16_CLOSE), and the plain versions' normalized-weight form
+     (`mha=True`) through the same guard, where it must fail, at F1's
+     shapes (R 1536 and 256, K 125 and 1, min_pos 0 and 9, two K = 1 calls
+     bit for bit) and on those servers' own calls;
+     bf16 against float32 in turns (the three blocks, step(), the last
+     blockwise block; the state's bytes); each bf16 kernel at its main-path
+     shapes beside its bf16 plain version, its bound and
+     scaled_dot_product_attention in bf16
  17. F6, tests/goldens/fs_train_ref.npz (the reference's FS training run,
      B 2, T 16) through the port's state-dict reader on the card: step-0
      losses rtol 1e-4, every gradient atol 1e-5 + rtol 1e-3, its three Adam
@@ -221,11 +254,13 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      (written as .ckpt with torch.save) to .npz; cli.infer on the .ckpt and
      on the .npz: the same weights, probabilities and RTTM, bit for bit
  29. C5, cli.export of the LS server (ls_infer.yaml, C1's model, 128 lanes,
-     block 128), in float32 and in bf16 (--dtype bf16), and the FS one (C3's
-     config, 64 lanes, block 128, capacity 2048); AotBlockServer in a fresh child that imports no model, config
-     or checkpoint module: three blocks and a flush the live
-     BlockStreamingServer's bits, retention_layer / cached_attention
-     launched by the artifact; a block timed in the child and here
+     block 128) and of the FS one (C3's config, 64 lanes, block 128,
+     capacity 2048), each with --dtype f32 and with no --dtype (the
+     default, bf16); AotBlockServer in a fresh child that imports no model,
+     config or checkpoint module: three blocks and a flush the live
+     BlockStreamingServer's bits, retention_layer / cached_attention (or
+     their bf16 forms) launched by the artifact; a block timed in the child
+     and here
  30. C6, cli.train --test_from_folder on C1's checkpoints (ls_infer.yaml:
      h5 per recording), cli.score on those h5 and on C2's RTTM against the
      directory's reference RTTM, the reference against itself DER 0;
@@ -236,10 +271,10 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      printed by the child).
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line
-(eleven entries: the eight kernels and the bf16 forms of three) and the
+(fourteen entries: the eight kernels and the bf16 forms of six) and the
 timing lines come before it.  E1-E3 launch none of the port's kernels (the
 JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout
-but H1-H3 and C5's bf16 artifact, TF32 off.  Every
+but H1-H6 and C5's bf16 artifacts, TF32 off.  Every
 kernel but the per-lane cached attention at K = 1 runs its products on the
 tensor cores, and every kernel is held within 1e-4 of its plain version
 (the fusion layer's forward on y, its backward on dx, the chunkwise kernels
@@ -254,6 +289,7 @@ TF32 pass fails these checks.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import json
@@ -383,7 +419,9 @@ def phase_build():
                          ("cached_attention", {"CA_HD": FS_HD}),
                          ("enc_frame_scan", dict(DTF, **bf16)),
                          ("dec_frame_scan", dict(DTF, **bf16)),
-                         ("retention_layer", dict(HEAD, **bf16))],
+                         ("retention_layer", dict(HEAD, **bf16)),
+                         ("chunk_retention", dict(HEAD, **bf16)),
+                         ("cached_attention", {"CA_HD": FS_HD, **bf16})],
                         verbose=True)
     log(f"build: {secs:.1f} s")
     if procs:
@@ -392,20 +430,18 @@ def phase_build():
 
 
 # --parent DIR: an earlier commit's kernel sources (with the headers beside
-# them), built beside this tree's and timed against them in turns; their C
-# entry points as PR 7 had them, recognised by these signatures (B3, B6 and
-# B7 as this tree's; the chunkwise kernels without scratch, B4 on weights
-# in torch's (out, in) layout)
+# them), built in float32 beside this tree's and timed against them in
+# turns; their C entry points must be this tree's float32 ones (88db5c2 on),
+# recognised by these signatures, so this tree's wrappers call them
 PARENT_SOURCES = {
     "cached_attention": ({"CA_HD": FS_HD}, (
-        "const int* start, float* out, float* part, int R, int K, int cap, int rows_per_lane, "
-        "int min_pos, void* stream",
-        "const int* start, float* out, int R, int K, int cap, void* stream")),
+        "out, float* part, int R, int K, int cap, int rows_per_lane, int min_pos, void* stream",
+        "out, int R, int K, int cap, void* stream")),
     "dec_train_fusion_fwd": (DTF, ("dtf_forward(const float* x, const float* tqkvg, "
                                    "const float* bqkvg",)),
     "dec_train_fusion_bwd": (DTF, ("unsigned seed, unsigned thr, float mult, void* stream_",)),
-    "chunk_retention": (HEAD, ("float* kvf, float* sf, int BH, int T, int L, void* stream)",)),
-    "retention_layer": (HEAD, ("float* ws, float* y, const float* kv0",)),
+    "chunk_retention": (HEAD, ("sf, float* scratch, int BH, int T, int L, void* stream)",)),
+    "retention_layer": (HEAD, ("ws, float* scratch,", "int B, int T, int L, int H, float kscale")),
 }
 PARENT = {}
 # the blockwise blocks' ms of this run ("ls": the fused route, "fs": the
@@ -441,14 +477,14 @@ def start_parent_build(src):
 
 
 def finish_parent_build(procs):
-    """Wait for the earlier sources' builds and fill PARENT with callables of
-    the port's wrapper signatures.  B3, B6 and B7 run this tree's wrappers
-    on the earlier libraries (same entry points; their launch counts move,
-    after the main path's were read); the chunkwise kernels get callables
-    of their own (no launch counts)."""
+    """Wait for the earlier sources' builds and fill PARENT with this tree's
+    wrappers on the earlier libraries (the same entry points; their launch
+    counts move, after the main path's were read)."""
     from fseend_tpu_torch.kernels import _build
     from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.kernels import chunk_retention as CR
     from fseend_tpu_torch.kernels import dec_train_fusion as DT
+    from fseend_tpu_torch.kernels import retention_layer as RL
 
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -458,52 +494,12 @@ def finish_parent_build(procs):
         libs[name] = ctypes.CDLL(str(lib))
         libs[name].fs_error_string.argtypes = [ctypes.c_int]
         libs[name].fs_error_string.restype = ctypes.c_char_p
-    P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
     def on(name, fn):
         """fn, with the wrappers' library loads answered by the earlier one"""
         def call(*a, **kw):
             return via(_build, "load", lambda *_, **__: libs[name], lambda: fn(*a, **kw))()
         return call
-
-    def entry(lib, fn, argtypes):
-        f = getattr(libs[lib], fn)
-        f.argtypes, f.restype = argtypes, ctypes.c_int
-        return f
-
-    cret = entry("chunk_retention", "chunk_retention_launch", [P] * 9 + [I] * 3 + [P])
-    rlay = entry("retention_layer", "retention_layer_launch", [P] * 12 + [I] * 4 + [F32, P])
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def check(what, err):
-        if err:
-            raise RuntimeError(f"earlier {what}: CUDA error {err}")
-
-    def ptrs(ts):
-        return [t.data_ptr() for t in ts]
-
-    def chunk_retention(gammas, q, k, v, kv0, s0, chunk):
-        BH, T, _ = q.shape
-        gammas, q, k, v, kv0, s0 = (t.contiguous() for t in (gammas, q, k, v, kv0, s0))
-        out = torch.empty_like(v)
-        kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
-        check("chunk_retention", cret(*ptrs((gammas, q, k, v, out, kv0, s0, kv_f, s_f)), BH, T,
-                                      chunk, stream()))
-        return out, kv_f, s_f
-
-    def retention_layer(gammas, x, w, kv0, s0, chunk):
-        """`w` in torch's (out, in) layout (`torch_layout`), as PR 7 took it."""
-        B, T, D = x.shape
-        H = gammas.shape[0]
-        gammas, x, kv0, s0 = (t.contiguous() for t in (gammas, x, kv0, s0))
-        ws = x.new_empty(B * T, w.wqkvg.shape[0])
-        y = torch.empty_like(x)
-        kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
-        check("retention_layer", rlay(*ptrs((gammas, x, *w, ws, y, kv0, s0, kv_f, s_f)), B, T,
-                                      chunk, H, (D // H) ** -0.5, stream()))
-        return y, kv_f, s_f
 
     # the launch functions themselves (the T3 step swaps them for these)
     launch_fwd, launch_bwd = DT._launch_fwd, DT._launch_bwd
@@ -515,13 +511,19 @@ def finish_parent_build(procs):
                   dec_train_fusion_bwd=on("dec_train_fusion_bwd", launch_bwd),
                   cached_attention=on("cached_attention", CA.cached_attention),
                   cached_attention_perlane=on("cached_attention", CA.cached_attention_perlane),
-                  chunk_retention=chunk_retention, retention_layer=retention_layer)
+                  chunk_retention=on("chunk_retention", CR.chunk_retention),
+                  retention_layer=on("retention_layer", RL.retention_layer))
 
 
-def torch_layout(w):
-    """A retention layer's weights in torch's (out, in) layout, for PR 7's
-    retention_layer.cu."""
-    return type(w)(w.wqkvg.T.contiguous(), w.bqkvg, w.wo.T.contiguous(), w.bo)
+def same_bits_as_parent(what, old, this):
+    """The earlier kernel's outputs and this tree's (a tensor or a tuple of
+    them) must be the same bits."""
+    old, this = ((t,) if torch.is_tensor(t) else tuple(t) for t in (old, this))
+    for j, (a, b) in enumerate(zip(old, this)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"earlier {what} vs this: output {j} differs by "
+                                 f"{(a.float() - b.float()).abs().max().item():.3e}")
+    log(f"  earlier {what} vs this: all {len(old)} outputs bit for bit")
 
 
 def via(mod, name, fn, call):
@@ -1385,7 +1387,7 @@ def pipe_bounds(name, t_bytes, flops, tensor_cores=None, bf16=False):
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), pipe, fma
 
 
-def core_reread_bytes(BH, T, L, dk, dv):
+def core_reread_bytes(BH, T, L, dk, dv, es=4):
     """What chunk_retention_tc.cuh moves beyond reading q, k, v and the state
     once and writing the output and the new state once: the state pass
     reads k and v again, the output pass reads each k/v tile once for every
@@ -1393,7 +1395,7 @@ def core_reread_bytes(BH, T, L, dk, dv):
     summaries are written, scanned (read and written) and read by every
     query tile of their chunk."""
     nqt, N = -(-L // 64), T // L
-    rows = BH * T * (dk + dv) * 4 * (nqt + 1) / 2       # (a) once, (c) (nqt + 1) / 2 times
+    rows = BH * T * (dk + dv) * es * (nqt + 1) / 2      # (a) once, (c) (nqt + 1) / 2 times
     scan = BH * N * dk * dv * 4 * (3 + nqt) if N > 1 else 0
     return rows + scan
 
@@ -1411,7 +1413,7 @@ def kernel_bound(name, args, cfg):
     tensors = [a for a in args if torch.is_tensor(a)]
     weights = [t for a in args if isinstance(a, tuple) for t in a]
     nbytes = sum(t.numel() * t.element_size() for t in tensors + weights)
-    data = args[1] if name == "retention_layer" else args[0]
+    data = args[1] if name in ("retention_layer", "chunk_retention") else args[0]
     bf16 = data.dtype == torch.bfloat16
     es = data.element_size()                   # the data's width: outputs and states
     D, H = cfg.n_units, cfg.n_heads
@@ -1441,8 +1443,9 @@ def kernel_bound(name, args, cfg):
         BH, T, dk = q.shape
         dv = v.shape[-1]
         flops = BH * T * ((L + 1) * (dk + dv) + 4 * dk * dv)
-        nbytes += (v.numel() + kv0.numel() + s0.numel()) * 4         # out + state out
-        design = nbytes + core_reread_bytes(BH, T, L, dk, dv)
+        nbytes += (v.numel() * es + (kv0.numel() + s0.numel())
+                   * kv0.element_size())                             # out + state out
+        design = nbytes + core_reread_bytes(BH, T, L, dk, dv, es)
     elif name.startswith("dec_train_fusion"):
         # per (frame, slot) row: the products 2 D (4D + D + 3D + D) + 4 D F,
         # the core H ((L + 1)(dk + dv) + 4 dk dv), the slot attention 4 C D;
@@ -1631,7 +1634,7 @@ def phase_times(cfg, model, rng, card, main_path_args):
     # the chunkwise kernels: the main path's largest calls (these make the
     # kernels line), the LS encoder's calls beside them, then the other
     # production shapes; with --parent each row of PERF.md's table also
-    # against PR 7's kernel in turns, and one decoder call of each kernel by
+    # against the earlier kernel in turns (the same bits), and one decoder call of each kernel by
     # kernel (the *_parts lines)
     rc = cfg.ret_cfg
     dk, dv, H = rc.key_dim, rc.head_dim, rc.num_heads
@@ -1665,17 +1668,13 @@ def phase_times(cfg, model, rng, card, main_path_args):
             enc_row = row
         if PARENT and compared:
             old = PARENT[name]
-            old_args = args if name == "chunk_retention" else (*args[:2], torch_layout(args[2]),
-                                                               *args[3:])
-            diff = max((a - b).abs().max().item() for a, b in zip(old(*old_args), kern(*args)))
-            log(f"  earlier {name} vs this [{shape}]: max abs diff {diff:.3e}")
-            in_turns(f"{name} {shape}", lambda: old(*old_args), lambda: kern(*args), 5, card)
+            same_bits_as_parent(f"{name} [{shape}]", old(*args), kern(*args))
+            in_turns(f"{name} {shape}", lambda: old(*args), lambda: kern(*args), 5, card)
     for name, args in (("retention_layer", rl_dec), ("chunk_retention", cr_calls[max(cr_calls)])):
         kern = chunk_kernels()[name][1]
         versions = [("this", kern, args)]
         if PARENT:
-            versions.insert(0, ("earlier", PARENT[name], args if name == "chunk_retention" else
-                                (*args[:2], torch_layout(args[2]), *args[3:])))
+            versions.insert(0, ("earlier", PARENT[name], args))
         for which, fn, a in versions:
             busy = device_ms_by_kernel(lambda: fn(*a), reps=PARTS_REPS)
             log(json.dumps({f"{name}_parts": {
@@ -1699,18 +1698,10 @@ def phase_times(cfg, model, rng, card, main_path_args):
                 "ms": blocks[kernel], "frames_per_s": B * BLOCK / (blocks[kernel] / 1e3),
                 "max_memory_allocated": peak}
         if kernel == "fused" and PARENT:
-            # the same blocks on PR 7's retention layer (its weights in torch's
-            # layout, made once per packed layer)
-            layouts = {}
-
-            def earlier_layer(gammas, x, w, kv0, s0, chunk):
-                if w.wqkvg.data_ptr() not in layouts:
-                    layouts[w.wqkvg.data_ptr()] = torch_layout(w)
-                return PARENT["retention_layer"](gammas, x, layouts[w.wqkvg.data_ptr()], kv0,
-                                                 s0, chunk)
-
+            # the same blocks on the earlier retention layer
             in_turns("blockwise process_block, fused route",
-                     via(RL, "retention_layer", earlier_layer, lambda: bsrv.process_block(xb)),
+                     via(RL, "retention_layer", PARENT["retention_layer"],
+                         lambda: bsrv.process_block(xb)),
                      lambda: bsrv.process_block(xb), 5, card, rounds=2)
         if kernel == "fused" and "--profile" in sys.argv[1:]:
             profile_window(lambda: bsrv.process_block(xb), 3, card,
@@ -1724,7 +1715,7 @@ def phase_times(cfg, model, rng, card, main_path_args):
         log(json.dumps({"process_block": line, "card": card}))
         del bsrv
     if PARENT:
-        # phase 7's ls_test on the "core" route, on PR 7's chunkwise core
+        # phase 7's ls_test on the "core" route, on the earlier chunkwise core
         xt = torch.as_tensor(rng.standard_normal((len(BATCH_LENS), BATCH_T, cfg.in_size)),
                              dtype=torch.float32, device="cuda")
         lens = torch.as_tensor(BATCH_LENS, device="cuda")
@@ -1833,21 +1824,24 @@ def attention_bound(name, args):
                         qpos.clamp(max=cap - 1) - min_pos + 1)
     flops = 4 * hd * int(reads.sum())
     prefix = int(((st + K - 1).clamp(max=cap - 1) + 1).sum())
-    nbytes = 4 * (2 * q.numel() + 2 * prefix * hd) + start.numel() * 4
+    es = q.element_size()
+    nbytes = es * (2 * q.numel() + 2 * prefix * hd) + start.numel() * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
     # the design reads every kv tile up to the tile's last readable position
     # once per 128-query tile; at K = 1 (the per-lane form's split over the
     # cache, on the FMA pipe, bound by bytes) once, and writes and reads the
     # splits' partials
-    design = nbytes + 4 * 2 * prefix * hd * (-(-K // 128) - 1)
+    design = nbytes + es * 2 * prefix * hd * (-(-K // 128) - 1)
     if name == "cached_attention_perlane" and K == 1:
         from fseend_tpu_torch.kernels import _build
+        from fseend_tpu_torch.kernels._dtype import build_defines
 
-        lib = _build.load("cached_attention", {"CA_HD": hd})
+        lib = _build.load("cached_attention", build_defines(q.dtype, CA_HD=hd))
         lib.cached_attention_perlane_scratch.argtypes = [ctypes.c_int] * 3
         lib.cached_attention_perlane_scratch.restype = ctypes.c_size_t
         design += 4 * 2 * lib.cached_attention_perlane_scratch(R, K, cap)
-    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops, tensor_cores=K > 1)
+    bound_ms, bound_by, pipe, fma_ms = pipe_bounds(name, t_bytes, flops, tensor_cores=K > 1,
+                                                   bf16=q.dtype == torch.bfloat16 and K > 1)
     return bound_ms, bound_by, flops, nbytes, design, pipe, fma_ms
 
 
@@ -2264,10 +2258,12 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
         shape = (f"R={R} K={K} start={int(args[3][0])} min_pos={args[5]}")
         if PARENT:
             old = PARENT["cached_attention_perlane"]
-            log(f"  earlier cached_attention_perlane vs this: max abs diff "
-                f"{(old(*args) - got).abs().max().item():.3e}")
+            same_bits_as_parent(f"cached_attention_perlane [{label}]", old(*args), got)
+            # a K = 1 call lasts 0.1-0.5 ms, where launch jitter shows: more
+            # calls a reading and three rounds
             in_turns(f"cached_attention_perlane {label} {shape}", lambda: old(*args),
-                     lambda: CA.cached_attention_perlane(*args), 20, card)
+                     lambda: CA.cached_attention_perlane(*args), 20 if K > 1 else 100, card,
+                     rounds=1 if K > 1 else 3)
         row = time_kernel("cached_attention_perlane", f"main path {label} {shape}",
                           CA.cached_attention_perlane, CA.cached_attention_perlane_plain,
                           args, {}, None, card, library=lib)
@@ -2281,8 +2277,7 @@ def phase_fs_times(fcfg, model, rng, card, block_args):
     lib = sdpa_call(block_args, "cached_attention")
     if PARENT:
         old = PARENT["cached_attention"]
-        log(f"  earlier cached_attention vs this: max abs diff "
-            f"{(old(*block_args) - got).abs().max().item():.3e}")
+        same_bits_as_parent("cached_attention [main path encoder]", old(*block_args), got)
         in_turns(f"cached_attention R={block_args[0].shape[0]} K={block_args[0].shape[1]} "
                  f"start={int(block_args[3])}", lambda: old(*block_args),
                  lambda: CA.cached_attention(*block_args), 20, card)
@@ -3044,7 +3039,9 @@ def kernel_counts() -> dict:
             "dec_train_fusion_fwd": DTF.fwd_launches, "dec_train_fusion_bwd": DTF.bwd_launches,
             "cached_attention_perlane": CA.perlane_launches, "cached_attention": CA.launches,
             "enc_frame_scan_bf16": EFS.launches_bf16, "dec_frame_scan_bf16": DFS.launches_bf16,
-            "retention_layer_bf16": RL.launches_bf16}
+            "retention_layer_bf16": RL.launches_bf16,
+            "cached_attention_perlane_bf16": CA.perlane_launches_bf16,
+            "cached_attention_bf16": CA.launches_bf16, "chunk_retention_bf16": CR.launches_bf16}
 
 
 def reset_kernel_counts() -> None:
@@ -3057,9 +3054,9 @@ def reset_kernel_counts() -> None:
 
     for mod in (EFS, DFS, CR, RL, CA):
         mod.launches = 0
-    for mod in (EFS, DFS, RL):
+    for mod in (EFS, DFS, RL, CR, CA):
         mod.launches_bf16 = 0
-    DTF.fwd_launches = DTF.bwd_launches = CA.perlane_launches = 0
+    DTF.fwd_launches = DTF.bwd_launches = CA.perlane_launches = CA.perlane_launches_bf16 = 0
 
 
 def launched(counts: dict) -> dict:
@@ -3335,10 +3332,11 @@ print("KERNELS " + json.dumps(counts), flush=True)
 
 def phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card):
     """C5: cli.export of the LS server (configs/ls_infer.yaml, C1's model,
-    128 lanes, block 128), in float32 and with --dtype bf16 (the retention
-    layer's bf16 form through its op), and of the FS one (C3's
-    use_flash_attn copy of configs/fs_infer.yaml, 64 lanes, block 128,
-    capacity 2048);
+    128 lanes, block 128) and of the FS one (C3's use_flash_attn copy of
+    configs/fs_infer.yaml, 64 lanes, block 128, capacity 2048), each with
+    --dtype f32 and with no --dtype, whose default is bf16 (the retention
+    layer's and the shared-head cached attention's bf16 forms through their
+    ops);
     AotBlockServer in a fresh child that imports no model, config or
     checkpoint module: three blocks and a flush the same bits as the live
     BlockStreamingServer's, retention_layer / cached_attention launched by
@@ -3346,18 +3344,23 @@ def phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card):
     from fseend_tpu_torch.cli import export
 
     line = {}
+    # dtype None: no --dtype, whose default is bf16 (the JAX CLI's)
     for kind, cfg, ckpt, lanes, cap, need, per_block, dtype in (
             ("ls", ls_cfg, avg, LANES, 4096, "retention_layer", 6, "f32"),
-            ("ls", ls_cfg, avg, LANES, 4096, "retention_layer_bf16", 6, "bf16"),
-            ("fs", fs_cfg, None, FS_LANES, FS_CAP, "cached_attention", 4, "f32")):
-        name = kind if dtype == "f32" else f"{kind}_{dtype}"
+            ("ls", ls_cfg, avg, LANES, 4096, "retention_layer_bf16", 6, None),
+            ("fs", fs_cfg, None, FS_LANES, FS_CAP, "cached_attention", 4, "f32"),
+            ("fs", fs_cfg, None, FS_LANES, FS_CAP, "cached_attention_bf16", 4, None)):
+        name = kind if dtype == "f32" else f"{kind}_bf16"
         path, frames, probs = (work / f"c5_{name}_{n}" for n in ("srv.npz", "frames.npy",
                                                                   "probs.npy"))
-        args = ["--configs", cfg, "--out", path, "--lanes", lanes, "--block", BLOCK,
-                "--capacity", cap, "--dtype", dtype] + (["--ckpt", ckpt] if ckpt else [])
+        args = (["--configs", cfg, "--out", path, "--lanes", lanes, "--block", BLOCK,
+                 "--capacity", cap] + (["--dtype", dtype] if dtype else [])
+                + (["--ckpt", ckpt] if ckpt else []))
         t0 = time.perf_counter()
         srv = export.main([str(a) for a in args])
         export_s = time.perf_counter() - t0
+        if srv.dtype != (torch.float32 if dtype == "f32" else torch.bfloat16):
+            raise AssertionError(f"C5 {name}: exported a {srv.dtype} server")
         xs = torch.as_tensor(rng.standard_normal((lanes, 3 * BLOCK, srv.cfg.in_size)),
                              dtype=torch.float32, device="cuda")
         np.save(frames, xs.cpu().numpy())
@@ -3377,7 +3380,7 @@ def phase_cli_export(work, rng, ls_cfg, fs_cfg, avg, card):
                                    for s in range(0, 3 * BLOCK, BLOCK)], reps=1) / 3
         aot_ms = json.loads([ln for ln in out.splitlines() if ln.startswith("AOT ")][-1][4:])
         line[name] = {"lanes": lanes, "block": BLOCK, "capacity": cap if kind == "fs" else None,
-                      "dtype": dtype,
+                      "dtype": str(srv.dtype)[6:], "dtype_flag": dtype or "(default)",
                       "artifact_mb": path.stat().st_size / 1e6, "export_s": export_s,
                       "same_bits_as_live": True, "aot_block_ms": aot_ms["block_ms"],
                       "live_block_ms": live_ms, "launches_in_child": launched(counts)}
@@ -3945,6 +3948,390 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# H4-H6: FS-EEND serving and the chunkwise core in bf16 (B6, B7 and B5's bf16
+# forms)
+# ---------------------------------------------------------------------------
+
+# H5: bench.py:_mode_fs's per-frame blocks (three of 500 frames a lane from a
+# fresh state), then a step() sequence; the blockwise FS server to its last
+# in-capacity block (15 blocks fill 1,920 positions) and the flush; the
+# LS "core" route's blockwise server over four blocks and the flush
+BF16_FS_STEPS, BF16_CORE_BLOCKS = 20, 4
+# the bf16 cached attention against its bf16 plain version over the same kv
+# tiles and splits (`CA.kernel_tiling`: each probability rounded at the
+# same running max): the two differ only in float32 summation order, which
+# moves a bf16 value only where it sits on a rounding boundary.  A form that
+# rounds the normalized weights, or sums the row from the rounded
+# probabilities, or skips the rounding, has rounding errors of its own and
+# reads above this share: the normalized-weight form about 1 on random data,
+# a few hundredths on the servers' own calls, whose attention is more
+# peaked (readings in PERF.md)
+CA_BF16_CLOSE = 0.01
+
+
+def bf16_core_vs_plain(args, label):
+    """One captured B5 bf16 call: the kernel, its bf16 plain version and its
+    float32 plain version on the same values; out and the new state (kv,
+    scale), all bf16, through `bf16_guard` (close 0.5).  Returns the
+    largest distance from bf16 plain."""
+    from fseend_tpu_torch.kernels import chunk_retention as CR
+
+    outs = []
+    for fn, a in ((CR.chunk_retention, clone_args(args)),
+                  (CR.chunk_retention_plain, clone_args(args)),
+                  (CR.chunk_retention_plain, to_f32(clone_args(args)))):
+        with torch.no_grad():
+            outs.append(list(fn(*a)))
+        torch.cuda.synchronize()
+    if any(t.dtype != torch.bfloat16 for t in outs[0]):
+        raise AssertionError(f"chunk_retention bf16 [{label}]: out and state "
+                             f"{[t.dtype for t in outs[0]]} (want bf16)")
+    return max(bf16_guard(f"chunk_retention bf16 [{label}].{leaf}", outs[0][i], outs[1][i],
+                          outs[2][i], 0.5) for i, leaf in enumerate(("out", "kv", "scale")))
+
+
+def phase_bf16_core(cfg, model, rng, card):
+    """H5, H4 and H6 for B5: the bf16 chunkwise core on its main paths, the
+    launch counts set to 0 just before and read just after.  The blockwise
+    LS server on the "core" route in bf16 (128 lanes x 4 blocks of 128 and
+    the flush; 6 launches a block, 2 on the flush) against the float32
+    server (probabilities within 0.1) and its bf16 "plain" route (drift
+    rule from float32), its state bf16 and finite; ls_test in bf16 (a
+    cast_model copy, phase 7's two recordings of 2900 frames, chunk 500) on
+    the "core" route (4 encoder and 2 decoder launches) against its "plain"
+    route by the drift rule from the float32 "core" pass.  H4: the captured
+    calls (the batch decoder (80, 3000, 64) and encoder (8, 3000, 64) at L
+    500 from the fresh state; the blockwise decoder's from its carried
+    state) against their plain versions.  H6: B5 bf16 at the
+    batch decoder's call beside its plain version and bound.  Returns
+    (launches, max distance from bf16 plain, the kernels line's row)."""
+    from fseend_tpu_torch.kernels import chunk_retention as CR
+    from fseend_tpu_torch.models import ls_eend
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer
+    from fseend_tpu_torch.utils.convert import cast_model
+
+    bf = torch.bfloat16
+    key = lambda name, a: tuple(a[1].shape)                     # noqa: E731
+
+    def blockwise(dtype, kernel="core"):
+        return BlockStreamingServer(kind="ls", cfg=dataclasses.replace(cfg, kernel=kernel),
+                                    model=model, n_lanes=LANES, n_slots=SLOTS, block=BLOCK,
+                                    dtype=dtype, device="cuda")
+
+    xs = torch.as_tensor(rng.standard_normal((LANES, BF16_CORE_BLOCKS * BLOCK, cfg.in_size)),
+                         dtype=torch.float32, device="cuda")
+    blocks = [xs[:, s:s + BLOCK] for s in range(0, xs.shape[1], BLOCK)] + [None]
+    srv, ref, plain = blockwise(bf), blockwise(torch.float32), blockwise(bf, "plain")
+    out16 = []
+
+    def run():
+        for b in blocks:
+            out16.append(srv.process_block(torch.zeros_like(xs[:, :BLOCK]) if b is None else b,
+                                           flush=b is None))
+
+    CR.launches_bf16 = CR.launches = 0
+    calls = capture_kernel_inputs(run, [(CR, "chunk_retention")], key=key)
+    torch.cuda.synchronize()
+    launches = CR.launches_bf16
+    n_layers = cfg.enc_n_layers + cfg.dec_n_layers
+    want = BF16_CORE_BLOCKS * n_layers + cfg.dec_n_layers
+    log(f"H5 blockwise bf16 server, core route: {LANES} lanes x {BF16_CORE_BLOCKS} blocks of "
+        f"{BLOCK} + flush; chunk_retention_bf16 launches {launches} (want {want})")
+    if launches != want or CR.launches:
+        raise AssertionError(f"chunk_retention launched {launches} bf16 / {CR.launches} "
+                             f"float32 times on the bf16 core route")
+    check_bf16_state("H5 blockwise core route", srv.state)
+    worst = 0.0
+    for i, b in enumerate(blocks):
+        flush = b is None
+        b = torch.zeros_like(xs[:, :BLOCK]) if flush else b
+        p32, pp = ref.process_block(b, flush=flush), plain.process_block(b, flush=flush)
+        if i:                                              # a lane's first emission is warm-up
+            worst = max(worst, (out16[i] - p32).abs().max().item())
+            bf16_guard(f"H5 blockwise core route block {i} probs vs plain route", out16[i], pp,
+                       p32, None, False)
+    log(f"  blockwise bf16 core route vs float32: max abs diff {worst:.3e} "
+        f"(tol {BF16_PROB_ATOL})")
+    if not worst <= BF16_PROB_ATOL:
+        raise AssertionError(f"H5 blockwise core route bf16 differs from float32 by {worst}")
+    del srv, ref, plain
+
+    T = BATCH_T
+    feats = torch.as_tensor(rng.standard_normal((2, T, cfg.in_size)), dtype=torch.float32,
+                            device="cuda")
+    lens = torch.as_tensor(BATCH_LENS, device="cuda")
+    m16 = cast_model(copy.deepcopy(model))
+    route = lambda m, k: with_route(m, k, chunk_size=BATCH_CHUNK)  # noqa: E731
+    CR.launches_bf16 = 0
+    got = {}
+    batch = capture_kernel_inputs(
+        lambda: got.update(core=ls_eend.ls_test(route(m16, "core"), feats.to(bf), lens)),
+        [(CR, "chunk_retention")], key=key)
+    torch.cuda.synchronize()
+    n_batch = CR.launches_bf16
+    log(f"H5 ls_test bf16, core route: 2 x {T} frames, chunk {BATCH_CHUNK}; "
+        f"chunk_retention_bf16 launches {n_batch} (want {n_layers})")
+    if n_batch != n_layers:
+        raise AssertionError("chunk_retention_bf16 launch count off on ls_test")
+    got["plain"] = ls_eend.ls_test(route(m16, "plain"), feats.to(bf), lens)
+    ref32 = ls_eend.ls_test(route(model, "core"), feats, lens)
+    for k in ("logits", "emb"):
+        bf16_guard(f"H5 ls_test bf16 core vs plain route: {k}", got["core"][k],
+                   got["plain"][k], ref32[k], None, False)
+    if got["core"]["logits"].dtype != torch.float32 or got["core"]["emb"].dtype != bf:
+        raise AssertionError("ls_test bf16: logits not float32 or emb not bf16")
+    launches += n_batch
+    del m16, got, ref32
+
+    err = 0.0
+    for shape, (args, _) in sorted({**calls, **batch}.items(), key=lambda kv: -kv[0][0]):
+        err = max(err, bf16_core_vs_plain(args, f"{shape} L={args[-1]}"))
+    (args, _), row = batch[max(batch, key=lambda s: s[0])], None
+    for shape, (a, kw) in batch.items():
+        r = time_kernel("chunk_retention", f"bf16 batch {shape} L={a[-1]}", CR.chunk_retention,
+                        CR.chunk_retention_plain, a, kw, cfg, card)
+        if a is args:
+            row = r
+    return launches, err, row
+
+
+def phase_fs_bf16(fcfg, model, rng, card):
+    """H5, H4 and H6 for B6 and B7: FS-EEND serving in bf16.
+    H5, the launch counts set to 0 just before and read just after: the
+    per-frame bf16 server at bench.py:_mode_fs's shape (64 lanes, capacity
+    2048, three 500-frame blocks from a fresh state in sub-blocks of 125:
+    the per-lane kernel 24 launches a block), then a step() sequence (6 a
+    step); the blockwise bf16 server (K 128) to its last in-capacity block
+    (start 1,920) and the flush (the shared-head kernel 4 a block).  Each
+    against the float32 server (probabilities within 0.1), its state bf16
+    and finite, its first block against its own bf16 plain route by the
+    drift rule from float32.
+    H4: both kernels at production width against their bf16 plain versions
+    over the kernels' own tiles (`bf16_guard`, CA_BF16_CLOSE; the plain
+    versions' normalized-weight form must fail the same guard): the
+    per-lane one at R 1536 and 256, K 125
+    and 1, skewed lane starts with lanes before warm-up and past the
+    capacity, min_pos 0 and 9, two K = 1 calls the same bits; both on the
+    calls H5's servers made (the third block's, a step()'s, the last
+    in-capacity block's).
+    H6, bf16 against float32 in turns on one card: the three blocks,
+    step(), the blockwise last block; the stream state's bytes; each bf16
+    kernel at its main-path shape beside its bf16 plain version, its bound
+    and scaled_dot_product_attention in bf16.
+    Returns (launches, errs, rows) of the two bf16 forms."""
+    from fseend_tpu_torch.kernels import cached_attention as CA
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
+
+    bf, C, H = torch.bfloat16, fcfg.max_nspks, fcfg.n_heads
+    launches, errs = {}, {"cached_attention_perlane_bf16": 0.0, "cached_attention_bf16": 0.0}
+    xs = [torch.as_tensor(rng.standard_normal((FS_LANES, FS_BLOCK, fcfg.in_size)),
+                          dtype=torch.float32, device="cuda") for _ in range(3)]
+
+    def per_frame(dtype, flash=True):
+        return StreamingServer(kind="fs", cfg=dataclasses.replace(fcfg, use_flash_attn=flash),
+                               model=model, n_lanes=FS_LANES, n_slots=C, capacity=FS_CAP,
+                               dtype=dtype, device="cuda")
+
+    srv, ref = per_frame(bf), per_frame(torch.float32)
+    out16 = []
+    CA.perlane_launches_bf16 = CA.perlane_launches = 0
+    pkey = lambda name, a: tuple(a[0].shape[:2])                # noqa: E731
+    t0 = time.perf_counter()
+    calls = capture_kernel_inputs(lambda: out16.extend(srv.process_block(x) for x in xs),
+                                  [(CA, "cached_attention_perlane")], key=pkey)
+    torch.cuda.synchronize()
+    n = CA.perlane_launches_bf16
+    want = len(xs) * (FS_BLOCK // 125) * (fcfg.enc_n_layers + fcfg.dec_n_layers)
+    log(f"H5 fs per-frame bf16 server: {FS_LANES} lanes x {len(xs)} blocks of {FS_BLOCK} from a "
+        f"fresh state, {time.perf_counter() - t0:.2f} s; cached_attention_perlane_bf16 "
+        f"launches {n} (want {want})")
+    if n != want or CA.perlane_launches:
+        raise AssertionError("cached_attention_perlane bf16 launch count off on the main path")
+    check_bf16_state("H5 fs per-frame", srv.state)
+    worst = 0.0
+    plain = per_frame(bf, False)
+    for i, x in enumerate(xs):
+        p32, v32 = ref.process_block(x)
+        p16, v16 = out16[i]
+        if not torch.equal(v16, v32):
+            raise AssertionError(f"H5 fs per-frame block {i}: valid flags differ")
+        worst = max(worst, (p16 - p32).abs().max().item())
+        if i == 0:
+            bf16_guard("H5 fs per-frame block 0 probs vs plain route", p16,
+                       plain.process_block(x)[0], p32, None, False)
+    del plain
+    CA.perlane_launches_bf16 = 0
+    s16 = []
+    step = capture_kernel_inputs(
+        lambda: s16.extend(srv.step(xs[0][:, k])[0] for k in range(BF16_FS_STEPS)),
+        [(CA, "cached_attention_perlane")], key=pkey)
+    n_step = CA.perlane_launches_bf16
+    for k, p16 in enumerate(s16):
+        worst = max(worst, (p16 - ref.step(xs[0][:, k])[0]).abs().max().item())
+    log(f"  step() x {BF16_FS_STEPS}: cached_attention_perlane_bf16 launches {n_step}")
+    if n_step != BF16_FS_STEPS * (fcfg.enc_n_layers + fcfg.dec_n_layers):
+        raise AssertionError("cached_attention_perlane bf16 launch count off on step()")
+    check_bf16_state("H5 fs step()", srv.state)
+    launches["cached_attention_perlane_bf16"] = n + n_step
+    log(f"  fs per-frame bf16 vs float32 over three blocks and {BF16_FS_STEPS} steps: max "
+        f"abs diff {worst:.3e} (tol {BF16_PROB_ATOL})")
+    if not worst <= BF16_PROB_ATOL:
+        raise AssertionError(f"H5 fs per-frame bf16 differs from float32 by {worst}")
+
+    n_blocks = FS_CAP // FS_K
+    xb = torch.as_tensor(rng.standard_normal((FS_LANES, FS_CAP, fcfg.in_size)),
+                         dtype=torch.float32, device="cuda")
+
+    def blockwise(dtype, flash=True):
+        return BlockStreamingServer(kind="fs", cfg=dataclasses.replace(fcfg, use_flash_attn=flash),
+                                    model=model, n_lanes=FS_LANES, n_slots=C, block=FS_K,
+                                    capacity=FS_CAP, dtype=dtype, device="cuda")
+
+    bsrv, bref = blockwise(bf), blockwise(torch.float32)
+    bout, snaps = [], {}
+
+    def run_blocks():
+        for i in range(n_blocks):
+            if i == n_blocks - 1:
+                snaps["bf16"] = (dict(bsrv.state), bsrv._frames_fed)
+            bout.append(bsrv.process_block(xb[:, i * FS_K:(i + 1) * FS_K]))
+        bout.append(bsrv.process_block(torch.zeros_like(xb[:, :FS_K]), flush=True))
+
+    CA.launches_bf16 = CA.launches = 0
+    bcalls = capture_kernel_inputs(run_blocks, [(CA, "cached_attention")],
+                                   key=lambda name, a: int(a[3]))
+    torch.cuda.synchronize()
+    n = CA.launches_bf16
+    log(f"H5 fs blockwise bf16 server: {FS_LANES} lanes x {n_blocks} blocks of {FS_K} (the "
+        f"last at start {FS_CAP - FS_K}) + flush; cached_attention_bf16 launches {n} "
+        f"(want {n_blocks * fcfg.enc_n_layers})")
+    if n != n_blocks * fcfg.enc_n_layers or CA.launches:
+        raise AssertionError("cached_attention bf16 launch count off on the main path")
+    launches["cached_attention_bf16"] = n
+    check_bf16_state("H5 fs blockwise", bsrv.state)
+    worst, bplain = 0.0, blockwise(bf, False)
+    for i in range(n_blocks + 1):
+        flush = i == n_blocks
+        b = torch.zeros_like(xb[:, :FS_K]) if flush else xb[:, i * FS_K:(i + 1) * FS_K]
+        if i == n_blocks - 1:
+            snaps["float32"] = (dict(bref.state), bref._frames_fed)
+        p32 = bref.process_block(b, flush=flush)
+        if i:
+            worst = max(worst, (bout[i] - p32).abs().max().item())
+        if i <= 1:
+            pp = bplain.process_block(b, flush=flush)
+            if i:
+                bf16_guard("H5 fs blockwise block 1 probs vs plain route", bout[i], pp, p32,
+                           None, False)
+    del bplain
+    log(f"  fs blockwise bf16 vs float32 over {n_blocks} blocks and the flush: max abs diff "
+        f"{worst:.3e} (tol {BF16_PROB_ATOL})")
+    if not worst <= BF16_PROB_ATOL:
+        raise AssertionError(f"H5 fs blockwise bf16 differs from float32 by {worst}")
+
+    # H4
+    def guard(name, args, label):
+        """The kernel against its bf16 plain version over the kernel's own
+        tiles; the normalized-weight form through the same guard must fail."""
+        kern = getattr(CA, name)
+        plain = getattr(CA, name + "_plain")
+        got = kern(*args)
+        torch.cuda.synchronize()
+        q, k = args[:2]
+        want16 = plain(*args, **CA.kernel_tiling(q.shape[0], q.shape[1], k.shape[1]))
+        want32 = plain(*to_f32(args))
+        e = bf16_guard(f"{name} bf16 [{label}]", got, want16, want32, CA_BF16_CLOSE)
+        errs[name + "_bf16"] = max(errs[name + "_bf16"], e)
+        try:
+            bf16_guard(f"{name} bf16 normalized-weight form [{label}]",
+                       plain(*args, mha=True), want16, want32, CA_BF16_CLOSE)
+        except AssertionError as fail:
+            log(f"    fails, as it must: {fail}")
+        else:
+            raise AssertionError(f"{name} bf16 [{label}]: the guard lets the normalized-weight "
+                                 f"form pass")
+        return got
+
+    for label, rpl in (("encoder", H), ("decoder", C * H)):
+        R = FS_LANES * rpl
+        k, v = (randn(rng, R, FS_CAP, FS_HD).to(bf) for _ in range(2))
+        for K in (FS_BLOCK // 4, 1):
+            starts = rng.integers(0, FS_CAP - K, FS_LANES)
+            starts[:6] = (0, 1, 4, 8, 9, 10)                  # around warm-up
+            starts[6:9] = (FS_CAP - K + 1, FS_CAP - 1, FS_CAP + 3)   # start + K past cap
+            start = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
+            q = randn(rng, R, K, FS_HD).to(bf)
+            for min_pos in (0, fcfg.conv_delay):
+                args = (q, k, v, start, rpl, min_pos)
+                got = guard("cached_attention_perlane", args, f"{label} R={R} K={K} "
+                                                              f"min_pos={min_pos}")
+                if K == 1 and not torch.equal(CA.cached_attention_perlane(*args), got):
+                    raise AssertionError(f"cached_attention_perlane bf16 [{label} K=1]: a "
+                                         f"second call gives other bits")
+        log(f"  cached_attention_perlane bf16 [{label} K=1]: a second call gives the same bits")
+        del k, v, q
+    main = {}
+    for (R, K), (args, _) in sorted({**calls, **step}.items()):
+        what = f"{'decoder' if R == FS_LANES * C * H else 'encoder'} K={K}"
+        guard("cached_attention_perlane", args, f"main path {what} R={R} start "
+                                                f"{int(args[3][0])}")
+        main[what] = args
+    last = bcalls[FS_CAP - FS_K][0]
+    guard("cached_attention", last, f"main path encoder R={last[0].shape[0]} "
+                                    f"K={last[0].shape[1]} start={int(last[3])}")
+
+    # H6
+    line = {}
+    lanes = np.arange(FS_LANES)
+
+    def three(s):
+        s.reset_lanes(lanes)
+        for x in xs:
+            s.process_block(x)
+
+    def last_block(s, key):
+        s.state, s._frames_fed = dict(snaps[key][0]), snaps[key][1]
+        s.process_block(xb[:, -FS_K:])
+
+    for what, a32, a16, reps, per in (
+            ("fs per-frame, three 500-frame blocks", lambda: three(ref), lambda: three(srv), 1,
+             len(xs) * FS_BLOCK),
+            ("fs per-frame step()", lambda: ref.step(xs[0][:, 0]), lambda: srv.step(xs[0][:, 0]),
+             20, 1),
+            ("fs blockwise, last in-capacity block", lambda: last_block(bref, "float32"),
+             lambda: last_block(bsrv, "bf16"), 5, FS_K)):
+        ms = []
+        for _ in range(2 if reps == 1 else 3):
+            ms += [cuda_ms(a32, reps), cuda_ms(a16, reps), cuda_ms(a16, reps), cuda_ms(a32, reps)]
+        f32_ms, bf_ms = float(np.median(ms[0::4] + ms[3::4])), float(np.median(ms[1::4] + ms[2::4]))
+        line[what] = {"ms_in_turns": ms, "float32_ms": f32_ms, "bf16_ms": bf_ms,
+                      "float32_frames_per_s": FS_LANES * per / (f32_ms / 1e3),
+                      "bf16_frames_per_s": FS_LANES * per / (bf_ms / 1e3)}
+    line["state_mb"] = {"per-frame float32": state_bytes(ref.state) / 1e6,
+                        "per-frame bf16": state_bytes(srv.state) / 1e6,
+                        "blockwise float32": state_bytes(bref.state) / 1e6,
+                        "blockwise bf16": state_bytes(bsrv.state) / 1e6}
+    log(json.dumps({"fs_bf16_vs_float32": line, "card": card}))
+    del srv, ref, bsrv, bref, snaps
+    torch.cuda.empty_cache()
+    rows = {}
+    for what in ("decoder K=125", "encoder K=125", "decoder K=1", "encoder K=1"):
+        args = main[what]
+        row = time_kernel("cached_attention_perlane",
+                          f"bf16 main path {what} R={args[0].shape[0]} start={int(args[3][0])} "
+                          f"min_pos={args[5]}", CA.cached_attention_perlane,
+                          CA.cached_attention_perlane_plain, args, {}, None, card,
+                          library=sdpa_call(args, "cached_attention_perlane"))
+        if what == "decoder K=125":
+            rows["cached_attention_perlane_bf16"] = row
+    rows["cached_attention_bf16"] = time_kernel(
+        "cached_attention", f"bf16 main path encoder R={last[0].shape[0]} K={last[0].shape[1]} "
+        f"start={int(last[3])}", CA.cached_attention, CA.cached_attention_plain, last, {},
+        None, card, library=sdpa_call(last, "cached_attention"))
+    return launches, errs, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -3981,6 +4368,8 @@ def main() -> int:
     launches.update(bf16_launches)
     errs.update(bf16_errs)
     del bf16_main, rl_calls
+    (launches["chunk_retention_bf16"], errs["chunk_retention_bf16"],
+     rows["chunk_retention_bf16"]) = phase_bf16_core(cfg, model, rng, card)
     train_rows, train_errs = phase_train_times(cfg, card, train_calls)
     rows.update(train_rows)
     for name in dec_errs:
@@ -4000,6 +4389,8 @@ def main() -> int:
     for name, row in fs_rows.items():
         errs[name] = max(fs_errs[name], row.pop("max_abs_err"))
         rows[name] = row
+    for got, into in zip(phase_fs_bf16(fcfg, fmodel, rng, card), (launches, errs, rows)):
+        into.update(got)
     phase_fs_train_golden()
     phase_fs_train(fcfg, card)
     phase_kaldi_train(fcfg, rng)
@@ -4036,6 +4427,12 @@ def main() -> int:
                                 "fseend_tpu/kernels/dec_frame_scan_pallas.py:186"),
         "retention_layer_bf16": ("fseend_tpu_torch/kernels/csrc/retention_layer.cu",
                                  "fseend_tpu/kernels/retention_layer_pallas.py:172"),
+        "chunk_retention_bf16": ("fseend_tpu_torch/kernels/csrc/chunk_retention.cu",
+                                 "fseend_tpu/kernels/retention_pallas.py:131"),
+        "cached_attention_perlane_bf16": ("fseend_tpu_torch/kernels/csrc/cached_attention.cu",
+                                          "fseend_tpu/kernels/cached_attention_pallas.py:223"),
+        "cached_attention_bf16": ("fseend_tpu_torch/kernels/csrc/cached_attention.cu",
+                                  "fseend_tpu/kernels/cached_attention_pallas.py:101"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name]}

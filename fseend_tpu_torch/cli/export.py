@@ -8,10 +8,10 @@ The artifact (`torch.export` programs with the weights inside, the kernels
 as custom ops; `serving/aot.py`) is loaded on the serving host with
 `fseend_tpu_torch.serving.aot.AotBlockServer`: no model code, configs or
 checkpoints needed there.  Export on the device type you will serve on.
-`--dtype bf16` exports an LS-EEND server in bf16 (its weights and state
-bf16, the retention layer's bf16 kernel through the custom op); FS-EEND
-serves float32 only so far (its bf16 kernels are ROADMAP B9) and raises.
-So `--dtype` defaults to f32, where the JAX CLI defaults to bf16.
+`--dtype` defaults to bf16, as the JAX CLI's does: the server's weights and
+state are bf16 and its programs call the bf16 forms of the blockwise
+kernels through the custom ops (LS-EEND: the retention layer; FS-EEND: the
+encoder's cached attention).  `--dtype f32` exports in float32.
 """
 
 from __future__ import annotations
@@ -31,9 +31,8 @@ def main(argv=None):
     parser.add_argument("--block", type=int, default=100)
     parser.add_argument("--capacity", type=int, default=4096,
                         help="FS only: max frames per stream")
-    parser.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
-                        help="serving dtype; bf16 for LS-EEND only (FS-EEND bf16 is "
-                             "ROADMAP B9 and raises)")
+    parser.add_argument("--dtype", choices=["f32", "bf16"], default="bf16",
+                        help="serving dtype")
     add_device_arg(parser)
     args = parser.parse_args(argv)
 
@@ -46,9 +45,6 @@ def main(argv=None):
 
     configs = load_config(args.configs)
     model_cfg, task, model = load_model(configs, args.ckpt, args.device)
-    if args.dtype == "bf16" and task.model != "ls":
-        raise NotImplementedError(f"--dtype bf16: {task.model} serves float32 only so far; "
-                                  f"its bf16 kernels are ROADMAP B9")
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     srv = BlockStreamingServer(kind=task.model, cfg=model_cfg, model=model,
                                n_lanes=args.lanes, n_slots=configs["data"]["max_speakers"] + 2,

@@ -20,7 +20,19 @@ cores, float32-exact, for both forms; the per-lane form's K = 1 calls
 (`step()`) streaming the cache on the FMA pipe, split over the cache when
 the rows alone do not fill the card, into scratch allocated here); on a CPU
 tensor it runs the plain version, the masked `mha_core` form the JAX
-package's non-flash paths use.  Forward only; float32 only; hd <= 128.
+package's non-flash paths use.  Forward only; hd <= 128.
+
+Float32 or bf16: q, k and v share one dtype (`_dtype.check_dtypes`).  The
+bf16 form (the same source built with FS_BF16; hd a multiple of 16)
+computes as `cached_attention_pallas.py` does on bf16 data: the scores and
+the softmax in float32, the unnormalized probabilities rounded to bf16
+before the value product while the row sum adds them unrounded, the output
+rounded to bf16.  Its plain version is that arithmetic (`_attend_bf16`),
+not `mha_core`'s bf16 form, which rounds the normalized weights: over one
+kv block of the whole cache by default (`block_kv` = cap), or over the
+kernel's own tiles and splits (`kernel_tiling`), where each probability is
+rounded at the running max the kernel has reached.  The K = 1 path's
+scratch is float32 in either form.
 The shared-head form is the custom op `torch.ops.fseend_tpu_torch.cached_attention`
 (CUDA implementation: the launch; CPU: the plain version; fake: the output
 shape), so that `torch.export` can trace the blockwise FS server through it
@@ -36,17 +48,28 @@ shared head.  Returns (R, K, hd).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from fseend_tpu_torch.kernels import _build
+from fseend_tpu_torch.kernels._dtype import build_defines, check_dtypes
+from fseend_tpu_torch.kernels.chunk_retention import aligned
 from fseend_tpu_torch.ops import nn as tnn
 
-# launches of each CUDA entry point since the count was last set to 0
-launches = 0            # cached_attention (shared write head)
-perlane_launches = 0    # cached_attention_perlane
+# launches of each CUDA entry point since the count was last set to 0: the
+# float32 forms, the bf16 forms
+launches = 0                 # cached_attention (shared write head)
+perlane_launches = 0         # cached_attention_perlane
+launches_bf16 = 0
+perlane_launches_bf16 = 0
 
 MAX_HD = 128
+_NEG = -1e30     # the kernels' finite stand-in for -inf
+# csrc/cached_attention.cu: positions per online-softmax tile at K > 1
+# (kTcKV) and at K = 1 (kSplitT), and the blocks that fill the card, below
+# which the K = 1 path splits the cache (kFillBlocks)
+TC_TILE, SPLIT_TILE, FILL_BLOCKS = 64, 128, 132 * 8
 
 
 def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,9 +127,8 @@ def _check(name, q, k, v) -> int:
     if k.shape[0] != R or k.shape[2] != hd or K < 1 or k.shape[1] < 1:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit the cache "
                          f"{tuple(k.shape)}")
+    check_dtypes(name, {"q": q}, {"k": k, "v": v}, {})
     for t in (q, k, v):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {t.dtype}; float32 only")
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
     if q.device.type not in ("cpu", "cuda"):
@@ -123,13 +145,15 @@ def _start_tensor(start, device, n: int) -> torch.Tensor:
 
 
 def _launch(q, k, v, start, rows_per_lane, min_pos, perlane):
-    global launches, perlane_launches
+    global launches, perlane_launches, launches_bf16, perlane_launches_bf16
     R, K, hd = q.shape
     cap = k.shape[1]
-    if hd > MAX_HD:
-        raise ValueError(f"cached attention: head dim {hd} > {MAX_HD}")
-    lib = _build.load("cached_attention", {"CA_HD": hd})
-    q, k, v, start = (t.contiguous() for t in (q, k, v, start))
+    bf16 = q.dtype == torch.bfloat16
+    if hd > MAX_HD or (bf16 and hd % 16):
+        raise ValueError(f"cached attention: head dim {hd}: at most {MAX_HD}"
+                         f"{', a multiple of 16 in bf16' if bf16 else ''}")
+    lib = _build.load("cached_attention", build_defines(q.dtype, CA_HD=hd))
+    q, k, v, start = (aligned(t.contiguous()) for t in (q, k, v, start))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -138,7 +162,7 @@ def _launch(q, k, v, start, rows_per_lane, min_pos, perlane):
             lib.cached_attention_perlane_scratch.argtypes = [ctypes.c_int] * 3
             lib.cached_attention_perlane_scratch.restype = ctypes.c_size_t
             n = lib.cached_attention_perlane_scratch(R, K, cap)
-            part = q.new_empty(n) if n else None
+            part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
             fn = lib.cached_attention_perlane_launch
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -153,30 +177,54 @@ def _launch(q, k, v, start, rows_per_lane, min_pos, perlane):
                      out.data_ptr(), R, K, cap, stream)
     name = "cached_attention_perlane" if perlane else "cached_attention"
     _build.check(lib, err, name)
-    if perlane:
+    if perlane and bf16:
+        perlane_launches_bf16 += 1
+    elif perlane:
         perlane_launches += 1
+    elif bf16:
+        launches_bf16 += 1
     else:
         launches += 1
     return out
 
 
+def kernel_tiling(R: int, K: int, cap: int) -> dict:
+    """The kv tiling of the CUDA kernel's online softmax at (R, K, cap), as
+    the bf16 plain versions' `tile` and `split`: tiles of 64 positions at
+    K > 1; at K = 1 tiles of 128, in splits of whole tiles when R rows alone
+    do not fill the card (`csrc/cached_attention.cu:split_count`)."""
+    if K > 1:
+        return {"tile": TC_TILE}
+    tiles = -(-cap // SPLIT_TILE)
+    n = min(1 if R >= FILL_BLOCKS else -(-FILL_BLOCKS // R), tiles)
+    return {"tile": SPLIT_TILE, "split": -(-tiles // n) * SPLIT_TILE}
+
+
 def cached_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           start) -> torch.Tensor:
+                           start, mha: bool = False, tile: int | None = None,
+                           split: int | None = None) -> torch.Tensor:
     """The masked `mha_core` form (`fs_eend.py:400-403`): an additive
-    (K, cap) mask, -inf past start + i.  Any leading dims."""
+    (K, cap) mask, -inf past start + i.  Any leading dims.  In bf16 the
+    Pallas kernel's arithmetic (`_attend_bf16`, over kv tiles of `tile`
+    positions in splits of `split`, each the whole cache when None), unless
+    `mha` asks for `mha_core`'s in every dtype (the servers' plain route,
+    the JAX package's XLA path)."""
     K, cap = q.shape[-2], k.shape[-2]
     start = torch.as_tensor(start, device=q.device).reshape(())
     pos = torch.arange(cap, device=q.device)[None, :]
     qpos = start + torch.arange(K, device=q.device)[:, None]
-    zero = torch.zeros((), device=q.device)
-    return tnn.mha_core(q, k, v, torch.where(pos <= qpos, zero, float("-inf")))
+    return _attend(q, k, v, pos <= qpos, mha, tile, split)
 
 
 def cached_attention_perlane_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    start: torch.Tensor, rows_per_lane: int,
-                                   min_pos: int = 0) -> torch.Tensor:
+                                   min_pos: int = 0, mha: bool = False,
+                                   tile: int | None = None,
+                                   split: int | None = None) -> torch.Tensor:
     """The masked `mha_core` form (`fs_eend.py:547-561`), self position
-    included: one (K, cap) mask per lane, broadcast over the lane's rows."""
+    included: one (K, cap) mask per lane, broadcast over the lane's rows.
+    In bf16 the Pallas kernel's arithmetic, unless `mha` (`tile`, `split`
+    and `mha` as in `cached_attention_plain`)."""
     R, K, hd = q.shape
     cap = k.shape[1]
     nl = R // rows_per_lane
@@ -184,9 +232,55 @@ def cached_attention_perlane_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     pos = torch.arange(cap, device=q.device)[None, None, :]
     qpos = start[:, None, None] + torch.arange(K, device=q.device)[None, :, None]
     ok = ((pos <= qpos) & (pos >= min_pos)) | (pos == qpos)          # (nl, K, cap)
-    zero = torch.zeros((), device=q.device)
-    mask = torch.where(ok, zero, float("-inf"))[:, None]
-    out = tnn.mha_core(q.reshape(nl, rows_per_lane, K, hd),
-                       k.reshape(nl, rows_per_lane, cap, hd),
-                       v.reshape(nl, rows_per_lane, cap, hd), mask)
+    out = _attend(q.reshape(nl, rows_per_lane, K, hd), k.reshape(nl, rows_per_lane, cap, hd),
+                  v.reshape(nl, rows_per_lane, cap, hd), ok[:, None], mha, tile, split)
     return out.reshape(R, K, hd)
+
+
+def _attend(q, k, v, ok, mha, tile, split):
+    if q.dtype == torch.bfloat16 and not mha:
+        return _attend_bf16(q, k, v, ok, tile, split)
+    zero = torch.zeros((), device=q.device)
+    return tnn.mha_core(q, k, v, torch.where(ok, zero, float("-inf")))
+
+
+def _attend_bf16(q, k, v, ok, tile=None, split=None):
+    """`cached_attention_pallas.py`'s arithmetic on bf16 q, k, v: s = (q
+    k^T) * hd**-0.5 in float32 (exact bf16 products), masked where `ok`
+    (broadcast to (..., K, cap)) fails.  The cache is cut into splits of
+    `split` positions and each split into tiles of `tile` (the whole cache
+    when None), from position 0.  Within a split the softmax is online:
+    at each tile m = the running max so far, p = exp(s - m) in float32 (0
+    where masked), l and acc rescaled by exp(m_old - m), l += the sum of p,
+    acc += (p rounded to bf16) v.  One split: out = acc / l; several: the
+    splits' (m, l, acc) merged in order, each weighted by exp(m - the
+    largest m), as the kernel's combine does.  Rounded to bf16."""
+    cap = k.shape[-2]
+    tile, split = tile or cap, split or cap
+    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    ok = ok.expand(s.shape)
+    s = torch.where(ok, s, _NEG)
+    vf = v.float()
+    parts = []
+    for z0 in range(0, cap, split):
+        m = torch.full_like(s[..., :1], _NEG)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(s.shape[:-1] + vf.shape[-1:], device=s.device)
+        for j0 in range(z0, min(z0 + split, cap), tile):
+            j1 = min(j0 + tile, z0 + split, cap)
+            sj = s[..., j0:j1]
+            m_new = torch.maximum(m, sj.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.where(ok[..., j0:j1], torch.exp(sj - m_new), 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(v.dtype).float() @ vf[..., j0:j1, :]
+            m = m_new
+        parts.append((m, l, acc))
+    if len(parts) == 1:
+        return (acc / l).to(q.dtype)
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    num, den = torch.zeros_like(acc), torch.zeros_like(l)
+    for m, l, acc in parts:
+        w = torch.exp(m - mx)
+        num, den = num + w * acc, den + w * l
+    return (num / den).to(q.dtype)

@@ -11,7 +11,16 @@ carried state `(kv, scale)` as it was before the chunk, and the update
 
 On a CUDA tensor the wrapper launches `csrc/chunk_retention.cu` (design
 notes there and in `csrc/chunk_retention_tc.cuh`); on a CPU tensor it runs
-`chunk_retention_plain`.  Neither touches the incoming state.  Float32 only.
+`chunk_retention_plain`.  Neither touches the incoming state.
+
+Float32 or bf16: q, k, v and the state (kv0, s0) share one dtype, gammas
+is float32.  The bf16 form (the same source built with FS_BF16) computes as
+`retention_pallas.py` does on bf16 data: the scores from the bf16 values in
+float32, the rest in float32, the state carried in float32 within the call
+and returned in bf16, the output rounded to bf16; so does the plain
+version.  The
+gradient path is float32 only (bf16 training is ROADMAP B9 part 3).  The
+scratch is float32 in either form.
 `chunk_retention_passes` is the kernel's algorithm (the state scanned over
 the chunks' summaries, the output per 64-query tile) in plain tensor ops,
 for the tests.
@@ -33,9 +42,12 @@ import torch
 import torch.nn.functional as F
 
 from fseend_tpu_torch.kernels import _build
+from fseend_tpu_torch.kernels._dtype import build_defines
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the count was last set to 0: its
+# float32 form, its bf16 form
 launches = 0
+launches_bf16 = 0
 
 
 def chunk_retention(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -46,6 +58,9 @@ def chunk_retention(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"chunk_retention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, kv0, s0)):
+        if q.dtype != torch.float32:
+            raise NotImplementedError("chunk_retention: the gradient is float32 only; bf16 "
+                                      "training is ROADMAP B9 part 3")
         return _ChunkRetentionFn.apply(gammas, q, k, v, kv0, s0, chunk)
     return _forward(gammas, q, k, v, kv0, s0, chunk)
 
@@ -91,13 +106,17 @@ def _check(gammas, q, k, v, kv0, s0, chunk):
     want = {"gammas": (BH,), "q": (BH, T, dk), "k": (BH, T, dk), "v": (BH, T, dv),
             "kv0": (BH, dk, dv), "s0": (BH, 1, 1)}
     got = {"gammas": gammas, "q": q, "k": k, "v": v, "kv0": kv0, "s0": s0}
+    dt = q.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"chunk_retention: q is {dt}; the kernel takes float32 or bfloat16")
     for name, shape in want.items():
         t = got[name]
         if tuple(t.shape) != shape:
             raise ValueError(f"chunk_retention: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"chunk_retention: {name} is {t.dtype}; float32 only")
+        if t.dtype != (torch.float32 if name == "gammas" else dt):
+            raise ValueError(f"chunk_retention: mixed dtypes: {name} is {t.dtype}, q {dt} "
+                             f"(gammas is float32)")
         if t.device != q.device:
             raise ValueError(f"chunk_retention: {name} is on {t.device}, q on {q.device}")
     if chunk <= 0 or T % chunk:
@@ -111,13 +130,13 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(gammas, q, k, v, kv0, s0, chunk):
-    global launches
+    global launches, launches_bf16
     BH, T, dk = q.shape
     dv = v.shape[-1]
     if dk % 16 or dv % 16 or dk > 128 or dv > 128:
         raise ValueError(f"chunk_retention: head dims {dk}, {dv} must be multiples of 16, "
                          f"at most 128")
-    lib = _build.load("chunk_retention", {"CR_DK": dk, "CR_DV": dv})
+    lib = _build.load("chunk_retention", build_defines(q.dtype, CR_DK=dk, CR_DV=dv))
     fn = lib.chunk_retention_launch
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -126,7 +145,8 @@ def _launch(gammas, q, k, v, kv0, s0, chunk):
     kv_f, s_f = torch.empty_like(kv0), torch.empty_like(s0)
     N = T // chunk
     # the chunks' summaries and scales, when there is more than one chunk
-    scratch = q.new_empty(BH * N * (dk * dv + 1)) if N > 1 else None
+    scratch = (torch.empty(BH * N * (dk * dv + 1), dtype=torch.float32, device=q.device)
+               if N > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gammas.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -134,7 +154,10 @@ def _launch(gammas, q, k, v, kv0, s0, chunk):
                  s_f.data_ptr(), None if scratch is None else scratch.data_ptr(),
                  BH, T, chunk, stream)
     _build.check(lib, err, "chunk_retention")
-    launches += 1
+    if q.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out, kv_f, s_f
 
 
@@ -143,7 +166,14 @@ def chunk_retention_plain(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor
                           chunk: int):
     """The TPU kernel's arithmetic with batched tensor ops: rows batched,
     chunks in a Python loop.  gamma**x is exp(x * log gamma), exactly 1 for
-    gamma = 1."""
+    gamma = 1.  bf16: the same arithmetic in float32 on the bf16 values
+    (the scores are sums of exact products), the output rounded to bf16 and
+    the state to bf16 at the end (`retention_pallas.py:57-59,
+    94-95, 111-112`)."""
+    if q.dtype == torch.bfloat16:
+        out, kv, s = chunk_retention_plain(gammas, q.float(), k.float(), v.float(),
+                                           kv0.float(), s0.float(), chunk)
+        return out.to(q.dtype), kv.to(kv0.dtype), s.to(s0.dtype)
     BH, T, dk = q.shape
     L = chunk
     lg = torch.log(gammas).reshape(BH, 1, 1)

@@ -69,13 +69,50 @@
 //
 // The head dim is a compile-time constant (CA_HD <= 128), so that the
 // accumulators stay in registers.
+//
+// The bf16 form (built with FS_BF16; the float32 build is the code above,
+// the element type E = float): q, k, v and out are bf16 in device memory,
+// and the arithmetic is the Pallas kernels' on bf16 inputs
+// (cached_attention_pallas.py:72-84, 199-217): the scores q k^T are sums of
+// exact bf16 products in float32, scaled, masked and soft-maxed in float32;
+// the unnormalized probabilities exp(s - m) are rounded to bf16 before they
+// multiply v, while the row sum l adds them unrounded; out = acc / l is
+// rounded to bf16.  The Pallas kernel takes its running max over kv blocks
+// of 1024 positions and this kernel over tiles of 64 (or 128 at K = 1, and
+// per split), so a probability can round an ulp apart where a later tile
+// raises the max (the online-softmax drift the Pallas source notes).
+//   K > 1 (tc_body_bf16): the tiles of the float32 body in bf16 rows of
+//   CA_HD + 8 elements (16-byte cp.async copies; each 8-row ldmatrix phase
+//   hits distinct banks); q k^T and p v are one bf16 mma.sync.m16n8k16 pass
+//   each with float32 accumulation (tc_bf16.cuh).  q and k fragments come by
+//   ldmatrix, v's by ldmatrix.trans; the probabilities of two adjacent
+//   8-position accumulator tiles are the A fragment of one 16-deep k step of
+//   p v directly (the FlashAttention-2 layout: no permutation of the
+//   positions, unlike the float32 body's m16n8k8 A fragment).  CA_HD % 16
+//   == 0.
+//   K = 1: the float32 split kernel reading bf16 rows into its float32
+//   tiles with plain loads, every load of a thread issued before its first
+//   store (load_kv_b16), p rounded to bf16 before the p v sum; the partials
+//   and the combine stay float32.
+// Bound at the decoder's fast-block shape: the same 70 GFLOP on the bf16
+// tensor cores (989 TFLOP/s, 0.07 ms) against 0.55 GB of bf16 cache (0.17
+// ms): bytes.  At K = 1, bytes, half the float32 form's.
 #include <cmath>
 
 #include "frame_scan_common.cuh"
 #include "tc_f32.cuh"
+#ifdef FS_BF16
+#include "tc_bf16.cuh"
+#endif
 
 #ifndef CA_HD
 #error "define CA_HD (the head dim, at most 128)"
+#endif
+
+#ifdef FS_BF16
+using E = fs::bf16;
+#else
+using E = float;
 #endif
 
 namespace ca {
@@ -105,11 +142,44 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int n, i
   }
 }
 
+// NT rows of k and of v from bf16 (rows, CA_HD) matrices, read to float32
+// into tiles of row stride LD by NT threads (rows at or past `valid` are
+// zero): every thread issues all its plain loads before its first store,
+// so their latencies overlap (the float32 form's cp.async does that in
+// hardware); landed at the caller's next barrier.  CA_HD % 4 == 0.
+// four bf16 values (8 bytes, the first in the lowest half) as float32
+__device__ __forceinline__ float4 b16x4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <int LD, int NT>
+__device__ __forceinline__ void load_kv_b16(float* ks, float* vs, const fs::bf16* k,
+                                            const fs::bf16* v, int valid) {
+  constexpr int kChunks = CA_HD / 4;  // 8-byte chunks of a row: NT rows take kChunks a thread
+  uint2 bk[kChunks], bv[kChunks];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int idx = threadIdx.x + i * NT, r = idx / kChunks, c = (idx % kChunks) * 4;
+    const bool ok = r < valid;
+    bk[i] = ok ? *reinterpret_cast<const uint2*>(k + (size_t)r * CA_HD + c) : make_uint2(0u, 0u);
+    bv[i] = ok ? *reinterpret_cast<const uint2*>(v + (size_t)r * CA_HD + c) : make_uint2(0u, 0u);
+  }
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int idx = threadIdx.x + i * NT, r = idx / kChunks, c = (idx % kChunks) * 4;
+    *reinterpret_cast<float4*>(ks + r * LD + c) = b16x4(bk[i]);
+    *reinterpret_cast<float4*>(vs + r * LD + c) = b16x4(bv[i]);
+  }
+}
+
 // ---- K > 1, both forms, on the tensor cores ----
 
 constexpr int kThreads = 256;              // 8 warps
 constexpr int kTcQ = 128;                  // queries per block: 8 warps x 16 rows
 constexpr int kTcKV = 64;                  // kv positions per tile
+#ifndef FS_BF16
 constexpr int kHdp = (CA_HD + 7) / 8 * 8;  // head dim rounded up to the mma's k
 constexpr int kTcLd = kHdp + 4;            // row stride of the q, k and v tiles
 constexpr int kNT = kHdp / 8;              // accumulator tiles along hd
@@ -275,22 +345,215 @@ __device__ __forceinline__ void tc_body(const float* __restrict__ q, const float
     }
 }
 
+constexpr int tc_smem_bytes() { return (int)sizeof(float) * tc_smem_floats(); }
+#define CA_TC_BODY tc_body
+#else
+// ---- K > 1, both forms, bf16, on the tensor cores ----
+
+static_assert(CA_HD % 16 == 0, "the bf16 form takes head dims that are multiples of 16");
+using fs::bf16;
+
+constexpr int kBLd = CA_HD + 8;  // row stride (elements) of the bf16 q, k and v tiles
+constexpr int kNB = CA_HD / 8;   // accumulator tiles along hd
+
+constexpr int tc_smem_bytes() { return (int)sizeof(bf16) * (kTcQ + 4 * kTcKV) * kBLd; }
+
+// n rows of a (rows, CA_HD) bf16 matrix into a tile of row stride kBLd by
+// 16-byte cp.async over kThreads threads; rows at or past `valid` are
+// zero-filled
+__device__ __forceinline__ void load_rows_b16(bf16* dst, const bf16* src, int n, int valid) {
+  constexpr int kChunks = CA_HD / 8;
+  for (int idx = threadIdx.x; idx < n * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const bool ok = r < valid;
+    tc::cp_async16(dst + r * kBLd + c, ok ? src + (size_t)r * CA_HD + c : src, ok);
+  }
+}
+
+// two floats as the bf16 pair of an mma fragment register (the first in
+// the lower half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// tc_body's blocks, masks and online softmax on bf16 tiles: one bf16 pass
+// for q k^T and one for p v
+template <bool PERLANE>
+__device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                             const bf16* __restrict__ v,
+                                             const int* __restrict__ start, bf16* __restrict__ out,
+                                             int K, int cap, int rows_per_lane, int min_pos,
+                                             float scale) {
+  extern __shared__ __align__(16) bf16 hsm[];
+  bf16* qs = hsm;                        // (kTcQ, kBLd)
+  bf16* kvs = qs + kTcQ * kBLd;          // 2 stages x (k, v) x (kTcKV, kBLd)
+
+  const int row = blockIdx.x, q0 = blockIdx.y * kTcQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = tc::lane_g(), t = tc::lane_t();
+  const int st = PERLANE ? start[row / rows_per_lane] : start[0];
+  const int nq = min(kTcQ, K - q0);
+  const int last = min(st + q0 + nq - 1, cap - 1);  // the block's last readable position
+  const int ntile = last / kTcKV + 1;
+  const int wr0 = warp * 16;                          // the warp's first query row
+  const bool active = wr0 < nq;
+  const int wlast = min(st + q0 + min(wr0 + 15, nq - 1), cap - 1);
+
+  const bf16* kr = k + (size_t)row * cap * CA_HD;
+  const bf16* vr = v + (size_t)row * cap * CA_HD;
+  auto load_kv = [&](int it) {
+    bf16* ks = kvs + (it & 1) * 2 * kTcKV * kBLd;
+    const int j0 = it * kTcKV;
+    load_rows_b16(ks, kr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
+    load_rows_b16(ks + kTcKV * kBLd, vr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
+  };
+  load_rows_b16(qs, q + ((size_t)row * K + q0) * CA_HD, kTcQ, nq);
+  load_kv(0);
+  tc::cp_async_commit();
+
+  // rows g and g + 8 of the warp's 16: running max, sum and accumulator
+  const int qp0 = st + q0 + wr0 + g, qp1 = qp0 + 8;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  float o[kNB][4];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < ntile; ++it) {
+    if (it + 1 < ntile) {
+      load_kv(it + 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it (and q) have landed for every thread
+    const int j0 = it * kTcKV;
+    if (active && j0 <= wlast) {
+      const bf16* ks = kvs + (it & 1) * 2 * kTcKV * kBLd;
+      const bf16* vs = ks + kTcKV * kBLd;
+      // s = q k^T over the tile: 16 rows x 64 positions, 8 accumulator tiles
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < CA_HD / 16; ++kk) {
+        uint32_t fa[4];
+        tc::load_a16(fa, qs + wr0 * kBLd + kk * 16, kBLd);
+#pragma unroll
+        for (int n = 0; n < 8; n += 2) {
+          // B(d, j) = k[j][d] for positions 8n .. 8n + 15: the k rows as
+          // they are (matrices: rows 0-7 then 8-15, each d 0-7 then 8-15)
+          uint32_t r[4];
+          tc::ldsm_x4(r, ks + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * kBLd + kk * 16 +
+                             ((lane >> 3) & 1) * 8);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          tc::mma_bf16(s[n], fa, b0);
+          tc::mma_bf16(s[n + 1], fa, b1);
+        }
+      }
+      // mask, scale and the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+      float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = j0 + n * 8 + 2 * t + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          bool ok;
+          if constexpr (PERLANE)
+            ok = p < cap && ((p <= qp && p >= min_pos) || p == qp);
+          else
+            ok = p < cap && p <= qp;
+          s[n][e] = ok ? s[n][e] * scale : kNeg;
+          if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
+          else mx1 = fmaxf(mx1, s[n][e]);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      const float c0 = expf(m0 - n0), c1 = expf(m1 - n1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mref = e < 2 ? n0 : n1;
+          const float pr = s[n][e] > 0.5f * kNeg ? expf(s[n][e] - mref) : 0.f;
+          s[n][e] = pr;  // unrounded: the row sum adds these
+          if (e < 2) sum0 += pr;
+          else sum1 += pr;
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+      m0 = n0;
+      m1 = n1;
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) {
+        o[n][0] *= c0, o[n][1] *= c0;
+        o[n][2] *= c1, o[n][3] *= c1;
+      }
+      // o += p v, p rounded to bf16: k step kk covers positions 16kk ..
+      // 16kk + 15, accumulator tiles 2kk and 2kk + 1 as they are
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t fa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < kNB; n += 2) {
+          uint32_t b0[2], b1[2];
+          tc::load_b16x2(b0, b1, vs + kk * 16 * kBLd + n * 8, kBLd);
+          tc::mma_bf16(o[n], fa, b0);
+          tc::mma_bf16(o[n + 1], fa, b1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  if (!active) return;
+  bf16* orow = out + ((size_t)row * K + q0) * CA_HD;
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < kNB; ++n) {
+    const int d = n * 8 + 2 * t, r0 = wr0 + g, r1 = r0 + 8;
+    if (r0 < nq) fs::store2(orow + (size_t)r0 * CA_HD + d, o[n][0] * i0, o[n][1] * i0);
+    if (r1 < nq) fs::store2(orow + (size_t)r1 * CA_HD + d, o[n][2] * i1, o[n][3] * i1);
+  }
+}
+#define CA_TC_BODY tc_body_bf16
+#endif
+
 // one start for every row, no floor
 __global__ void __launch_bounds__(kThreads)
-    shared_head_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const int* __restrict__ start,
-                       float* __restrict__ out, int K, int cap, float scale) {
-  tc_body<false>(q, k, v, start, out, K, cap, 1, 0, scale);
+    shared_head_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, const int* __restrict__ start,
+                       E* __restrict__ out, int K, int cap, float scale) {
+  CA_TC_BODY<false>(q, k, v, start, out, K, cap, 1, 0, scale);
 }
 
 // per-lane starts and the min_pos floor; two blocks an SM (the mask's
 // extra registers would otherwise leave one)
 __global__ void __launch_bounds__(kThreads, 2)
-    perlane_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const int* __restrict__ start,
-                   float* __restrict__ out, int K, int cap, int rows_per_lane, int min_pos,
+    perlane_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                   const E* __restrict__ v, const int* __restrict__ start,
+                   E* __restrict__ out, int K, int cap, int rows_per_lane, int min_pos,
                    float scale) {
-  tc_body<true>(q, k, v, start, out, K, cap, rows_per_lane, min_pos, scale);
+  CA_TC_BODY<true>(q, k, v, start, out, K, cap, rows_per_lane, min_pos, scale);
 }
 
 // ---- K = 1, the per-lane form: a split over the cache on the FMA pipe ----
@@ -320,11 +583,12 @@ inline int split_count(int R, int cap, int* per_tiles) {
 // q, out (R, 1, CA_HD); k, v (R, cap, CA_HD).  Block (row, z) takes the
 // positions [z per kSplitT, (z + 1) per kSplitT) up to the row's last
 // readable one.  nsplit == 1: out = acc / sum; else part[row][z] = (max,
-// sum, acc[CA_HD]).
+// sum, acc[CA_HD]).  bf16: p rounded to bf16 before it multiplies v (the
+// sum adds it unrounded), out rounded to bf16.
 __global__ void __launch_bounds__(kSplitT)
-    perlane_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const int* __restrict__ start,
-                         float* __restrict__ out, float* __restrict__ part, int cap,
+    perlane_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                         const E* __restrict__ v, const int* __restrict__ start,
+                         E* __restrict__ out, float* __restrict__ part, int cap,
                          int rows_per_lane, int min_pos, float scale, int per, int nsplit) {
   extern __shared__ __align__(16) float ssm[];
   float* ks = ssm;                     // (kSplitT, kSLd)
@@ -345,18 +609,22 @@ __global__ void __launch_bounds__(kSplitT)
   float m = kNeg, l = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   if (j_begin < j_end) {
-    const float* kr = k + (size_t)row * cap * CA_HD;
-    const float* vr = v + (size_t)row * cap * CA_HD;
+    const E* kr = k + (size_t)row * cap * CA_HD;
+    const E* vr = v + (size_t)row * cap * CA_HD;
     if constexpr (kPad4 > 0) {  // the padded columns are never copied: zero them once
       for (int idx = tid; idx < 2 * kSplitT * kPad4; idx += kSplitT)
         ssm[(idx / kPad4Div) * kSLd + CA_HD + idx % kPad4Div] = 0.f;
     }
-    for (int d = tid; d < kHd4; d += kSplitT) qs[d] = d < CA_HD ? q[(size_t)row * CA_HD + d] : 0.f;
+    for (int d = tid; d < kHd4; d += kSplitT) qs[d] = d < CA_HD ? fs::f32(q[(size_t)row * CA_HD + d]) : 0.f;
     for (int j0 = j_begin; j0 < j_end; j0 += kSplitT) {
       const int nv = min(kSplitT, j_end - j0);
       __syncthreads();  // the previous tile's ks, vs, ps and wred are consumed
+#ifdef FS_BF16
+      load_kv_b16<kSLd, kSplitT>(ks, vs, kr + (size_t)j0 * CA_HD, vr + (size_t)j0 * CA_HD, nv);
+#else
       load_rows<kSLd, kSplitT>(ks, kr + (size_t)j0 * CA_HD, kSplitT, nv);
       load_rows<kSLd, kSplitT>(vs, vr + (size_t)j0 * CA_HD, kSplitT, nv);
+#endif
       tc::cp_async_commit();
       tc::cp_async_wait<0>();
       __syncthreads();
@@ -391,7 +659,7 @@ __global__ void __launch_bounds__(kSplitT)
       acc = make_float4(acc.x * corr, acc.y * corr, acc.z * corr, acc.w * corr);
       if (grp < kGrp) {
         for (int j = grp; j < nv; j += kGrp) {
-          const float pj = ps[j];
+          const float pj = fs::rnd<E>(ps[j]);
           const float4 vv = *reinterpret_cast<const float4*>(vs + j * kSLd + 4 * c);
           acc.x = fmaf(pj, vv.x, acc.x);
           acc.y = fmaf(pj, vv.y, acc.y);
@@ -408,7 +676,7 @@ __global__ void __launch_bounds__(kSplitT)
     float o = 0.f;
     for (int gi = 0; gi < kGrp; ++gi) o += racc[gi * kHd4 + d];
     if (nsplit == 1) {
-      out[(size_t)row * CA_HD + d] = o / l;
+      out[(size_t)row * CA_HD + d] = fs::As<E>::from(o / l);
     } else {
       float* pz = part + ((size_t)row * nsplit + z) * (CA_HD + 2);
       pz[2 + d] = o;
@@ -419,7 +687,7 @@ __global__ void __launch_bounds__(kSplitT)
 
 // out[row][d] = sum_z w_z acc_z[d] / sum_z w_z sum_z, w_z = exp(max_z - the
 // row's max), the splits added in the order of z
-__global__ void combine_kernel(const float* __restrict__ part, float* __restrict__ out, int R,
+__global__ void combine_kernel(const float* __restrict__ part, E* __restrict__ out, int R,
                                int nsplit) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)R * CA_HD) return;
@@ -434,17 +702,17 @@ __global__ void combine_kernel(const float* __restrict__ part, float* __restrict
     den = fmaf(w, pz[1], den);
     num = fmaf(w, pz[2 + d], num);
   }
-  out[e] = num / den;
+  out[e] = fs::As<E>::from(num / den);
 }
 
 inline float attention_scale() {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(CA_HD)));
 }
 
-inline int launch_tc(bool perlane, const float* q, const float* k, const float* v,
-                     const int* start, float* out, int R, int K, int cap, int rows_per_lane,
-                     int min_pos, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * tc_smem_floats();
+inline int launch_tc(bool perlane, const E* q, const E* k, const E* v, const int* start,
+                     E* out, int R, int K, int cap, int rows_per_lane, int min_pos,
+                     cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes();
   const void* fn = perlane ? reinterpret_cast<const void*>(perlane_kernel)
                            : reinterpret_cast<const void*>(shared_head_kernel);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -460,8 +728,8 @@ inline int launch_tc(bool perlane, const float* q, const float* k, const float* 
   return cudaGetLastError();
 }
 
-inline int launch_split(const float* q, const float* k, const float* v, const int* start,
-                        float* out, float* part, int R, int cap, int rows_per_lane, int min_pos,
+inline int launch_split(const E* q, const E* k, const E* v, const int* start, E* out,
+                        float* part, int R, int cap, int rows_per_lane, int min_pos,
                         cudaStream_t stream) {
   int per;
   const int nsplit = split_count(R, cap, &per);
@@ -491,10 +759,11 @@ extern "C" size_t cached_attention_perlane_scratch(int R, int K, int cap) {
 }
 
 // Per-lane write heads: start (R / rows_per_lane) int32 on the device; part
-// the scratch of cached_attention_perlane_scratch floats (null when 0).
-// Returns cudaGetLastError().
-extern "C" int cached_attention_perlane_launch(const float* q, const float* k, const float* v,
-                                               const int* start, float* out, float* part,
+// the scratch of cached_attention_perlane_scratch floats (null when 0), in
+// float32 whatever E is.  q, k, v, out of the element type E (bf16 with
+// FS_BF16).  Returns cudaGetLastError().
+extern "C" int cached_attention_perlane_launch(const E* q, const E* k, const E* v,
+                                               const int* start, E* out, float* part,
                                                int R, int K, int cap, int rows_per_lane,
                                                int min_pos, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -503,8 +772,8 @@ extern "C" int cached_attention_perlane_launch(const float* q, const float* k, c
 }
 
 // One write head for every row: start (1) int32 on the device; no floor.
-extern "C" int cached_attention_launch(const float* q, const float* k, const float* v,
-                                       const int* start, float* out, int R, int K,
+extern "C" int cached_attention_launch(const E* q, const E* k, const E* v,
+                                       const int* start, E* out, int R, int K,
                                        int cap, void* stream) {
   return ca::launch_tc(false, q, k, v, start, out, R, K, cap, 1, 0,
                        static_cast<cudaStream_t>(stream));

@@ -17,21 +17,35 @@
 //
 // The head dims are compile-time constants (CR_DK, CR_DV) so that every
 // warp's accumulators stay in registers.
+//
+// The bf16 form (built with FS_BF16; the float32 build is the code above):
+// q, k, v, out and the state (kv, scale) in and out are bf16.  The
+// arithmetic is retention_pallas.py's on bf16 inputs: the scores a bf16
+// tensor-core pass, S V, the cross read and the state update 3xTF32 on
+// float32 operands, the state carried in float32 within the call and stored
+// in bf16, the output rounded to bf16 (chunk_retention_tc.cuh).  Bound: the
+// same operations, against half the float32 form's bytes.
 #include "chunk_retention_tc.cuh"
 
 #ifndef CR_DK
 #error "define CR_DK and CR_DV (the key and value dims of a head)"
 #endif
 
-// gamma (BH); q, k (BH, T, CR_DK); v, out (BH, T, CR_DV); kv0, kvf (BH, CR_DK,
-// CR_DV); s0, sf (BH); scratch (BH * (T/L) * (CR_DK * CR_DV + 1)) floats when
-// T > L, else may be null.  T % L == 0.  Returns the first CUDA error of the
-// launches.
-extern "C" int chunk_retention_launch(const float* gamma, const float* q, const float* k,
-                                      const float* v, float* out, const float* kv0,
-                                      const float* s0, float* kvf, float* sf, float* scratch,
-                                      int BH, int T, int L, void* stream) {
-  crt::Args a{};
+#ifdef FS_BF16
+using E = fs::bf16;
+#else
+using E = float;
+#endif
+
+// gamma (BH) float32; q, k (BH, T, CR_DK); v, out (BH, T, CR_DV); kv0, kvf
+// (BH, CR_DK, CR_DV); s0, sf (BH); all but gamma and scratch of the element
+// type E (bf16 with FS_BF16, else float).  scratch (BH * (T/L) * (CR_DK *
+// CR_DV + 1)) floats when T > L, else may be null.  T % L == 0.  Returns the
+// first CUDA error of the launches.
+extern "C" int chunk_retention_launch(const float* gamma, const E* q, const E* k, const E* v,
+                                      E* out, const E* kv0, const E* s0, E* kvf, E* sf,
+                                      float* scratch, int BH, int T, int L, void* stream) {
+  crt::ArgsE<E> a{};
   a.q = q, a.k = k, a.v = v, a.ldq = CR_DK, a.ldk = CR_DK, a.ldv = CR_DV;
   a.out = out, a.ldo = CR_DV, a.gamma = gamma, a.gmod = BH;
   a.kv0 = kv0, a.s0 = s0, a.kvf = kvf, a.sf = sf;

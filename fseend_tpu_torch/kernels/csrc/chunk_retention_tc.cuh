@@ -58,19 +58,26 @@
 // group norm over the head's dv values (eps 1e-6, non-affine) and the
 // silu(g) gate in the epilogue, written over g.
 //
-// The bf16 form (E = bf16, B4's, built with FS_BF16 by retention_layer.cu;
-// every float32 instantiation is the code above): q, k, v, the gate g and
-// the output, and the incoming and stored state (kv, scale) are bf16 in
-// device memory.  The scores q k^T are one bf16 tensor-core pass with
-// float32 accumulation (tc_bf16.cuh; each 16-deep step into a fresh
-// accumulator added on the FMA pipe); the rest of the core runs in float32
-// as the TPU kernel runs it (retention_layer_pallas.py:96-139: the masked
-// scores, S V, the cross read q KV and the state update take float32
-// operands there): 3xTF32 on the tensor cores, v and q read to float32.  The
-// state is carried in float32 within the call and rounded to bf16 once,
-// when it is stored (:63-64, :154-155).  The epilogue rounds the core's
-// output to bf16 before the group norm, the norm's output before the gate
-// and the gated value (:124-150).
+// The bf16 form (E = bf16, built with FS_BF16 by retention_layer.cu for B4
+// and by chunk_retention.cu for B5; every float32 instantiation is the code
+// above): q, k, v, the gate g and the output, and the incoming and stored
+// state (kv, scale) are bf16 in device memory.  The scores q k^T are one
+// bf16 tensor-core pass with float32 accumulation (tc_bf16.cuh; each
+// 16-deep step into a fresh accumulator added on the FMA pipe), with FINISH
+// (B4) or without (B5): the plain and precise 3xTF32 forms of the float32
+// scores have no bf16 counterpart, a bf16 product being exact in float32
+// (retention_pallas.py:77-78, retention_layer_pallas.py:96-99).  The rest of
+// the core runs in float32 as the TPU kernels run it (the masked scores,
+// S V, the cross read q KV and the state update take float32 operands
+// there: retention_layer_pallas.py:96-139, retention_pallas.py:81-102):
+// 3xTF32 on the tensor cores, in the precise form with FINISH and the plain
+// one without, v and q read to float32.  The state is carried in float32
+// within the call and rounded to bf16 once, when it is stored
+// (retention_pallas.py:57-59, 111-112).  The output is rounded to bf16
+// (retention_pallas.py:94-95); with FINISH the epilogue also rounds the
+// norm's output before the gate and the gated value
+// (retention_layer_pallas.py:124-150).  The scratch (kvbuf, cbuf) is
+// float32 in every form.
 #pragma once
 
 #include <type_traits>

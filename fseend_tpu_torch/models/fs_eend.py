@@ -39,6 +39,14 @@ The caches are written IN PLACE (they are ~4 GB at 64 lanes and capacity
 Blockwise (`fs_blockstream_init`): t, emitted, m as shared 0-dim int32
 clocks, the same caches, h_prev (B, K, D) and h_tail2 (B, delay, D).
 
+The three streaming modes run in float32 or in bf16 (a model cast by
+`utils/convert.py:cast_model` and a state of that dtype, as the JAX package
+serves bf16): the bf16 caches hold the bf16 projections, the attention
+computes as JAX's (`mha_core`'s float32 logits and softmax on the plain
+route, the cached-attention kernels' bf16 forms on the kernel route) and
+the logits come back in float32.  The batch pass (`fs_forward`) runs
+float32 only (ROADMAP A19).
+
 A block's cache write starts at its clock clamped to [0, cap - K], as JAX's
 `dynamic_update_slice` clamps; a block that would run past the capacity
 therefore lands at the tail (ROADMAP C): callers keep stream length +
@@ -193,9 +201,15 @@ def _lin(m: nn.Linear, x):
     return tnn.linear(x, m.weight, m.bias)
 
 
-def _check_dtype(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.float32:
-        raise ValueError(f"{what}: {x.dtype}; the port runs float32 only")
+def _check_dtype(model: FSEEND, x: torch.Tensor, what: str, bf16: bool = True) -> None:
+    """x and the model share one dtype: float32, or bf16 (a model cast by
+    `utils/convert.py:cast_model`) where `bf16`."""
+    dt = model.cnn.weight.dtype
+    ok = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if x.dtype != dt or dt not in ok:
+        raise ValueError(f"{what}: x is {x.dtype}, the model {dt}; it runs "
+                         f"{' or '.join(str(t)[6:] for t in ok)} with both alike"
+                         f"{'' if bf16 else ' (the bf16 batch pass is ROADMAP A19)'}")
 
 
 def fusion_layer(p: FusionLayer, x: torch.Tensor, t_mask: torch.Tensor, rate: float = 0.0,
@@ -278,7 +292,7 @@ def fs_forward(model: FSEEND, xs, lens, n_slots: int, *, train: bool = False,
         cfg = model.cfg
         device = model.cnn.weight.device
         xs = torch.as_tensor(xs).to(device)
-        _check_dtype(xs, "fs_forward")
+        _check_dtype(model, xs, "fs_forward", bf16=False)
         lens = torch.as_tensor(lens).to(device)
         h, state = encode(model, xs, lens, train, generator)
         emb = tnn.l2_normalize(tnn.lookahead_conv(h, model.cnn.weight, model.cnn.bias,
@@ -306,8 +320,8 @@ def fs_stream_init(cfg: FSEENDConfig, batch: int, capacity: int,
     positions (the most frames a stream may push, flush included), on the
     card unless the caller names another device."""
     device = resolve_device(device)
-    if dtype != torch.float32:
-        raise NotImplementedError("the port serves float32 only so far (ROADMAP: bf16)")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fs_stream_init: dtype {dtype}; float32 or bfloat16")
     H, D = cfg.n_heads, cfg.n_units
     hd = D // H
     C = n_slots if n_slots is not None else cfg.max_nspks
@@ -391,7 +405,7 @@ def fs_stream_step(model: FSEEND, state: dict, x_t: torch.Tensor, n_slots: int,
     (new_state, {"logits" (B, n_slots), "emb" (B, D), "valid" (B,)});
     valid is False during a lane's first conv_delay steps."""
     cfg = model.cfg
-    _check_dtype(x_t, "fs_stream_step")
+    _check_dtype(model, x_t, "fs_stream_step")
     t = state["t"]
     B = x_t.shape[0]
     flush = torch.as_tensor(flush, dtype=torch.bool, device=x_t.device).expand(B)
@@ -412,7 +426,7 @@ def fs_stream_step(model: FSEEND, state: dict, x_t: torch.Tensor, n_slots: int,
         x = _ln(lp.norm11, x + a)
         x = _ln(lp.norm21, x + tnn.mha(lp.spk_attn, x, x, x))
         x = _ln(lp.norm22, x + tnn.ff_block(x, lp.linear1, lp.linear2))
-    logits = torch.einsum("bd,bcd->bc", emb, tnn.l2_normalize(x))
+    logits = torch.einsum("bd,bcd->bc", emb.float(), tnn.l2_normalize(x).float())
     # the clock counts steps, flush included: a flush step still slides the
     # cnn window, so `valid` keeps advancing
     new_state = dict(state, t=t + 1, emitted=torch.where(valid, u + 1, u), conv_buf=conv_buf)
@@ -461,9 +475,10 @@ def _cached_attention_block_perlane(attn: tnn.MultiheadAttention, x_q: torch.Ten
     _write_perlane(ck, k, pos)
     _write_perlane(cv, v, pos)
     R = q.numel() // (K * hd)
-    fn = CA.cached_attention_perlane if flash else CA.cached_attention_perlane_plain
-    out = fn(q.reshape(R, K, hd), ck.view(R, cap, hd), cv.view(R, cap, hd), start,
-             R // B, min_pos).reshape(q.shape)
+    args = (q.reshape(R, K, hd), ck.view(R, cap, hd), cv.view(R, cap, hd), start, R // B,
+            min_pos)
+    out = (CA.cached_attention_perlane(*args) if flash
+           else CA.cached_attention_perlane_plain(*args, mha=True)).reshape(q.shape)
     return _lin(attn.out_proj, tnn.merge_heads(out))
 
 
@@ -476,7 +491,7 @@ def fs_framestream_block(model: FSEEND, state: dict, xs: torch.Tensor, n_slots: 
     each lane's stream.  Caches are written in place.  Returns
     (new_state, (logits (B, K, n_slots), valid (B, K)))."""
     cfg = model.cfg
-    _check_dtype(xs, "fs_framestream_block")
+    _check_dtype(model, xs, "fs_framestream_block")
     B, K, _ = xs.shape
     t = state["t"]
     flush = torch.as_tensor(flush, dtype=torch.bool, device=xs.device).expand(B, K)
@@ -500,7 +515,7 @@ def fs_framestream_block(model: FSEEND, state: dict, xs: torch.Tensor, n_slots: 
         x = _ln(lp.norm11, xt + a).transpose(1, 2)
         x = _ln(lp.norm21, x + tnn.mha(lp.spk_attn, x, x, x))
         x = _ln(lp.norm22, x + tnn.ff_block(x, lp.linear1, lp.linear2))
-    logits = torch.einsum("bkd,bkcd->bkc", emb, tnn.l2_normalize(x))
+    logits = torch.einsum("bkd,bkcd->bkc", emb.float(), tnn.l2_normalize(x).float())
     new_state = dict(state, t=t + K,
                      emitted=(t + K - cfg.conv_delay).clamp(min=0).to(torch.int32),
                      conv_buf=window[:, -cfg.conv_kernel_size:])
@@ -557,7 +572,7 @@ def _cached_attention_block(attn: tnn.MultiheadAttention, x_q: torch.Tensor,
         out = CA.cached_attention(q.reshape(R, K, hd), ck.reshape(R, cap, hd),
                                   cv.reshape(R, cap, hd), start).reshape(q.shape)
     else:
-        out = CA.cached_attention_plain(q, ck, cv, start)
+        out = CA.cached_attention_plain(q, ck, cv, start, mha=True)
     if old is not None:
         ck.index_copy_(ck.ndim - 2, pos, torch.where(keep_old, old[0], k))
         cv.index_copy_(cv.ndim - 2, pos, torch.where(keep_old, old[1], v))
@@ -574,7 +589,7 @@ def fs_blockstream_step(model: FSEEND, state: dict, xs: torch.Tensor, n_slots: i
     all lanes or (B, K) per lane, zeroes this block's embeddings frame by
     frame (a zero-padded final block).  Caches are written in place."""
     cfg = model.cfg
-    _check_dtype(xs, "fs_blockstream_step")
+    _check_dtype(model, xs, "fs_blockstream_step")
     B, K, _ = xs.shape
     D = cfg.n_units
     t = state["t"]
@@ -602,7 +617,7 @@ def fs_blockstream_step(model: FSEEND, state: dict, xs: torch.Tensor, n_slots: i
         x = _ln(lp.norm11, xt + a).transpose(1, 2)
         x = _ln(lp.norm21, x + tnn.mha(lp.spk_attn, x, x, x))
         x = _ln(lp.norm22, x + tnn.ff_block(x, lp.linear1, lp.linear2))
-    logits = torch.einsum("bkd,bkcd->bkc", emb, tnn.l2_normalize(x))
+    logits = torch.einsum("bkd,bkcd->bkc", emb.float(), tnn.l2_normalize(x).float())
     new_state = dict(state, t=t if enc_bypass else t + K,
                      emitted=torch.where(first, u, u + K), h_prev=h,
                      h_tail2=state["h_prev"][:, -cfg.conv_delay:], m=state["m"] + 1)

@@ -16,7 +16,9 @@ parameter pytree (`enc.proj`, `enc.blocks.{i}.ff1.linear1`,
    buffers left as they were), `remat` recomputing each conformer block in
    the backward, and with `use_fused_dec` the decoder run slot-major through
    the fusion-layer kernels (`kernels/dec_train_fusion.py`, forward and
-   hand-written backward).
+   hand-written backward).  In inference it also runs in bf16 on a model
+   cast by `utils/convert.py:cast_model` (every route; float32 logits, as
+   the JAX package's).
 2. Blockwise streaming (`ls_blockstream_init/step/run`): K frames per step
    through the chunkwise retention with the state carried across blocks,
    every op a (B, K, D) matmul; emits the previous block (one-block lag);
@@ -462,8 +464,14 @@ def _ls_forward(model, xs, lens, n_slots, train, gen, time_mode):
     cfg = model.cfg
     device = model.cnn.weight.device
     xs = torch.as_tensor(xs).to(device)
-    if xs.dtype != torch.float32:
-        raise ValueError(f"ls_forward: xs is {xs.dtype}; the port runs float32 only")
+    dt = model.cnn.weight.dtype
+    if xs.dtype != dt or dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ls_forward: xs is {xs.dtype}, the model {dt}: both float32, or "
+                         f"both bf16 (utils/convert.py:cast_model)")
+    if dt != torch.float32 and (train or (cfg.use_fused_dec and time_mode == "chunkwise")):
+        raise NotImplementedError("ls_forward: bf16 runs inference on the unfused decoder; "
+                                  "bf16 training and the fusion-layer kernels' bf16 form are "
+                                  "ROADMAP B9 part 3")
     lens = torch.as_tensor(lens).to(device)
     T0 = xs.shape[1]
     xs = pad_to_chunk(xs, cfg.chunk_size)
@@ -475,7 +483,8 @@ def _ls_forward(model, xs, lens, n_slots, train, gen, time_mode):
     emb = tnn.l2_normalize(tnn.lookahead_conv(h, model.cnn.weight, model.cnn.bias,
                                               cfg.conv_delay))
     attractors = tnn.l2_normalize(decode(model, emb, n_slots, time_mode, train, gen))
-    logits = torch.einsum("btd,btcd->btc", emb, attractors)
+    # float32 logits (sums of exact products in bf16), as the JAX package's
+    logits = torch.einsum("btd,btcd->btc", emb.float(), attractors.float())
     return {"logits": logits[:, :T0], "emb": emb[:, :T0], "attractors": attractors[:, :T0],
             "state": {"conv_bn": bn}}
 

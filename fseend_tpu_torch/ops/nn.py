@@ -112,7 +112,16 @@ def mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(hd) + mask) v on split heads, the softmax in
     float32; `mask` is additive (-inf where a position may not be read) and
     broadcasts to (..., Tq, Tk).  In training, dropout on the weights (rows
-    then no longer sum to 1)."""
+    then no longer sum to 1).  bf16 as the JAX function computes it: the
+    logits in float32 (sums of exact bf16 products), the softmax in
+    float32, the weights rounded to v's dtype, then w v with float32 sums
+    rounded to bf16."""
+    if q.dtype == torch.bfloat16:
+        logits = q.float() @ k.float().transpose(-1, -2) / math.sqrt(q.shape[-1])
+        if mask is not None:
+            logits = logits + mask
+        w = dropout(torch.softmax(logits, dim=-1).to(v.dtype), rate, generator)
+        return (w.float() @ v.float()).to(v.dtype)
     logits = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
     if mask is not None:
         logits = logits + mask

@@ -97,8 +97,12 @@ def _project_qkv(p: Retention, x: torch.Tensor, cfg: RetentionConfig):
     """x: (B, T, D) -> q, k: (B, H, T, dk), v: (B, H, T, dv), g: (B, T, D*F)."""
     B, T, _ = x.shape
     H, dk, dv = cfg.num_heads, cfg.key_dim, cfg.head_dim
+    # k scaled in x's dtype by dk**-0.5 rounded to it, as JAX scales by a
+    # weak-typed constant
+    kscale = float(torch.tensor(dk ** -0.5).to(x.dtype)) if x.dtype == torch.bfloat16 \
+        else dk ** -0.5
     q = tnn.linear(x, p.q_proj.weight, p.q_proj.bias)
-    k = tnn.linear(x, p.k_proj.weight, p.k_proj.bias) * dk ** -0.5
+    k = tnn.linear(x, p.k_proj.weight, p.k_proj.bias) * kscale
     v = tnn.linear(x, p.v_proj.weight, p.v_proj.bias)
     g = tnn.linear(x, p.g_proj.weight, p.g_proj.bias)
     q = q.reshape(B, T, H, dk).transpose(1, 2)

@@ -21,9 +21,9 @@ inside:
 The programs call the kernels as `torch.ops.fseend_tpu_torch.*` ops; a CUDA
 kernel is built from the repository's `kernels/csrc/` at its first launch,
 as in the live server.  `meta` records the server's dtype ("float32", or
-"bfloat16" for a bf16 LS server, whose programs carry bf16 weights and
-state and call the retention layer's bf16 form through the same op), as
-the JAX package's artifact does.  An artifact is bound to the device type it was
+"bfloat16" for a bf16 server, whose programs carry bf16 weights and state
+and call the bf16 forms of the retention layer (LS) or the cached
+attention (FS) through the same ops), as the JAX package's artifact does.  An artifact is bound to the device type it was
 exported on (export on the card to serve on the card).
 """
 

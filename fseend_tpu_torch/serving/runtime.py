@@ -26,12 +26,14 @@ scan of `fs_stream_step`, the oracle.  The blockwise FS server runs
 The server's `cfg` decides the route, not the config its model was made
 with.
 
-`dtype`: float32, or bf16 for LS-EEND (the JAX package serves in bf16): a
-bf16 server keeps its stream state and a bf16 copy of the model
+`dtype`: float32, or bf16 (the JAX package serves in bf16): a bf16 server
+keeps its stream state and a bf16 copy of the model
 (`utils/convert.py:cast_model`), casts the frames to bf16 on the way in,
-runs the bf16 forms of the kernels (both frame scans per frame, the
-retention layer blockwise) or the plain routes in bf16, and returns
-probabilities in float32.  FS-EEND in bf16 raises (ROADMAP B9).
+runs the bf16 forms of the kernels (LS: both frame scans per frame, the
+retention layer or the chunkwise core blockwise; FS: the per-lane cached
+attention in the fast block and `step()`, the shared-head one in the
+blockwise encoder) or the plain routes in bf16, and returns probabilities
+in float32.
 """
 
 from __future__ import annotations
@@ -51,13 +53,9 @@ from fseend_tpu_torch.utils.convert import cast_model
 _LANE_AXIS0 = ("t", "emitted", "cnn_buf", "conv_buf")
 
 
-def _check_dtype(kind: str, dtype) -> None:
+def _check_dtype(dtype) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype {dtype}: the servers serve float32 or bfloat16")
-    if dtype != torch.float32 and kind == "fs":
-        raise NotImplementedError(
-            "FS-EEND serves float32 only so far: bf16 FS serving (the cached-attention "
-            "kernels' bf16 forms) is ROADMAP B9")
 
 
 def _served_model(model, dtype):
@@ -114,10 +112,11 @@ class StreamingServer:
             raise NotImplementedError(
                 "lane sharding over several GPUs is not ported yet (ROADMAP A11, "
                 "multi-GPU)")
-        _check_dtype(self.kind, self.dtype)
+        _check_dtype(self.dtype)
         self.device = ls_eend.resolve_device(self.device)
         if self.kind == "fs":
-            self.model = ls_eend.with_cfg(self.model.to(self.device).eval(), self.cfg)
+            self.model = ls_eend.with_cfg(
+                _served_model(self.model.to(self.device).eval(), self.dtype), self.cfg)
             self.state = fs_eend.fs_stream_init(self.cfg, self.n_lanes, self.capacity,
                                                 self.n_slots, self.dtype, self.device)
             self._packed = None
@@ -153,9 +152,15 @@ class StreamingServer:
         valid (n_lanes,))."""
         if self.frame_kernel or (self.kind == "fs" and self.fs_fast):
             # a one-frame block: the same cache layout as process_block, so
-            # step() and blocks interleave on one stream
+            # step() and blocks interleave on one stream (FS: one fast block
+            # of one frame whatever fs_fast_chunk, as the JAX server's step)
             fl = np.broadcast_to(np.asarray(flush, bool), (self.n_lanes,))[:, None]
-            probs, valid = self.process_block(self._frames(frames)[:, None], fl)
+            xs = self._frames(frames)[:, None]
+            if self.kind == "fs":
+                with torch.no_grad():
+                    probs, valid = self._fs_fast_block(xs, self._flush(fl, 1), 1)
+            else:
+                probs, valid = self.process_block(xs, fl)
             return probs[:, 0], valid[0]
         x_t = self._frames(frames)
         fl = torch.as_tensor(np.asarray(flush, bool), device=self.device)
@@ -187,12 +192,13 @@ class StreamingServer:
             valid.append(out["valid"])
         return self._probs(torch.stack(logits, dim=1)), torch.stack(valid)
 
-    def _fs_fast_block(self, xs, flush):
+    def _fs_fast_block(self, xs, flush, L=None):
         """L-frame sub-blocks of the exact fast block, so that the plain
         route's (lanes, C, H, L, cap) score tensor stays bounded while the
-        caches are read once per sub-block, not once per frame."""
+        caches are read once per sub-block, not once per frame.  L:
+        `fs_fast_chunk`, else the largest divisor of K up to 128."""
         K = xs.shape[1]
-        L = self.fs_fast_chunk or max(d for d in range(1, min(K, 128) + 1) if K % d == 0)
+        L = L or self.fs_fast_chunk or max(d for d in range(1, min(K, 128) + 1) if K % d == 0)
         if K % L:
             raise ValueError(f"block of {K} frames is not a multiple of fs_fast_chunk={L}")
         flush_bk = flush.transpose(0, 1)                         # (B, K)
@@ -258,8 +264,8 @@ class BlockStreamingServer:
     card.  FS lanes carry KV caches of `capacity` positions with one shared
     clock and equal the masked batch pass; with `cfg.use_flash_attn` (the
     default) the encoder's cached attention is one `cached_attention` call
-    per layer.  An LS server may be bf16 on the "fused" and "plain" routes
-    (the "core" route's chunkwise kernel is float32 so far)."""
+    per layer.  Either family serves in float32 or bf16, LS on every
+    route."""
 
     kind: str                 # "ls" | "fs"
     cfg: Any
@@ -273,11 +279,7 @@ class BlockStreamingServer:
 
     def __post_init__(self):
         _check_kind(self.kind, self.cfg, self.model)
-        _check_dtype(self.kind, self.dtype)
-        if self.dtype != torch.float32 and self.cfg.kernel == "core":
-            raise NotImplementedError(
-                "bf16 blockwise serving takes the 'fused' or 'plain' route; the 'core' "
-                "route's chunk_retention kernel is float32 so far (ROADMAP B9)")
+        _check_dtype(self.dtype)
         self.device = ls_eend.resolve_device(self.device)
         # the server's config decides the route, whatever config the model came with
         self.model = ls_eend.with_cfg(

@@ -12,6 +12,11 @@ comparisons; `fs_params_to_jax` for FS-EEND, `eda_params_to_jax` for
 EEND-EDA, whose LSTM weights the JAX package keeps transposed: w_ih (in,
 4H), w_hh (H, 4H)).  `cast_model` casts a model's float32 weights to bf16
 for bf16 serving.  No JAX import.
+
+bf16 states: a JAX bf16 leaf (an `ml_dtypes.bfloat16` array, told by its
+dtype's name) becomes a bf16 tensor bit for bit; a bf16 tensor becomes a
+float32 numpy array of the same values (numpy has no bf16 of its own; the
+JAX side casts it back exactly with `.astype(jnp.bfloat16)`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,22 @@ def cast_model(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
         if t.dtype == torch.float32:
             t.data = t.data.to(dtype)
     return model
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own on `device` (copied: the caches
+    are written in place); a bf16 leaf bit for bit."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as float32 (the same values)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _load_params(model: nn.Module, params_np: dict, seen: set):
@@ -152,7 +173,7 @@ def ls_state_from_jax(state_np: dict, device=None) -> dict:
     device = resolve_device(device)
 
     def st(xs):
-        return torch.as_tensor(np.stack([np.asarray(x) for x in xs])).to(device)
+        return _tensor(np.stack([np.asarray(x) for x in xs]), device)
 
     enc, dec = state_np["enc"], state_np["dec"]
     return {
@@ -160,7 +181,7 @@ def ls_state_from_jax(state_np: dict, device=None) -> dict:
         "enc_kv": st([e["ret"]["kv"] for e in enc]),
         "enc_scale": st([e["ret"]["scale"] for e in enc]),
         "enc_conv": st([e["conv"] for e in enc]),
-        "cnn_buf": torch.as_tensor(np.array(state_np["cnn_buf"])).to(device),
+        "cnn_buf": _tensor(state_np["cnn_buf"], device),
         "dec_kv": st([d["kv"] for d in dec]),
         "dec_scale": st([d["scale"] for d in dec]),
     }
@@ -168,7 +189,7 @@ def ls_state_from_jax(state_np: dict, device=None) -> dict:
 
 def ls_state_to_numpy(state: dict) -> dict:
     """The JAX package's nested stream state (numpy leaves) from the port's."""
-    n = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    n = {k: _numpy(v) for k, v in state.items()}
     return {
         "t": n["t"],
         "enc": [{"ret": {"kv": kv, "scale": sc}, "conv": cv}
@@ -185,7 +206,7 @@ def ls_blockstate_from_jax(state_np: dict, device=None) -> dict:
     device = resolve_device(device)
 
     def st(xs):
-        return torch.as_tensor(np.stack([np.asarray(x) for x in xs])).to(device)
+        return _tensor(np.stack([np.asarray(x) for x in xs]), device)
 
     enc, dec = state_np["enc"], state_np["dec"]
     return {
@@ -193,8 +214,8 @@ def ls_blockstate_from_jax(state_np: dict, device=None) -> dict:
         "enc_kv": st([e["ret"]["kv"] for e in enc]),
         "enc_scale": st([e["ret"]["scale"] for e in enc]),
         "enc_conv": st([e["conv"] for e in enc]),
-        "h_prev": torch.as_tensor(np.array(state_np["h_prev"])).to(device),
-        "h_tail2": torch.as_tensor(np.array(state_np["h_tail2"])).to(device),
+        "h_prev": _tensor(state_np["h_prev"], device),
+        "h_tail2": _tensor(state_np["h_tail2"], device),
         "dec_kv": st([d["kv"] for d in dec]),
         "dec_scale": st([d["scale"] for d in dec]),
     }
@@ -202,7 +223,7 @@ def ls_blockstate_from_jax(state_np: dict, device=None) -> dict:
 
 def ls_blockstate_to_numpy(state: dict) -> dict:
     """The JAX package's nested blockwise state (numpy leaves) from the port's."""
-    n = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    n = {k: _numpy(v) for k, v in state.items()}
     return {
         "enc": [{"ret": {"kv": kv, "scale": sc}, "conv": cv}
                 for kv, sc, cv in zip(n["enc_kv"], n["enc_scale"], n["enc_conv"])],
@@ -214,7 +235,7 @@ def ls_blockstate_to_numpy(state: dict) -> dict:
 
 
 def _stack_layers(layers: list, key: str, device) -> torch.Tensor:
-    return torch.as_tensor(np.stack([np.asarray(x[key]) for x in layers])).to(device)
+    return _tensor(np.stack([np.asarray(x[key]) for x in layers]), device)
 
 
 def fs_state_from_jax(state_np: dict, device=None) -> dict:
@@ -228,7 +249,7 @@ def fs_state_from_jax(state_np: dict, device=None) -> dict:
         "emitted": torch.as_tensor(np.array(state_np["emitted"], np.int32)).to(device),
         "enc_k": _stack_layers(enc, "k", device),
         "enc_v": _stack_layers(enc, "v", device),
-        "conv_buf": torch.as_tensor(np.array(state_np["conv_buf"])).to(device),
+        "conv_buf": _tensor(state_np["conv_buf"], device),
         "dec_k": _stack_layers(dec, "k", device),
         "dec_v": _stack_layers(dec, "v", device),
     }
@@ -237,7 +258,7 @@ def fs_state_from_jax(state_np: dict, device=None) -> dict:
 def fs_state_to_numpy(state: dict) -> dict:
     """The JAX package's nested per-frame FS state (numpy leaves) from the
     port's."""
-    n = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    n = {k: _numpy(v) for k, v in state.items()}
     return {
         "t": n["t"], "emitted": n["emitted"],
         "enc_kv": [{"k": k, "v": v} for k, v in zip(n["enc_k"], n["enc_v"])],
@@ -262,15 +283,15 @@ def fs_blockstate_from_jax(state_np: dict, device=None) -> dict:
         "enc_v": _stack_layers(enc, "v", device),
         "dec_k": _stack_layers(dec, "k", device),
         "dec_v": _stack_layers(dec, "v", device),
-        "h_prev": torch.as_tensor(np.array(state_np["h_prev"])).to(device),
-        "h_tail2": torch.as_tensor(np.array(state_np["h_tail2"])).to(device),
+        "h_prev": _tensor(state_np["h_prev"], device),
+        "h_tail2": _tensor(state_np["h_tail2"], device),
     }
 
 
 def fs_blockstate_to_numpy(state: dict) -> dict:
     """The JAX package's nested blockwise FS state (numpy leaves) from the
     port's."""
-    n = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    n = {k: _numpy(v) for k, v in state.items()}
     return {
         "t": n["t"], "emitted": n["emitted"], "m": n["m"],
         "enc_kv": [{"k": k, "v": v} for k, v in zip(n["enc_k"], n["enc_v"])],

@@ -200,11 +200,12 @@ def test_the_loader_imports_no_model_config_or_checkpoint_module(models, artifac
     np.testing.assert_array_equal(np.load(tmp_path / "out.npy"), np.stack(want))
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", None])
 def test_export_cli_writes_what_the_live_server_serves(models, tmp_path, dtype):
     """`cli.export` from a yaml config and a reference .ckpt, in float32 and
-    (LS-EEND) in bf16: the artifact records its dtype, and a bf16 artifact
-    serves what a live bf16 server serves, bit for bit."""
+    in bf16 (None: no `--dtype`, whose default is bf16, as the JAX CLI's):
+    the artifact records its dtype, and a bf16 artifact serves what a live
+    bf16 server serves, bit for bit."""
     from fseend_tpu_torch.cli import export as TEXP
 
     torch.save({k: torch.from_numpy(v.copy()) for k, v in _sd("ls_model_ref.npz").items()},
@@ -220,10 +221,10 @@ def test_export_cli_writes_what_the_live_server_serves(models, tmp_path, dtype):
     (tmp_path / "ls.yaml").write_text(yaml.safe_dump(configs))
     srv = TEXP.main(["--configs", str(tmp_path / "ls.yaml"), "--ckpt", str(tmp_path / "ls.ckpt"),
                      "--out", str(tmp_path / "srv.npz"), "--lanes", str(LANES), "--block",
-                     str(BLOCK), "--device", "cpu", "--dtype", dtype])
+                     str(BLOCK), "--device", "cpu"] + (["--dtype", dtype] if dtype else []))
     assert srv.cfg == dataclasses.replace(LS_CFG, dropout=0.1)
     aot = AotBlockServer(str(tmp_path / "srv.npz"))
-    want_dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    want_dt = torch.float32 if dtype == "f32" else torch.bfloat16
     assert aot.dtype == srv.dtype == want_dt and aot.meta["dtype"] == str(want_dt)[6:]
     live = BlockStreamingServer(kind="ls", cfg=LS_CFG, model=models["ls"], n_lanes=LANES,
                                 n_slots=SLOTS, block=BLOCK, dtype=want_dt, device="cpu")

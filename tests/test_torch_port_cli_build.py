@@ -1,6 +1,7 @@
 """PyTorch port, the entry points (`fseend_tpu_torch/cli/`), their cheap
 half: `build_model` field by field against the JAX CLI's for every
 `configs/*.yaml`, the routes the yaml picks, the B9 and A11 raises, the
+bf16 default of `cli.export` for FS-EEND, the
 reference-checkpoint loaders and `cli.convert` bit for bit against the JAX
 package's, the keyword arguments both `cli.train` hand `run_training` and
 `build_optimizer`, a real two-step training run on the CPU, both
@@ -83,10 +84,18 @@ def test_bf16_and_multi_gpu_raise(world, monkeypatch, capsys):
         configs["training"]["precision"] = "bf16"
         with pytest.raises(NotImplementedError, match="B9"):
             TT.build_model(configs)
-    # an LS server exports in bf16 (tests/test_torch_port_aot.py); FS bf16 is B9
-    with pytest.raises(NotImplementedError, match="B9"):
-        TEXP.main(["--configs", str(world["fs"]), "--out", str(world["root"] / "x.npz"),
-                   "--dtype", "bf16", "--device", "cpu"])
+    # serving exports in bf16 by default, FS-EEND too (LS: tests/test_torch_port_aot.py):
+    # the artifact serves what its live bf16 server serves
+    from fseend_tpu_torch.serving.aot import AotBlockServer
+    out = world["root"] / "fs_bf16.npz"
+    srv = TEXP.main(["--configs", str(world["fs"]), "--out", str(out), "--lanes", "2",
+                     "--block", "12", "--capacity", "24", "--device", "cpu"])
+    aot = AotBlockServer(str(out))
+    assert srv.dtype == aot.dtype == torch.bfloat16 and aot.meta["dtype"] == "bfloat16"
+    frames = np.random.default_rng(0).standard_normal((2, 12, srv.cfg.in_size))
+    for _ in range(2):
+        np.testing.assert_array_equal(aot.process_block(frames).numpy(),
+                                      srv.process_block(frames).numpy())
 
     class Stop(Exception):
         pass

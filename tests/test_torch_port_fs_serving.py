@@ -222,8 +222,9 @@ def test_servers_refuse_what_they_do_not_serve(setup):
     model, *_ = setup
     with pytest.raises(ValueError, match="LS-only"):
         _server(model, frame_kernel=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        _server(model, dtype=torch.bfloat16)
+    # bf16 is served (tests/test_torch_port_bf16_fs.py); other dtypes are not
+    with pytest.raises(ValueError, match="bfloat16"):
+        _server(model, dtype=torch.float16)
     with pytest.raises(TypeError, match="FSEEND"):
         RT.StreamingServer(kind="fs", cfg=TCFG, model=object(), n_lanes=2, n_slots=C,
                            device="cpu")

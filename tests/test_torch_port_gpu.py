@@ -470,6 +470,32 @@ def test_chunk_retention_kernel_over_odd_chunks_matches_plain(cuda, gamma):
         assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("gamma", [1.0, 0.95])
+@pytest.mark.parametrize("L", [24, 150])
+def test_chunk_retention_bf16_kernel_matches_plain(cuda, gamma, L):
+    """B5's bf16 form against its bf16 plain version, two chunks a call,
+    from a carried bf16 state (the blockwise "core" route)."""
+    rng = np.random.default_rng(int(L + 100 * gamma))
+    BH, dk = 10, 64
+    sd = torch.bfloat16
+    gam = torch.full((BH,), gamma, device=cuda)
+    q, k, v = (_randn(rng, BH, 2 * L, dk, scale=s, dev=cuda).to(torch.bfloat16)
+               for s in (1.0, 0.125, 1.0))
+    kv0 = _randn(rng, BH, dk, dk, scale=0.5, dev=cuda).to(sd)
+    s0 = (1.0 + torch.rand(BH, 1, 1, device=cuda)).to(sd)
+    n0 = CR.launches_bf16
+    got = CR.chunk_retention(gam, q, k, v, kv0, s0, L)
+    torch.cuda.synchronize()
+    assert CR.launches_bf16 == n0 + 1
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == got[2].dtype == sd
+    want16 = CR.chunk_retention_plain(gam, q, k, v, kv0, s0, L)
+    want32 = CR.chunk_retention_plain(gam, q.float(), k.float(), v.float(), kv0.float(),
+                                      s0.float(), L)
+    for g, a, b, what in zip(got, want16, want32, ("out", "kv", "scale")):
+        _bf16_close(g, a, b, what, 0.5)
+    assert torch.equal(CR.chunk_retention(gam, q, k, v, kv0, s0, L)[0], got[0])
+
+
 @pytest.mark.parametrize("use_decay", [False, True])
 def test_retention_layer_kernel_matches_plain(cuda, use_decay):
     """Two calls in a row (the second from a carried state), two chunks per
@@ -701,6 +727,71 @@ def test_cached_attention_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         CA.cached_attention_perlane(q.double(), k.double(), k.double(),
                                     torch.zeros(2, dtype=torch.int32, device=cuda), 1)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        CA.cached_attention(*(t[..., :8].to(torch.bfloat16) for t in (q, k, k)), 0)
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        CA.cached_attention(q[..., :64].to(torch.bfloat16), k[..., :64], k[..., :64], 0)
+
+
+# the bf16 cached attention against its plain version over the kernel's own
+# tiles and splits (`CA.kernel_tiling`): the two differ only in float32
+# summation order (chip_smoke.py's CA_BF16_CLOSE says why this share); the
+# plain versions' normalized-weight form (`mha=True`) must fail it
+CA_CLOSE = 0.01
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("K,cap,start", [(8, 200, 150), (125, 256, 131), (128, 2048, 1920),
+                                         (200, 256, 10)])
+def test_cached_attention_bf16_kernel_matches_plain(cuda, hd, K, cap, start):
+    """B7's bf16 form against its bf16 plain version (the Pallas kernel's
+    arithmetic over the kernel's tiles; the normalized-weight form fails
+    the same guard): a cache not a multiple of the tile, more than one
+    query tile, start + K past the capacity, the blockwise encoder's
+    2048-position cache."""
+    rng = np.random.default_rng(hd + K + start)
+    q, k, v = (_randn(rng, 6, n, hd, dev=cuda).to(torch.bfloat16) for n in (K, cap, cap))
+    n0 = CA.launches_bf16
+    got = CA.cached_attention(q, k, v, start)
+    torch.cuda.synchronize()
+    assert CA.launches_bf16 == n0 + 1 and got.dtype == torch.bfloat16
+    want16 = CA.cached_attention_plain(q, k, v, start, **CA.kernel_tiling(6, K, cap))
+    want32 = CA.cached_attention_plain(q.float(), k.float(), v.float(), start)
+    _bf16_close(got, want16, want32, "out", CA_CLOSE)
+    with pytest.raises(AssertionError):
+        _bf16_close(CA.cached_attention_plain(q, k, v, start, mha=True), want16, want32,
+                    "normalized weights", CA_CLOSE)
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("K,min_pos,lanes,cap", [
+    (1, 0, 7, 260), (1, 9, 7, 260), (125, 9, 7, 260), (129, 0, 7, 260), (1, 9, 64, 2048)])
+def test_cached_attention_perlane_bf16_kernel_matches_plain(cuda, hd, K, min_pos, lanes, cap):
+    """B6's bf16 form against its bf16 plain version over the kernel's
+    tiles and splits (the normalized-weight form fails the same guard):
+    lanes before warm-up, mid-way, near the capacity and past it; K > 1 on
+    the bf16 tensor cores; K = 1 at 28 rows (the cache split over blocks)
+    and at 256 rows, two calls the same bits."""
+    rng = np.random.default_rng(hd + K + min_pos + 1)
+    starts = [0, 2, 8, 9, 70, cap - 5, cap + 40]
+    starts += list(rng.integers(0, cap, lanes - len(starts)))
+    starts = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    R = 4 * lanes
+    q, k, v = (_randn(rng, R, n, hd, dev=cuda).to(torch.bfloat16) for n in (K, cap, cap))
+    n0 = CA.perlane_launches_bf16
+    got = CA.cached_attention_perlane(q, k, v, starts, 4, min_pos)
+    torch.cuda.synchronize()
+    assert CA.perlane_launches_bf16 == n0 + 1 and got.dtype == torch.bfloat16
+    want16 = CA.cached_attention_perlane_plain(q, k, v, starts, 4, min_pos,
+                                              **CA.kernel_tiling(R, K, cap))
+    want32 = CA.cached_attention_perlane_plain(q.float(), k.float(), v.float(), starts, 4,
+                                              min_pos)
+    _bf16_close(got, want16, want32, "out", CA_CLOSE)
+    with pytest.raises(AssertionError):
+        _bf16_close(CA.cached_attention_perlane_plain(q, k, v, starts, 4, min_pos, mha=True),
+                    want16, want32, "normalized weights", CA_CLOSE)
+    if K == 1:
+        assert torch.equal(CA.cached_attention_perlane(q, k, v, starts, 4, min_pos), got)
 
 
 FS_CFG = fs_eend.FSEENDConfig(in_size=23, n_units=32, n_heads=4, enc_n_layers=2,
