@@ -12,9 +12,10 @@ both blockwise servers) and EEND-EDA (its train step, the epoch loop on a
 Kaldi data directory, FLEX-STB block streaming and the DER of what it
 streams), LS-EEND serving in bf16 (the bf16 forms of both frame scans
 and of the retention layer), the LS "core" route and batch pass in bf16
-(the chunkwise core's bf16 form) and FS-EEND serving in bf16 (both
-cached-attention kernels' bf16 forms), and times the kernels, the servers
-and the steps.
+(the chunkwise core's bf16 form), FS-EEND serving in bf16 (both
+cached-attention kernels' bf16 forms) and bf16 mixed-precision training
+of all three families (the fusion layer's bf16 forms), and times the
+kernels, the servers and the steps.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
@@ -36,8 +37,8 @@ and the steps.
 Phases (any failure raises; the script exits non-zero and prints no result):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
   2. build: the seven CUDA sources (eight kernels) with nvcc into build/,
-     and the bf16 forms of five of them (FS_BF16; six kernels), all started
-     together
+     and the bf16 forms of seven of them (FS_BF16; eight kernels), all
+     started together
   3. frame-scan kernels vs plain: B=128 lanes, K=64 frames, C=10 slots, the
      full LSEENDConfig(); random weights from a seed with non-trivial
      BatchNorm statistics; non-zero incoming state; staggered per-lane
@@ -135,6 +136,30 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      calls from their carried state; every state bf16) against their bf16
      and float32 plain versions (`bf16_guard`, close 0.5); B5 bf16 timed
      at the batch calls
+ H7. the fusion layer's bf16 forms (B3 forward and backward, FS_BF16)
+     against their bf16 plain version and their float32 plain version on
+     the same values (`bf16_guard`, close B3_BF16_CLOSE: 0.6 on y and the
+     float32 checkpoints, 0.8 on dx and the 14 weight gradients): at T1's shapes
+     (dropout 0 and 0.1) and on the bf16 main path's own calls (T3's
+     shape (8, 10, 1024, 256), F 2048, L 128, dropout 0.1); y without
+     checkpoints the same bits; two backward calls the same bits; the
+     float32 body rounded once at its outputs through the share rule, which
+     its y and dx must fail (the control)
+ H8. bf16 training: run_training(TaskConfig(compute_dtype="bf16")) on
+     T3's LS setup, the launch counts from 0 (both bf16 forms, 2 a step
+     each and 2 forward for validation; no float32 form), float32
+     parameters, moments and checkpoint (reloaded bit for bit); the T3
+     step in bf16 against float32 in turns (ms, frames/s, a torch.profiler
+     window each: idle share, device time by kernel); 4 Adam steps (lr
+     1e-4, dropout 0) on one batch in bf16 and float32, the bf16 loss
+     falling; at dropout 0 the cosine of the bf16 and
+     float32 gradients above 0.98 (the JAX package's rule); each bf16 form
+     timed on its main-path call beside its bf16 plain version and its
+     bound (bf16 peak), its device time by kernel (the *_bf16_parts
+     lines); after E1 the FS step at F7's batch and the EDA step at E1's,
+     bf16 against float32 in turns; after C1 `cli.train` on a copy of
+     configs/ls_simu.yaml with `training.precision: bf16` (2 steps: both
+     bf16 forms in the child, a float32 checkpoint)
  12. F1, cached-attention kernels vs plain at FSEENDConfig() width (hd 64):
      cached_attention at (R 256, K 128, cap 2048), start 0 / 960 / 1920;
      cached_attention_perlane at R 256 and 1536, K 125, 128, 129 and 1,
@@ -271,10 +296,10 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      printed by the child).
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line
-(fourteen entries: the eight kernels and the bf16 forms of six) and the
+(sixteen entries: the eight kernels and the bf16 forms of eight) and the
 timing lines come before it.  E1-E3 launch none of the port's kernels (the
 JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout
-but H1-H6 and C5's bf16 artifacts, TF32 off.  Every
+but H1-H8 and C5's bf16 artifacts, TF32 off.  Every
 kernel but the per-lane cached attention at K = 1 runs its products on the
 tensor cores, and every kernel is held within 1e-4 of its plain version
 (the fusion layer's forward on y, its backward on dx, the chunkwise kernels
@@ -421,7 +446,9 @@ def phase_build():
                          ("dec_frame_scan", dict(DTF, **bf16)),
                          ("retention_layer", dict(HEAD, **bf16)),
                          ("chunk_retention", dict(HEAD, **bf16)),
-                         ("cached_attention", {"CA_HD": FS_HD, **bf16})],
+                         ("cached_attention", {"CA_HD": FS_HD, **bf16}),
+                         ("dec_train_fusion_fwd", dict(DTF, **bf16)),
+                         ("dec_train_fusion_bwd", dict(DTF, **bf16))],
                         verbose=True)
     log(f"build: {secs:.1f} s")
     if procs:
@@ -437,8 +464,9 @@ PARENT_SOURCES = {
     "cached_attention": ({"CA_HD": FS_HD}, (
         "out, float* part, int R, int K, int cap, int rows_per_lane, int min_pos, void* stream",
         "out, int R, int K, int cap, void* stream")),
-    "dec_train_fusion_fwd": (DTF, ("dtf_forward(const float* x, const float* tqkvg, "
-                                   "const float* bqkvg",)),
+    "dec_train_fusion_fwd": (DTF, (("dtf_forward(const float* x, const float* tqkvg, "
+                                    "const float* bqkvg",
+                                    "dtf_forward(const E* x, const E* tqkvg, const E* bqkvg"),)),
     "dec_train_fusion_bwd": (DTF, ("unsigned seed, unsigned thr, float mult, void* stream_",)),
     "chunk_retention": (HEAD, ("sf, float* scratch, int BH, int T, int L, void* stream)",)),
     "retention_layer": (HEAD, ("ws, float* scratch,", "int B, int T, int L, int H, float kscale")),
@@ -464,10 +492,11 @@ def start_parent_build(src):
     procs = {}
     for name, (defines, signatures) in PARENT_SOURCES.items():
         text = " ".join((src / f"{name}.cu").read_text().split())
-        for signature in signatures:
-            if signature not in text:
+        for signature in signatures:       # a tuple: one of its forms
+            forms = signature if isinstance(signature, tuple) else (signature,)
+            if not any(form in text for form in forms):
                 raise SystemExit(f"--parent: {src}/{name}.cu lacks the entry point this "
-                                 f"script calls (... {signature})")
+                                 f"script calls (... {forms[0]})")
         lib = out / f"lib{name}.so"
         cmd = ([_build._nvcc()] + _build.NVCC_FLAGS + [f"-D{k}={v}" for k, v in defines.items()]
                + ["-o", str(lib), str(src / f"{name}.cu")])
@@ -1451,7 +1480,7 @@ def kernel_bound(name, args, cfg):
         # the core H ((L + 1)(dk + dv) + 4 dk dv), the slot attention 4 C D;
         # the backward recomputes the forward and takes two products (input
         # and weight gradient) for each of the forward's: 3x
-        bwd = name.endswith("bwd")
+        bwd = "bwd" in name
         x, w = args[0], args[4 if bwd else 1]
         B, C, T, D = x.shape
         L = args[-2]
@@ -1459,13 +1488,15 @@ def kernel_bound(name, args, cfg):
         R = B * C * T
         fwd = R * (2 * D * 9 * D + 4 * D * Fh + H * ((L + 1) * 2 * dk + 4 * dk * dk) + 4 * C * D)
         flops = 3 * fwd if bwd else fwd
-        wbytes = sum(t.numel() * 4 for t in weights)
+        wbytes = sum(t.numel() * t.element_size() for t in weights)
+        # the workspace in float32 words a row: the bf16 forms keep the
+        # products' operands in bf16 (half a word), the rest in float32
         if bwd:
-            nbytes += x.numel() * 4 + wbytes                              # dx + weight grads
-            work = 27 * D + 3 * Fh                   # the recompute's and the gradients' buffers
+            nbytes += x.numel() * es + wbytes                             # dx + weight grads
+            work = (29 * D + 3 * Fh) if bf16 else (27 * D + 3 * Fh)
         else:
-            nbytes += x.numel() * 4 + B * (T // L) * H * C * (dk * dk + 1) * 4   # y + kvs, ss
-            work = 15 * D + Fh
+            nbytes += x.numel() * es + B * (T // L) * H * C * (dk * dk + 1) * 4   # y + kvs, ss
+            work = (10 * D + 1.5 * Fh) if bf16 else (15 * D + Fh)
         # every buffer of the workspace written once and read once
         design = nbytes + 2 * R * work * 4
     else:
@@ -3041,7 +3072,9 @@ def kernel_counts() -> dict:
             "enc_frame_scan_bf16": EFS.launches_bf16, "dec_frame_scan_bf16": DFS.launches_bf16,
             "retention_layer_bf16": RL.launches_bf16,
             "cached_attention_perlane_bf16": CA.perlane_launches_bf16,
-            "cached_attention_bf16": CA.launches_bf16, "chunk_retention_bf16": CR.launches_bf16}
+            "cached_attention_bf16": CA.launches_bf16, "chunk_retention_bf16": CR.launches_bf16,
+            "dec_train_fusion_fwd_bf16": DTF.fwd_launches_bf16,
+            "dec_train_fusion_bwd_bf16": DTF.bwd_launches_bf16}
 
 
 def reset_kernel_counts() -> None:
@@ -3057,6 +3090,7 @@ def reset_kernel_counts() -> None:
     for mod in (EFS, DFS, RL, CR, CA):
         mod.launches_bf16 = 0
     DTF.fwd_launches = DTF.bwd_launches = CA.perlane_launches = CA.perlane_launches_bf16 = 0
+    DTF.fwd_launches_bf16 = DTF.bwd_launches_bf16 = 0
 
 
 def launched(counts: dict) -> dict:
@@ -3145,6 +3179,41 @@ def phase_cli_train(work, rng, card):
         "step_ms_with_data": secs / 4 * 1e3, "train_frames_per_s": 4 * 8 * 1000 / secs,
         "launches": launched(counts)}, "card": card}))
     return kaldi, avg
+
+
+def phase_cli_train_bf16(work, kaldi, card):
+    """H8 (the entry point): C1's run with `training.precision: bf16` on a
+    copy of configs/ls_simu.yaml, cut to 2 steps and one validation batch,
+    through the twin's main(argv) in this process (C1 has shown the child):
+    its checkpoint float32, both fusion layers' bf16 forms launched and no
+    float32 form."""
+    from fseend_tpu_torch.cli import train
+
+    cuts = {"training.batch_size": 8, "training.max_epochs": 1,
+            "debug.limit_train_batches": 2, "debug.limit_val_batches": 1,
+            "training.precision": "bf16"}
+    cfg = config_copy("ls_simu.yaml", work / "ls_simu_bf16.yaml", {
+        **cuts, "data.train_data_dir": str(kaldi), "data.val_data_dir": str(kaldi),
+        "log.log_dir": str(work / "logs" / "ls_simu_bf16")})
+    t0 = time.perf_counter()
+    out, counts = cli_main(train, ["--configs", cfg])
+    log(f"H8 cli.train precision bf16: {time.perf_counter() - t0:.1f} s; kernels launched "
+        f"{launched(counts)}")
+    epoch = re.search(r"epoch 0: (\d+) steps in ([0-9.]+)s", out)
+    ckpt = Path(re.search(r"averaged 1 checkpoints -> (\S+)", out).group(1)).parent \
+        / "ckpt_epoch=0.npz"
+    if epoch is None or int(epoch.group(1)) != 2 or not ckpt.exists():
+        raise AssertionError(f"H8 cli.train bf16: no epoch of 2 steps and checkpoint:\n{out}")
+    if (counts["dec_train_fusion_bwd_bf16"] != 4 or counts["dec_train_fusion_fwd_bf16"] < 4
+            or counts["dec_train_fusion_fwd"] or counts["dec_train_fusion_bwd"]):
+        raise AssertionError(f"H8 cli.train bf16: fusion-layer launches {counts}")
+    saved = np.load(ckpt)
+    if any(saved[k].dtype != np.float32 for k in saved.files
+           if not k.startswith(("__extra__", "opt_state/count"))):
+        raise AssertionError("H8 cli.train bf16: the checkpoint holds other than float32")
+    log(json.dumps({"H8_cli_train_bf16": {
+        "config": "configs/ls_simu.yaml", "cuts": cuts, "steps": 2,
+        "epoch_s": float(epoch.group(2)), "launches": launched(counts)}, "card": card}))
 
 
 def phase_cli_infer(work, kaldi, wavs, avg, card):
@@ -3482,6 +3551,7 @@ def phase_cli(card):
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         work = Path(tmp)
         kaldi, avg = phase_cli_train(work, rng, card)
+        phase_cli_train_bf16(work, kaldi, card)
         wavs = write_wavs(work / "wavs", rng, CLI_WAVS, CLI_WAV_DUR)
         ls_cfg = phase_cli_infer(work, kaldi, wavs, avg, card)
         fs_cfg = phase_cli_serve(work, wavs, ls_cfg, avg, card)
@@ -4332,6 +4402,329 @@ def phase_fs_bf16(fcfg, model, rng, card):
     return launches, errs, rows
 
 
+# ---------------------------------------------------------------------------
+# bf16 training: H7 the fusion layer's bf16 forms, H8 the bf16 train steps
+# ---------------------------------------------------------------------------
+
+# B3's bf16 forms against their bf16 plain version (`bf16_guard`): the mean
+# distance at most this share of bf16 plain's from float32, forward (y and
+# the checkpoints) and backward (dx and the weight gradients).  A layer is a
+# chain of about 30 bf16 rounding points each way, over which the flips that
+# another float32 summation order causes compound, as over the frame scans'
+# 128-frame blocks (H7 reads 0.06-0.24 forward and at most 0.44 backward
+# on this script's layers, PERF.md §6).  The float32 body rounded once at
+# its outputs reads about 1 on dx and the weight gradients but only 0.75 on
+# y, whose last rounding (the LayerNorm's output) is most of bf16 plain's
+# distance from float32: hence the tighter forward share.  H7's control
+# shows it fails both.
+B3_BF16_CLOSE = {"fwd": 0.6, "bwd": 0.8}
+H8_STEPS, H8_LR = 4, 1e-4        # Adam steps on one batch at dropout 0: the loss must fall
+H8_COS = 0.98                    # tests/test_trainer.py:87-92's rule
+
+
+def fusion_bf16_vs_plain(w, x, dy, seed, H, L, rate, label, control=False):
+    """H7 at one shape: B3's bf16 forward and backward against their bf16
+    plain version and, on the same values, their float32 plain version
+    (`bf16_guard` on y, the checkpoints, dx and the 14 weight gradients); y
+    without checkpoints the same bits; the backward twice, the same bits;
+    with `control`, the float32 body rounded to bf16 at its outputs through
+    the share rule, which it must fail.  Returns the largest distances from
+    bf16 plain: (forward, backward)."""
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+
+    args = (seed, H, L, rate)
+    w32 = DT.FusionWeights(*(t.float() for t in w))
+    got = DT.fusion_layer_fwd(x, w, *args)
+    torch.cuda.synchronize()
+    want16 = DT.fusion_layer_fwd_plain(x, w, *args)
+    want32 = DT.fusion_layer_fwd_plain(x.float(), w32, *args)
+    if got[0].dtype != torch.bfloat16 or got[1].dtype != torch.float32:
+        raise AssertionError(f"dec_train_fusion_fwd_bf16 [{label}]: y {got[0].dtype}, "
+                             f"kvs {got[1].dtype}")
+    e_fwd = max(bf16_guard(f"dec_train_fusion_fwd_bf16 [{label}] {n}", g, a, b,
+                           B3_BF16_CLOSE["fwd"])
+                for n, g, a, b in zip(("y", "kvs", "ss"), got, want16, want32))
+    if not torch.equal(DT.fusion_layer_fwd(x, w, *args, checkpoints=False)[0], got[0]):
+        raise AssertionError(f"dec_train_fusion_fwd_bf16 [{label}]: y without checkpoints "
+                             f"differs")
+    kvs, ss = want16[1], want16[2]
+    got_b = DT.fusion_layer_bwd(x, dy, kvs, ss, w, *args)
+    torch.cuda.synchronize()
+    want16_b = DT.fusion_layer_bwd_plain(x, dy, kvs, ss, w, *args)
+    want32_b = DT.fusion_layer_bwd_plain(x.float(), dy.float(), want32[1], want32[2], w32, *args)
+    names = ("dx",) + DT.FusionWeights._fields
+    leaves = [(r[0], *r[1]) for r in (got_b, want16_b, want32_b)]
+    if any(t.dtype != torch.bfloat16 for t in leaves[0]):
+        raise AssertionError(f"dec_train_fusion_bwd_bf16 [{label}]: not every gradient bf16")
+    e_bwd = max(bf16_guard(f"dec_train_fusion_bwd_bf16 [{label}] {n}", g, a, b,
+                           B3_BF16_CLOSE["bwd"])
+                for n, g, a, b in zip(names, *leaves))
+    same_bits(f"dec_train_fusion_bwd_bf16 [{label}]", got_b,
+              DT.fusion_layer_bwd(x, dy, kvs, ss, w, *args))
+    if control:
+        for n, a, b in (("y", want16[0], want32[0]), *zip(names, leaves[1], leaves[2])):
+            try:
+                bf16_guard(f"float32 body [{label}] {n}", b.to(torch.bfloat16), a, b,
+                           B3_BF16_CLOSE["fwd" if n == "y" else "bwd"], bf16_form=False)
+            except AssertionError as fail:
+                log(f"    fails, as it must: {fail}")
+            else:
+                if n in ("y", "dx"):
+                    raise AssertionError(f"H7 [{label}]: the share rule lets a float32 body's "
+                                         f"{n} pass")
+    return e_fwd, e_bwd
+
+
+def capture_first_bf16_calls(DT, calls):
+    """DT.fusion_layer_fwd and _bwd wrapped to keep (clones of) the first
+    bf16 training call of each (dropout on); returns the originals."""
+    saved = {}
+    for name in ("fusion_layer_fwd", "fusion_layer_bwd"):
+        orig = getattr(DT, name)
+
+        def wrapped(*args, _orig=orig, _name=name, **kw):
+            if (_name not in calls and args[-1] > 0.0
+                    and args[0].dtype == torch.bfloat16):
+                calls[_name] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                                {k: v for k, v in kw.items() if k != "wt"})
+            return _orig(*args, **kw)
+        saved[name] = orig
+        setattr(DT, name, wrapped)
+    return saved
+
+
+def bf16_vs_f32(what, f32_step, bf16_step, frames, card, reps=3, rounds=1, profile=True):
+    """One train step in float32 and in bf16 on one card, in turns (float32,
+    bf16, bf16, float32; CUDA events over `reps` steps), then with `profile`
+    a torch.profiler window over each (device idle share, device time by
+    kernel).  Returns the line it logs."""
+    ms = []
+    for _ in range(rounds):
+        ms += [cuda_ms(f32_step, reps), cuda_ms(bf16_step, reps), cuda_ms(bf16_step, reps),
+               cuda_ms(f32_step, reps)]
+    f32_ms = float(np.median(ms[0::4] + ms[3::4]))
+    bf16_ms = float(np.median(ms[1::4] + ms[2::4]))
+    line = {"what": what, "ms_in_turns": ms, "f32_ms": f32_ms, "bf16_ms": bf16_ms,
+            "f32_frames_per_s": frames / (f32_ms / 1e3),
+            "bf16_frames_per_s": frames / (bf16_ms / 1e3)}
+    if profile:
+        for dt, fn in (("f32", f32_step), ("bf16", bf16_step)):
+            prof = profile_window(fn, 2, card, f"{what}, {dt}")
+            line[f"{dt}_device_idle_share"] = prof["device_idle_share"]
+    log(json.dumps({"bf16_vs_f32": line, "card": card}))
+    return line
+
+
+def flat_grads(model):
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in model.parameters()])
+
+
+def phase_bf16_train(cfg, model, rng, card):
+    """H7 and H8 (LS): B3's bf16 forms against their plain versions at T1's
+    shapes and on the bf16 main path's own T3 calls; the bf16 LS training
+    path (run_training, the step against float32 in turns, the loss, the
+    gradient's direction).  Returns (launches, max errors, timing rows) of
+    the two bf16 forms."""
+    import tempfile
+
+    from fseend_tpu_torch.data.loader import pad_collate
+    from fseend_tpu_torch.kernels import dec_train_fusion as DT
+    from fseend_tpu_torch.models import ls_eend
+    from fseend_tpu_torch.train import loop as LOOP
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+    from fseend_tpu_torch.utils import checkpoint as CK
+
+    bf = torch.bfloat16
+    H = cfg.n_heads
+    names = ("dec_train_fusion_fwd_bf16", "dec_train_fusion_bwd_bf16")
+    errs = dict.fromkeys(names, 0.0)
+
+    def held(e):
+        for n, v in zip(names, e):
+            errs[n] = max(errs[n], v)
+
+    # H7 at T1's shapes: random inputs, T1's weights in bf16
+    w = DT.FusionWeights(*(t.to(bf) for t in dec_layer_weights(model)))
+    x = randn(rng, DEC_B, SLOTS, DEC_T, cfg.n_units).to(bf)
+    dy = randn(rng, DEC_B, SLOTS, DEC_T, cfg.n_units).to(bf)
+    for rate in (0.0, 0.1):
+        held(fusion_bf16_vs_plain(w, x, dy, DEC_SEED, H, DEC_L, rate, f"T1 rate={rate}",
+                                  control=rate == 0.0))
+    del w, x, dy
+
+    # H8: the bf16 main path, run_training for one epoch, counts from 0
+    tcfg = dataclasses.replace(cfg, dropout=0.1, use_fused_dec=True, fused_dec_chunk=TRAIN_L,
+                               kernel="plain")                   # configs/ls_simu.yaml
+    task16 = TRN.TaskConfig(label_mode="fixed", masked_emb_loss=True, compute_dtype="bf16")
+    task32 = dataclasses.replace(task16, compute_dtype="f32")
+    tx = optim.build_optimizer("noam", 1.0, d_model=cfg.n_units, warmup_steps=100_000,
+                               grad_clip=5.0)
+    train = SyntheticSpeech(TRAIN_B * TRAIN_STEPS, SEED, TRAIN_T, cfg.in_size, TRAIN_SPK)
+    val = SyntheticSpeech(TRAIN_B, SEED + 1, TRAIN_T, cfg.in_size, TRAIN_SPK)
+    calls = {}
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        logger = LOOP.MetricsLogger(tmp, "smoke_bf16")
+        saved = capture_first_bf16_calls(DT, calls)
+        try:
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            state, ckpt_dir = LOOP.run_training(
+                task=task16, model_cfg=tcfg, train_dataset=train, val_dataset=val, tx=tx,
+                logger=logger, batch_size=TRAIN_B, chunk_size=TRAIN_T, max_speakers=TRAIN_SPK,
+                input_dim=cfg.in_size, max_epochs=1, seed=SEED, log_every=1)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launched(kernel_counts())
+        finally:
+            for name, orig in saved.items():
+                setattr(DT, name, orig)
+            logger.close()
+        n_layers = cfg.dec_n_layers
+        want = {names[0]: n_layers * (TRAIN_STEPS + 1), names[1]: n_layers * TRAIN_STEPS}
+        log(f"H8 bf16 train: run_training, {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_T} frames "
+            f"+ 1 validation batch in {secs:.2f} s; launches {counts}")
+        if counts != want:
+            raise AssertionError(f"H8: launches {counts} on the bf16 main path, expected {want}")
+        launches = dict(want)
+        recs = [json.loads(ln) for ln in (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/tot_loss"] for r in recs if "train/tot_loss" in r]
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"H8 bf16 train losses {losses}")
+        if any(p.dtype != torch.float32 for p in state.model.parameters()) or any(
+                t.dtype != torch.float32 for t in state.opt_state["mu"] + state.opt_state["nu"]):
+            raise AssertionError("H8: the parameters or the Adam moments left float32")
+        saved_npz = np.load(ckpt_dir / "ckpt_epoch=0.npz")
+        if any(saved_npz[k].dtype != np.float32 for k in saved_npz.files
+               if not k.startswith(("__extra__", "opt_state/count"))):
+            raise AssertionError("H8: the bf16 run's checkpoint holds other than float32")
+        fresh = CK.load_ls_eend(ckpt_dir / "ckpt_epoch=0.npz", tcfg, "cuda")
+        for (name, a), b in zip(state.model.state_dict().items(), fresh.state_dict().values()):
+            if not name.endswith("num_batches_tracked") and not torch.equal(a, b):
+                raise AssertionError(f"H8 checkpoint reload: {name} differs")
+        log(f"  losses {[round(v, 4) for v in losses]}; parameters, moments and the float32 "
+            f"checkpoint kept float32, the checkpoint reloaded bit for bit")
+        del state, fresh
+
+    # H7 on the main path's own calls (T3's shape, dropout 0.1)
+    fa, fkw = calls["fusion_layer_fwd"]
+    ba, _ = calls["fusion_layer_bwd"]
+    shape = tuple(fa[0].shape)
+    held(fusion_bf16_vs_plain(fa[1], fa[0], ba[1], *fa[2:6], f"main path {shape}"))
+
+    # the step alone on one batch: bf16 against float32, the same weights
+    items = [train[i] for i in range(TRAIN_B)]
+    batch = pad_collate(items, TRAIN_T, TRAIN_SPK, cfg.in_size)
+    batch.pop("recs")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    steps = {}
+    for dt, task in (("f32", task32), ("bf16", task16)):
+        m = ls_eend.init_ls_eend(tcfg, torch.Generator().manual_seed(SEED), device="cuda")
+        st = TRN.TrainState.create(m, tx)
+        step = TRN.make_train_step(task, tcfg, tx)
+        step(st, batch, SEED)
+        steps[dt] = (lambda step=step, st=st: step(st, batch, SEED))
+    torch.cuda.synchronize()
+    line = bf16_vs_f32("LS T3 train step, fused decoder", steps["f32"], steps["bf16"],
+                       TRAIN_B * TRAIN_T, card)
+    del steps
+
+    # the loss falls over a few Adam steps at dropout 0 in bf16 (beside the
+    # float32 trajectory), the parameters stay float32
+    zcfg = dataclasses.replace(tcfg, dropout=0.0)
+    fall = {}
+    for dt, task in (("f32", task32), ("bf16", task16)):
+        m = ls_eend.init_ls_eend(zcfg, torch.Generator().manual_seed(SEED), device="cuda")
+        adam = optim.build_optimizer("adam", H8_LR, grad_clip=5.0)
+        st = TRN.TrainState.create(m, adam)
+        step = TRN.make_train_step(task, zcfg, adam)
+        fall[dt] = [float(step(st, batch, SEED)[1]["tot_loss"]) for _ in range(H8_STEPS)]
+    if not (fall["bf16"][-1] < fall["bf16"][0]
+            and all(p.dtype == torch.float32 for p in m.parameters())):
+        raise AssertionError(f"H8: bf16 Adam losses {fall['bf16']} did not fall, or a parameter "
+                             f"left float32")
+    del m, st, step
+
+    # the gradient's direction at dropout 0: bf16 against float32
+    m = ls_eend.init_ls_eend(zcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    grads = {}
+    for dt, task in (("f32", task32), ("bf16", task16)):
+        for p in m.parameters():
+            p.grad = None
+        loss, _ = TRN.compute_loss(task, m, batch, None, train=True)
+        loss.backward()
+        grads[dt] = flat_grads(m).double()
+    cos = float(grads["bf16"] @ grads["f32"] / (grads["bf16"].norm() * grads["f32"].norm()))
+    if not cos > H8_COS:
+        raise AssertionError(f"H8: cosine of the bf16 and float32 gradients {cos} <= {H8_COS}")
+    log(json.dumps({"H8_ls_bf16_train": {
+        "run_training_s": secs, "losses": losses, "adam_losses_f32": fall["f32"],
+        "adam_losses_bf16": fall["bf16"],
+        "grad_cosine_dropout0": cos, "step": line}, "card": card}))
+    del m, grads
+
+    # the bf16 forms timed on the main path's calls, and their parts
+    rows = {}
+    for name, fn_name in zip(names, ("fusion_layer_fwd", "fusion_layer_bwd")):
+        args, kw = calls[fn_name]
+        kern, plain = getattr(DT, fn_name), getattr(DT, fn_name + "_plain")
+        rows[name] = time_kernel(name, f"main path {shape} L={args[-2]}", kern, plain, args, kw,
+                                 cfg, card)
+        busy = device_ms_by_kernel(lambda: kern(*args, **kw), reps=PARTS_REPS)
+        log(json.dumps({f"{name}_parts": {"kernel": "this", "device_busy_ms": sum(busy.values()),
+                                          "top": top_kernels(busy, 1, n=16)}, "card": card}))
+    log("library_ms: null for the bf16 fusion-layer forms, as for the float32 ones")
+    return launches, errs, rows
+
+
+def phase_bf16_train_fs_eda(fcfg, ecfg, off, card):
+    """H8 (FS, EDA): the FS train step at F7's batch and the EDA step at
+    E1's, each in bf16 against float32 in turns on the same weights; a few
+    bf16 steps with finite losses and float32 parameters."""
+    from fseend_tpu_torch.data.loader import pad_collate
+    from fseend_tpu_torch.models import eend_eda, fs_eend
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+
+    lines = {}
+    data = off["data"]
+    fs_tx = optim.build_optimizer("noam", 1.0, d_model=fcfg.n_units, warmup_steps=100_000,
+                                  grad_clip=5.0)
+    for fam, cfg, B, T, S, seed, task, init, tx in (
+            ("fs", dataclasses.replace(fcfg, dropout=0.1), FS_TRAIN_B, FS_TRAIN_T,
+             FS_TRAIN_SPK, SEED + 2, TRN.TaskConfig(model="fs", label_mode="fixed"),
+             fs_eend.init_fs_eend, fs_tx),
+            ("eda", ecfg, off["training"]["batch_size"], data["chunk_size"],
+             data["max_speakers"], SEED + 3,
+             TRN.TaskConfig(model="eda", label_mode=off["task"]["label_mode"]),
+             eend_eda.init_eend_eda, eda_optimizer(off, ecfg))):
+        items = SyntheticSpeech(B, seed, T, cfg.in_size, S)
+        batch = pad_collate([items[i] for i in range(B)], T, S, cfg.in_size)
+        batch.pop("recs")
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+        steps, losses = {}, []
+        for dt in ("f32", "bf16"):
+            m = init(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+            st = TRN.TrainState.create(m, tx)
+            step = TRN.make_train_step(dataclasses.replace(task, compute_dtype=dt), cfg, tx)
+            for _ in range(2 if dt == "bf16" else 1):
+                losses.append(float(step(st, batch, SEED)[1]["tot_loss"]))
+            if any(p.dtype != torch.float32 for p in m.parameters()):
+                raise AssertionError(f"H8 {fam}: a parameter left float32")
+            steps[dt] = (lambda step=step, st=st: step(st, batch, SEED))
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"H8 {fam}: losses {losses}")
+        # no profiler window: F7 and E1 profile the float32 step
+        lines[fam] = bf16_vs_f32(f"{fam} train step, batch {B} x {T}", steps["f32"],
+                                 steps["bf16"], B * T, card, profile=False)
+        del steps, m, st
+        torch.cuda.empty_cache()
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -4374,6 +4767,11 @@ def main() -> int:
     rows.update(train_rows)
     for name in dec_errs:
         errs[name] = max(dec_errs[name], train_errs[name])
+    t_h = time.perf_counter()
+    for got, into in zip(phase_bf16_train(cfg, model, np.random.default_rng(SEED + 14), card),
+                         (launches, errs, rows)):
+        into.update(got)
+    log(f"H7 and H8 (LS): {time.perf_counter() - t_h:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -4401,6 +4799,9 @@ def main() -> int:
     ecfg, feat, off, stb = eda_configs()
     log(f"config: {ecfg}")
     phase_eda_train(ecfg, off, card)
+    t_h = time.perf_counter()
+    phase_bf16_train_fs_eda(fcfg, ecfg, off, card)
+    log(f"H8 (FS, EDA): {time.perf_counter() - t_h:.1f} s")
     phase_eda_score(*phase_eda_kaldi(ecfg, feat, off, stb, rng, card))
     torch.cuda.empty_cache()
     phase_cli(card)
@@ -4433,6 +4834,10 @@ def main() -> int:
                                           "fseend_tpu/kernels/cached_attention_pallas.py:223"),
         "cached_attention_bf16": ("fseend_tpu_torch/kernels/csrc/cached_attention.cu",
                                   "fseend_tpu/kernels/cached_attention_pallas.py:101"),
+        "dec_train_fusion_fwd_bf16": ("fseend_tpu_torch/kernels/csrc/dec_train_fusion_fwd.cu",
+                                      "fseend_tpu/kernels/dec_train_fusion_pallas.py:574"),
+        "dec_train_fusion_bwd_bf16": ("fseend_tpu_torch/kernels/csrc/dec_train_fusion_bwd.cu",
+                                      "fseend_tpu/kernels/dec_train_fusion_pallas.py:620"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name]}

@@ -9,10 +9,12 @@ The model config takes every field from the yaml, with the JAX CLI's
 defaults where the yaml is silent: the LS retention route is "fused" for
 `use_fused_ret: true`, "core" for `use_pallas: true` and "plain" otherwise;
 FS `use_flash_attn` defaults to False.  (The port's dataclasses default to
-the kernel routes; the JAX package's to XLA.)  Float32 only: a
-`training.precision` of bf16 raises (ROADMAP B9).  A `dist_strategy: ddp`
-or `mesh:` block with one visible card trains on it; with more it raises
-(multi-GPU training is ROADMAP A11).
+the kernel routes; the JAX package's to XLA.)  `training.precision: bf16`
+trains LS-EEND and FS-EEND in mixed precision (`TaskConfig(compute_dtype=
+"bf16")`: bf16 forward and backward, float32 parameters, moments and
+checkpoints); EEND-EDA reads no precision, as the JAX CLI.  A
+`dist_strategy: ddp` or `mesh:` block with one visible card trains on it;
+with more it raises (multi-GPU training is ROADMAP A11).
 """
 
 from __future__ import annotations

@@ -18,16 +18,16 @@ is float32.  The bf16 form (the same source built with FS_BF16) computes as
 `retention_pallas.py` does on bf16 data: the scores from the bf16 values in
 float32, the rest in float32, the state carried in float32 within the call
 and returned in bf16, the output rounded to bf16; so does the plain
-version.  The
-gradient path is float32 only (bf16 training is ROADMAP B9 part 3).  The
-scratch is float32 in either form.
+version.  The scratch is float32 in either form.
 `chunk_retention_passes` is the kernel's algorithm (the state scanned over
 the chunks' summaries, the output per 64-query tile) in plain tensor ops,
 for the tests.
 When a gradient is wanted the call goes through `_ChunkRetentionFn`, whose
 backward re-runs `chunk_retention_plain` under autograd (the recompute
 backward of `retention_pallas.py:253-263`; the JAX package has no backward
-kernel either).
+kernel either).  JAX differentiates its pure core (`_pure_core`), which in
+float32 is this plain version and in bf16 rounds v / sqrt(L) to bf16
+before the state update: the recompute takes `pure=True`.
 
 Layouts: gammas (BH,) per row; q, k (BH, T, dk) with k already scaled by
 dk**-0.5; v (BH, T, dv); kv0 (BH, dk, dv); s0 (BH, 1, 1); T % chunk == 0.
@@ -58,9 +58,6 @@ def chunk_retention(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"chunk_retention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, kv0, s0)):
-        if q.dtype != torch.float32:
-            raise NotImplementedError("chunk_retention: the gradient is float32 only; bf16 "
-                                      "training is ROADMAP B9 part 3")
         return _ChunkRetentionFn.apply(gammas, q, k, v, kv0, s0, chunk)
     return _forward(gammas, q, k, v, kv0, s0, chunk)
 
@@ -95,7 +92,7 @@ class _ChunkRetentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads_out):
-        grads = recompute_grads(lambda *a: chunk_retention_plain(*a, ctx.chunk),
+        grads = recompute_grads(lambda *a: chunk_retention_plain(*a, ctx.chunk, pure=True),
                                 ctx.saved_tensors, ctx.needs_input_grad[:6], grads_out)
         return (*grads, None)
 
@@ -163,17 +160,20 @@ def _launch(gammas, q, k, v, kv0, s0, chunk):
 
 def chunk_retention_plain(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, kv0: torch.Tensor, s0: torch.Tensor,
-                          chunk: int):
+                          chunk: int, pure: bool = False):
     """The TPU kernel's arithmetic with batched tensor ops: rows batched,
     chunks in a Python loop.  gamma**x is exp(x * log gamma), exactly 1 for
     gamma = 1.  bf16: the same arithmetic in float32 on the bf16 values
     (the scores are sums of exact products), the output rounded to bf16 and
     the state to bf16 at the end (`retention_pallas.py:57-59,
-    94-95, 111-112`)."""
-    if q.dtype == torch.bfloat16:
-        out, kv, s = chunk_retention_plain(gammas, q.float(), k.float(), v.float(),
-                                           kv0.float(), s0.float(), chunk)
-        return out.to(q.dtype), kv.to(kv0.dtype), s.to(s0.dtype)
+    94-95, 111-112`); with `pure`, the JAX package's `_pure_core`
+    (`retention_pallas.py:200-241`, what its gradient differentiates): v
+    times the last mask row rounded to bf16 before the state update."""
+    dt = q.dtype
+    kv, s = kv0, s0
+    if dt == torch.bfloat16:
+        q, k, v, kv, s = (t.float() for t in (q, k, v, kv, s))
+    round_v = pure and dt == torch.bfloat16
     BH, T, dk = q.shape
     L = chunk
     lg = torch.log(gammas).reshape(BH, 1, 1)
@@ -187,7 +187,6 @@ def chunk_retention_plain(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor
     inner_decay = torch.exp(lg * (i + 1.0)[:, None]) * scale_last / scale_vec
     last_row = torch.exp(lg * (L - 1 - i)[:, None]) / scale_last       # (BH, L, 1)
     cross_decay = torch.exp(lg * float(L))
-    kv, s = kv0, s0
     outs = []
     for n in range(T // L):
         sl = slice(n * L, (n + 1) * L)
@@ -198,9 +197,12 @@ def chunk_retention_plain(gammas: torch.Tensor, q: torch.Tensor, k: torch.Tensor
         cross = ((qc * inner_decay) @ kv) / s
         all_scale = torch.maximum(inner_scale, s)
         outs.append(inner * (inner_scale / all_scale) + cross * (s / all_scale))
-        kv = kv * cross_decay + kc.transpose(1, 2) @ (vc * last_row)
+        vl = vc * last_row
+        if round_v:
+            vl = vl.to(dt).float()
+        kv = kv * cross_decay + kc.transpose(1, 2) @ vl
         s = kv.detach().abs().sum(1, keepdim=True).amax(2, keepdim=True).clamp(min=1.0)
-    return torch.cat(outs, dim=1), kv, s
+    return torch.cat(outs, dim=1).to(dt), kv.to(kv0.dtype), s.to(s0.dtype)
 
 
 TILE = 64     # frames of a query tile and of a k/v tile (csrc/chunk_retention_tc.cuh:kTile)

@@ -30,7 +30,17 @@
 // 256 threads as 16 x 16; thread (ty, tx) owns rows r*16 + ty and columns
 // c*16 + tx of every tile, so that a warp reads neighbouring shared-memory
 // words.  All products run on the FMA pipe.
+//
+// The bf16 form (E = bf16: q, k and v bf16, the rest float32) computes as
+// dec_train_fusion_pallas.py:192-223 does on bf16 data: the scores are sums
+// of exact products of the bf16 values, S / inner is rounded to bf16 before
+// it multiplies v, so the row sums are taken in a first sweep over a q
+// tile's k tiles and S V in a second; the cross read q (KV / c) keeps float32
+// operands, and out = (S V) (inner / all) + cross (c / all) as there.  The
+// state and its checkpoints stay float32.
 #pragma once
+
+#include <type_traits>
 
 #include "frame_scan_common.cuh"
 
@@ -40,10 +50,11 @@ constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kLd = kTile + 1;  // row length of the k-major (transposed) tiles
 
-struct CoreArgs {
+template <typename E>
+struct CoreArgsE {
   // q, k, v and out are matrices of B*T rows; the row of frame t of batch b
   // starts at p + (b*T + t)*ld, head h at column h*dk (h*dv for v and out)
-  const float *q, *k, *v;
+  const E *q, *k, *v;
   int ldq, ldk, ldv;
   float* out;
   int ldo;
@@ -59,6 +70,7 @@ struct CoreArgs {
   float* ss = nullptr;
   int ckC = 1;
 };
+using CoreArgs = CoreArgsE<float>;
 
 template <int DK, int DV>
 __host__ __device__ constexpr int core_smem_floats(int L) {
@@ -74,17 +86,17 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 
 // rows [i0, i0 + 64) of a chunk's (L, W) operand into a k-major tile
 // dst[w * kLd + r]; rows at or past L are zeros
-template <int W>
-__device__ __forceinline__ void load_tile_t(float* dst, const float* src, int ld,
-                                            int i0, int L) {
+template <int W, typename E>
+__device__ __forceinline__ void load_tile_t(float* dst, const E* src, int ld, int i0, int L) {
   for (int idx = threadIdx.x; idx < kTile * W; idx += kThreads) {
     const int r = idx / W, w = idx % W;
-    dst[w * kLd + r] = i0 + r < L ? src[(size_t)(i0 + r) * ld + w] : 0.f;
+    dst[w * kLd + r] = i0 + r < L ? fs::f32(src[(size_t)(i0 + r) * ld + w]) : 0.f;
   }
 }
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
+template <int DK, int DV, typename E>
+__global__ void __launch_bounds__(kThreads) core_kernel(CoreArgsE<E> a) {
+  constexpr bool BF = std::is_same<E, fs::bf16>::value;
   static_assert(DK % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
   constexpr int R = kTile / 16;  // rows of a tile per thread
   constexpr int CV = DV / 16;    // value columns per thread
@@ -121,9 +133,9 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
 
   for (int n = 0; n < T / L; ++n) {
     const size_t row0 = (size_t)b * T + (size_t)n * L;
-    const float* qn = a.q + row0 * a.ldq + h * DK;
-    const float* kn = a.k + row0 * a.ldk + h * DK;
-    const float* vn = a.v + row0 * a.ldv + h * DV;
+    const E* qn = a.q + row0 * a.ldq + h * DK;
+    const E* kn = a.k + row0 * a.ldk + h * DK;
+    const E* vn = a.v + row0 * a.ldv + h * DV;
     float* on = a.out + row0 * a.ldo + h * DV;
     const float cs = kv_scale;  // the scale of the state this chunk reads
     if (a.kvs) {
@@ -168,13 +180,55 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
         for (int c = 0; c < CV; ++c) acc[r][c] *= idec;
         rowabs[r] = 0.f;
       }
+      // bf16: the cross read apart (as q (KV / c)), the row sums first
+      float cross[BF ? R : 1][BF ? CV : 1], inner[BF ? R : 1];
+      if constexpr (BF) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < CV; ++c) cross[r][c] = acc[r][c] / cs, acc[r][c] = 0.f;
+        for (int jt = 0; jt <= it; ++jt) {
+          __syncthreads();  // the last tile's reads of KsT are done
+          load_tile_t<DK>(KsT, kn, a.ldk, jt * kTile, L);
+          __syncthreads();
+          float s[R][R];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < R; ++c) s[r][c] = 0.f;
+#pragma unroll 4
+          for (int kk = 0; kk < DK; ++kk) {
+            float av[R], bv[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) av[r] = QsT[kk * kLd + r * 16 + ty];
+#pragma unroll
+            for (int c = 0; c < R; ++c) bv[c] = KsT[kk * kLd + c * 16 + tx];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+              for (int c = 0; c < R; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int i = it * kTile + r * 16 + ty;
+#pragma unroll
+            for (int c = 0; c < R; ++c) {
+              const int j = jt * kTile + c * 16 + tx;
+              const float m = (j <= i && i < L) ? expf(lg * (i - j)) / sv[i] : 0.f;
+              rowabs[r] += fabsf(s[r][c] * m);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) inner[r] = fmaxf(half_warp_sum(rowabs[r]), 1.f);
+      }
 
       for (int jt = 0; jt <= it; ++jt) {
         __syncthreads();  // the last tile's reads of KsT, Vs, Ss and lr are done
         load_tile_t<DK>(KsT, kn, a.ldk, jt * kTile, L);
         for (int idx = tid; idx < kTile * DV; idx += kThreads) {
           const int j = jt * kTile + idx / DV;
-          Vs[idx] = j < L ? vn[(size_t)j * a.ldv + idx % DV] : 0.f;
+          Vs[idx] = j < L ? fs::f32(vn[(size_t)j * a.ldv + idx % DV]) : 0.f;
         }
         if (tid < kTile) {
           const int j = jt * kTile + tid;
@@ -205,8 +259,12 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
           for (int c = 0; c < R; ++c) {
             const int j = jt * kTile + c * 16 + tx;
             const float m = (j <= i && i < L) ? expf(lg * (i - j)) / sv[i] : 0.f;
-            const float w = s[r][c] * m;
-            rowabs[r] += fabsf(w);
+            float w = s[r][c] * m;
+            if constexpr (BF) {
+              w = fs::rnd<fs::bf16>(w / inner[r]);
+            } else {
+              rowabs[r] += fabsf(w);
+            }
             Ss[(r * 16 + ty) * kLd + c * 16 + tx] = w;
           }
         }
@@ -243,11 +301,18 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = it * kTile + r * 16 + ty;
-        const float inner = fmaxf(half_warp_sum(rowabs[r]), 1.f);
-        const float all = fmaxf(inner, cs);
         float o[CV];
+        if constexpr (BF) {
+          const float all = fmaxf(inner[r], cs);
 #pragma unroll
-        for (int c = 0; c < CV; ++c) o[c] = acc[r][c] / all;
+          for (int c = 0; c < CV; ++c)
+            o[c] = acc[r][c] * (inner[r] / all) + cross[r][c] * (cs / all);
+        } else {
+          const float inr = fmaxf(half_warp_sum(rowabs[r]), 1.f);
+          const float all = fmaxf(inr, cs);
+#pragma unroll
+          for (int c = 0; c < CV; ++c) o[c] = acc[r][c] / all;
+        }
         if (i < L) {
 #pragma unroll
           for (int c = 0; c < CV; ++c) on[(size_t)i * a.ldo + c * 16 + tx] = o[c];
@@ -283,14 +348,14 @@ __global__ void __launch_bounds__(kThreads) core_kernel(CoreArgs a) {
 }
 
 // one block per (batch, head) row; returns cudaGetLastError() after the launch
-template <int DK, int DV>
-inline int launch_core(const CoreArgs& a, int rows, cudaStream_t stream) {
+template <int DK, int DV, typename E>
+inline int launch_core(const CoreArgsE<E>& a, int rows, cudaStream_t stream) {
   const size_t smem = sizeof(float) * core_smem_floats<DK, DV>(a.L);
-  cudaError_t err = cudaFuncSetAttribute(core_kernel<DK, DV>,
+  cudaError_t err = cudaFuncSetAttribute(core_kernel<DK, DV, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  core_kernel<DK, DV><<<rows, kThreads, smem, stream>>>(a);
+  core_kernel<DK, DV, E><<<rows, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -17,6 +17,10 @@
 // enc_frame_scan.cu) run the forward row kernels at dropout 0; their bf16
 // forms (built with FS_BF16) instantiate the forward kernels with bf16 data
 // and rounding points (fs::rnd) where the TPU kernel rounds to its data type.
+// The fusion layer's own bf16 forms (dec_train_fusion_{fwd,bwd}.cu with
+// FS_BF16) instantiate them, and the backward kernels, with the rounding
+// points of dec_train_fusion_pallas.py (template arguments below; a float32
+// instantiation computes what it did before them).
 #pragma once
 
 #include <initializer_list>
@@ -75,12 +79,6 @@ __device__ __forceinline__ RowPos row_pos(const Drop& d, long long r) {
 }
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
-// a non-deduced T (a pointer argument that may be null)
-template <typename T>
-struct id {
-  using type = T;
-};
 
 __device__ __forceinline__ void load_row(const float* p, float (&v)[NV]) {
   if constexpr (NV % 4 == 0) {
@@ -150,15 +148,18 @@ __device__ __forceinline__ float group_sum(float s) {
        r < (R); r += (long long)gridDim.x * (blockDim.x >> 5))
 
 // y = LN(x + a * mask(site)) with scale/bias (eps 1e-5); the pre-norm sum
-// is written to rsum when it is not null (the backward reads it), y when it
-// is not null.  T: the element type of x, the norm's weights, rsum and y (a
-// is float32); bf16 rounds y where it is written.
-template <typename T>
+// (float32) is written to rsum when it is not null (the backward reads it),
+// y when it is not null, and y rounded to bf16 to ylo when that is not null
+// (the fusion layer's bf16 form keeps a float32 residual stream and feeds
+// the next product its bf16 copy).  TX, TP, TY: the element types of x, of
+// the norm's weights and of y (a is float32); a bf16 y is rounded where it
+// is written.
+template <typename TX, typename TP, typename TY>
 __global__ void __launch_bounds__(256)
-add_drop_ln_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                   const T* __restrict__ scale, const T* __restrict__ bias,
-                   T* __restrict__ rsum, T* __restrict__ y, long long R, Drop dp,
-                   int site) {
+add_drop_ln_kernel(const TX* __restrict__ x, const float* __restrict__ a,
+                   const TP* __restrict__ scale, const TP* __restrict__ bias,
+                   float* __restrict__ rsum, TY* __restrict__ y, fs::bf16* __restrict__ ylo,
+                   long long R, Drop dp, int site) {
   const int c0 = lane_id() * NV;
   DTF_FOR_ROWS(r, R) {
     const RowPos p = row_pos(dp, r);
@@ -169,7 +170,7 @@ add_drop_ln_kernel(const T* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
     for (int i = 0; i < NV; ++i) v[i] += av[i] * keep(dp, base, (unsigned)(p.cl * D + c0 + i));
     if (rsum) store_row(rsum + r * D, v);
-    if (!y) continue;
+    if (!y && !ylo) continue;
     const float mu = row_sum(v) / D;
     float d2[NV];
 #pragma unroll
@@ -178,7 +179,8 @@ add_drop_ln_kernel(const T* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
     for (int i = 0; i < NV; ++i)
       v[i] = (v[i] - mu) * rs * fs::ldg(scale + c0 + i) + fs::ldg(bias + c0 + i);
-    store_row(y + r * D, v);
+    if (y) store_row(y + r * D, v);
+    if (ylo) store_row(ylo + r * D, v);
   }
 }
 
@@ -187,8 +189,11 @@ add_drop_ln_kernel(const T* __restrict__ x, const float* __restrict__ a,
 // dres * mask(site); the block's column sums of the scale and bias
 // gradients, over its rows in a fixed order, go to part[blockIdx.x] (2D
 // floats: scale, then bias), which ln_bwd_reduce_kernel adds in block order.
+// TD: dy's element type; TP: the scale's, and the bf16 form (TP = bf16)
+// reads the normalized row rounded to bf16, as the TPU kernel stashes it.
+template <typename TD, typename TP>
 __global__ void __launch_bounds__(256)
-ln_bwd_kernel(const float* dy, const float* __restrict__ rsum, const float* __restrict__ scale,
+ln_bwd_kernel(const TD* dy, const float* __restrict__ rsum, const TP* __restrict__ scale,
               float* dres, float* __restrict__ dbranch, float* __restrict__ part, long long R,
               Drop dp, int site) {
   __shared__ float red[2][8][D];
@@ -208,10 +213,10 @@ ln_bwd_kernel(const float* dy, const float* __restrict__ rsum, const float* __re
     const float rs = rsqrtf(row_sum(t) / D + 1e-5f);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      v[i] = (v[i] - mu) * rs;  // xhat
+      v[i] = fs::rnd<TP>((v[i] - mu) * rs);  // xhat
       ds[i] += g[i] * v[i];
       db[i] += g[i];
-      g[i] *= __ldg(scale + c0 + i);  // dxhat
+      g[i] *= fs::ldg(scale + c0 + i);  // dxhat
       t[i] = g[i] * v[i];
     }
     const float m1 = row_sum(g) / D, m2 = row_sum(t) / D;
@@ -245,12 +250,15 @@ __global__ void ln_bwd_reduce_kernel(const float* __restrict__ part, int S,
 }
 
 // per (row, head): gated = silu(g) * groupnorm(oh) (eps 1e-6, non-affine);
-// g has row stride ldg.  T: the element type of g and gated; bf16 rounds the
-// group norm's output before the gate, and the gated value
-template <typename T>
+// g has row stride ldg.  TG, TO: the element types of g and gated.  The
+// frame scans' bf16 form (TG = bf16) rounds the group norm's output before
+// the gate (dec_frame_scan_pallas.py); the fusion layer's training form
+// (TG = float, TO = bf16) gates the float32 norm with the float32 g and
+// rounds the product where it is written (dec_train_fusion_pallas.py:231-235)
+template <typename TG, typename TO>
 __global__ void __launch_bounds__(256)
-gate_fwd_kernel(const float* __restrict__ oh, const T* __restrict__ g, int ldg,
-                T* __restrict__ gated, long long R) {
+gate_fwd_kernel(const float* __restrict__ oh, const TG* __restrict__ g, int ldg,
+                TO* __restrict__ gated, long long R) {
   DTF_FOR_ROWS(r, R) {
     float v[NV], gv[NV], t[NV];
     load_row(oh + r * D, v);
@@ -264,13 +272,16 @@ gate_fwd_kernel(const float* __restrict__ oh, const T* __restrict__ g, int ldg,
     for (int i = 0; i < NV; ++i) s += (v[i] - mu) * (v[i] - mu);
     const float rs = rsqrtf(group_sum(s) / DK + 1e-6f);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) t[i] = fs::silu(gv[i]) * fs::rnd<T>((v[i] - mu) * rs);
+    for (int i = 0; i < NV; ++i) t[i] = fs::silu(gv[i]) * fs::rnd<TG>((v[i] - mu) * rs);
     store_row(gated + r * D, t);
   }
 }
 
 // Backward of gate_fwd: from dgated, dg (stride ldg) = dgated * ohn *
-// silu'(g) and doh = the group-norm backward of dgated * silu(g)
+// silu'(g) and doh = the group-norm backward of dgated * silu(g).  T = bf16
+// reads g and the normalized ohn rounded to bf16, as the TPU kernel stashes
+// them (dec_train_fusion_pallas.py:229, 291, 477-481)
+template <typename T>
 __global__ void __launch_bounds__(256)
 gate_bwd_kernel(const float* __restrict__ dgated, const float* __restrict__ oh,
                 const float* __restrict__ g, int ldg, float* __restrict__ dg, int lddg,
@@ -291,7 +302,8 @@ gate_bwd_kernel(const float* __restrict__ dgated, const float* __restrict__ oh,
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      v[i] = (v[i] - mu) * rs;  // ohn
+      v[i] = fs::rnd<T>((v[i] - mu) * rs);  // ohn
+      gv[i] = fs::rnd<T>(gv[i]);
       const float sg = fs::sigmoid(gv[i]);
       t[i] = dv[i] * v[i] * (sg * (1.f + gv[i] * (1.f - sg)));  // dg
       dv[i] *= gv[i] * sg;                                       // d ohn
@@ -307,8 +319,10 @@ gate_bwd_kernel(const float* __restrict__ dgated, const float* __restrict__ oh,
 }
 
 // out = src * (hpre > 0 ? mask(FFN hidden) : 0) over (R, F): relu + dropout
-// forward (src = hpre) and backward (src = the gradient)
-__global__ void relu_drop_kernel(const float* src, const float* hpre, float* out, long long total,
+// forward (src = hpre) and backward (src = the gradient); a bf16 out is
+// rounded where it is written
+template <typename TO>
+__global__ void relu_drop_kernel(const float* src, const float* hpre, TO* out, long long total,
                                  int F, Drop dp) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (long long)gridDim.x * blockDim.x) {
@@ -318,7 +332,7 @@ __global__ void relu_drop_kernel(const float* src, const float* hpre, float* out
     const float m = hpre[e] > 0.f
                         ? keep(dp, hash_base(dp, p.b, p.n, kFfh), (unsigned)(p.cl * F + f))
                         : 0.f;
-    out[e] = src[e] * m;
+    out[e] = fs::As<TO>::from(src[e] * m);
   }
 }
 
@@ -396,8 +410,11 @@ __device__ __forceinline__ void scores(const Drop& dp, const float* qs, const fl
   __syncwarp();
 }
 
-// T = bf16: the probabilities rounded to bf16, each product p v too, the
-// sum in float32 rounded to bf16 where it is written (:152-157)
+// T = bf16: the probabilities rounded to bf16, then multiplied by the
+// dropout multiplier rounded to bf16 (the fusion layer's bf16 mask,
+// dec_train_fusion_pallas.py:177-181, 262; 1 at dropout 0) and rounded
+// again, each product p v too, the sum in float32 rounded to bf16 where it
+// is written (dec_frame_scan_pallas.py:152-157)
 template <typename T>
 __global__ void slot_attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ attn, int B,
                                      Drop dp) {
@@ -415,14 +432,20 @@ __global__ void slot_attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ 
     for (int d = lane_id(); d < DK; d += 32) {
       float o = 0.f;
       for (int j = 0; j < C; ++j)
-        o += fs::rnd<T>(fs::rnd<T>(W[c * C + j] * M[c * C + j]) * vs[j * DK + d]);
+        o += fs::rnd<T>(fs::rnd<T>(fs::rnd<T>(W[c * C + j]) * fs::rnd<T>(M[c * C + j])) *
+                        vs[j * DK + d]);
       out[d] = fs::As<T>::from(o);
     }
   }
 }
 
-// dattn rows (stride D) -> dqkv rows (stride 3D): dq | dk | dv of the head
-__global__ void slot_attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+// dattn rows (stride D) -> dqkv rows (stride 3D): dq | dk | dv of the head.
+// T = bf16 (qkv in bf16) as the TPU kernel's backward (:426-459): the scores'
+// products rounded, the softmax weights and the dropout multiplier rounded
+// to bf16, d(w * mask) from the products of dattn rounded to bf16 and v,
+// each rounded; dv from the unrounded dattn
+template <typename T>
+__global__ void slot_attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ dattn,
                                      float* __restrict__ dqkv, int B, Drop dp) {
   extern __shared__ __align__(16) float sm[];
   const SlotView s = slot_view(dp, B);
@@ -436,13 +459,17 @@ __global__ void slot_attn_bwd_kernel(const float* __restrict__ qkv, const float*
     const float* row = dattn + slot_row(dp, s, c) * D + s.h * DK;
     for (int d = lane; d < DK; d += 32) das[c * DK + d] = row[d];
   }
-  scores(dp, qs, ks, W);
+  scores<T>(dp, qs, ks, W);
   softmax_mask(dp, s, W, M);
+  if constexpr (!std::is_same<T, float>::value) {
+    for (int p = lane; p < C * C; p += 32) W[p] = fs::rnd<T>(W[p]), M[p] = fs::rnd<T>(M[p]);
+    __syncwarp();
+  }
   // d(w * mask), then through the mask
   for (int p = lane; p < C * C; p += 32) {
     const int c = p / C, j = p % C;
     float g = 0.f;
-    for (int d = 0; d < DK; ++d) g += das[c * DK + d] * vs[j * DK + d];
+    for (int d = 0; d < DK; ++d) g += fs::rnd<T>(fs::rnd<T>(das[c * DK + d]) * vs[j * DK + d]);
     S[p] = g * M[p];
   }
   __syncwarp();
@@ -469,6 +496,15 @@ __global__ void slot_attn_bwd_kernel(const float* __restrict__ qkv, const float*
   }
 }
 
+// dst = src rounded to bf16: the copy a bf16 product reads of a float32
+// gradient (the TPU kernel's `.astype(dt)` before a dot)
+__global__ void round_kernel(const float* __restrict__ src, fs::bf16* __restrict__ dst,
+                             long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
 __global__ void fill_kernel(float* p, float v, long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
@@ -481,69 +517,80 @@ inline long long lmin(long long a, long long b) { return a < b ? a : b; }
 
 inline int row_grid(long long R) { return (int)lmin((R + 7) / 8, 132 * 8); }
 
-template <typename T>
-inline int add_drop_ln(const T* x, const float* a, const typename id<T>::type* scale,
-                       const typename id<T>::type* bias, typename id<T>::type* rsum,
-                       typename id<T>::type* y, long long R, const Drop& dp, int site,
-                       cudaStream_t st) {
-  add_drop_ln_kernel<T><<<row_grid(R), 256, 0, st>>>(x, a, scale, bias, rsum, y, R, dp, site);
+template <typename TX, typename TP, typename TY>
+inline int add_drop_ln(const TX* x, const float* a, const TP* scale, const TP* bias,
+                       float* rsum, TY* y, long long R, const Drop& dp, int site,
+                       cudaStream_t st, fs::bf16* ylo = nullptr) {
+  add_drop_ln_kernel<TX, TP, TY><<<row_grid(R), 256, 0, st>>>(x, a, scale, bias, rsum, y, ylo, R,
+                                                              dp, site);
   return cudaGetLastError();
 }
 
 // kLnBwdBlocks * 2D floats of `part` hold the blocks' column sums
 constexpr int kLnBwdBlocks = 132 * 2;
 
-inline int ln_bwd(const float* dy, const float* rsum, const float* scale, float* dres,
+template <typename TD, typename TP>
+inline int ln_bwd(const TD* dy, const float* rsum, const TP* scale, float* dres,
                   float* dbranch, float* dscale, float* dbias, long long R, const Drop& dp,
                   int site, float* part, cudaStream_t st) {
   const int grid = (int)lmin((R + 7) / 8, kLnBwdBlocks);
-  ln_bwd_kernel<<<grid, 256, 0, st>>>(dy, rsum, scale, dres, dbranch, part, R, dp, site);
+  ln_bwd_kernel<TD, TP><<<grid, 256, 0, st>>>(dy, rsum, scale, dres, dbranch, part, R, dp, site);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   ln_bwd_reduce_kernel<<<(2 * D + 255) / 256, 256, 0, st>>>(part, grid, dscale, dbias);
   return cudaGetLastError();
 }
 
-template <typename T>
-inline int gate_fwd(const float* oh, const T* g, int ldg, typename id<T>::type* gated,
-                    long long R, cudaStream_t st) {
-  gate_fwd_kernel<T><<<row_grid(R), 256, 0, st>>>(oh, g, ldg, gated, R);
+template <typename TG, typename TO>
+inline int gate_fwd(const float* oh, const TG* g, int ldg, TO* gated, long long R,
+                    cudaStream_t st) {
+  gate_fwd_kernel<TG, TO><<<row_grid(R), 256, 0, st>>>(oh, g, ldg, gated, R);
   return cudaGetLastError();
 }
 
+template <typename T = float>
 inline int gate_bwd(const float* dgated, const float* oh, const float* g, int ldg, float* dg,
                     int lddg, float* doh, long long R, cudaStream_t st) {
-  gate_bwd_kernel<<<row_grid(R), 256, 0, st>>>(dgated, oh, g, ldg, dg, lddg, doh, R);
+  gate_bwd_kernel<T><<<row_grid(R), 256, 0, st>>>(dgated, oh, g, ldg, dg, lddg, doh, R);
   return cudaGetLastError();
 }
 
-inline int relu_drop(const float* src, const float* hpre, float* out, long long R, int F,
+template <typename TO>
+inline int relu_drop(const float* src, const float* hpre, TO* out, long long R, int F,
                      const Drop& dp, cudaStream_t st) {
   const long long total = R * F;
   const int grid = (int)lmin((total + 255) / 256, 132 * 16);
-  relu_drop_kernel<<<grid, 256, 0, st>>>(src, hpre, out, total, F, dp);
+  relu_drop_kernel<TO><<<grid, 256, 0, st>>>(src, hpre, out, total, F, dp);
   return cudaGetLastError();
 }
 
-// the backward (bwd) takes float32 only
-template <typename T>
-inline int slot_attn(const T* qkv, const float* dattn, typename id<T>::type* out, int B,
-                     const Drop& dp, bool bwd, cudaStream_t st) {
+// forward: out in qkv's element type; backward (bwd): out float32 (dqkv)
+template <typename T, typename TO>
+inline int slot_attn(const T* qkv, const float* dattn, TO* out, int B, const Drop& dp, bool bwd,
+                     cudaStream_t st) {
   const int smem = (int)sizeof(float) * attn_smem_floats(dp.C, bwd);
   const int grid = (B * dp.T * H + kAttnWarps - 1) / kAttnWarps;
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<TO, float>::value) {
     if (bwd) {
-      cudaError_t e = cudaFuncSetAttribute(slot_attn_bwd_kernel,
+      cudaError_t e = cudaFuncSetAttribute(slot_attn_bwd_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
-      slot_attn_bwd_kernel<<<grid, 32 * kAttnWarps, smem, st>>>(qkv, dattn, out, B, dp);
+      slot_attn_bwd_kernel<T><<<grid, 32 * kAttnWarps, smem, st>>>(qkv, dattn, out, B, dp);
       return cudaGetLastError();
     }
   }
-  cudaError_t e = cudaFuncSetAttribute(slot_attn_fwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  slot_attn_fwd_kernel<T><<<grid, 32 * kAttnWarps, smem, st>>>(qkv, out, B, dp);
+  if constexpr (std::is_same<T, TO>::value) {
+    cudaError_t e = cudaFuncSetAttribute(slot_attn_fwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    slot_attn_fwd_kernel<T><<<grid, 32 * kAttnWarps, smem, st>>>(qkv, out, B, dp);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+inline int round_bf16(const float* src, fs::bf16* dst, long long n, cudaStream_t st) {
+  round_kernel<<<(int)lmin((n + 255) / 256, 132 * 16), 256, 0, st>>>(src, dst, n);
   return cudaGetLastError();
 }
 
@@ -562,12 +609,15 @@ struct Carve {
     used += (n + 3) / 4 * 4;
     return p;
   }
+  fs::bf16* take16(size_t n) { return reinterpret_cast<fs::bf16*>(take((n + 1) / 2)); }
 };
 
-// the chunkwise retention forward over q | k | v columns of qkvg (stride 4D)
-// into oh (stride D), from a zero state, writing the per-chunk checkpoints
-// when kvs is not null; zkv/ones/kvf/sf are per-(sequence, head) scratch
-inline int retention_fwd(const float* qkvg, float* oh, float* zkv, float* ones, float* kvf,
+// the chunkwise retention forward over the q | k | v columns of qkv (row
+// stride ld) into oh (stride D), from a zero state, writing the per-chunk
+// checkpoints when kvs is not null; zkv/ones/kvf/sf are per-(sequence, head)
+// scratch.  E: the element type of q, k and v (bf16: the core's bf16 form)
+template <typename E>
+inline int retention_fwd(const E* qkv, int ld, float* oh, float* zkv, float* ones, float* kvf,
                          float* sf, float* kvs, float* ss, int BC, int T, int L, int C,
                          cudaStream_t st) {
   const long long rows = (long long)BC * H;
@@ -575,8 +625,8 @@ inline int retention_fwd(const float* qkvg, float* oh, float* zkv, float* ones, 
   if (e != cudaSuccess) return e;
   int err = fill(ones, 1.f, rows, st);
   if (err) return err;
-  cr::CoreArgs a{qkvg, qkvg + D, qkvg + 2 * D, 4 * D, 4 * D, 4 * D, oh, D, ones, 1,
-                 zkv, ones, kvf, sf, H, T, L};
+  cr::CoreArgsE<E> a{qkv, qkv + D, qkv + 2 * D, ld, ld, ld, oh, D, ones, 1,
+                     zkv, ones, kvf, sf, H, T, L};
   a.kvs = kvs;
   a.ss = ss;
   a.ckC = C;

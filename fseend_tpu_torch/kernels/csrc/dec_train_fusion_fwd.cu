@@ -25,11 +25,40 @@
 // (chunk_retention_core.cuh) writing the checkpoints, and the row kernels of
 // dec_train_fusion_common.cuh.  Dropout masks are the JAX kernel's counter
 // hash, computed where they are applied, so no mask is stored.
+//
+// The bf16 form (built with FS_BF16; the float32 build is the code above
+// unchanged) takes bf16 x and weights and writes a bf16 y, with the
+// checkpoints float32 (dec_train_fusion_pallas.py:574-617): the sequence's
+// bf16 form (forward_seq16), its products one bf16 tensor-core pass each.
+// Bound: the same operations at the bf16 peak (989 TFLOP/s).
 #include "dec_train_fusion_seq.cuh"
 
 using namespace dtf;
 
 namespace {
+
+#ifdef FS_BF16
+using E = fs::bf16;
+
+size_t carve_fwd16(float* base, int BC, int T, int F, SeqBufs16* b) {
+  const size_t R = (size_t)BC * T, rows = (size_t)BC * H;
+  Carve c{base};
+  *b = SeqBufs16{};
+  b->qkv = c.take16(R * 3 * D);
+  b->mqkv = c.take16(R * 3 * D);
+  for (bf16** p : {&b->gated, &b->x1lo, &b->attn, &b->x2lo}) *p = c.take16(R * D);
+  for (float** p : {&b->g, &b->oh, &b->br, &b->x1, &b->x2}) *p = c.take(R * D);
+  b->hpre = c.take(R * F);
+  b->hdrop = c.take16(R * F);
+  b->zkv = c.take(rows * DK * DK);
+  b->kvf = c.take(rows * DK * DK);
+  b->ones = c.take(rows);
+  b->sf = c.take(rows);
+  b->part = c.take(tc::kSplitFloats);
+  return c.used;
+}
+#else
+using E = float;
 
 size_t carve_fwd(float* base, int BC, int T, int F, SeqBufs* b) {
   const size_t R = (size_t)BC * T, rows = (size_t)BC * H;
@@ -48,27 +77,43 @@ size_t carve_fwd(float* base, int BC, int T, int F, SeqBufs* b) {
   b->part = c.take(tc::kSplitFloats);  // a product's partial sums along k
   return c.used;
 }
+#endif
 
 }  // namespace
 
 // floats of workspace dtf_forward needs for BC = B*C sequences of T frames
 extern "C" size_t dtf_fwd_workspace(int BC, int T, int H_, int F) {
+#ifdef FS_BF16
+  SeqBufs16 b;
+  return H_ == H ? carve_fwd16(nullptr, BC, T, F, &b) : 0;
+#else
   SeqBufs b;
   return H_ == H ? carve_fwd(nullptr, BC, T, F, &b) : 0;
+#endif
 }
 
 // x, y (B, C, T, D); t* the transposes (in, out) of wqkvg, wro, wmi, wmo,
 // wf1, wf2 and b* their biases; lns, lnb (3, D); kvs (B, T/L, H, C, DK, DK)
 // and ss (B, T/L, H, C), both null for no checkpoints; ws of
-// dtf_fwd_workspace floats.  T % L == 0, F % 16 == 0.  Returns the first
-// CUDA error of the launches.
-extern "C" int dtf_forward(const float* x, const float* tqkvg, const float* bqkvg,
-                           const float* tro, const float* bro, const float* tmi,
-                           const float* bmi, const float* tmo, const float* bmo,
-                           const float* tf1, const float* bf1, const float* tf2,
-                           const float* bf2, const float* lns, const float* lnb, float* y,
-                           float* kvs, float* ss, float* ws, int B, int C, int T, int L, int F,
-                           unsigned seed, unsigned thr, float mult, void* stream_) {
+// dtf_fwd_workspace floats.  x, y and the weights of the element type E
+// (bf16 with FS_BF16, else float); kvs, ss and ws float32.  T % L == 0, F %
+// 16 == 0.  Returns the first CUDA error of the launches.
+extern "C" int dtf_forward(const E* x, const E* tqkvg, const E* bqkvg, const E* tro,
+                           const E* bro, const E* tmi, const E* bmi, const E* tmo, const E* bmo,
+                           const E* tf1, const E* bf1, const E* tf2, const E* bf2, const E* lns,
+                           const E* lnb, E* y, float* kvs, float* ss, float* ws, int B, int C,
+                           int T, int L, int F, unsigned seed, unsigned thr, float mult,
+                           void* stream_) {
+#ifdef FS_BF16
+  SeqBufs16 b;
+  carve_fwd16(ws, B * C, T, F, &b);
+  b.y = y;
+  b.kvs = kvs;
+  b.ss = ss;
+  const SeqWeights16 w{tqkvg, bqkvg, tro, bro, tmi, bmi, tmo, bmo, tf1, bf1, tf2, bf2, lns, lnb};
+  return forward_seq16(x, w, b, B, C, T, L, F, Drop{seed, thr, mult, C, T, L},
+                       static_cast<cudaStream_t>(stream_));
+#else
   SeqBufs b;
   carve_fwd(ws, B * C, T, F, &b);
   b.y = y;
@@ -77,4 +122,5 @@ extern "C" int dtf_forward(const float* x, const float* tqkvg, const float* bqkv
   const SeqWeights w{tqkvg, bqkvg, tro, bro, tmi, bmi, tmo, bmo, tf1, bf1, tf2, bf2, lns, lnb};
   return forward_seq(x, w, b, B, C, T, L, F, Drop{seed, thr, mult, C, T, L},
                      static_cast<cudaStream_t>(stream_));
+#endif
 }

@@ -35,8 +35,22 @@ with every product on the tensor cores, float32-exact, and the backward's
 gradients come out the same to the bit from run to run); on CPU tensors
 they run `fusion_layer_fwd_plain` / `fusion_layer_bwd_plain`.  The products
 read the weights transposed to (in, out): `_FusedFusionLayerFn` makes the
-transposes once per forward and keeps them for its backward.  Float32
-only.
+transposes once per forward and keeps them for its backward.
+
+Float32 or bf16: x, dy, y, dx and the weights share one dtype; the state
+checkpoints kvs and ss are float32 in either.  The bf16 forms (the same
+sources built with FS_BF16) compute as `dec_train_fusion_pallas.py` does on
+bf16 data ("one-pass bf16 semantics"): each product of two bf16 operands
+is one bf16 tensor-core pass with float32 accumulation, the cross read of
+the carried state has float32 operands, and the values are rounded to bf16
+where the Pallas source rounds them (q | k | v, the normalized scores, the
+gated value, the LayerNorms' outputs before a product, the attention
+weights (their dropout multiplier 1 / (1 - rate) itself rounded to bf16),
+each product of the slot attention, the FFN hidden; in the backward the
+stashed g, group-norm output and LayerNorm xhats, every gradient before a
+product, and dx).  The 14 weight gradients sum in float32 and come back
+rounded to the weights' dtype, as the JAX VJP returns them.  The plain
+versions follow the same rounding points on bf16 inputs.
 
 Weights (`FusionWeights`) are in torch's (out, in) layout: wqkvg (4D, D) the
 q | k | v | g rows, wro (D, D), wmi (3D, D) the slot attention's packed
@@ -56,11 +70,14 @@ import torch
 import torch.nn.functional as F
 
 from fseend_tpu_torch.kernels import _build
-from fseend_tpu_torch.ops import nn as tnn
+from fseend_tpu_torch.kernels._dtype import build_defines, compute, rounding
 
-# launches of the CUDA forward / backward since the counts were last set to 0
+# launches of the CUDA forward / backward since the counts were last set to
+# 0: their float32 forms, their bf16 forms
 fwd_launches = 0
 bwd_launches = 0
+fwd_launches_bf16 = 0
+bwd_launches_bf16 = 0
 
 # dropout sites, in the JAX kernel's numbering
 SITE_RET, SITE_ATTNW, SITE_MHA, SITE_FFH, SITE_FFO = range(5)
@@ -167,42 +184,63 @@ def _ln_fwd(x, scale, bias):
     return xh * scale + bias, xh, rs
 
 
-def _chunk_masks(seed, n, B, C, L, D, F, H, rate, device):
-    """Dropout multipliers of chunk n for every batch row, or None at rate 0."""
+def _chunk_masks(seed, n, B, C, L, D, F, H, rate, device, rnd):
+    """Dropout multipliers of chunk n for every batch row, or None at rate 0.
+    The attention weights' mask is in the data dtype (`rnd`), the others
+    float32, as the JAX kernel builds them."""
     if rate <= 0.0:
         return None
     b = torch.arange(B, device=device)
     return {"m0": hash_keep(seed, b, n, SITE_RET, (C, L, D), rate, device),
-            "m1": torch.stack([hash_keep(seed, b, n, SITE_ATTNW + 16 * h, (C, L, C), rate,
-                                         device) for h in range(H)], dim=1),
+            "m1": rnd(torch.stack([hash_keep(seed, b, n, SITE_ATTNW + 16 * h, (C, L, C), rate,
+                                             device) for h in range(H)], dim=1)),
             "m2": hash_keep(seed, b, n, SITE_MHA, (C, L, D), rate, device),
             "m3": hash_keep(seed, b, n, SITE_FFH, (C, L, F), rate, device),
             "m4": hash_keep(seed, b, n, SITE_FFO, (C, L, D), rate, device)}
 
 
+def _kscale(dk: int, dtype) -> float:
+    """dk**-0.5 in the data dtype, as the JAX kernel scales the rounded k."""
+    return float(torch.tensor(dk ** -0.5).to(dtype)) if dtype == torch.bfloat16 else dk ** -0.5
+
+
+def _slot_products(a, b, rnd):
+    """out[..., c, l, j] = sum_d rnd(a[..., c, l, d] * b[..., j, l, d]) for a,
+    b (B, H, C, L, d): each product of two bf16 values rounded to bf16 before
+    the float32 sum (the JAX kernel's `(qh * kh).astype(f32)`)."""
+    return rnd(a.unsqueeze(3) * b.unsqueeze(2)).sum(-1).transpose(-1, -2)
+
+
 def _chunk_fwd(xc, kv_in, s_in, w: FusionWeights, seed, n, H, rate, collect=False):
-    """Chunk n of the layer for every batch row: xc (B, C, L, D), the
-    incoming state kv_in (B, H, C, dk, dv) and s_in (B, H, C, 1, 1).
-    Returns (y, kv_out, s_out, stash); the stash (collect) holds what the
-    backward reads."""
+    """Chunk n of the layer for every batch row: xc (B, C, L, D) in the data
+    dtype, the incoming state kv_in (B, H, C, dk, dv) and s_in (B, H, C, 1,
+    1) float32; w in the data dtype.  Returns (y float32, kv_out, s_out,
+    stash); the stash (collect) holds what the backward reads, rounded
+    where the JAX kernel stashes rounded values."""
+    dt = xc.dtype
+    bf = dt == torch.bfloat16
+    rnd = rounding(dt)
+    xc = compute(xc)
+    w = FusionWeights(*(compute(t) for t in w))
     B, C, L, D = xc.shape
     Fh = w.wf1.shape[0]
     dk = D // H
     mask, inner_decay, wlast = _consts(L, xc.device)
-    ms = _chunk_masks(seed, n, B, C, L, D, Fh, H, rate, xc.device)
+    ms = _chunk_masks(seed, n, B, C, L, D, Fh, H, rate, xc.device, rnd)
 
     def drop(t, key):
         return t if ms is None else t * ms[key]
 
     # time-axis retention, per (b, head, slot)
     qkvg = xc @ w.wqkvg.T + w.bqkvg                              # (B, C, L, 4D)
-    q = _heads(qkvg[..., :D], H)
-    k = _heads(qkvg[..., D:2 * D], H) * dk ** -0.5
-    v = _heads(qkvg[..., 2 * D:3 * D], H)
+    q = rnd(_heads(qkvg[..., :D], H))
+    k = rnd(rnd(_heads(qkvg[..., D:2 * D], H)) * _kscale(dk, dt))
+    v = rnd(_heads(qkvg[..., 2 * D:3 * D], H))
     g = qkvg[..., 3 * D:]
     qk = (q @ k.transpose(-1, -2)) * mask                         # (B, H, C, L, L)
     is_ = qk.detach().abs().sum(-1, keepdim=True).clamp(min=1.0)
-    inner = (qk / is_) @ v
+    innin = rnd(qk / is_)
+    inner = innin @ v
     kvn = kv_in / s_in
     cross = (q * inner_decay) @ kvn
     all_ = torch.maximum(is_, s_in)
@@ -213,50 +251,64 @@ def _chunk_fwd(xc, kv_in, s_in, w: FusionWeights, seed, n, H, rate, collect=Fals
     kv_out = kv_in + (k.transpose(-1, -2) @ v) * wlast
     s_out = kv_out.detach().abs().sum(-2, keepdim=True).amax(-1, keepdim=True).clamp(min=1.0)
     retcat = _merge(ohn)
-    gated = F.silu(g) * retcat
+    gated = rnd(F.silu(g) * retcat)
     a = drop(gated @ w.wro.T + w.bro, "m0")
     x1, xh1, rs1 = _ln_fwd(xc + a, w.lns[0], w.lnb[0])
+    x1r = rnd(x1)
     # attention across the C slots of each frame
-    qkv = x1 @ w.wmi.T + w.bmi
+    qkv = rnd(x1r @ w.wmi.T + w.bmi)
     qh, kh, vh = (_heads(qkv[..., i * D:(i + 1) * D], H) for i in range(3))
     inv = 1.0 / math.sqrt(dk)
-    wts = torch.softmax(torch.einsum("bhcld,bhjld->bhclj", qh, kh) * inv, dim=-1)
+    if bf:
+        scores = _slot_products(qh, kh, rnd)
+    else:
+        scores = torch.einsum("bhcld,bhjld->bhclj", qh, kh)
+    wts = rnd(torch.softmax(scores * inv, dim=-1))
     wd = wts if ms is None else wts * ms["m1"]
-    attn = _merge(torch.einsum("bhclj,bhjld->bhcld", wd, vh))
+    if bf:       # each weight rounded, then each product, summed over the slots in order
+        wdr = rnd(wd)
+        attn = torch.zeros_like(qh)
+        for j in range(C):
+            attn = attn + rnd(wdr[..., j:j + 1] * vh[:, :, j:j + 1])
+        attn = rnd(_merge(attn))
+    else:
+        attn = _merge(torch.einsum("bhclj,bhjld->bhcld", wd, vh))
     s = drop(attn @ w.wmo.T + w.bmo, "m2")
     x2, xh2, rs2 = _ln_fwd(x1 + s, w.lns[1], w.lnb[1])
+    x2r = rnd(x2)
     # relu feed-forward
-    hpre = x2 @ w.wf1.T + w.bf1
-    hdrop = drop(torch.relu(hpre), "m3")
+    hpre = x2r @ w.wf1.T + w.bf1
+    hdrop = rnd(drop(torch.relu(hpre), "m3"))
     f = drop(hdrop @ w.wf2.T + w.bf2, "m4")
     y, xh3, rs3 = _ln_fwd(x2 + f, w.lns[2], w.lnb[2])
     st = None
     if collect:
-        st = dict(ms or {}, xc=xc, q=q, k=k, v=v, g=g, qk=qk, is_=is_, all_=all_, kv_in=kv_in,
-                  s_in=s_in, ohn=ohn, grs=grs, retcat=retcat, gated=gated, xh1=xh1, rs1=rs1,
-                  x1=x1, qh=qh, kh=kh, vh=vh, wts=wts, wd=wd, attn=attn, xh2=xh2, rs2=rs2,
-                  x2=x2, hpre=hpre, hdrop=hdrop, xh3=xh3, rs3=rs3)
+        st = dict(ms or {}, xc=xc, q=q, k=k, v=v, g=rnd(g), qk=qk, is_=is_, innin=innin,
+                  all_=all_, kv_in=kv_in, s_in=s_in, ohn=rnd(ohn), grs=grs,
+                  retcat=rnd(retcat), gated=gated, xh1=rnd(xh1), rs1=rs1, x1=x1r, qh=qh,
+                  kh=kh, vh=vh, wts=wts, wd=wd, attn=attn, xh2=rnd(xh2), rs2=rs2, x2=x2r,
+                  hpre=hpre, hdrop=hdrop, xh3=rnd(xh3), rs3=rs3)
     return y, kv_out, s_out, st
-
-
 def fusion_layer_fwd_plain(x: torch.Tensor, w: FusionWeights, seed: int, n_heads: int,
                            chunk: int, rate: float, checkpoints: bool = True):
     """The forward as a loop over the chunks, every batch row at once (the
-    oracle `tests/test_dec_train_fusion.py` holds the JAX kernel to).
-    Differentiable by torch autograd.  Returns (y, kvs, ss); kvs and ss are
-    None without `checkpoints`."""
+    oracle `tests/test_dec_train_fusion.py` holds the JAX kernel to), in
+    x's dtype: float32, or bf16 at the JAX kernel's rounding points.
+    Differentiable by torch autograd.  Returns (y, kvs, ss), kvs and ss
+    float32; None, None without `checkpoints`."""
     B, C, T, D = x.shape
     H, L = n_heads, chunk
     dk = D // H
-    kv = x.new_zeros(B, H, C, dk, dk)
-    s = x.new_ones(B, H, C, 1, 1)
+    sdt = compute(x[:0]).dtype                      # the state's: float32 for bf16 data
+    kv = x.new_zeros(B, H, C, dk, dk, dtype=sdt)
+    s = x.new_ones(B, H, C, 1, 1, dtype=sdt)
     ys, kvs, ss = [], [], []
     for n in range(T // L):
         kvs.append(kv)
         ss.append(s)
         y, kv, s, _ = _chunk_fwd(x[:, :, n * L:(n + 1) * L], kv, s, w, seed, n, H, rate)
         ys.append(y)
-    y = torch.cat(ys, dim=2)
+    y = torch.cat(ys, dim=2).to(x.dtype)
     if not checkpoints:
         return y, None, None
     return y, torch.stack(kvs, dim=1), torch.stack(ss, dim=1)
@@ -269,20 +321,24 @@ def _ln_bwd(dy, xh, rs, scale):
     return rs * (dxh - m1 - xh * m2), dy * xh, dy
 
 
-def _chunk_bwd(dy, st, w: FusionWeights, dS, acc: list, H: int):
-    """Backward of chunk n (the JAX `_bwd_kernel` op for op).  dS is the
-    cotangent of the state after the chunk; adds the weight gradients to
-    `acc` (a FusionWeights-ordered list) and returns (dx, the cotangent of
-    the state the chunk read)."""
+def _chunk_bwd(dy, st, w: FusionWeights, dS, acc: list, H: int, dtype):
+    """Backward of chunk n (the JAX `_bwd_kernel` op for op).  dy float32,
+    w the weights as float32 values, dS the cotangent of the state after
+    the chunk; a gradient is rounded to the data dtype where the JAX kernel
+    casts it before a product.  Adds the weight gradients to `acc` (a
+    FusionWeights-ordered list of float32 sums) and returns (dx float32,
+    the cotangent of the state the chunk read)."""
     B, C, L, D = dy.shape
     dk = D // H
     mask, inner_decay, wlast = _consts(L, dy.device)
+    bf = dtype == torch.bfloat16
+    rnd = rounding(dtype)
 
     def rows(t):
         return t.reshape(-1, t.shape[-1])
 
-    def wgrad(i, d, a):                      # weight i += d^T a, bias i + 1 += sum d
-        acc[i] += rows(d).T @ rows(a)
+    def wgrad(i, d, a):                      # weight i += rnd(d)^T a, bias i + 1 += sum d
+        acc[i] += rows(rnd(d)).T @ rows(a)
         acc[i + 1] += rows(d).sum(0)
 
     def dmul(t, key):
@@ -298,16 +354,19 @@ def _chunk_bwd(dy, st, w: FusionWeights, dS, acc: list, H: int):
     dr3 = ln_grads(2, dy, st["xh3"], st["rs3"])
     df = dmul(dr3, "m4")
     wgrad(10, df, st["hdrop"])
-    dhpre = dmul(df @ w.wf2, "m3") * (st["hpre"] > 0)
+    dhpre = dmul(rnd(df) @ w.wf2, "m3") * (st["hpre"] > 0)
     wgrad(8, dhpre, st["x2"])
-    dx2 = dr3 + dhpre @ w.wf1
+    dx2 = dr3 + rnd(dhpre) @ w.wf1
     # LN2, slot attention
     dr2 = ln_grads(1, dx2, st["xh2"], st["rs2"])
     ds = dmul(dr2, "m2")
     wgrad(6, ds, st["attn"])
-    dah = _heads(ds @ w.wmo, H)
+    dah = _heads(rnd(ds) @ w.wmo, H)
     wts, wd = st["wts"], st["wd"]
-    dwd = torch.einsum("bhcld,bhjld->bhclj", dah, st["vh"])
+    if bf:
+        dwd = _slot_products(rnd(dah), st["vh"], rnd)
+    else:
+        dwd = torch.einsum("bhcld,bhjld->bhclj", dah, st["vh"])
     dvh = torch.einsum("bhclj,bhcld->bhjld", wd, dah)
     dw = dwd if "m1" not in st else dwd * st["m1"]
     dscore = wts * (dw - (dw * wts).sum(-1, keepdim=True)) / math.sqrt(dk)
@@ -315,12 +374,12 @@ def _chunk_bwd(dy, st, w: FusionWeights, dS, acc: list, H: int):
     dkh = torch.einsum("bhclj,bhcld->bhjld", dscore, st["qh"])
     dqkv = torch.cat([_merge(dqh), _merge(dkh), _merge(dvh)], dim=-1)
     wgrad(4, dqkv, st["x1"])
-    dx1 = dr2 + dqkv @ w.wmi
+    dx1 = dr2 + rnd(dqkv) @ w.wmi
     # LN1, gate, out projection
     dr1 = ln_grads(0, dx1, st["xh1"], st["rs1"])
     da = dmul(dr1, "m0")
     wgrad(2, da, st["gated"])
-    dgated = da @ w.wro
+    dgated = rnd(da) @ w.wro
     g = st["g"]
     sg = torch.sigmoid(g)
     dretcat = dgated * (g * sg)
@@ -331,18 +390,20 @@ def _chunk_bwd(dy, st, w: FusionWeights, dS, acc: list, H: int):
     doh = st["grs"] * (dohn - dohn.mean(-1, keepdim=True)
                        - ohn * (dohn * ohn).mean(-1, keepdim=True))
     q, k, v, is_, all_, s_in = (st[key] for key in ("q", "k", "v", "is_", "all_", "s_in"))
-    dinner = doh * (is_ / all_)
-    dcross = doh * (s_in / all_)
-    dq = (dcross @ (st["kv_in"] / s_in).transpose(-1, -2)) * inner_decay
-    dkv_cross = ((q * inner_decay).transpose(-1, -2) @ dcross) / s_in
-    dv = (st["qk"] / is_).transpose(-1, -2) @ dinner
-    dqk = (dinner @ v.transpose(-1, -2)) / is_ * mask
+    # the products of the core's backward all take operands in the data dtype
+    dinner = rnd(doh * (is_ / all_))
+    dcross = rnd(doh * (s_in / all_))
+    dq = (dcross @ rnd(st["kv_in"] / s_in).transpose(-1, -2)) * inner_decay
+    dkv_cross = (rnd(q * inner_decay).transpose(-1, -2) @ dcross) / s_in
+    dqk = rnd((dinner @ v.transpose(-1, -2)) / is_ * mask)
+    dv = st["innin"].transpose(-1, -2) @ dinner
+    dSr = rnd(dS)
     dq = dq + dqk @ k
-    dkk = dqk.transpose(-1, -2) @ q + (v @ dS.transpose(-1, -2)) * wlast
-    dv = dv + (k @ dS) * wlast
+    dkk = dqk.transpose(-1, -2) @ q + (v @ dSr.transpose(-1, -2)) * wlast
+    dv = dv + (k @ dSr) * wlast
     dqkvg = torch.cat([_merge(dq), _merge(dkk * dk ** -0.5), _merge(dv), dg], dim=-1)
     wgrad(0, dqkvg, st["xc"])
-    return dr1 + dqkvg @ w.wqkvg, dS + dkv_cross
+    return dr1 + rnd(dqkvg) @ w.wqkvg, dS + dkv_cross
 
 
 @torch.no_grad()
@@ -351,19 +412,22 @@ def fusion_layer_bwd_plain(x: torch.Tensor, dy: torch.Tensor, kvs: torch.Tensor,
                            chunk: int, rate: float):
     """The hand-written backward: a reverse sweep over the chunks, each
     recomputed from its state checkpoint, carrying the state cotangent.
-    Returns (dx, FusionWeights of the weight gradients)."""
+    Returns (dx in x's dtype, FusionWeights of the weight gradients in the
+    weights' dtype, each summed in float32)."""
     B, C, T, D = x.shape
     H, L = n_heads, chunk
     dk = D // H
-    acc = [torch.zeros_like(t) for t in w]
-    dS = x.new_zeros(B, H, C, dk, dk)
+    w32 = FusionWeights(*(compute(t) for t in w))
+    acc = [torch.zeros_like(t) for t in w32]
+    dS = x.new_zeros(B, H, C, dk, dk, dtype=compute(x[:0]).dtype)
     dx = torch.empty_like(x)
     for n in reversed(range(T // L)):
         sl = slice(n * L, (n + 1) * L)
         _, _, _, st = _chunk_fwd(x[:, :, sl], kvs[:, n], ss[:, n], w, seed, n, H, rate,
                                  collect=True)
-        dx[:, :, sl], dS = _chunk_bwd(dy[:, :, sl], st, w, dS, acc, H)
-    return dx, FusionWeights(*acc)
+        dxc, dS = _chunk_bwd(compute(dy[:, :, sl]), st, w32, dS, acc, H, x.dtype)
+        dx[:, :, sl] = dxc.to(x.dtype)
+    return dx, FusionWeights(*(a.to(t.dtype) for a, t in zip(acc, w)))
 
 
 # ---------------------------------------------------------------------------
@@ -378,12 +442,15 @@ def _check(x, w: FusionWeights, n_heads, chunk):
             "wmi": (3 * D, D), "bmi": (3 * D,), "wmo": (D, D), "bmo": (D,), "wf1": (Fh, D),
             "bf1": (Fh,), "wf2": (D, Fh), "bf2": (D,), "lns": (3, D), "lnb": (3, D)}
     got = {"x": x, **w._asdict()}
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fusion layer: x is {x.dtype}; the layer takes float32 or bfloat16")
     for name, t in got.items():
         if name in want and tuple(t.shape) != want[name]:
             raise ValueError(f"fusion layer: {name} has shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"fusion layer: {name} is {t.dtype}; float32 only")
+        if t.dtype != x.dtype:
+            raise ValueError(f"fusion layer: mixed dtypes: {name} is {t.dtype}, x {x.dtype} "
+                             f"(float32 or bfloat16, all alike)")
         if t.device != x.device:
             raise ValueError(f"fusion layer: {name} is on {t.device}, x on {x.device}")
     if D % n_heads:
@@ -421,11 +488,12 @@ def fusion_layer_bwd(x: torch.Tensor, dy: torch.Tensor, kvs: torch.Tensor, ss: t
     _check(x, w, n_heads, chunk)
     B, C, T, D = x.shape
     H, dk, N = n_heads, D // n_heads, T // chunk
-    for name, t, shape in (("dy", dy, x.shape), ("kvs", kvs, (B, N, H, C, dk, dk)),
-                           ("ss", ss, (B, N, H, C, 1, 1))):
-        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != x.device:
+    for name, t, shape, dt in (("dy", dy, x.shape, x.dtype),
+                               ("kvs", kvs, (B, N, H, C, dk, dk), torch.float32),
+                               ("ss", ss, (B, N, H, C, 1, 1), torch.float32)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dt or t.device != x.device:
             raise ValueError(f"fusion layer backward: {name} is {tuple(t.shape)} {t.dtype} "
-                             f"on {t.device}, expected {tuple(shape)} float32 on {x.device}")
+                             f"on {t.device}, expected {tuple(shape)} {dt} on {x.device}")
     if x.device.type == "cpu":
         return fusion_layer_bwd_plain(x, dy, kvs, ss, w, seed, n_heads, chunk, rate)
     return _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt)
@@ -468,13 +536,15 @@ def fused_fusion_layer(x: torch.Tensor, w: FusionWeights, seed: int, n_heads: in
 # ---------------------------------------------------------------------------
 
 
-def _lib(which: str, D: int, H: int):
-    """The forward or backward library for model width D and H heads."""
+def _lib(which: str, D: int, H: int, dtype=torch.float32):
+    """The forward or backward library for model width D, H heads and the
+    data dtype (bf16: the FS_BF16 build)."""
     dk = D // H
     if D % 128 or D > 512 or 32 % H or dk % 16:
         raise ValueError(f"fusion layer kernels: D={D}, {H} heads unsupported (D a multiple "
                          f"of 128 up to 512, H dividing 32)")
-    return _build.load(f"dec_train_fusion_{which}", {"CR_DK": dk, "CR_DV": dk, "DTF_D": D})
+    return _build.load(f"dec_train_fusion_{which}",
+                       build_defines(dtype, CR_DK=dk, CR_DV=dk, DTF_D=D))
 
 
 def _dims(x, w, n_heads, chunk):
@@ -505,10 +575,10 @@ def _ptrs(ts):
 
 
 def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt=None):
-    global fwd_launches
+    global fwd_launches, fwd_launches_bf16
     B, C, T, D, Fh = _dims(x, w, n_heads, chunk)
     H, dk, N = n_heads, D // n_heads, T // chunk
-    lib = _lib("fwd", D, H)
+    lib = _lib("fwd", D, H, x.dtype)
     x = x.contiguous()
     wt = transposed(w) if wt is None else wt
     # the products' weights (in, out), their biases, the LayerNorms'
@@ -517,11 +587,12 @@ def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt=None):
     y = torch.empty_like(x)
     kvs = ss = None
     if checkpoints:
-        kvs = x.new_empty(B, N, H, C, dk, dk)
-        ss = x.new_empty(B, N, H, C, 1, 1)
+        kvs = x.new_empty(B, N, H, C, dk, dk, dtype=torch.float32)
+        ss = x.new_empty(B, N, H, C, 1, 1, dtype=torch.float32)
     lib.dtf_fwd_workspace.restype = ctypes.c_size_t
     lib.dtf_fwd_workspace.argtypes = [ctypes.c_int] * 4
-    ws = x.new_empty(_workspace(lib.dtf_fwd_workspace(B * C, T, H, Fh), H))
+    ws = x.new_empty(_workspace(lib.dtf_fwd_workspace(B * C, T, H, Fh), H),
+                     dtype=torch.float32)
     fn = lib.dtf_forward
     fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
@@ -532,24 +603,28 @@ def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt=None):
                  kvs.data_ptr() if checkpoints else None, ss.data_ptr() if checkpoints else None,
                  ws.data_ptr(), B, C, T, chunk, Fh, *_rate_args(seed, rate), stream)
     _build.check(lib, err, "fusion layer forward")
-    fwd_launches += 1
+    if x.dtype == torch.bfloat16:
+        fwd_launches_bf16 += 1
+    else:
+        fwd_launches += 1
     return y, kvs, ss
 
 
 def _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt=None):
-    global bwd_launches
+    global bwd_launches, bwd_launches_bf16
     B, C, T, D, Fh = _dims(x, w, n_heads, chunk)
     H = n_heads
-    lib = _lib("bwd", D, H)
+    lib = _lib("bwd", D, H, x.dtype)
     x, dy, kvs, ss = (t.contiguous() for t in (x, dy, kvs, ss))
     # the recompute's products read the weights transposed, (in, out)
     wt = transposed(w) if wt is None else wt
     w = [t.contiguous() for t in w]
     dx = torch.empty_like(x)
-    grads = [torch.empty_like(t) for t in w]         # each written once
+    grads = [torch.empty_like(t) for t in w]         # each written once, in w's dtype
     lib.dtf_bwd_workspace.restype = ctypes.c_size_t
     lib.dtf_bwd_workspace.argtypes = [ctypes.c_int] * 5
-    ws = x.new_empty(_workspace(lib.dtf_bwd_workspace(B * C, T, chunk, H, Fh), H))
+    ws = x.new_empty(_workspace(lib.dtf_bwd_workspace(B * C, T, chunk, H, Fh), H),
+                     dtype=torch.float32)
     fn = lib.dtf_backward
     fn.argtypes = ([ctypes.c_void_p] * 40 + [ctypes.c_int] * 5
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
@@ -560,5 +635,8 @@ def _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt=None):
                  *_ptrs(wt), dx.data_ptr(), *_ptrs(grads), ws.data_ptr(),
                  B, C, T, chunk, Fh, *_rate_args(seed, rate), stream)
     _build.check(lib, err, "fusion layer backward")
-    bwd_launches += 1
+    if x.dtype == torch.bfloat16:
+        bwd_launches_bf16 += 1
+    else:
+        bwd_launches += 1
     return dx, FusionWeights(*grads)

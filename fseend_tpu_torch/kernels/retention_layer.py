@@ -16,8 +16,11 @@ arguments; its CUDA implementation is the launch, its CPU one the plain
 version, its fake one gives the output shapes and dtypes), so that
 `torch.export` can trace a server through it (`serving/aot.py`).  When a
 gradient is wanted the call goes through `_RetentionLayerFn`, whose
-backward re-runs `retention_layer_plain` under autograd (the recompute
-backward of `retention_layer_pallas.py:261-280`); float32 only.
+backward recomputes under autograd what the JAX package differentiates
+(`retention_layer_pallas.py:261-280`: its pure route), the plain route on the
+packed weights (`ops/retention.py:retention_layer_pure`): in float32 the same
+function as `retention_layer_plain`, in bf16 rounded elsewhere than the
+kernel's bf16 plain version.
 
 Float32 or bf16: x, the weights and the state share one dtype, gammas is
 float32.  The bf16 form (the same source built with FS_BF16) computes as
@@ -80,9 +83,6 @@ def retention_layer(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"retention_layer: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kv0, s0) + tuple(w)):
-        if x.dtype != torch.float32:
-            raise NotImplementedError("retention_layer: gradients are float32 only (bf16 "
-                                      "training is ROADMAP B9)")
         return _RetentionLayerFn.apply(gammas, x, *w, kv0, s0, chunk)
     return tuple(retention_layer_op(gammas, x, *w, kv0, s0, chunk))
 
@@ -128,9 +128,17 @@ class _RetentionLayerFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads_out):
-        grads = recompute_grads(lambda *a: _plain_flat(*a, ctx.chunk), ctx.saved_tensors,
+        grads = recompute_grads(lambda *a: _pure_flat(*a, ctx.chunk), ctx.saved_tensors,
                                 ctx.needs_input_grad[:8], grads_out)
         return (*grads, None)
+
+
+def _pure_flat(gammas, x, wqkvg, bqkvg, wo, bo, kv0, s0, chunk):
+    # ops/retention.py imports this module: imported here, at the first backward
+    from fseend_tpu_torch.ops.retention import retention_layer_pure
+
+    return retention_layer_pure(gammas, x, RetLayerWeights(wqkvg, bqkvg, wo, bo), kv0, s0,
+                                chunk)
 
 
 def _check(gammas, x, w, kv0, s0, chunk):

@@ -221,9 +221,13 @@ def eda_attractors(model: EENDEDA, emb: torch.Tensor, n_attractors: int,
 
 
 def _check_input(model: EENDEDA, xs) -> torch.Tensor:
+    """xs on the model's device, of the model's dtype: float32, or bf16 (the
+    trainer's bf16 casts of the parameters)."""
+    dt = model.enc.proj.weight.dtype
     xs = torch.as_tensor(xs).to(model.enc.proj.weight.device)
-    if xs.dtype != torch.float32:
-        raise ValueError(f"EEND-EDA input: {xs.dtype}; the port runs float32 only")
+    if xs.dtype != dt or dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"EEND-EDA input: {xs.dtype}, the model {dt}; float32 or bfloat16 "
+                         f"with both alike")
     return xs
 
 
@@ -238,7 +242,8 @@ def eda_forward(model: EENDEDA, xs, n_speakers_max: int, *, train: bool = False,
         xs = _check_input(model, xs)
         emb = encode(model, xs, train=train, generator=generator)
         attractors, exist = eda_attractors(model, emb, n_speakers_max + 1)
-        logits = torch.einsum("btd,bcd->btc", emb, attractors[:, :-1])
+        # float32 logits (JAX's preferred_element_type), the rest in the model's dtype
+        logits = torch.einsum("btd,bcd->btc", emb.float(), attractors[:, :-1].float())
         return {"logits": logits, "emb": emb, "attractors": attractors, "exist_logits": exist}
 
 
@@ -267,6 +272,6 @@ def eda_test(model: EENDEDA, xs, *, shuffle_generator: torch.Generator | None = 
         emb_in = emb[:, order.to(emb.device)]
     n = n_attractors if n_attractors is not None else model.cfg.max_attractors
     attractors, exist = eda_attractors(model, emb_in, n, lens=lens)
-    logits = torch.einsum("btd,bcd->btc", emb, attractors)
+    logits = torch.einsum("btd,bcd->btc", emb.float(), attractors.float())
     return {"logits": logits, "emb": emb, "attractors": attractors,
             "exist_probs": torch.sigmoid(exist)}

@@ -44,8 +44,9 @@ The three streaming modes run in float32 or in bf16 (a model cast by
 serves bf16): the bf16 caches hold the bf16 projections, the attention
 computes as JAX's (`mha_core`'s float32 logits and softmax on the plain
 route, the cached-attention kernels' bf16 forms on the kernel route) and
-the logits come back in float32.  The batch pass (`fs_forward`) runs
-float32 only (ROADMAP A19).
+the logits come back in float32.  So does the batch pass (`fs_forward`),
+in inference on a cast model and in training on the trainer's bf16 casts
+(`train/trainer.py`, compute_dtype "bf16").
 
 A block's cache write starts at its clock clamped to [0, cap - K], as JAX's
 `dynamic_update_slice` clamps; a block that would run past the capacity
@@ -201,15 +202,13 @@ def _lin(m: nn.Linear, x):
     return tnn.linear(x, m.weight, m.bias)
 
 
-def _check_dtype(model: FSEEND, x: torch.Tensor, what: str, bf16: bool = True) -> None:
+def _check_dtype(model: FSEEND, x: torch.Tensor, what: str) -> None:
     """x and the model share one dtype: float32, or bf16 (a model cast by
-    `utils/convert.py:cast_model`) where `bf16`."""
+    `utils/convert.py:cast_model`, or the trainer's bf16 casts)."""
     dt = model.cnn.weight.dtype
-    ok = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
-    if x.dtype != dt or dt not in ok:
-        raise ValueError(f"{what}: x is {x.dtype}, the model {dt}; it runs "
-                         f"{' or '.join(str(t)[6:] for t in ok)} with both alike"
-                         f"{'' if bf16 else ' (the bf16 batch pass is ROADMAP A19)'}")
+    if x.dtype != dt or dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: x is {x.dtype}, the model {dt}; it runs float32 or "
+                         f"bfloat16 with both alike")
 
 
 def fusion_layer(p: FusionLayer, x: torch.Tensor, t_mask: torch.Tensor, rate: float = 0.0,
@@ -292,13 +291,14 @@ def fs_forward(model: FSEEND, xs, lens, n_slots: int, *, train: bool = False,
         cfg = model.cfg
         device = model.cnn.weight.device
         xs = torch.as_tensor(xs).to(device)
-        _check_dtype(model, xs, "fs_forward", bf16=False)
+        _check_dtype(model, xs, "fs_forward")
         lens = torch.as_tensor(lens).to(device)
         h, state = encode(model, xs, lens, train, generator)
         emb = tnn.l2_normalize(tnn.lookahead_conv(h, model.cnn.weight, model.cnn.bias,
                                                   cfg.conv_delay))
         attractors = tnn.l2_normalize(decode(model, emb, n_slots, train, generator))
-        logits = torch.einsum("btd,btcd->btc", emb, attractors)
+        # float32 logits (sums of exact products in bf16), as the JAX package's
+        logits = torch.einsum("btd,btcd->btc", emb.float(), attractors.float())
         return {"logits": logits, "emb": emb, "attractors": attractors, "state": state}
 
 

@@ -16,9 +16,10 @@ parameter pytree (`enc.proj`, `enc.blocks.{i}.ff1.linear1`,
    buffers left as they were), `remat` recomputing each conformer block in
    the backward, and with `use_fused_dec` the decoder run slot-major through
    the fusion-layer kernels (`kernels/dec_train_fusion.py`, forward and
-   hand-written backward).  In inference it also runs in bf16 on a model
-   cast by `utils/convert.py:cast_model` (every route; float32 logits, as
-   the JAX package's).
+   hand-written backward).  It also runs in bf16: in inference on a model
+   cast by `utils/convert.py:cast_model`, in training on the bf16 casts the
+   trainer makes (`train/trainer.py`, compute_dtype "bf16"); every route and
+   both decoders, float32 logits, as the JAX package's.
 2. Blockwise streaming (`ls_blockstream_init/step/run`): K frames per step
    through the chunkwise retention with the state carried across blocks,
    every op a (B, K, D) matmul; emits the previous block (one-block lag);
@@ -336,16 +337,20 @@ def _block(p: ConformerBlock, x, cfg: LSEENDConfig, time_mode: str = "chunkwise"
 def _block_remat(p: ConformerBlock, x, cfg: LSEENDConfig, time_mode: str, gen):
     """_block in training, its activations recomputed in the backward
     (`torch.utils.checkpoint`).  The recompute draws the same dropout masks
-    from a copy of `gen` as it was; `gen` itself advances once."""
+    from a copy of `gen` as it was; `gen` itself advances once.  It also
+    runs on the block's parameters as they are now: under the trainer's
+    bf16 cast (`torch.func.functional_call`, undone before the backward)
+    these are the bf16 casts."""
     start = gen.get_state() if gen is not None else None
     end = []
+    weights = dict(p.named_parameters())
 
     def run(h):
         g = None
         if start is not None:
             g = torch.Generator(device=gen.device)
             g.set_state(start)
-        y, bn = _block(p, h, cfg, time_mode, True, g)
+        y, bn = tnn.call_with(weights, p, _block, h, cfg, time_mode, True, g)
         if g is not None and not end:
             end.append(g.get_state())
         return y, bn["mean"], bn["var"]
@@ -468,10 +473,6 @@ def _ls_forward(model, xs, lens, n_slots, train, gen, time_mode):
     if xs.dtype != dt or dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"ls_forward: xs is {xs.dtype}, the model {dt}: both float32, or "
                          f"both bf16 (utils/convert.py:cast_model)")
-    if dt != torch.float32 and (train or (cfg.use_fused_dec and time_mode == "chunkwise")):
-        raise NotImplementedError("ls_forward: bf16 runs inference on the unfused decoder; "
-                                  "bf16 training and the fusion-layer kernels' bf16 form are "
-                                  "ROADMAP B9 part 3")
     lens = torch.as_tensor(lens).to(device)
     T0 = xs.shape[1]
     xs = pad_to_chunk(xs, cfg.chunk_size)

@@ -60,9 +60,10 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     """Eval-mode BatchNorm over the last axis of (..., D) from the running
-    statistics held in `bn`."""
+    statistics held in `bn`, returned in x's dtype (bf16 data against the
+    float32 statistics of training computes in float32, as JAX promotes)."""
     y = (x - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
-    return y * bn.weight + bn.bias
+    return (y * bn.weight + bn.bias).to(x.dtype)
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d, momentum: float = 0.1):
@@ -70,14 +71,16 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d, momentum: float = 0.1)
     the batch mean and biased variance over every leading position (padding
     included, as the reference does) and returns (y, {"mean", "var"}), the
     running statistics updated with the unbiased variance.  `bn`'s buffers
-    are not written."""
+    are not written.  On bf16 data the statistics are taken in bf16 and the
+    running update in the buffers' float32 (the JAX `batch_norm`)."""
     axes = tuple(range(x.ndim - 1))
     n = x[..., 0].numel()
     mean = x.mean(dim=axes)
     var = (x - mean).square().mean(dim=axes)
     unbiased = var.detach() * (n / max(n - 1, 1))
-    new = {"mean": (1 - momentum) * bn.running_mean + momentum * mean.detach(),
-           "var": (1 - momentum) * bn.running_var + momentum * unbiased}
+    rd = bn.running_mean.dtype
+    new = {"mean": (1 - momentum) * bn.running_mean + momentum * mean.detach().to(rd),
+           "var": (1 - momentum) * bn.running_var + momentum * unbiased.to(rd)}
     y = (x - mean) * torch.rsqrt(var + bn.eps)
     return y * bn.weight + bn.bias, new
 
@@ -217,6 +220,28 @@ def sinusoidal_table(max_len: int, d_model: int, device=None) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(position * div)
     pe[:, 1::2] = torch.cos(position * div)
     return pe
+
+
+class _Bound(nn.Module):
+    """`fn(module, ...)` as a module's forward, so that
+    `torch.func.functional_call` can run it on other parameters."""
+
+    def __init__(self, module, fn):
+        super().__init__()
+        self.module, self.fn = module, fn
+
+    def forward(self, *args, **kw):
+        return self.fn(self.module, *args, **kw)
+
+
+def call_with(tensors: dict, module: nn.Module, fn, *args, **kw):
+    """fn(module, *args, **kw) with the module's parameters named in
+    `tensors` (names as `module.named_parameters()` gives them) replaced by
+    those tensors for the call; the other parameters and the buffers are the
+    module's own."""
+    return torch.func.functional_call(_Bound(module, fn),
+                                      {"module." + n: t for n, t in tensors.items()},
+                                      args, kw, strict=False)
 
 
 # ---------------------------------------------------------------------------

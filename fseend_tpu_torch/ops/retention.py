@@ -24,7 +24,10 @@ Two state conventions, not interchangeable:
 the whole layer in `kernels/retention_layer.py`, the core alone in
 `kernels/chunk_retention.py`, or plain tensor ops.  On the card the first two
 are CUDA kernels; on CPU tensors they run their plain versions.  Both kernel
-routes train: their backward recomputes the kernel's plain version.
+routes train: their backward recomputes the pure route the JAX package
+differentiates (for the whole layer `retention_layer_pure`, the plain route
+on the packed weights; for the core `chunk_retention_plain(..., pure=True)`),
+in float32 the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -113,10 +116,15 @@ def _project_qkv(p: Retention, x: torch.Tensor, cfg: RetentionConfig):
 
 def _finish(p: Retention, out_heads: torch.Tensor, g: torch.Tensor):
     """out_heads: (B, H, T, dv) -> group norm -> gate -> out proj (B, T, D)."""
+    return _finish_w(out_heads, g, p.out_proj.weight, p.out_proj.bias)
+
+
+def _finish_w(out_heads: torch.Tensor, g: torch.Tensor, weight, bias):
+    """_finish with the out projection's weight (out, in) and bias given."""
     B, H, T, dv = out_heads.shape
     out = tnn.layer_norm(out_heads.transpose(1, 2), eps=1e-6)   # non-affine, over dv
     out = F.silu(g) * out.reshape(B, T, H * dv)
-    return tnn.linear(out, p.out_proj.weight, p.out_proj.bias)
+    return tnn.linear(out, weight, bias)
 
 
 def _decay_mask(T: int, gammas: torch.Tensor):
@@ -176,7 +184,6 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
     L = cfg.chunk_size
     if T % L:
         raise ValueError(f"T={T} must be a multiple of chunk_size={L}")
-    N = T // L
     H, dk, dv = cfg.num_heads, cfg.key_dim, cfg.head_dim
     if state is None:
         state = chunk_state_init(cfg, B, x.dtype, x.device)
@@ -197,9 +204,20 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
         return _finish(p, out.reshape(B, H, T, dv), g), {
             "kv": kv_f.reshape(B, H, dk, dv), "scale": s_f.reshape(B, H, 1, 1)}
 
+    out, kv_f, s_f = _plain_core(q, k, v, state, gammas, L)
+    return _finish(p, out.to(x.dtype), g), {
+        "kv": kv_f.to(state["kv"].dtype), "scale": s_f.to(state["scale"].dtype)}
+
+
+def _plain_core(q, k, v, state: dict, gammas: torch.Tensor, L: int):
+    """The plain route's chunkwise core over q, k (B, H, T, dk), v (B, H, T,
+    dv) from `state`: (out, kv, scale), float32 on bf16 data."""
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    N = T // L
     mask, scale = _decay_mask(L, gammas)              # (H, L, L), (H, L, 1)
     cross_decay = gammas[:, None, None] ** L          # (H, 1, 1)
-    i = torch.arange(L, dtype=torch.float32, device=x.device)
+    i = torch.arange(L, dtype=torch.float32, device=q.device)
     inner_decay = (gammas[:, None] ** (i + 1))[:, :, None] / (scale / scale[:, -1:])
 
     # the core in float32 on bf16 q, k, v (the JAX package's
@@ -226,8 +244,30 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
     cross_out = (qc * inner_decay[:, None]) @ kv_rec
     all_scale = torch.maximum(inner_scale, cross_scale)
     out = inner_out * (inner_scale / all_scale) + cross_out * (cross_scale / all_scale)
-    return _finish(p, out.reshape(B, H, T, dv).to(x.dtype), g), {
-        "kv": kv_state.to(state["kv"].dtype), "scale": kv_scale.to(state["scale"].dtype)}
+    return out.reshape(B, H, T, dv), kv_state, kv_scale
+
+
+def retention_layer_pure(gammas: torch.Tensor, x: torch.Tensor, w: RL.RetLayerWeights,
+                         kv0: torch.Tensor, s0: torch.Tensor, chunk: int):
+    """The plain route on a retention layer's packed weights (`RL.pack_retention`;
+    the arguments and results of `RL.retention_layer`): what the JAX
+    package's custom VJP of its fused layer differentiates
+    (`retention_layer_pallas.py:265-277`, both kernel flags off), the
+    recompute of the "fused" route's bf16 gradient."""
+    B, T, D = x.shape
+    H, Fv = gammas.shape[0], w.wo.shape[0]
+    dk, dv = D // H, Fv // H
+    kscale = float(torch.tensor(dk ** -0.5).to(x.dtype)) if x.dtype == torch.bfloat16 \
+        else dk ** -0.5
+    q, k, v, g = tnn.linear(x, w.wqkvg.T, w.bqkvg).split([D, D, Fv, Fv], dim=-1)
+
+    def heads(t, d):                                  # (B, T, H*d) -> (B, H, T, d)
+        return t.reshape(B, T, H, d).transpose(1, 2)
+
+    out, kv_f, s_f = _plain_core(heads(q, dk), heads(k * kscale, dk), heads(v, dv),
+                                 {"kv": kv0, "scale": s0}, gammas, chunk)
+    return (_finish_w(out.to(x.dtype), g, w.wo.T, w.bo), kv_f.to(kv0.dtype),
+            s_f.to(s0.dtype))
 
 
 # ---------------------------------------------------------------------------

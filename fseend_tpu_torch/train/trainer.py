@@ -11,6 +11,12 @@ Batches are fixed-shape dicts of tensors on the model's device:
   labels (B, T, S)   0/1 speaker activity (S = max_speakers)
   lens   (B,)        valid frame counts
   n_spk  (B,)        true speaker counts
+
+Mixed precision (`TaskConfig(compute_dtype="bf16")`, the JAX package's
+`trainer.py:78-96`): the forward and backward run on bf16 copies of the
+float32 parameters and of the features, cast inside the autograd graph, so
+the gradients arrive in float32 through the cast; the parameters, the
+BatchNorm running statistics, the Adam moments and the clip stay float32.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import dataclasses
 import torch
 
 from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
+from fseend_tpu_torch.ops import nn as tnn
 from fseend_tpu_torch.train import labels as labels_lib
 from fseend_tpu_torch.train import losses
 from fseend_tpu_torch.train.optim import Optimizer, global_norm
@@ -54,15 +61,13 @@ class TaskConfig:
     consis_weight: float = 1.0
     masked_emb_loss: bool = False      # the LS sum-len^2 normalization
     use_mask_loss: bool = False        # standard_mask_loss instead of BCE
-    compute_dtype: str = "f32"
+    compute_dtype: str = "f32"         # "f32" | "bf16" (mixed precision, module docstring)
 
     def __post_init__(self):
         if self.model not in ("ls", "fs", "eda"):
             raise ValueError(f"unknown model family {self.model!r}")
-        if self.compute_dtype != "f32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port runs float32 only; bf16 is "
-                "ROADMAP B9")
+        if self.compute_dtype not in ("f32", "bf16"):
+            raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {self.compute_dtype!r}")
         if self.model != "eda" and self.label_mode not in ("fixed", "spk_pit",
                                                            "spk_pit_hungarian"):
             raise ValueError(f"unknown label_mode {self.label_mode!r}")
@@ -77,7 +82,19 @@ def compute_loss(task: TaskConfig, model, batch: dict,
                  generator: torch.Generator | None = None, *, train: bool):
     """Returns (loss, (new BatchNorm state, metrics)) for the model of
     `task.model`'s family.  In training the loss carries the graph back to
-    the module's parameters; dropout draws from `generator`."""
+    the module's parameters; dropout draws from `generator`.  With
+    compute_dtype "bf16" the pass runs on bf16 casts of the parameters and
+    the features made inside the graph (the JAX `_cast_bf16`); the
+    BatchNorm buffers are not cast."""
+    if task.compute_dtype == "bf16":
+        batch = dict(batch, feats=batch["feats"].to(torch.bfloat16))
+        cast = {name: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                for name, p in model.named_parameters()}
+        return tnn.call_with(cast, model, _compute_loss, task, batch, generator, train=train)
+    return _compute_loss(model, task, batch, generator, train=train)
+
+
+def _compute_loss(model, task: TaskConfig, batch: dict, generator, *, train: bool):
     if task.model == "eda":
         return _compute_loss_eda(task, model, batch, generator, train=train)
     feats, labels, lens, n_spk = batch["feats"], batch["labels"], batch["lens"], batch["n_spk"]

@@ -394,8 +394,9 @@ def test_bf16_blockwise_server_against_jax(setup):
 def test_bf16_weights_casts_and_mixed_dtypes(setup):
     """cast_model casts every float32 parameter and buffer (the BatchNorm
     statistics too) and leaves integer buffers; the kernels' weights pack
-    in the state dtype; a wrapper raises on mixed dtypes and on a bf16
-    gradient."""
+    in the state dtype; a wrapper raises on mixed dtypes; a bf16 gradient
+    goes through the retention layer's recompute (held to JAX in
+    tests/test_torch_port_bf16_train.py)."""
     _, _, model, _ = setup
     mb = CV.cast_model(copy.deepcopy(model))
     assert {t.dtype for t in mb.parameters()} == {BF}
@@ -418,6 +419,8 @@ def test_bf16_weights_casts_and_mixed_dtypes(setup):
                            ffac=0.5)
     ret = mb.dec.layers[0].time_ret
     st = TR.chunk_state_init(TCFG.ret_cfg, 2, BF)
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        RL.retention_layer(TR.decay_gammas(TCFG.ret_cfg), torch.zeros(2, 8, D, dtype=BF),
-                           RL.pack_retention(ret), st["kv"], st["scale"], 8)
+    x = torch.ones(2, 8, D, dtype=BF, requires_grad=True)
+    y, _, _ = RL.retention_layer(TR.decay_gammas(TCFG.ret_cfg), x, RL.pack_retention(ret),
+                                 st["kv"], st["scale"], 8)
+    y.float().sum().backward()
+    assert y.dtype == x.grad.dtype == BF and torch.isfinite(x.grad.float()).all()

@@ -471,10 +471,11 @@ def test_ls_forward_bf16_core_route_against_jax():
 
 
 def test_bf16_dtype_checks_and_float32_scratch(fs_setup, monkeypatch):
-    """Mixed dtypes raise in both wrappers and in the FS modes; the bf16
-    gradient and `fs_forward` in bf16 raise naming their ROADMAP items; the
-    wrappers hand their bf16 kernels float32 scratch of the size the
-    kernels ask for (a fake library stands in for the CUDA one)."""
+    """Mixed dtypes raise in both wrappers and in the FS modes; the core's
+    bf16 gradient and `fs_forward` in bf16 run (bf16 training, held to JAX
+    in tests/test_torch_port_bf16_train.py); the wrappers hand their bf16
+    kernels float32 scratch of the size the kernels ask for (a fake library
+    stands in for the CUDA one)."""
     model, *_ = fs_setup
     q = torch.zeros(4, 3, 16, dtype=BF)
     kv = torch.zeros(4, 8, 16, dtype=BF)
@@ -488,12 +489,15 @@ def test_bf16_dtype_checks_and_float32_scratch(fs_setup, monkeypatch):
         CR.chunk_retention(g, kv, kv.float(), kv, *st, 8)
     with pytest.raises(ValueError, match="mixed dtypes"):
         CR.chunk_retention(g.to(BF), kv, kv, kv, *st, 8)
-    with pytest.raises(NotImplementedError, match="B9 part 3"):
-        CR.chunk_retention(g, kv.requires_grad_(), kv, kv, *st, 8)
+    qg = kv.clone().requires_grad_()
+    CR.chunk_retention(g, qg, kv, kv, *st, 8)[0].float().sum().backward()
+    assert qg.grad.dtype == BF
     mb = CV.cast_model(copy.deepcopy(model))
     x = torch.zeros(B, 5, JCFG.in_size)
-    with pytest.raises(ValueError, match="A19"):
-        T.fs_forward(mb, x.to(BF), torch.tensor([5, 5]), C)
+    out = T.fs_forward(mb, x.to(BF), torch.tensor([5, 5]), C)
+    assert out["logits"].dtype == torch.float32 and out["emb"].dtype == BF
+    with pytest.raises(ValueError, match="the model"):
+        T.fs_forward(mb, x, torch.tensor([5, 5]), C)
     state = T.fs_stream_init(TCFG, B, CAP, C, BF, "cpu")
     with pytest.raises(ValueError, match="the model"):
         T.fs_framestream_block(mb, state, x, C, torch.zeros(B, 5, dtype=torch.bool))

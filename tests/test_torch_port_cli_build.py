@@ -1,7 +1,7 @@
 """PyTorch port, the entry points (`fseend_tpu_torch/cli/`), their cheap
 half: `build_model` field by field against the JAX CLI's for every
-`configs/*.yaml`, the routes the yaml picks, the B9 and A11 raises, the
-bf16 default of `cli.export` for FS-EEND, the
+`configs/*.yaml`, the routes the yaml picks, `precision: bf16` and the A11
+raise, the bf16 default of `cli.export` for FS-EEND, the
 reference-checkpoint loaders and `cli.convert` bit for bit against the JAX
 package's, the keyword arguments both `cli.train` hand `run_training` and
 `build_optimizer`, a real two-step training run on the CPU, both
@@ -79,11 +79,11 @@ def test_routes_follow_the_yaml_not_the_port_defaults():
 
 
 def test_bf16_and_multi_gpu_raise(world, monkeypatch, capsys):
+    # bf16 trains in mixed precision (tests/test_torch_port_bf16_train.py)
     for fam in ("ls", "fs"):
         configs = _load(world[fam])
         configs["training"]["precision"] = "bf16"
-        with pytest.raises(NotImplementedError, match="B9"):
-            TT.build_model(configs)
+        assert TT.build_model(configs)[2].compute_dtype == "bf16"
     # serving exports in bf16 by default, FS-EEND too (LS: tests/test_torch_port_aot.py):
     # the artifact serves what its live bf16 server serves
     from fseend_tpu_torch.serving.aot import AotBlockServer

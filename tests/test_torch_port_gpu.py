@@ -21,7 +21,9 @@ the retention layer against their bf16 plain versions by chip_smoke.py's
 bf16 guards (`_bf16_close`): the drift rule of the JAX package's bf16 test
 from the float32 plain version, not a float32 computation, and on one-frame
 calls and the retention layer at most half as far from bf16 plain (mean
-abs) as bf16 plain is from float32."""
+abs) as bf16 plain is from float32; the fusion layer's bf16 forward and
+backward by the same guards at chip_smoke.py's H7 shares (B3_BF16_CLOSE:
+0.6 forward, 0.8 backward), and a bf16 train step through both."""
 
 import dataclasses
 
@@ -580,11 +582,11 @@ def test_chunk_kernels_are_forward_only(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _fusion_case(dev, rate, L=40, T=80):
+def _fusion_case(dev, rate, L=40, T=80, C=3):
     """Production-like proportions at a small width: D 128, 4 heads (head
     dim 32), F 96, 3 slots; L = 40 leaves a partial 64-frame tile."""
     rng = np.random.default_rng(31)
-    B, C, D, F = 2, 3, 128, 96
+    B, D, F = 2, 128, 96
     cfg = ls_eend.LSEENDConfig(in_size=8, n_units=D, n_heads=4, dec_n_layers=1,
                                dec_dim_feedforward=F, chunk_size=L)
     layer = ls_eend.init_ls_eend(cfg, torch.Generator().manual_seed(3), device=dev).dec.layers[0]
@@ -663,6 +665,72 @@ def test_train_step_runs_the_fusion_kernels(cuda):
     assert DTF.fwd_launches == n_f + cfg.dec_n_layers
     assert DTF.bwd_launches == n_b + cfg.dec_n_layers
     assert np.isfinite(float(metrics["tot_loss"])) and state.step == 1
+
+
+# the bf16 forms (-DFS_BF16) against their bf16 plain version, as H7 holds
+# them (chip_smoke.py:B3_BF16_CLOSE): a layer chains about 30 bf16 rounding
+# points each way, over which another float32 summation order's rounding
+# flips compound; a float32 body reads about 1 backward, 0.75 on y
+B3_BF16_CLOSE = {"fwd": 0.6, "bwd": 0.8}
+
+
+@pytest.mark.parametrize("C,L,T", [(3, 40, 80), (10, 64, 192)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fusion_bf16_kernels_match_their_bf16_plain_version(cuda, C, L, T, rate):
+    x, w, seed, H, L, rate = _fusion_case(cuda, rate, L=L, T=T, C=C)
+    bf = torch.bfloat16
+    x16, w16 = x.to(bf), DTF.FusionWeights(*(t.to(bf) for t in w))
+    w32 = DTF.FusionWeights(*(t.float() for t in w16))
+    dy16 = _randn(np.random.default_rng(34), *x.shape, dev=cuda).to(bf)
+    n0, b0 = DTF.fwd_launches_bf16, DTF.bwd_launches_bf16
+    got = DTF.fusion_layer_fwd(x16, w16, seed, H, L, rate)
+    torch.cuda.synchronize()
+    assert DTF.fwd_launches_bf16 == n0 + 1
+    assert got[0].dtype == bf and got[1].dtype == got[2].dtype == torch.float32
+    want16 = DTF.fusion_layer_fwd_plain(x16, w16, seed, H, L, rate)
+    want32 = DTF.fusion_layer_fwd_plain(x16.float(), w32, seed, H, L, rate)
+    for what, g, a, b in zip(("y", "kvs", "ss"), got, want16, want32):
+        _bf16_close(g, a, b, what, B3_BF16_CLOSE["fwd"])
+    _, kvs, ss = want16
+    dx, dw = DTF.fusion_layer_bwd(x16, dy16, kvs, ss, w16, seed, H, L, rate)
+    torch.cuda.synchronize()
+    assert DTF.bwd_launches_bf16 == b0 + 1
+    assert dx.dtype == bf and all(g.dtype == bf for g in dw)
+    dx16, dw16 = DTF.fusion_layer_bwd_plain(x16, dy16, kvs, ss, w16, seed, H, L, rate)
+    dx32, dw32 = DTF.fusion_layer_bwd_plain(x16.float(), dy16.float(), want32[1], want32[2],
+                                            w32, seed, H, L, rate)
+    for what, g, a, b in zip(("dx",) + DTF.FusionWeights._fields, (dx, *dw), (dx16, *dw16),
+                             (dx32, *dw32)):
+        _bf16_close(g, a, b, what, B3_BF16_CLOSE["bwd"])
+    dx2, dw2 = DTF.fusion_layer_bwd(x16, dy16, kvs, ss, w16, seed, H, L, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(dx2, dx) and all(torch.equal(a, b) for a, b in zip(dw2, dw))
+
+
+def test_bf16_train_step_runs_the_fusion_kernels_bf16_forms(cuda):
+    cfg = dataclasses.replace(CFG, n_units=128, in_size=16, use_fused_dec=True,
+                              fused_dec_chunk=16, chunk_size=24, dropout=0.1, kernel="plain")
+    model = ls_eend.init_ls_eend(cfg, torch.Generator().manual_seed(6), device=cuda)
+    rng = np.random.default_rng(35)
+    Bt, Tt, S = 2, 40, C - 2
+    batch = {"feats": _randn(rng, Bt, Tt, cfg.in_size, dev=cuda),
+             "labels": torch.as_tensor(rng.uniform(size=(Bt, Tt, S)) > 0.6,
+                                       dtype=torch.float32, device=cuda),
+             "lens": torch.tensor([40, 31], device=cuda),
+             "n_spk": torch.tensor([1, 1], device=cuda)}
+    task = TRN.TaskConfig(label_mode="fixed", masked_emb_loss=True, compute_dtype="bf16")
+    tx = optim.build_optimizer("adam", 1e-3, grad_clip=5.0)
+    state = TRN.TrainState.create(model, tx)
+    step = TRN.make_train_step(task, cfg, tx)
+    counts = (DTF.fwd_launches, DTF.bwd_launches, DTF.fwd_launches_bf16,
+              DTF.bwd_launches_bf16)
+    state, metrics = step(state, batch, 0)
+    torch.cuda.synchronize()
+    n = cfg.dec_n_layers
+    assert (DTF.fwd_launches, DTF.bwd_launches, DTF.fwd_launches_bf16,
+            DTF.bwd_launches_bf16) == (counts[0], counts[1], counts[2] + n, counts[3] + n)
+    assert np.isfinite(float(metrics["tot_loss"])) and state.step == 1
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 # ---------------------------------------------------------------------------

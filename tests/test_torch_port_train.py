@@ -258,8 +258,10 @@ def test_unported_families_say_where_they_are_queued():
     # tests/test_torch_port_eda.py)
     assert TRN.TaskConfig(model="fs").model == "fs"
     assert TRN.TaskConfig(model="eda").model == "eda"
-    with pytest.raises(NotImplementedError, match="B9"):
-        TRN.TaskConfig(compute_dtype="bf16")
+    # bf16 mixed precision is ported (tests/test_torch_port_bf16_train.py)
+    assert TRN.TaskConfig(compute_dtype="bf16").compute_dtype == "bf16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TRN.TaskConfig(compute_dtype="f16")
     with pytest.raises(NotImplementedError, match="A11"):
         TRN.make_train_step(TASK, CFG, TO.Optimizer(), mesh=object(), device="cpu")
 
@@ -267,17 +269,21 @@ def test_unported_families_say_where_they_are_queued():
 def test_remat_recomputes_the_same_masks(golden):
     """remat (each conformer block recomputed in the backward) with dropout
     on: the same loss, gradients and generator state after the step as
-    without it."""
+    without it, in float32 and in bf16 (whose recompute must run on the
+    bf16 casts of the parameters, not on the float32 masters)."""
     _, sd, _, _, batch = golden
-    out = {}
-    for remat in (False, True):
-        cfg = dataclasses.replace(CFG, dropout=0.1, remat=remat)
-        model = TC.ls_from_state_dict(sd, cfg, "cpu")
-        gen = torch.Generator().manual_seed(5)
-        loss, _ = TRN.compute_loss(TASK, model, batch, gen, train=True)
-        loss.backward()
-        out[remat] = (loss.item(), [p.grad for p in model.parameters()], gen.get_state())
-    assert out[True][0] == out[False][0]
-    for a, b in zip(out[True][1], out[False][1]):
-        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
-    assert torch.equal(out[True][2], out[False][2])
+    for dtype in ("f32", "bf16"):
+        task = dataclasses.replace(TASK, compute_dtype=dtype)
+        out = {}
+        for remat in (False, True):
+            cfg = dataclasses.replace(CFG, dropout=0.1, remat=remat)
+            model = TC.ls_from_state_dict(sd, cfg, "cpu")
+            gen = torch.Generator().manual_seed(5)
+            loss, _ = TRN.compute_loss(task, model, batch, gen, train=True)
+            loss.backward()
+            out[remat] = (loss.item(), [p.grad for p in model.parameters()], gen.get_state())
+        assert out[True][0] == out[False][0], dtype
+        for a, b in zip(out[True][1], out[False][1]):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+        assert torch.equal(out[True][2], out[False][2])
