@@ -14,8 +14,10 @@ streams), LS-EEND serving in bf16 (the bf16 forms of both frame scans
 and of the retention layer), the LS "core" route and batch pass in bf16
 (the chunkwise core's bf16 form), FS-EEND serving in bf16 (both
 cached-attention kernels' bf16 forms) and bf16 mixed-precision training
-of all three families (the fusion layer's bf16 forms), and times the
-kernels, the servers and the steps.
+of all three families (the fusion layer's bf16 forms), the multi-GPU
+paths on the one card (lane-sharded servers, data-parallel and
+sequence-parallel training over two ranks, NCCL), and times the kernels,
+the servers and the steps.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
@@ -29,6 +31,8 @@ kernels, the servers and the steps.
                                       against this tree's in turns, and holds
                                       every output of B3-B7 to theirs bit for
                                       bit)
+    python3 chip_smoke.py --mesh-only (phases 1-2 and M1-M4 alone; prints
+                                      no result)
     python3 chip_smoke.py --one-pass (a control: phases 5 and 8 on a copy of
                                       the sources whose 3xTF32 product takes
                                       one TF32 pass; each check that fails is
@@ -294,12 +298,43 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      cli.score on its h5
      Each C phase logs the kernels its path launched (a child's counts
      printed by the child).
+ 31. M1, lane-sharded serving (ROADMAP A11 part 1): each server over a
+     one-process mesh of two shards, both on cuda:0 (parallel/mesh.py:
+     make_mesh(devices=...)), against the unsharded server on the same
+     streams: the LS per-frame server at 128 lanes (two 64-frame blocks,
+     some lanes flushing, then step(): enc_frame_scan, dec_frame_scan) in
+     float32 within M_ATOL and in bf16 by `bf16_guard`, the LS blockwise
+     server at 128 lanes ("fused": retention_layer, three blocks of 128),
+     the FS per-frame server at 64 lanes (cached_attention_perlane); the
+     kernels counted from 0 on the sharded servers
+ 32. M2, data-parallel training over two gloo ranks sharing cuda:0 (NCCL
+     takes one rank per device; gloo carries all_reduce and
+     all_gather_into_tensor on CUDA tensors), `run_ranks` children: LS at
+     configs/ls_simu.yaml's widths with the fused decoder
+     (dec_train_fusion_fwd / _bwd on both ranks) and FS at fs_simu.yaml's,
+     batch 8 x 500 frames x 4 speakers split 4 + 4 with unequal lengths,
+     two SGD steps (clip 5) at dropout 0: each step's loss and gradient
+     norm against the one-process step on the same batch (M_LOSS_RTOL,
+     M_NORM_RTOL), the parameters after them (M_PARAM_ATOL), the two
+     ranks' parameter checksums equal
+ 33. M3, sequence parallelism over the same two ranks: the LS SP train
+     step at the same widths, batch 4 x 1000 frames split 500 + 500 (one
+     chunk a rank), on the "fused" route (retention_layer, its state
+     seeded from the earlier rank) and the "core" route (chunk_retention),
+     one SGD step against the one-process step; fs_forward_sp at
+     FSEENDConfig() on 2 x 2000 frames against fs_forward (M_SP_ATOL)
+ 34. M4, one NCCL rank on cuda:0: the collectives on CUDA tensors against
+     their one-rank identities, forward and backward, batch_moments, and
+     the LS data-parallel step (dec_train_fusion) against the step without
+     a mesh.  M1-M4 print their times as two shards or two ranks sharing
+     one card: a function check, not a multi-GPU speed.
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line
-(sixteen entries: the eight kernels and the bf16 forms of eight) and the
-timing lines come before it.  E1-E3 launch none of the port's kernels (the
+(sixteen entries: the eight kernels and the bf16 forms of eight; each
+launch count includes its launches in M1-M4, summed over the ranks) and
+the timing lines come before it.  E1-E3 launch none of the port's kernels (the
 JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout
-but H1-H8 and C5's bf16 artifacts, TF32 off.  Every
+but H1-H8, C5's bf16 artifacts and M1's bf16 server, TF32 off.  Every
 kernel but the per-lane cached attention at K = 1 runs its products on the
 tensor cores, and every kernel is held within 1e-4 of its plain version
 (the fusion layer's forward on y, its backward on dx, the chunkwise kernels
@@ -318,6 +353,7 @@ import copy
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -4725,6 +4761,378 @@ def phase_bf16_train_fs_eda(fcfg, ecfg, off, card):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# M1-M4: the multi-GPU paths (ROADMAP A11 part 1) on the one card.  Two
+# shards or two ranks share cuda:0: each result is held against its
+# one-process counterpart; the times are a function check, not a multi-GPU
+# speed.
+# ---------------------------------------------------------------------------
+
+M_ATOL = 1e-4                 # a sharded server's probabilities vs the unsharded one's
+M_LOSS_RTOL = 1e-5            # a 2-rank step's loss vs the one-process step's
+M_NORM_RTOL = 1e-4            # its gradient norm
+M_PARAM_ATOL = 1e-5           # the parameters after M_STEPS steps of SGD at M_LR
+M_SP_ATOL = 1e-4              # fs_forward_sp's logits vs fs_forward's
+M_LR, M_STEPS = 0.1, 2
+M_B, M_T, M_SPK = 8, 500, 4   # M2: rank 0 holds rows 0-3, rank 1 rows 4-7
+M_LENS = (500, 431, 377, 500, 260, 499, 350, 412)
+M_SP_B, M_SP_T = 4, 1000      # M3 LS: one 500-frame chunk a rank
+M_FS_SP_B, M_FS_SP_T = 2, 2000  # M3 fs_forward_sp: 1000 frames a rank
+RANKS_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.{fn}({out!r}))"
+
+
+def m_configs():
+    """(LS, FS) train configs at configs/ls_simu.yaml's and fs_simu.yaml's
+    widths, dropout 0 (the equality is at dropout 0)."""
+    from fseend_tpu_torch.models import fs_eend, ls_eend
+
+    ls = ls_eend.LSEENDConfig(dropout=0.0, use_fused_dec=True, fused_dec_chunk=TRAIN_L,
+                              kernel="plain")
+    return ls, fs_eend.FSEENDConfig(dropout=0.0, use_flash_attn=False)
+
+
+def m_batch(B, T, lens, seed, F=345):
+    """A global batch on the card: SyntheticSpeech items cut to `lens`."""
+    from fseend_tpu_torch.data.loader import pad_collate
+
+    items = SyntheticSpeech(B, seed, T, F, M_SPK)
+    batch = pad_collate([(f[:n], lab[:n], r) for (f, lab, r), n in zip(items.items, lens)],
+                        T, M_SPK, F)
+    batch.pop("recs")
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def m_train(family, cfg, batch, mesh=None, sp=False, steps=M_STEPS):
+    """`steps` SGD steps from the seed's weights: (per-step tot_loss and
+    grad_norm, the parameters flat, their float64 sum)."""
+    from fseend_tpu_torch.models import fs_eend, ls_eend
+    from fseend_tpu_torch.parallel import mesh as pmesh
+    from fseend_tpu_torch.parallel import sp as SP
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+
+    init = {"ls": ls_eend.init_ls_eend, "fs": fs_eend.init_fs_eend}[family]
+    task = TRN.TaskConfig(model=family, masked_emb_loss=family == "ls")
+    model = init(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    tx = optim.build_optimizer("sgd", M_LR, grad_clip=5.0)
+    state = TRN.TrainState.create(model, tx)
+    if sp:
+        make = SP.make_ls_train_step_sp if family == "ls" else SP.make_fs_train_step_sp
+        step = make(task, cfg, tx, mesh, device="cuda")
+    else:
+        step = TRN.make_train_step(task, cfg, tx, mesh=mesh, device="cuda")
+        if mesh is not None:
+            batch = pmesh.shard_batch(batch, mesh)
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, m = step(state, batch, SEED)
+        metrics.append((float(m["tot_loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return {"metrics": metrics, "params": flat.cpu(), "checksum": float(flat.double().sum()),
+            "step_s": secs / steps}
+
+
+def m_rank_train(mesh):
+    """M2 and M3 on one rank (their results, their kernel counts)."""
+    from fseend_tpu_torch.models import fs_eend
+    from fseend_tpu_torch.parallel import sp as SP
+
+    ls, fs = m_configs()
+    res, counts = {}, {}
+    reset_kernel_counts()
+    batch = m_batch(M_B, M_T, M_LENS, SEED + 16)
+    res["M2 ls"] = m_train("ls", ls, batch, mesh)
+    res["M2 fs"] = m_train("fs", fs, batch, mesh)
+    torch.cuda.synchronize()
+    counts["M2"] = kernel_counts()
+    reset_kernel_counts()
+    batch = m_batch(M_SP_B, M_SP_T, (1000, 853, 1000, 611), SEED + 17)
+    for route in ("fused", "core"):
+        res[f"M3 ls {route}"] = m_train("ls", dataclasses.replace(ls, kernel=route), batch,
+                                        mesh, sp=True, steps=1)
+    fmodel = fs_eend.init_fs_eend(fs, torch.Generator().manual_seed(SEED), device="cuda")
+    xs = torch.as_tensor(np.random.default_rng(SEED + 18).standard_normal(
+        (M_FS_SP_B, M_FS_SP_T, fs.in_size)), dtype=torch.float32, device="cuda")
+    res["M3 fs_forward_sp"] = SP.fs_forward_sp(fmodel, xs, mesh, fs.max_nspks).cpu()
+    torch.cuda.synchronize()
+    counts["M3"] = kernel_counts()
+    return res, counts
+
+
+def ranks_main(out) -> int:
+    """A rank of M2-M3: two of them share cuda:0 over gloo (NCCL allows one
+    rank per device).  Prints its kernel counts, saves its results."""
+    import torch.distributed as dist
+
+    from fseend_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pmesh.make_mesh(device="cuda:0", backend="gloo")
+    res, counts = m_rank_train(mesh)
+    for what, c in counts.items():
+        print(f"KERNELS {what} " + json.dumps(c), flush=True)
+    torch.save(res, Path(out) / f"rank{mesh.rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_main(out) -> int:
+    """M4: one NCCL rank on cuda:0 runs the collectives on CUDA tensors
+    (forward and backward against the one-rank identities) and the LS
+    data-parallel step (B3) against the step without a mesh."""
+    import torch.distributed as dist
+
+    from fseend_tpu_torch.parallel import collectives as C
+    from fseend_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pmesh.make_mesh()                            # NCCL, cuda:LOCAL_RANK
+    if dist.get_backend() != "nccl" or mesh.device != torch.device("cuda", 0):
+        raise AssertionError(f"M4: {dist.get_backend()} on {mesh.device}")
+    g = mesh.group
+    x = torch.randn(3, 8, 5, device="cuda", requires_grad=True)
+    outs = [C.psum(x, g), C.all_gather(x, g, dim=1), C.shift(x, 1, g),
+            C.halo_exchange(x, 2, g)]
+    want = [x, x, torch.zeros_like(x), torch.cat([x.new_zeros(3, 2, 5), x,
+                                                  x.new_zeros(3, 2, 5)], 1)]
+    for o, w in zip(outs, want):
+        if not torch.equal(o, w):
+            raise AssertionError("M4: a collective's forward differs from its one-rank identity")
+    sum(o.square().sum() for o in outs).backward()
+    if not torch.allclose(x.grad, 6 * x.detach(), atol=1e-6):        # psum, gather, halo
+        raise AssertionError("M4: the collectives' backward")
+    mean, var, n = C.batch_moments(x.detach(), g)
+    if n != 24 or not torch.allclose(mean, x.detach().mean((0, 1)), atol=1e-6) or \
+            not torch.allclose(var, x.detach().var((0, 1), unbiased=False), atol=1e-6):
+        raise AssertionError("M4: batch_moments")
+    ls, _ = m_configs()
+    batch = m_batch(4, M_T, M_LENS[:4], SEED + 19)
+    reset_kernel_counts()
+    got = m_train("ls", ls, batch, mesh, steps=1)
+    counts = kernel_counts()
+    want = m_train("ls", ls, batch, None, steps=1)
+    err = float((got["params"] - want["params"]).abs().max())
+    print(json.dumps({"M4": {"loss": got["metrics"], "one_process": want["metrics"],
+                             "param_max_abs_diff": err}}), flush=True)
+    if not err <= M_PARAM_ATOL:
+        raise AssertionError(f"M4: the NCCL step's parameters differ by {err}")
+    print("KERNELS M4 " + json.dumps(counts), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(fn, what, world, out, timeout=600):
+    """`world` python children of chip_smoke.<fn>(out), ranks of one
+    torch.distributed world on cuda:0; any failure raised, the others then
+    stopped.  Returns the kernel counts each child printed, summed by
+    phase."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+                   WORLD_SIZE=str(world), LOCAL_RANK="0")
+        logf = open(Path(out) / f"rank{r}.log", "w")
+        code = RANKS_CHILD.format(fn=fn, out=str(out))
+        procs.append((subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                                       stdout=logf, stderr=subprocess.STDOUT, text=True), logf))
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            if any(p.poll() not in (None, 0) for p, _ in procs):
+                break
+            if time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.2)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+    counts = {}
+    for r, (p, _) in enumerate(procs):
+        text = (Path(out) / f"rank{r}.log").read_text()
+        for line in [ln for ln in text.splitlines() if not ln.startswith("KERNELS")][-6:]:
+            log(f"  | rank {r}: {line}")
+        if p.returncode != 0:
+            log(text[-6000:])
+            raise AssertionError(f"{what}: rank {r} exited {p.returncode}")
+        for line in text.splitlines():
+            if line.startswith("KERNELS "):
+                phase, js = line[8:].split(" ", 1)
+                got = counts.setdefault(phase, {})
+                for k, v in json.loads(js).items():
+                    got[k] = got.get(k, 0) + v
+    log(f"{what}: {time.perf_counter() - t0:.1f} s for {world} ranks; kernels launched "
+        + json.dumps({k: launched(v) for k, v in counts.items()}))
+    return counts
+
+
+def m_close(label, got, want, rtol=0.0, atol=0.0):
+    err = abs(got - want)
+    log(f"  {label}: {got!r} vs {want!r} (diff {err:.3e})")
+    if not err <= atol + rtol * abs(want):
+        raise AssertionError(f"{label}: {got} vs one process {want}")
+
+
+def phase_lane_sharded(cfg, fcfg, card):
+    """M1: lane-sharded servers, two shards on cuda:0 (a one-process mesh
+    over [cuda:0, cuda:0]) against the unsharded server on the same
+    streams: the LS per-frame server at 128 lanes (B1, B2) in float32 and
+    bf16, the LS blockwise server at 128 lanes (B4), the FS per-frame
+    server at 64 lanes (B6).  Returns the kernels launched by the sharded
+    servers."""
+    from fseend_tpu_torch.parallel import mesh as pmesh
+    from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
+
+    mesh = pmesh.make_mesh(devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(SEED + 15)
+    lsm, fsm = make_model(cfg, rng), fs_make_model(fcfg, rng)
+    K = 64
+    flush = np.zeros((LANES, K), bool)
+    flush[::7, 40:] = True                  # some lanes flush from frame 40 of the 2nd block
+    servers = {
+        "LS per-frame": lambda **kw: StreamingServer(
+            kind="ls", cfg=cfg, model=lsm, n_lanes=LANES, n_slots=SLOTS, device="cuda", **kw),
+        "LS blockwise": lambda **kw: BlockStreamingServer(
+            kind="ls", cfg=cfg, model=lsm, n_lanes=LANES, n_slots=SLOTS, block=BLOCK,
+            device="cuda", **kw),
+        "FS per-frame": lambda **kw: StreamingServer(
+            kind="fs", cfg=fcfg, model=fsm, n_lanes=FS_LANES, n_slots=fcfg.max_nspks,
+            capacity=512, device="cuda", **kw)}
+
+    def drive(name, server):
+        lanes = server.n_lanes
+        x = np.random.default_rng(SEED + 20).standard_normal((lanes, 3 * BLOCK, cfg.in_size))
+        x = x.astype(np.float32)
+        if name == "LS blockwise":
+            return torch.cat([server.process_block(x[:, s:s + BLOCK])
+                              for s in range(0, 3 * BLOCK, BLOCK)], dim=1)
+        outs = [server.process_block(x[:, :K])[0],
+                server.process_block(x[:, K:2 * K], flush[:lanes])[0],
+                server.step(x[:, 2 * K])[0][:, None]]
+        return torch.cat(outs, dim=1)
+
+    counts, rows = {}, {}
+    t_all = time.perf_counter()
+    for name, make in servers.items():
+        for dtype in ((torch.float32, torch.bfloat16) if name == "LS per-frame"
+                      else (torch.float32,)):
+            label = name + (" bf16" if dtype == torch.bfloat16 else "")
+            sharded = make(dtype=dtype, mesh=mesh)
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            got = drive(name, sharded)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for k, v in kernel_counts().items():
+                counts[k] = counts.get(k, 0) + v
+            want = drive(name, make(dtype=dtype))
+            if dtype == torch.float32:
+                err = float((got - want).abs().max())
+                same = bool(torch.equal(got, want))
+                log(f"  M1 {label}: {tuple(got.shape)} probabilities, max abs diff vs "
+                    f"unsharded {err:.3e}, bit for bit {same} (tol {M_ATOL:g})")
+                if not err <= M_ATOL:
+                    raise AssertionError(f"M1 {label}: sharded vs unsharded {err}")
+            else:
+                err = bf16_guard(f"M1 {label} vs unsharded bf16 and float32", got, want,
+                                 drive(name, make()), close=0.8)
+            rows[label] = {"max_abs_diff": err, "bit_for_bit": bool(torch.equal(got, want)),
+                           "sharded_s": secs}
+            del sharded
+    torch.cuda.empty_cache()
+    log(json.dumps({"M1_lane_sharded": rows, "two_shards_sharing_one_card": True,
+                    "card": card}))
+    log(f"M1: {time.perf_counter() - t_all:.1f} s; kernels launched {launched(counts)}")
+    return counts
+
+
+def phase_multi_gpu(cfg, fcfg, card):
+    """M1-M4: the kernels their main paths launched, each of B1-B6 at least
+    once."""
+    t0 = time.perf_counter()
+    counts = phase_lane_sharded(cfg, fcfg, card)
+    for name, n in phase_multi_rank(card)[0].items():
+        counts[name] = counts.get(name, 0) + n
+    for name in ("enc_frame_scan", "dec_frame_scan", "dec_train_fusion_fwd",
+                 "dec_train_fusion_bwd", "retention_layer", "chunk_retention",
+                 "cached_attention_perlane"):
+        if not counts.get(name):
+            raise AssertionError(f"M1-M4: {name} was not launched")
+    log(f"M1-M4: {time.perf_counter() - t0:.1f} s; kernels launched {launched(counts)}")
+    return counts
+
+
+def phase_multi_rank(card):
+    """M2-M4 in children (module docstring).  Returns the kernels their
+    main paths launched, summed over ranks and phases."""
+    import tempfile
+
+    ls, fs = m_configs()
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    torch.cuda.empty_cache()              # the ranks share the card with this process
+    total = {}
+    with tempfile.TemporaryDirectory(dir=build) as out:
+        counts = run_ranks("ranks_main", "M2-M3 (two gloo ranks on cuda:0)", 2, out)
+        ranks = [torch.load(Path(out) / f"rank{r}.pt") for r in range(2)]
+        counts.update(run_ranks("nccl_main", "M4 (one NCCL rank on cuda:0)", 1, out))
+    lines = {}
+    batch = m_batch(M_B, M_T, M_LENS, SEED + 16)
+    sp_batch = m_batch(M_SP_B, M_SP_T, (1000, 853, 1000, 611), SEED + 17)
+    refs = {"M2 ls": ("ls", ls, batch), "M2 fs": ("fs", fs, batch),
+            "M3 ls fused": ("ls", dataclasses.replace(ls, kernel="fused", use_fused_dec=False),
+                            sp_batch),
+            "M3 ls core": ("ls", dataclasses.replace(ls, kernel="core", use_fused_dec=False),
+                           sp_batch)}
+    for key, (fam, cfg, b) in refs.items():
+        want = m_train(fam, cfg, b, steps=len(ranks[0][key]["metrics"]))
+        for r, got in enumerate(ranks):
+            for i, ((gl, gn), (wl, wn)) in enumerate(zip(got[key]["metrics"], want["metrics"])):
+                m_close(f"{key} rank {r} step {i} loss", gl, wl, rtol=M_LOSS_RTOL)
+                m_close(f"{key} rank {r} step {i} grad norm", gn, wn, rtol=M_NORM_RTOL)
+        err = float((ranks[0][key]["params"] - want["params"]).abs().max())
+        log(f"  {key}: parameters after the steps, max abs diff vs one process {err:.3e} "
+            f"(tol {M_PARAM_ATOL:g}); checksums {ranks[0][key]['checksum']!r}, "
+            f"{ranks[1][key]['checksum']!r}")
+        if not err <= M_PARAM_ATOL:
+            raise AssertionError(f"{key}: parameters differ from one process by {err}")
+        if ranks[0][key]["checksum"] != ranks[1][key]["checksum"]:
+            raise AssertionError(f"{key}: the ranks' parameters differ")
+        lines[key] = {"loss": [m[0] for m in ranks[0][key]["metrics"]],
+                      "param_max_abs_diff": err, "rank_step_s": ranks[0][key]["step_s"],
+                      "one_process_step_s": want["step_s"]}
+    from fseend_tpu_torch.models import fs_eend
+
+    fmodel = fs_eend.init_fs_eend(fs, torch.Generator().manual_seed(SEED), device="cuda")
+    xs = torch.as_tensor(np.random.default_rng(SEED + 18).standard_normal(
+        (M_FS_SP_B, M_FS_SP_T, fs.in_size)), dtype=torch.float32, device="cuda")
+    want = fs_eend.fs_forward(fmodel, xs, torch.full((M_FS_SP_B,), M_FS_SP_T, device="cuda"),
+                              fs.max_nspks)["logits"].cpu()
+    for r, got in enumerate(ranks):
+        err = float((got["M3 fs_forward_sp"] - want).abs().max())
+        log(f"  M3 fs_forward_sp rank {r}: logits {tuple(want.shape)}, max abs diff vs "
+            f"fs_forward {err:.3e} (tol {M_SP_ATOL:g})")
+        if not err <= M_SP_ATOL:
+            raise AssertionError(f"M3 fs_forward_sp: {err}")
+    lines["M3 fs_forward_sp"] = {"max_abs_diff": err}
+    log(json.dumps({"M2_M3_two_ranks": lines, "two_ranks_sharing_one_card": True,
+                    "card": card}))
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -4737,6 +5145,10 @@ def main() -> int:
     if "--one-pass" in sys.argv[1:]:
         return one_pass_control(card)
     phase_build()
+    if "--mesh-only" in sys.argv[1:]:
+        phase_multi_gpu(ls_eend.LSEENDConfig(), fs_eend.FSEENDConfig(), card)
+        log(f"total: {time.perf_counter() - t0:.1f} s")
+        return 0
     cfg = ls_eend.LSEENDConfig()
     rng = np.random.default_rng(SEED)
     model = make_model(cfg, rng)
@@ -4805,6 +5217,8 @@ def main() -> int:
     phase_eda_score(*phase_eda_kaldi(ecfg, feat, off, stb, rng, card))
     torch.cuda.empty_cache()
     phase_cli(card)
+    for name, n in phase_multi_gpu(cfg, fcfg, card).items():
+        launches[name] += n
     sources = {
         "enc_frame_scan": ("fseend_tpu_torch/kernels/csrc/enc_frame_scan.cu",
                            "fseend_tpu/kernels/enc_frame_scan_pallas.py:140"),

@@ -12,9 +12,17 @@ FS `use_flash_attn` defaults to False.  (The port's dataclasses default to
 the kernel routes; the JAX package's to XLA.)  `training.precision: bf16`
 trains LS-EEND and FS-EEND in mixed precision (`TaskConfig(compute_dtype=
 "bf16")`: bf16 forward and backward, float32 parameters, moments and
-checkpoints); EEND-EDA reads no precision, as the JAX CLI.  A
-`dist_strategy: ddp` or `mesh:` block with one visible card trains on it;
-with more it raises (multi-GPU training is ROADMAP A11).
+checkpoints); EEND-EDA reads no precision, as the JAX CLI.
+
+A `dist_strategy: ddp` or `mesh:` block trains data parallel over the
+processes torchrun starts, one per card:
+
+  torchrun --nproc_per_node 4 -m fseend_tpu_torch.cli.train --configs configs/ls_simu.yaml
+
+(`parallel/mesh.py`; `training.batch_size` is the global batch, rank 0
+logs and writes the checkpoints).  With one process it prints the JAX
+CLI's single-chip line and trains on the one card; a `mesh: {model: N}`
+axis (tensor parallelism) raises, ROADMAP A11 part 2.
 """
 
 from __future__ import annotations
@@ -97,8 +105,10 @@ def build_model(configs):
     return cfg, make_model, task
 
 
-def _n_devices(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def _n_devices() -> int:
+    """The processes of the run, one per card: torchrun's WORLD_SIZE, 1
+    without a launcher (the JAX CLI counts jax.devices())."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 @torch.no_grad()
@@ -205,19 +215,24 @@ def main(argv=None):
         n_speakers=data.get("num_speakers"))
 
     # the reference's `dist_strategy: ddp` (plus an optional model axis)
+    mesh = None
     mesh_cfg = tr.get("mesh")
     if mesh_cfg or tr.get("dist_strategy") in ("ddp", "dp"):
-        n_dev = _n_devices(device)
+        n_dev = _n_devices()
         if mesh_cfg:
             n_model = int(mesh_cfg.get("model", 1))
             n_data = int(mesh_cfg.get("data", 0)) or n_dev // n_model
         else:
             n_data, n_model = n_dev, 1
         if n_data * n_model > 1:
-            raise NotImplementedError(
-                f"a {n_data} data x {n_model} model mesh ({n_dev} devices visible): "
-                "multi-GPU training is not ported yet (ROADMAP A11)")
-        print("dist requested but only 1 device visible; single-chip run")
+            from fseend_tpu_torch.parallel import mesh as pmesh
+
+            mesh = pmesh.make_mesh(n_data=n_data, n_model=n_model, device=device)
+            device = mesh.device
+            if mesh.rank == 0:
+                print(f"mesh: {n_data} data x {n_model} model ({n_dev} processes)")
+        else:
+            print("dist requested but only 1 device visible; single-chip run")
 
     model_cfg, _, task = build_model(configs)
     tx = optim.build_optimizer(
@@ -227,10 +242,12 @@ def main(argv=None):
         schedule_scale=tr.get("schedule_scale", 1.0),
         grad_clip=tr.get("grad_clip", 5.0), grad_accum=tr.get("grad_accm", 1))
 
-    logger = loop.MetricsLogger(
-        os.path.dirname(configs["log"]["log_dir"]) or "./logs",
-        configs["log"]["model_name"])
-    dump_config(configs, logger.dir / "config.yaml")
+    logger = None
+    if mesh is None or mesh.rank == 0:
+        logger = loop.MetricsLogger(
+            os.path.dirname(configs["log"]["log_dir"]) or "./logs",
+            configs["log"]["model_name"])
+        dump_config(configs, logger.dir / "config.yaml")
 
     debug = configs.get("debug") or {}
     state, ckpt_dir = loop.run_training(
@@ -245,7 +262,9 @@ def main(argv=None):
         on_the_fly=on_the_fly,
         log_every=debug.get("log_every_n_steps", 100),
         limit_train_batches=debug.get("limit_train_batches"),
-        limit_val_batches=debug.get("limit_val_batches"), device=device)
+        limit_val_batches=debug.get("limit_val_batches"), device=device, mesh=mesh)
+    if ckpt_dir is None:                # a data-parallel rank other than 0
+        return state
 
     # post-training checkpoint averaging; the BatchNorm statistics ride
     # along from the last epoch so avg_model.npz stands alone

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fseend_tpu_torch.parallel import collectives as C
+
 
 # ---------------------------------------------------------------------------
 # primitive appliers
@@ -72,11 +74,17 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d, momentum: float = 0.1)
     included, as the reference does) and returns (y, {"mean", "var"}), the
     running statistics updated with the unbiased variance.  `bn`'s buffers
     are not written.  On bf16 data the statistics are taken in bf16 and the
-    running update in the buffers' float32 (the JAX `batch_norm`)."""
+    running update in the buffers' float32 (the JAX `batch_norm`).  Inside
+    `parallel/collectives.py:data_parallel` the statistics are those of the
+    global batch, summed over the ranks in two passes."""
     axes = tuple(range(x.ndim - 1))
-    n = x[..., 0].numel()
-    mean = x.mean(dim=axes)
-    var = (x - mean).square().mean(dim=axes)
+    active = C.data_group()
+    if active is None:
+        n = x[..., 0].numel()
+        mean = x.mean(dim=axes)
+        var = (x - mean).square().mean(dim=axes)
+    else:
+        mean, var, n = C.batch_moments(x, active[0])
     unbiased = var.detach() * (n / max(n - 1, 1))
     rd = bn.running_mean.dtype
     new = {"mean": (1 - momentum) * bn.running_mean + momentum * mean.detach().to(rd),

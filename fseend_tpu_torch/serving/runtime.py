@@ -34,6 +34,18 @@ retention layer or the chunkwise core blockwise; FS: the per-lane cached
 attention in the fast block and `step()`, the shared-head one in the
 blockwise encoder) or the plain routes in bf16, and returns probabilities
 in float32.
+
+Lane sharding (`mesh`, or `shard_server_over_mesh`; the JAX package's
+`shard_server_over_mesh`): every stream-state leaf is lane-major, so a
+server splits its lanes evenly over the devices of a one-process mesh
+(`parallel/mesh.py:make_mesh(devices=...)`) with no collective.  Each
+shard is a server of its own on its device, with its own copy of the model
+and its lanes' state, running its kernels there; a block is split by
+lanes and the shards' probabilities are gathered on the mesh's first
+device.  The shards' kernels see fewer rows than the whole server's, and
+`kernels/csrc/tc_f32.cuh` picks its split of a product's k axis from the
+row count, so a sharded server equals the unsharded one to float32
+rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import numpy as np
 import torch
 
 from fseend_tpu_torch.models import fs_eend, ls_eend
+from fseend_tpu_torch.parallel.mesh import Mesh
 from fseend_tpu_torch.utils.convert import cast_model
 
 # per-lane state tensors whose lane axis is 0; every other leaf leads with
@@ -77,6 +90,52 @@ def _check_kind(kind: str, cfg, model) -> None:
                         f"{type(model).__name__}")
 
 
+def _lane_shards(server) -> list:
+    """One server per device of `server.mesh`, each over its slice of the
+    lanes with its own copy of the model."""
+    mesh = server.mesh
+    if not isinstance(mesh, Mesh) or mesh.group is not None:
+        raise TypeError(f"lane sharding runs on a one-process mesh over devices "
+                        f"(parallel/mesh.py:make_mesh(devices=...)), got {mesh!r}")
+    n = mesh.n_data
+    if server.n_lanes % n:
+        raise ValueError(f"{server.n_lanes} lanes do not split evenly over {n} devices")
+    return [dataclasses.replace(server, model=copy.deepcopy(server.model),
+                                n_lanes=server.n_lanes // n, device=d, mesh=None)
+            for d in mesh.devices]
+
+
+def _lanes_of(x, shards: list, i: int, lane_ndim: int):
+    """Shard i's part of a per-call argument: its lanes when x has
+    `lane_ndim` dims (lanes leading), else x itself (shared by all lanes)."""
+    if x is None or np.ndim(x) < lane_ndim:
+        return x
+    m = len(x) // len(shards)
+    return x[i * m:(i + 1) * m]
+
+
+def _gathered(parts: list, device, dims: tuple):
+    """The shards' results, each a tuple of tensors with lanes on `dims`,
+    concatenated on `device`."""
+    return tuple(torch.cat([p[j].to(device) for p in parts], dim=d) for j, d in enumerate(dims))
+
+
+def _reset_sharded(shards: list, lanes, n_lanes: int) -> None:
+    m = n_lanes // len(shards)
+    lanes = np.asarray(lanes, np.int64).reshape(-1)
+    for i, shard in enumerate(shards):
+        mine = lanes[(lanes >= i * m) & (lanes < (i + 1) * m)] - i * m
+        if len(mine):
+            shard.reset_lanes(mine)
+
+
+def shard_server_over_mesh(server, mesh: Mesh):
+    """The server with its lanes sharded over the devices of `mesh` (module
+    docstring); call it on a fresh server, as the JAX function.  Returns a
+    new server of the same class; `server` is left as it is."""
+    return dataclasses.replace(server, mesh=mesh)
+
+
 @dataclasses.dataclass
 class StreamingServer:
     """Multi-stream server over one model family."""
@@ -94,7 +153,7 @@ class StreamingServer:
     # per-frame encoder scan, the decoder still one kernel call per block)
     frame_kernel_enc: bool = True
     device: Any = None        # None: the card ("cuda"); "cpu" for the tests
-    mesh: Any = None          # multi-GPU lane sharding: ROADMAP A11
+    mesh: Any = None          # lane sharding over a one-process mesh (module docstring)
     capacity: int = 4096      # FS only: KV positions per lane (frames per call + delay)
     fs_fast: bool = True      # FS only: the fast block; False = the frame scan
     fs_fast_chunk: int | None = None  # FS only: sub-block length L (None: auto)
@@ -108,11 +167,11 @@ class StreamingServer:
                 "frame_kernel=True is LS-only; FS per-frame serving is the exact "
                 "fast block (fs_fast=True, the default) with the cached-attention "
                 "kernel under cfg.use_flash_attn")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "lane sharding over several GPUs is not ported yet (ROADMAP A11, "
-                "multi-GPU)")
         _check_dtype(self.dtype)
+        if self.mesh is not None:
+            self._shards = _lane_shards(self)
+            self.device, self.state = self._shards[0].device, None
+            return
         self.device = ls_eend.resolve_device(self.device)
         if self.kind == "fs":
             self.model = ls_eend.with_cfg(
@@ -150,6 +209,10 @@ class StreamingServer:
     def step(self, frames, flush=False):
         """frames: (n_lanes, in_size) -> (probs (n_lanes, n_slots-1),
         valid (n_lanes,))."""
+        if self.mesh is not None:
+            sh = self._shards
+            return _gathered([s.step(_lanes_of(frames, sh, i, 2), _lanes_of(flush, sh, i, 1))
+                              for i, s in enumerate(sh)], self.device, (0, 0))
         if self.frame_kernel or (self.kind == "fs" and self.fs_fast):
             # a one-frame block: the same cache layout as process_block, so
             # step() and blocks interleave on one stream (FS: one fast block
@@ -174,6 +237,11 @@ class StreamingServer:
         """frames: (n_lanes, K, in_size); flush: None, (K,) shared, or
         (n_lanes, K) per lane.  Returns (probs (n_lanes, K, n_slots-1),
         valid (K, n_lanes)) as tensors on the server's device."""
+        if self.mesh is not None:
+            sh = self._shards
+            return _gathered([s.process_block(_lanes_of(frames, sh, i, 3),
+                                              _lanes_of(flush, sh, i, 2))
+                              for i, s in enumerate(sh)], self.device, (0, 1))
         xs = self._frames(frames)
         K = xs.shape[1]
         flush = self._flush(flush, K)
@@ -219,6 +287,8 @@ class StreamingServer:
         lanes x slots axis of the LS decoder.  A fresh state is all zeros, so
         a reused lane reproduces a fresh server bit for bit while its
         neighbours continue untouched."""
+        if self.mesh is not None:
+            return _reset_sharded(self._shards, lanes, self.n_lanes)
         idx = torch.as_tensor(np.asarray(lanes, np.int64).reshape(-1), device=self.device)
         slots = (idx[:, None] * self.n_slots
                  + torch.arange(self.n_slots, device=self.device)).reshape(-1)
@@ -276,10 +346,15 @@ class BlockStreamingServer:
     dtype: Any = torch.float32
     device: Any = None        # None: the card ("cuda"); "cpu" for the tests
     capacity: int = 4096      # FS only: KV positions (frames per call)
+    mesh: Any = None          # lane sharding over a one-process mesh (module docstring)
 
     def __post_init__(self):
         _check_kind(self.kind, self.cfg, self.model)
         _check_dtype(self.dtype)
+        if self.mesh is not None:
+            self._shards = _lane_shards(self)
+            self.device, self.state = self._shards[0].device, None
+            return
         self.device = ls_eend.resolve_device(self.device)
         # the server's config decides the route, whatever config the model came with
         self.model = ls_eend.with_cfg(
@@ -306,6 +381,11 @@ class BlockStreamingServer:
         or (n_lanes, block) per lane, marks the valid frames: pass it on a
         zero-padded final partial block for exact parity with the batch
         pass."""
+        if self.mesh is not None:
+            sh = self._shards
+            return _gathered([(s.process_block(_lanes_of(frames, sh, i, 3), flush,
+                                               _lanes_of(h_mask, sh, i, 2)),)
+                              for i, s in enumerate(sh)], self.device, (0,))[0]
         if isinstance(frames, torch.Tensor):
             xs = frames.to(self.device, self.dtype)
         else:
@@ -334,7 +414,10 @@ class BlockStreamingServer:
         """One block as a function of the state: (state, frames (n_lanes,
         block, in_size) on the device, flush, h_mask or None) -> (new state,
         probabilities with the silence slot dropped).  `process_block` runs
-        it; `serving/aot.py` exports it (once with flush, once without)."""
+        it; `serving/aot.py` exports it (once with flush, once without).
+        A lane-sharded server has one state per shard: export a shard."""
+        if self.mesh is not None:
+            raise ValueError("block_step of a lane-sharded server: call it on a shard")
         if self.kind == "fs":
             state, logits = fs_eend.fs_blockstream_step(
                 self.model, state, xs, self.n_slots, enc_bypass=flush, h_mask=h_mask)
@@ -345,10 +428,16 @@ class BlockStreamingServer:
         return state, torch.sigmoid(logits[..., 1:])
 
     def blocks_consumed(self) -> int:
+        if self.mesh is not None:
+            return max(s.blocks_consumed() for s in self._shards)
         return int(self.state["m"].max())
 
     def reset_all(self) -> None:
         """Fresh state for every lane."""
+        if self.mesh is not None:
+            for s in self._shards:
+                s.reset_all()
+            return
         self.state = self.fresh_state()
         self._frames_fed = 0    # FS capacity guard (non-flush blocks)
 
@@ -362,6 +451,8 @@ class BlockStreamingServer:
         if self.kind != "ls":
             raise ValueError("per-lane reset is LS-only (FS KV caches are "
                              "position-dependent and share one clock); use reset_all()")
+        if self.mesh is not None:
+            return _reset_sharded(self._shards, lanes, self.n_lanes)
         idx = torch.as_tensor(np.asarray(lanes, np.int64).reshape(-1), device=self.device)
         slots = (idx[:, None] * self.n_slots
                  + torch.arange(self.n_slots, device=self.device)).reshape(-1)

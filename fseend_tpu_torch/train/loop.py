@@ -12,6 +12,15 @@ returns (feats (T, F), labels (T, S), recording id): `data/dataset.py`'s
 `DiarizationDataset` and `OnTheFlyDiarizationDataset` over a Kaldi data
 directory, or an in-memory one.  Checkpoints are the JAX package's npz
 format for the family (`utils/checkpoint.py` reads both).
+
+With a mesh (`parallel/mesh.py:make_mesh()`, one rank per card) each rank
+reads its share of every global batch: the sampler's `num_replicas` is the
+number of ranks and it interleaves the shuffled indices, so a step's ranks
+together hold the items of the one-process run's step.  Rank 0 alone logs,
+validates (on the whole validation set, as the JAX package's replicated
+validation batches) and writes the checkpoints, in the JAX layout; the
+validation DER and a SIGTERM on any rank reach every rank, so they stop
+together.  A resume loads on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 from fseend_tpu_torch.data.loader import Prefetcher, batched
 from fseend_tpu_torch.data.sampler import ShardedSampler
 from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
+from fseend_tpu_torch.parallel import collectives as C
 from fseend_tpu_torch.train import trainer as trainer_lib
 from fseend_tpu_torch.utils import checkpoint as ckpt_lib
 from fseend_tpu_torch.utils import convert
@@ -107,7 +117,7 @@ def _to_device(batch: dict, device) -> dict:
 
 
 def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
-                 train_dataset, val_dataset, tx, logger: MetricsLogger, batch_size: int,
+                 train_dataset, val_dataset, tx, logger: MetricsLogger | None, batch_size: int,
                  chunk_size: int, max_speakers: int, input_dim: int, max_epochs: int,
                  seed: int = 777, early_stop_patience: int | None = None,
                  val_interval: int = 1, init_ckpt: str | None = None,
@@ -121,9 +131,19 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
     item seed)] (an `OnTheFlyDiarizationDataset` draws its random crop
     from the seed).  `limit_train_batches` / `limit_val_batches` end an
     epoch's training / validation after that many batches (the configs'
-    `debug:` section)."""
+    `debug:` section).  With `mesh` the run is data parallel (module
+    docstring): `batch_size` is the global batch, the device is the mesh's,
+    and ranks other than 0 take `logger=None` and return None for the
+    checkpoint dir."""
     if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A11)")
+        trainer_lib.check_mesh(mesh)
+        if batch_size % mesh.n_data:
+            raise ValueError(f"global batch {batch_size} must divide over the "
+                             f"{mesh.n_data} data-parallel ranks")
+        device = mesh.device
+    if (logger is None) != (mesh is not None and mesh.rank != 0):
+        raise ValueError("rank 0 (or a run without a mesh) logs; the other ranks take "
+                         "logger=None")
     device = ls_eend.resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = _INIT[task.model](model_cfg, gen, device=device)
@@ -163,7 +183,7 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
             early_stop_patience=early_stop_patience, val_interval=val_interval,
             on_the_fly=on_the_fly, log_every=log_every,
             limit_train_batches=limit_train_batches, limit_val_batches=limit_val_batches,
-            preempt=preempt, device=device)
+            preempt=preempt, device=device, mesh=mesh)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -172,22 +192,33 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
 def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val_dataset,
                        batch_size, chunk_size, max_speakers, input_dim, max_epochs, seed,
                        start_epoch, early_stop_patience, val_interval, on_the_fly, log_every,
-                       limit_train_batches, limit_val_batches, preempt, device):
-    train_step = trainer_lib.make_train_step(task, model_cfg, tx, device=device)
+                       limit_train_batches, limit_val_batches, preempt, device, mesh):
+    train_step = trainer_lib.make_train_step(task, model_cfg, tx, mesh=mesh, device=device)
     eval_step = trainer_lib.make_eval_step(task, model_cfg)
+    n_ranks, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.rank)
+    main = rank == 0
 
     def save(path, epoch, val_der=None):
         save_train_state(path, state, {"epoch": epoch, "step": state.step,
                                        "val_der": val_der if val_der is not None else np.nan})
 
-    sampler = ShardedSampler(len(train_dataset), shuffle=True, seed=seed)
+    def any_rank(flag: bool) -> bool:
+        if mesh is None:
+            return flag
+        return bool(C.sum_scalars({"f": torch.tensor(float(flag), device=device)},
+                                  mesh.group)["f"] > 0)
+
+    # drop_last: the ranks' shares hold the one-process run's items, step by step
+    sampler = ShardedSampler(len(train_dataset), n_ranks, rank, shuffle=True, seed=seed,
+                             drop_last=True)
+    local_batch = batch_size // n_ranks
     best = (np.inf, -1)
     for epoch in range(start_epoch, max_epochs):
         sampler.set_epoch(epoch)
         idx_iter = (i if on_the_fly else i[0] for i in sampler.indices())
 
         def make_iter():
-            return batched(train_dataset, idx_iter, batch_size, chunk_size, max_speakers,
+            return batched(train_dataset, idx_iter, local_batch, chunk_size, max_speakers,
                            input_dim)
 
         t0 = time.time()
@@ -197,12 +228,13 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
             batch.pop("recs")
             state, metrics = train_step(state, _to_device(batch, device), seed)
             n_steps += 1
-            if preempt["flag"]:
-                save(logger.dir / "ckpt_preempt.npz", epoch - 1)
-                print(f"SIGTERM: saved {logger.dir}/ckpt_preempt.npz at step {state.step} "
-                      f"(epoch {epoch} will replay on resume)", flush=True)
-                return state, logger.dir
-            if n_steps % log_every == 0:
+            if any_rank(preempt["flag"]):
+                if main:
+                    save(logger.dir / "ckpt_preempt.npz", epoch - 1)
+                    print(f"SIGTERM: saved {logger.dir}/ckpt_preempt.npz at step {state.step} "
+                          f"(epoch {epoch} will replay on resume)", flush=True)
+                return state, logger.dir if main else None
+            if main and n_steps % log_every == 0:
                 logger.log(state.step, {k: metrics[k] for k in
                                         ("pit_loss", "emb_loss", "tot_loss", "grad_norm")},
                            prefix="train/")
@@ -211,7 +243,8 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
         dt = time.time() - t0
 
         val_der = None
-        if val_dataset is not None and (epoch + 1) % val_interval == 0:
+        validate = val_dataset is not None and (epoch + 1) % val_interval == 0
+        if validate and main:
             vms = []
             for batch in batched(val_dataset, range(len(val_dataset)), batch_size, chunk_size,
                                  max_speakers, input_dim, drop_last=False):
@@ -223,18 +256,26 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
             agg = trainer_lib.aggregate_metrics(vms)
             val_der = agg.get("DER", np.inf)
             logger.log(state.step, agg, prefix="val/")
+        if validate and mesh is not None:
+            # rank 0's DER decides the early stop on every rank
+            v = torch.tensor(np.nan if val_der is None else val_der, dtype=torch.float64,
+                             device=device)
+            torch.distributed.broadcast(v, 0, group=mesh.group)
+            val_der = float(v)
 
-        loss = float(metrics["tot_loss"]) if metrics else float("nan")
-        print(f"epoch {epoch}: {n_steps} steps in {dt:.1f}s loss={loss:.4f}"
-              + (f" val/DER={val_der:.4f}" if val_der is not None else ""), flush=True)
-        save(logger.dir / f"ckpt_epoch={epoch}.npz", epoch, val_der)
+        if main:
+            loss = float(metrics["tot_loss"]) if metrics else float("nan")
+            print(f"epoch {epoch}: {n_steps} steps in {dt:.1f}s loss={loss:.4f}"
+                  + (f" val/DER={val_der:.4f}" if val_der is not None else ""), flush=True)
+            save(logger.dir / f"ckpt_epoch={epoch}.npz", epoch, val_der)
         if val_der is not None and val_der < best[0]:
             best = (val_der, epoch)
         if (early_stop_patience is not None and val_der is not None
                 and epoch - best[1] >= early_stop_patience):
-            print(f"early stop at epoch {epoch} (best {best[0]:.4f} @ {best[1]})")
+            if main:
+                print(f"early stop at epoch {epoch} (best {best[0]:.4f} @ {best[1]})")
             break
-    return state, logger.dir
+    return state, logger.dir if main else None
 
 
 def average_epoch_range(ckpt_dir, start_epoch: int | None = None,

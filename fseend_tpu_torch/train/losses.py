@@ -12,7 +12,11 @@ frame and slot masks:
   * `attractor_existence_loss` (EEND-EDA)
   * `diarization_error_counters`, `der_from_counters`
 
-All functions take logits (pre-sigmoid) unless noted.
+All functions take logits (pre-sigmoid) unless noted.  Inside
+`parallel/collectives.py:data_parallel` every loss divides its local
+numerator by a count summed over the ranks (no gradient through it), as
+the JAX package's one program over the global batch does; the ranks' losses
+then add up to the global batch's loss.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import itertools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fseend_tpu_torch.parallel import collectives as C
 
 
 def bce_with_logits(logits, targets):
@@ -50,7 +56,7 @@ def _masked_per_sample_mean(cell, frame_mask, slot_mask):
 def _combine(per_sample_mean, lens, label_delay: int):
     """sum_b mean_b (T_b - delay) / sum_b (T_b - delay)."""
     w = (lens - label_delay).clamp(min=0).to(per_sample_mean.dtype)
-    return (per_sample_mean * w).sum() / w.sum().clamp(min=1)
+    return (per_sample_mean * w).sum() / C.batch_sum(w.sum()).clamp(min=1)
 
 
 def standard_bce_loss(logits, labels, lens, slot_mask, label_delay: int = 0):
@@ -119,7 +125,8 @@ def batch_pit_loss(logits, labels, lens, n_speakers, label_delay: int = 0,
                        idx[..., None])[..., 0].mean(dim=2)             # (B, P)
     per = torch.where(~valid[n_speakers.long()], torch.inf, per)
     best = per.argmin(dim=1)
-    loss = per.gather(1, best[:, None]).sum() / (lens - label_delay).sum().clamp(min=1)
+    loss = (per.gather(1, best[:, None]).sum()
+            / C.batch_sum((lens - label_delay).sum()).clamp(min=1))
     perm = perms[best]
     return loss, torch.gather(labels, 2, perm[:, None, :].expand(B, T, S)), perm
 
@@ -183,11 +190,11 @@ def emb_consistency_loss(emb, slot_labels, lens=None, masked: bool = False):
     attn_map = _cos_map(emb)
     label_map = _cos_map(slot_labels)
     if not masked:
-        return (attn_map - label_map).square().mean()
+        return C.batch_mean((attn_map - label_map).square())
     fm = (torch.arange(emb.shape[1], device=emb.device)[None] < lens[:, None]).to(emb.dtype)
     pair = fm[:, :, None] * fm[:, None, :]
     sq = (attn_map - label_map).square() * pair
-    return sq.sum() / lens.to(emb.dtype).square().sum().clamp(min=1)
+    return sq.sum() / C.batch_sum(lens.to(emb.dtype).square().sum()).clamp(min=1)
 
 
 def emb_consistency_loss_ls(emb, slot_labels, lens):
@@ -195,7 +202,7 @@ def emb_consistency_loss_ls(emb, slot_labels, lens):
     then the summed squared error over the whole map / sum(len_b^2)."""
     fm = (torch.arange(emb.shape[1], device=emb.device)[None] < lens[:, None]).to(emb.dtype)
     sq = (_cos_map(emb * fm[..., None]) - _cos_map(slot_labels)).square()
-    return sq.sum() / lens.to(emb.dtype).square().sum().clamp(min=1)
+    return sq.sum() / C.batch_sum(lens.to(emb.dtype).square().sum()).clamp(min=1)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +220,7 @@ def attractor_existence_loss(exist_logits, n_speakers):
     labels = (idx < n).to(exist_logits.dtype)
     mask = (idx <= n).to(exist_logits.dtype)
     cell = bce_with_logits(exist_logits, labels) * mask
-    return cell.sum() / mask.sum().clamp(min=1)
+    return cell.sum() / C.batch_sum(mask.sum()).clamp(min=1)
 
 
 # ---------------------------------------------------------------------------

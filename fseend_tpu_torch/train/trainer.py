@@ -17,16 +17,31 @@ Mixed precision (`TaskConfig(compute_dtype="bf16")`, the JAX package's
 float32 parameters and of the features, cast inside the autograd graph, so
 the gradients arrive in float32 through the cast; the parameters, the
 BatchNorm running statistics, the Adam moments and the clip stay float32.
+
+Data parallelism (`make_train_step(mesh=...)`, ROADMAP A11): one rank per
+card, each with its rows of the global batch.  The ranks compute the JAX
+package's one program over the global batch, not a mean of per-rank
+means: every loss divides by a count over the whole batch and train
+BatchNorm takes global statistics (`parallel/collectives.py:
+data_parallel`), the gradients are summed over the ranks, the clip sees the
+global norm, and Adam runs alike on every rank, so the parameters stay
+equal.  The DER counters and the losses are summed over the ranks.  At
+dropout > 0 each rank draws its own stream (the seed, the step and the
+rank), as the JAX package's sequence parallelism folds the shard index into
+its key; equality with one process holds at dropout 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.ops import nn as tnn
+from fseend_tpu_torch.parallel import collectives as C
+from fseend_tpu_torch.parallel.mesh import Mesh
 from fseend_tpu_torch.train import labels as labels_lib
 from fseend_tpu_torch.train import losses
 from fseend_tpu_torch.train.optim import Optimizer, global_norm
@@ -79,28 +94,33 @@ def _forward(task: TaskConfig, model, feats, lens, n_slots: int, train: bool, ge
 
 
 def compute_loss(task: TaskConfig, model, batch: dict,
-                 generator: torch.Generator | None = None, *, train: bool):
+                 generator: torch.Generator | None = None, *, train: bool, forward_fn=None):
     """Returns (loss, (new BatchNorm state, metrics)) for the model of
     `task.model`'s family.  In training the loss carries the graph back to
     the module's parameters; dropout draws from `generator`.  With
     compute_dtype "bf16" the pass runs on bf16 casts of the parameters and
     the features made inside the graph (the JAX `_cast_bf16`); the
-    BatchNorm buffers are not cast."""
+    BatchNorm buffers are not cast.  `forward_fn(model, feats, lens,
+    n_slots, train, generator)` replaces the family's batch pass (LS and FS;
+    the sequence-parallel steps of `parallel/sp.py`)."""
     if task.compute_dtype == "bf16":
         batch = dict(batch, feats=batch["feats"].to(torch.bfloat16))
         cast = {name: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                 for name, p in model.named_parameters()}
-        return tnn.call_with(cast, model, _compute_loss, task, batch, generator, train=train)
-    return _compute_loss(model, task, batch, generator, train=train)
+        return tnn.call_with(cast, model, _compute_loss, task, batch, generator, train=train,
+                             forward_fn=forward_fn)
+    return _compute_loss(model, task, batch, generator, train=train, forward_fn=forward_fn)
 
 
-def _compute_loss(model, task: TaskConfig, batch: dict, generator, *, train: bool):
+def _compute_loss(model, task: TaskConfig, batch: dict, generator, *, train: bool,
+                  forward_fn=None):
     if task.model == "eda":
         return _compute_loss_eda(task, model, batch, generator, train=train)
     feats, labels, lens, n_spk = batch["feats"], batch["labels"], batch["lens"], batch["n_spk"]
     S = labels.shape[2]
     slot_labels, slot_mask = labels_lib.prepare_labels(labels, lens, n_spk)
-    out = _forward(task, model, feats, lens, S + 2, train, generator)
+    forward_fn = forward_fn or functools.partial(_forward, task)
+    out = forward_fn(model, feats, lens, S + 2, train, generator)
     logits = out["logits"].float()
 
     if task.label_mode == "fixed":
@@ -151,10 +171,12 @@ def _compute_loss_eda(task: TaskConfig, model, batch: dict, generator, *, train:
     return total, ({}, metrics)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The dropout generator of one step: `seed` and the step count decide
-    it (the JAX step folds the step into its key)."""
-    return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + int(step))
+    it (the JAX step folds the step into its key), and on a data-parallel
+    rank other than 0 the rank too."""
+    return torch.Generator(device=device).manual_seed(
+        int(seed) * 1_000_003 + int(step) + (int(rank) << 40))
 
 
 @torch.no_grad()
@@ -183,15 +205,44 @@ def _check_family(task: TaskConfig, cfg) -> None:
                         f"got {type(cfg).__name__}")
 
 
+def check_mesh(mesh) -> None:
+    """A mesh of processes (`parallel/mesh.py:make_mesh()`), or raise."""
+    if not isinstance(mesh, Mesh) or mesh.group is None:
+        raise TypeError(f"a data-parallel step needs a mesh of processes "
+                        f"(parallel/mesh.py:make_mesh()), got {mesh!r}")
+
+
 def make_train_step(task: TaskConfig, cfg, tx: Optimizer, mesh=None, device=None):
     """step(state, batch, seed) -> (state, metrics): one optimizer step on
     the model held by `state` (on `device`: the card unless the caller names
     another), with `cfg` (the family's config) deciding the model's routes
-    and dropout.  The state is updated in place and returned."""
+    and dropout.  The state is updated in place and returned.  With `mesh`
+    (`parallel/mesh.py:make_mesh()`) the batch is this rank's rows of the
+    global batch and the step is the global batch's (module docstring)."""
     _check_family(task, cfg)
     if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A11)")
+        check_mesh(mesh)
+    group = None if mesh is None else mesh.group
+
+    def forward_backward(model, batch, gen):
+        with C.data_parallel(group):
+            loss, (bn_state, metrics) = compute_loss(task, ls_eend.with_cfg(model, cfg), batch,
+                                                     gen, train=True)
+            loss.backward()
+        if group is not None:
+            metrics = C.sum_scalars(metrics, group)
+        return bn_state, metrics
+
+    return optimizer_step(forward_backward, tx, device, mesh)
+
+
+def optimizer_step(forward_backward, tx: Optimizer, device, mesh=None):
+    """step(state, batch, seed) -> (state, metrics) around
+    `forward_backward(model, batch, generator) -> (BatchNorm state,
+    metrics)`, which leaves this rank's gradients in the parameters; with a
+    mesh they are summed over its ranks before the clip and the update."""
     device = ls_eend.resolve_device(device)
+    rank = 0 if mesh is None else mesh.rank
 
     def step(state: TrainState, batch: dict, seed: int):
         model = state.model
@@ -200,11 +251,11 @@ def make_train_step(task: TaskConfig, cfg, tx: Optimizer, mesh=None, device=None
             raise ValueError(f"train step made for {device}, model on {params[0].device}")
         for p in params:
             p.grad = None
-        gen = step_generator(seed, state.step, params[0].device)
-        loss, (bn_state, metrics) = compute_loss(task, ls_eend.with_cfg(model, cfg), batch, gen,
-                                                 train=True)
-        loss.backward()
+        gen = step_generator(seed, state.step, params[0].device, rank)
+        bn_state, metrics = forward_backward(model, batch, gen)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if mesh is not None:
+            C.all_reduce_(grads, mesh.group)
         metrics["grad_norm"] = global_norm(grads)
         tx.step(params, grads, state.opt_state)
         _set_bn(model, bn_state)

@@ -19,6 +19,7 @@ from fseend_tpu.models import ls_eend as J
 from fseend_tpu.serving import runtime as JRT
 from fseend_tpu.serving import scheduler as JSCH
 from fseend_tpu_torch.models import ls_eend as T
+from fseend_tpu_torch.parallel import mesh as PM
 from fseend_tpu_torch.serving import runtime as RT
 from fseend_tpu_torch.serving.scheduler import ContinuousBatcher
 from fseend_tpu_torch.train import trainer as TRN
@@ -148,12 +149,16 @@ def test_unported_modes_say_where_they_are_queued(setup):
         RT.BlockStreamingServer(kind="fs", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
                                 device="cpu")
     # training is ported for LS-EEND, FS-EEND (tests/test_torch_port_fs_train.py)
-    # and EEND-EDA (tests/test_torch_port_eda.py); its multi-GPU form is not
+    # and EEND-EDA (tests/test_torch_port_eda.py); data-parallel training and
+    # lane-sharded serving too (tests/test_torch_port_parallel.py), not the
+    # tensor-parallel "model" axis
     assert TRN.TaskConfig(model="fs").model == "fs"
     assert TRN.TaskConfig(model="eda", label_mode="pit").model == "eda"
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="mesh of processes"):
         TRN.make_train_step(TRN.TaskConfig(), dataclasses.replace(TCFG, use_fused_dec=True),
                             None, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A11 part 2"):
+        PM.make_mesh(n_model=2, devices=["cpu", "cpu"])
     # LS serving in bf16 is ported (ROADMAP B9 part 1; tests/test_torch_port_bf16.py):
     # the server builds, with a bf16 state and a bf16 copy of the model
     srv = _server(model, dtype=torch.bfloat16)

@@ -27,6 +27,7 @@ from fseend_tpu.train import losses as JLS
 from fseend_tpu.train import optim as JO
 from fseend_tpu.utils import torch_convert as JTC
 from fseend_tpu_torch.models import ls_eend as T
+from fseend_tpu_torch.parallel import mesh as PM
 from fseend_tpu_torch.train import labels as TL
 from fseend_tpu_torch.train import losses as TLS
 from fseend_tpu_torch.train import optim as TO
@@ -262,8 +263,12 @@ def test_unported_families_say_where_they_are_queued():
     assert TRN.TaskConfig(compute_dtype="bf16").compute_dtype == "bf16"
     with pytest.raises(ValueError, match="compute_dtype"):
         TRN.TaskConfig(compute_dtype="f16")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # data-parallel training is ported (tests/test_torch_port_parallel.py); it
+    # takes a mesh of processes, and the tensor-parallel axis is not ported
+    with pytest.raises(TypeError, match="mesh of processes"):
         TRN.make_train_step(TASK, CFG, TO.Optimizer(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A11 part 2"):
+        PM.make_mesh(n_model=2, devices=["cpu"])
 
 
 def test_remat_recomputes_the_same_masks(golden):
