@@ -16,7 +16,8 @@ and of the retention layer), the LS "core" route and batch pass in bf16
 cached-attention kernels' bf16 forms) and bf16 mixed-precision training
 of all three families (the fusion layer's bf16 forms), the multi-GPU
 paths on the one card (lane-sharded servers, data-parallel and
-sequence-parallel training over two ranks, NCCL), and times the kernels,
+sequence-parallel training over two ranks, NCCL, tensor-parallel training
+on 1 x 2 and 2 x 2 grids), xpos and the FLAC encoder, and times the kernels,
 the servers and the steps.
 
     python3 chip_smoke.py            (--profile adds a torch.profiler window
@@ -31,8 +32,10 @@ the servers and the steps.
                                       against this tree's in turns, and holds
                                       every output of B3-B7 to theirs bit for
                                       bit)
-    python3 chip_smoke.py --mesh-only (phases 1-2 and M1-M4 alone; prints
+    python3 chip_smoke.py --mesh-only (phases 1-2 and M1-M5 alone; prints
                                       no result)
+    python3 chip_smoke.py --tp-only  (phases 1-2 and M5 alone; prints no
+                                      result)
     python3 chip_smoke.py --one-pass (a control: phases 5 and 8 on a copy of
                                       the sources whose 3xTF32 product takes
                                       one TF32 pass; each check that fails is
@@ -328,10 +331,29 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      the LS data-parallel step (dec_train_fusion) against the step without
      a mesh.  M1-M4 print their times as two shards or two ranks sharing
      one card: a function check, not a multi-GPU speed.
+ 35. M5, tensor parallelism over the "model" axis (ROADMAP A11 part 2):
+     `tp_ranks_main` children on a 1 x 2 and then a 2 x 2 grid of gloo
+     ranks sharing cuda:0, the model sharded by `shard_model_`: LS at
+     configs/ls_simu.yaml's full width (fused decoder, dec_train_fusion on
+     gathered weights) at batch 8 x 500, dropout 0, two SGD steps on the
+     yaml's "plain" route, one on "fused" (retention_layer on gathered
+     weights), one on "core" (chunk_retention on head-split q, k, v); on
+     1 x 2 one bf16 step (the fusion layer's bf16 forms) and FS at
+     fs_simu.yaml's widths; on 2 x 2 `run_training` for an epoch and a
+     resume from its checkpoint.  Each against one process on the same
+     card: losses within M_LOSS_RTOL, gradient norms M_NORM_RTOL,
+     parameters M5_PARAM_ATOL, every rank's gathered parameters the same,
+     the checkpoints the one-process keys, shapes and values; the bf16 step
+     by `bf16_guard` (M5_BF16_CLOSE).  Which parameters were split,
+     gathered or replicated, and a rank's step beside one process's.  Then
+     A19: `ls_forward` with use_xpos on the "core" route against the plain
+     route on the CPU (SERVE_ATOL), `write_flac` twice to the same bytes and
+     back through `read_flac`.  Every launch of B3 (float32 and bf16), B4
+     and B5 counted from 0.
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line
 (sixteen entries: the eight kernels and the bf16 forms of eight; each
-launch count includes its launches in M1-M4, summed over the ranks) and
+launch count includes its launches in M1-M5, summed over the ranks) and
 the timing lines come before it.  E1-E3 launch none of the port's kernels (the
 JAX package has no Pallas kernel on EEND-EDA's path).  Float32 throughout
 but H1-H8, C5's bf16 artifacts and M1's bf16 server, TF32 off.  Every
@@ -4779,6 +4801,20 @@ M_LENS = (500, 431, 377, 500, 260, 499, 350, 412)
 M_SP_B, M_SP_T = 4, 1000      # M3 LS: one 500-frame chunk a rank
 M_FS_SP_B, M_FS_SP_T = 2, 2000  # M3 fs_forward_sp: 1000 frames a rank
 RANKS_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.{fn}({out!r}))"
+M5_MODEL = 2                  # M5: the grids' model axis
+M5_WORLDS = (2, 4)            # M5: 1 x 2, then 2 x 2 gloo ranks on cuda:0
+M5_PARAM_ATOL = 1e-4          # M5: parameters after the steps (tests/test_trainer.py:142-145)
+# M5_BF16: M5's ranks and its one-process references run their bf16
+# products without cuBLAS's reduced-precision (bf16) split-k reductions.
+# A shard's bf16 product still rounds at other points than the whole one
+# (cuBLAS picks its split by shape), so the bf16 step is held as
+# `bf16_guard` holds a bf16 form: its loss, and its parameters (mean), within
+# M5_BF16_CLOSE of one process's bf16 distance from float32, not a float32
+# computation.  0.8 is the frame scans' share, over which flips compound
+# likewise (the loss reads about 0.6 of that distance, the parameters'
+# mean about 0.3, PERF.md)
+M5_BF16_CLOSE = 0.8
+M5_XPOS_T, M5_XPOS_LENS = 1000, (1000, 777)   # M5: ls_forward with xpos, 2 recordings
 
 
 def m_configs():
@@ -4802,18 +4838,24 @@ def m_batch(B, T, lens, seed, F=345):
     return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
-def m_train(family, cfg, batch, mesh=None, sp=False, steps=M_STEPS):
-    """`steps` SGD steps from the seed's weights: (per-step tot_loss and
-    grad_norm, the parameters flat, their float64 sum)."""
+def m_train(family, cfg, batch, mesh=None, sp=False, steps=M_STEPS, dtype="f32"):
+    """`steps` SGD steps from the seed's weights in compute dtype `dtype`:
+    (per-step tot_loss and grad_norm, the parameters flat, their float64
+    sum, how many were split).  On a mesh with a model axis the model is
+    sharded first (`shard_model_`) and gathered whole after the steps."""
     from fseend_tpu_torch.models import fs_eend, ls_eend
+    from fseend_tpu_torch.parallel import collectives as C
     from fseend_tpu_torch.parallel import mesh as pmesh
     from fseend_tpu_torch.parallel import sp as SP
     from fseend_tpu_torch.train import optim
     from fseend_tpu_torch.train import trainer as TRN
 
     init = {"ls": ls_eend.init_ls_eend, "fs": fs_eend.init_fs_eend}[family]
-    task = TRN.TaskConfig(model=family, masked_emb_loss=family == "ls")
+    task = TRN.TaskConfig(model=family, masked_emb_loss=family == "ls", compute_dtype=dtype)
     model = init(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    if mesh is not None and not sp:
+        pmesh.shard_model_(model, mesh)
+    split = sum(s is not None for s in C.param_shards(model).values())
     tx = optim.build_optimizer("sgd", M_LR, grad_clip=5.0)
     state = TRN.TrainState.create(model, tx)
     if sp:
@@ -4830,9 +4872,11 @@ def m_train(family, cfg, batch, mesh=None, sp=False, steps=M_STEPS):
         metrics.append((float(m["tot_loss"]), float(m["grad_norm"])))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    if mesh is not None and not sp:
+        model = pmesh.gather_model(model, mesh)
     flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
     return {"metrics": metrics, "params": flat.cpu(), "checksum": float(flat.double().sum()),
-            "step_s": secs / steps}
+            "step_s": secs / steps, "split": split}
 
 
 def m_rank_train(mesh):
@@ -5057,8 +5101,8 @@ def phase_lane_sharded(cfg, fcfg, card):
 
 
 def phase_multi_gpu(cfg, fcfg, card):
-    """M1-M4: the kernels their main paths launched, each of B1-B6 at least
-    once."""
+    """M1-M5: the kernels their main paths launched, each of B1-B6 at least
+    once (M5 also B3's bf16 forms)."""
     t0 = time.perf_counter()
     counts = phase_lane_sharded(cfg, fcfg, card)
     for name, n in phase_multi_rank(card)[0].items():
@@ -5069,6 +5113,8 @@ def phase_multi_gpu(cfg, fcfg, card):
         if not counts.get(name):
             raise AssertionError(f"M1-M4: {name} was not launched")
     log(f"M1-M4: {time.perf_counter() - t0:.1f} s; kernels launched {launched(counts)}")
+    for name, n in phase_tensor_parallel(card).items():
+        counts[name] = counts.get(name, 0) + n
     return counts
 
 
@@ -5133,6 +5179,264 @@ def phase_multi_rank(card):
     return total, counts
 
 
+# ---------------------------------------------------------------------------
+# M5: tensor parallelism over the "model" axis, and A19's xpos and encoder
+# ---------------------------------------------------------------------------
+
+
+def m5_cases(grid: str) -> dict:
+    """name -> (family, config, compute dtype, SGD steps) of M5 on a grid:
+    LS at configs/ls_simu.yaml's full width (fused decoder) on its own
+    retention route ("plain"), on "fused" (retention_layer) and "core"
+    (chunk_retention); on 1 x 2 also LS in bf16 and FS at fs_simu.yaml's
+    widths.  (A data axis sums bf16 weight gradients rounded on each rank,
+    where one process rounds the sum once: the data axis, not the model
+    axis, sets that distance.)"""
+    ls, fs = m_configs()
+    cases = {"ls plain": ("ls", ls, "f32", M_STEPS),
+             "ls fused": ("ls", dataclasses.replace(ls, kernel="fused"), "f32", 1),
+             "ls core": ("ls", dataclasses.replace(ls, kernel="core"), "f32", 1)}
+    if grid == "1x2":
+        cases["ls bf16"] = ("ls", ls, "bf16", 1)
+        cases["fs"] = ("fs", fs, "f32", 1)
+    return cases
+
+
+def m5_roles(cfg) -> dict:
+    """How the LS model's parameters run under TP on `cfg`'s routes: split
+    (the products split, Megatron's pairs and retention's heads), gathered
+    (split storage, gathered whole before use: MHA, the conformer's
+    pointwise convs, the kernels' weights), replicated."""
+    from fseend_tpu_torch.models import ls_eend
+    from fseend_tpu_torch.parallel import mesh as pmesh
+
+    model = ls_eend.empty_ls_eend(cfg, "meta")
+    roles = {"split": 0, "gathered": 0, "replicated": 0}
+    for name, dim in pmesh.param_partition(model, pmesh.Mesh(1, M5_MODEL, ())).items():
+        gathered = any(k in name for k in ("in_proj", "attn.out_proj", "pw1", "pw2")) or \
+            (cfg.use_fused_dec and name.startswith("dec.")) or \
+            (cfg.kernel == "fused" and ".ret." in name)
+        roles["replicated" if dim is None else "gathered" if gathered else "split"] += 1
+    return roles
+
+
+def m5_run_training(mesh, root):
+    """LS `run_training` at M5's widths for one epoch of one step, then a
+    resume from its checkpoint to a second: (the whole parameters flat, the
+    logged losses, the checkpoint dir on global rank 0)."""
+    from fseend_tpu_torch.train import loop as LOOP
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+
+    ls, _ = m_configs()
+    train = SyntheticSpeech(M_B, SEED + 21, M_T, ls.in_size, M_SPK)
+    val = SyntheticSpeech(2, SEED + 22, M_T, ls.in_size, M_SPK)
+    out = {}
+    for name, epochs, resume in (("first", 1, None), ("resumed", 2, "first")):
+        main = mesh is None or mesh.main
+        logger = LOOP.MetricsLogger(str(Path(root) / name), "m5") if main else None
+        state, ckpt_dir = LOOP.run_training(
+            task=TRN.TaskConfig(masked_emb_loss=True), model_cfg=ls, train_dataset=train,
+            val_dataset=val, tx=optim.build_optimizer("sgd", M_LR, grad_clip=5.0),
+            logger=logger, batch_size=M_B, chunk_size=M_T, max_speakers=M_SPK,
+            input_dim=ls.in_size, max_epochs=epochs, seed=SEED, log_every=1, mesh=mesh,
+            resume_from=resume and str(Path(out[resume][2]) / "ckpt_epoch=0.npz"), device="cuda")
+        if main:
+            logger.close()
+        if mesh is not None:
+            torch.distributed.barrier()             # rank 0's checkpoint is on disk
+            ckpt_dir = Path(root) / name / "m5" / "version_0"
+        whole = LOOP.whole_state(state, mesh).model
+        flat = torch.cat([p.detach().reshape(-1) for p in whole.parameters()]).cpu()
+        recs = [json.loads(ln) for ln in (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        out[name] = (flat, [r["train/tot_loss"] for r in recs if "train/tot_loss" in r],
+                     str(ckpt_dir))
+    return out
+
+
+def tp_ranks_main(out) -> int:
+    """A rank of M5: n_data x 2 gloo ranks share cuda:0 (WORLD_SIZE of
+    them).  Prints its kernel counts, saves its results."""
+    import torch.distributed as dist
+
+    from fseend_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False   # M5_BF16
+    mesh = pmesh.make_mesh(n_model=M5_MODEL, device="cuda:0", backend="gloo")
+    grid = f"{mesh.n_data}x{mesh.n_model}"
+    batch = m_batch(M_B, M_T, M_LENS, SEED + 16)
+    res = {}
+    reset_kernel_counts()
+    for name, (fam, cfg, dtype, steps) in m5_cases(grid).items():
+        res[name] = m_train(fam, cfg, batch, mesh, steps=steps, dtype=dtype)
+    if mesh.n_data > 1:
+        res["run_training"] = m5_run_training(mesh, Path(out) / "loop")
+    torch.cuda.synchronize()
+    print(f"KERNELS M5-{grid} " + json.dumps(kernel_counts()), flush=True)
+    torch.save(res, Path(out) / f"rank{mesh.global_rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def m5_xpos_and_flac(card):
+    """A19 on the card: LS `ls_forward` with use_xpos at ls_simu.yaml's width
+    on the "core" route (chunk_retention on the rotated q and k; the fused
+    decoder has no xpos, as the JAX package's) against the plain route's
+    result on the CPU; `write_flac` twice to the same bytes and back
+    through the port's decoder within half a quantization step.  Returns
+    the kernels launched."""
+    import tempfile
+
+    from fseend_tpu_torch.data import flac
+    from fseend_tpu_torch.models import ls_eend
+
+    cfg = ls_eend.LSEENDConfig(use_xpos=True, kernel="core")
+    model = ls_eend.init_ls_eend(cfg, torch.Generator().manual_seed(SEED + 23), device="cpu")
+    rng = np.random.default_rng(SEED + 23)
+    xs = rng.standard_normal((len(M5_XPOS_LENS), M5_XPOS_T, cfg.in_size)).astype(np.float32)
+    lens = np.asarray(M5_XPOS_LENS)
+    want = ls_eend.ls_forward(ls_eend.with_cfg(model, dataclasses.replace(cfg, kernel="plain")),
+                              xs, lens, cfg.max_nspks)["logits"]
+    off = ls_eend.ls_forward(ls_eend.with_cfg(model, dataclasses.replace(cfg, use_xpos=False)),
+                             xs, lens, cfg.max_nspks)["logits"]
+    reset_kernel_counts()
+    got = ls_eend.ls_forward(model.to("cuda"), xs, lens, cfg.max_nspks)["logits"]
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    err = float((got.cpu() - want).abs().max())
+    moved = float((off - want).abs().max())
+    log(f"  M5 xpos: ls_forward {tuple(got.shape)} on the core route (cuda) vs the plain "
+        f"route on the CPU, max abs diff {err:.3e} (tol {SERVE_ATOL:g}); xpos moves the "
+        f"logits by {moved:.3e}; chunk_retention launches {counts['chunk_retention']}")
+    if not (err <= SERVE_ATOL and torch.isfinite(got).all() and moved > 10 * SERVE_ATOL):
+        raise AssertionError(f"M5 xpos: {err} from the CPU, {moved} from no xpos")
+    if counts["chunk_retention"] != cfg.enc_n_layers + cfg.dec_n_layers:
+        raise AssertionError(f"M5 xpos: chunk_retention launched {counts['chunk_retention']}")
+    sr, t = 16000, np.arange(16000 * 3) / 16000
+    audio = np.stack([0.5 * np.sin(2 * np.pi * 220 * t), 0.3 * np.cos(2 * np.pi * 330 * t)
+                      + 0.01 * rng.standard_normal(len(t))], 1).astype(np.float32)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        flac.write_flac(Path(tmp) / "a.flac", audio, sr, depth=24)
+        flac.write_flac(Path(tmp) / "b.flac", audio, sr, depth=24)
+        same = (Path(tmp) / "a.flac").read_bytes() == (Path(tmp) / "b.flac").read_bytes()
+        back, back_sr = flac.read_flac(Path(tmp) / "a.flac")
+        size = (Path(tmp) / "a.flac").stat().st_size
+    ferr = float(np.abs(back - audio).max())
+    log(f"  M5 write_flac: {audio.shape} 24-bit, {size} bytes, the same bytes twice {same}, "
+        f"decoded back within {ferr:.3e} (half a step {0.5 / 2 ** 23:.3e})")
+    if not (same and back_sr == sr and back.shape == audio.shape and ferr <= 0.5 / 2 ** 23):
+        raise AssertionError("M5 write_flac: bytes or round trip")
+    return {"xpos_max_abs_diff": err, "xpos_moves_logits": moved, "flac_max_abs_err": ferr}, \
+        counts
+
+
+def phase_tensor_parallel(card):
+    """M5: tensor-parallel training on 1 x 2 and 2 x 2 gloo grids sharing
+    cuda:0 (`tp_ranks_main` children), each run against one process on the
+    same card, and A19's xpos and FLAC encoder.  Returns the kernels their
+    main paths launched."""
+    import tempfile
+
+    from fseend_tpu_torch.utils import checkpoint as CK
+
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()              # the ranks share the card with this process
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    counts, ranks, lines = {}, {}, {}
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False   # M5_BF16
+    with tempfile.TemporaryDirectory(dir=build) as out:
+        for world in M5_WORLDS:
+            grid = f"{world // M5_MODEL}x{M5_MODEL}"
+            sub = Path(out) / grid
+            sub.mkdir()
+            counts.update(run_ranks("tp_ranks_main", f"M5 {grid} (gloo ranks on cuda:0)",
+                                    world, sub, timeout=900))
+            ranks[grid] = [torch.load(sub / f"rank{r}.pt") for r in range(world)]
+        batch = m_batch(M_B, M_T, M_LENS, SEED + 16)
+        one = {}
+        for grid, rs in ranks.items():
+            for name, (fam, cfg, dtype, steps) in m5_cases(grid).items():
+                if name not in one:
+                    one[name] = m_train(fam, cfg, batch, steps=steps, dtype=dtype)
+                want = one[name]
+                key = f"M5 {grid} {name}"
+                f32 = None
+                if dtype == "bf16":                 # M5_BF16: one process in float32 beside it
+                    f32 = one.setdefault(name + " f32", m_train(fam, cfg, batch, steps=steps))
+                for r, got in enumerate(rs):
+                    for i, ((gl, gn), (wl, wn)) in enumerate(zip(got[name]["metrics"],
+                                                                 want["metrics"])):
+                        if f32 is None:
+                            m_close(f"{key} rank {r} step {i} loss", gl, wl, rtol=M_LOSS_RTOL)
+                            m_close(f"{key} rank {r} step {i} grad norm", gn, wn,
+                                    rtol=M_NORM_RTOL)
+                            continue
+                        fl = f32["metrics"][i][0]
+                        m_close(f"{key} rank {r} step {i} loss (bf16: within {M5_BF16_CLOSE} of "
+                                f"one process's bf16 distance from float32, {fl!r})", gl, wl,
+                                atol=M5_BF16_CLOSE * abs(wl - fl))
+                    if got[name]["checksum"] != rs[0][name]["checksum"]:
+                        raise AssertionError(f"{key}: rank {r}'s parameters differ from rank 0's")
+                err = float((rs[0][name]["params"] - want["params"]).abs().max())
+                roles = m5_roles(cfg) if fam == "ls" else {"split_storage": rs[0][name]["split"]}
+                log(f"  {key}: parameters after {steps} step(s), max abs diff vs one process "
+                    f"{err:.3e} (tol {M5_PARAM_ATOL:g} in float32); parameters "
+                    f"{json.dumps(roles)}; a rank's step {rs[0][name]['step_s']:.3f} s, one "
+                    f"process {want['step_s']:.3f} s")
+                if f32 is not None:
+                    bf16_guard(f"{key} parameters", rs[0][name]["params"], want["params"],
+                               f32["params"], close=M5_BF16_CLOSE)
+                elif not err <= M5_PARAM_ATOL:
+                    raise AssertionError(f"{key}: parameters differ from one process by {err}")
+                lines[key] = {"loss": [m[0] for m in rs[0][name]["metrics"]],
+                              "param_max_abs_diff": err, "parameters": roles,
+                              "rank_step_s": rs[0][name]["step_s"],
+                              "one_process_step_s": want["step_s"]}
+        want = m5_run_training(None, Path(out) / "one")
+        for name, last in (("first", 0), ("resumed", 1)):
+            got = ranks["2x2"][0]["run_training"][name]
+            for i, (gl, wl) in enumerate(zip(got[1], want[name][1], strict=True)):
+                m_close(f"M5 2x2 run_training {name} step {i} loss", gl, wl, rtol=M_LOSS_RTOL)
+            err = float((got[0] - want[name][0]).abs().max())
+            log(f"  M5 2x2 run_training {name}: parameters max abs diff vs one process "
+                f"{err:.3e} (tol {M5_PARAM_ATOL:g})")
+            if not err <= M5_PARAM_ATOL:
+                raise AssertionError(f"M5 run_training {name}: {err}")
+            tp, ref = (CK.load_flat(Path(d) / f"ckpt_epoch={last}.npz")
+                       for d in (got[2], want[name][2]))
+            if tp.keys() != ref.keys() or any(tp[k].shape != ref[k].shape for k in ref):
+                raise AssertionError(f"M5 run_training {name}: checkpoint keys or shapes")
+            cerr = max(float(np.abs(tp[k] - ref[k]).max()) for k in ref
+                       if not k.startswith("__extra__/"))
+            log(f"  M5 2x2 run_training {name}: ckpt_epoch={last}.npz {len(ref)} keys, the "
+                f"one-process keys and shapes, values within {cerr:.3e}")
+            if not cerr <= M5_PARAM_ATOL:
+                raise AssertionError(f"M5 run_training {name}: checkpoint values {cerr}")
+            lines[f"M5 2x2 run_training {name}"] = {"param_max_abs_diff": err,
+                                                    "checkpoint_max_abs_diff": cerr}
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    a19, a19_counts = m5_xpos_and_flac(card)
+    lines["M5 A19"] = a19
+    counts["M5-xpos"] = a19_counts
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    for name in ("dec_train_fusion_fwd", "dec_train_fusion_bwd", "dec_train_fusion_fwd_bf16",
+                 "dec_train_fusion_bwd_bf16", "retention_layer", "chunk_retention"):
+        if not total.get(name):
+            raise AssertionError(f"M5: {name} was not launched under the model axis")
+    log(json.dumps({"M5_tensor_parallel": lines, "ranks_sharing_one_card": True,
+                    "note": "function checks on one card, not multi-GPU speeds",
+                    "launches": {k: launched(v) for k, v in counts.items()}, "card": card}))
+    log(f"M5: {time.perf_counter() - t_all:.1f} s; kernels launched {launched(total)}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -5147,6 +5451,10 @@ def main() -> int:
     phase_build()
     if "--mesh-only" in sys.argv[1:]:
         phase_multi_gpu(ls_eend.LSEENDConfig(), fs_eend.FSEENDConfig(), card)
+        log(f"total: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if "--tp-only" in sys.argv[1:]:
+        phase_tensor_parallel(card)
         log(f"total: {time.perf_counter() - t0:.1f} s")
         return 0
     cfg = ls_eend.LSEENDConfig()

@@ -14,15 +14,16 @@ trains LS-EEND and FS-EEND in mixed precision (`TaskConfig(compute_dtype=
 "bf16")`: bf16 forward and backward, float32 parameters, moments and
 checkpoints); EEND-EDA reads no precision, as the JAX CLI.
 
-A `dist_strategy: ddp` or `mesh:` block trains data parallel over the
-processes torchrun starts, one per card:
+A `dist_strategy: ddp` or `mesh:` block trains over the processes torchrun
+starts, one per card: data parallel, and with `mesh: {data: D, model: M}`
+on a D x M grid whose "model" axis splits the large projections (tensor
+parallelism; D defaults to the process count over M):
 
   torchrun --nproc_per_node 4 -m fseend_tpu_torch.cli.train --configs configs/ls_simu.yaml
 
-(`parallel/mesh.py`; `training.batch_size` is the global batch, rank 0
-logs and writes the checkpoints).  With one process it prints the JAX
-CLI's single-chip line and trains on the one card; a `mesh: {model: N}`
-axis (tensor parallelism) raises, ROADMAP A11 part 2.
+(`parallel/mesh.py`; `training.batch_size` is the global batch, global
+rank 0 logs and writes the checkpoints, whole).  With one process it
+prints the JAX CLI's single-chip line and trains on the one card.
 """
 
 from __future__ import annotations
@@ -229,7 +230,7 @@ def main(argv=None):
 
             mesh = pmesh.make_mesh(n_data=n_data, n_model=n_model, device=device)
             device = mesh.device
-            if mesh.rank == 0:
+            if mesh.main:
                 print(f"mesh: {n_data} data x {n_model} model ({n_dev} processes)")
         else:
             print("dist requested but only 1 device visible; single-chip run")
@@ -243,7 +244,7 @@ def main(argv=None):
         grad_clip=tr.get("grad_clip", 5.0), grad_accum=tr.get("grad_accm", 1))
 
     logger = None
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.main:
         logger = loop.MetricsLogger(
             os.path.dirname(configs["log"]["log_dir"]) or "./logs",
             configs["log"]["model_name"])
@@ -263,7 +264,7 @@ def main(argv=None):
         log_every=debug.get("log_every_n_steps", 100),
         limit_train_batches=debug.get("limit_train_batches"),
         limit_val_batches=debug.get("limit_val_batches"), device=device, mesh=mesh)
-    if ckpt_dir is None:                # a data-parallel rank other than 0
+    if ckpt_dir is None:                # a rank other than global rank 0
         return state
 
     # post-training checkpoint averaging; the BatchNorm statistics ride

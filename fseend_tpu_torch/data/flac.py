@@ -1,7 +1,7 @@
-"""Self-contained FLAC decoder (pure Python + numpy, no external codecs),
-the port's own copy of the decoder half of `fseend_tpu/data/flac.py` (files
-to decode come from any FLAC encoder; the tests use the JAX package's
-`write_flac`).
+"""Self-contained FLAC decoder and minimal encoder (pure Python + numpy, no
+external codecs), the port's own copy of `fseend_tpu/data/flac.py` (files
+to decode come from any FLAC encoder; `write_flac` writes the JAX
+package's bytes).
 
 The reference's predict dataset reads `.flac` via soundfile
 (FS-EEND/datasets/diarization_dataset_predict.py:66); this image ships no
@@ -15,6 +15,7 @@ partitions (4- and 5-bit parameter variants incl. escape codes), 8/12/16/
 (left-side, right-side, mid-side). CRCs are not verified (decode-only).
 
     data, sr = read_flac(path)      # float32 in [-1, 1), (T,) or (T, C)
+    write_flac(path, data, sr)      # CONSTANT / FIXED(0-2) / VERBATIM subframes
 """
 
 from __future__ import annotations
@@ -298,3 +299,172 @@ def read_flac(path: str | Path, start: int = 0, stop: int | None = None):
     if stop is None:
         stop = len(data)
     return data[start:stop], sr
+
+
+# ---------------------------------------------------------------------------
+# Minimal encoder: spec-valid files with CONSTANT / FIXED / VERBATIM
+# subframes and correct CRCs, so fixtures and tests round-trip without an
+# external codec.
+# ---------------------------------------------------------------------------
+
+
+class _BitWriter:
+    def __init__(self):
+        self.buf = bytearray()
+        self.cur = 0
+        self.nbits = 0
+
+    def write(self, val: int, n: int):
+        val &= (1 << n) - 1
+        self.cur = (self.cur << n) | val
+        self.nbits += n
+        while self.nbits >= 8:
+            self.nbits -= 8
+            self.buf.append((self.cur >> self.nbits) & 0xFF)
+        self.cur &= (1 << self.nbits) - 1
+
+    def write_signed(self, val: int, n: int):
+        self.write(val & ((1 << n) - 1), n)
+
+    def write_unary(self, q: int):
+        while q >= 32:
+            self.write(0, 32)
+            q -= 32
+        self.write(1, q + 1)
+
+    def align(self):
+        if self.nbits:
+            self.write(0, 8 - self.nbits)
+
+    def getvalue(self) -> bytes:
+        if self.nbits:
+            raise ValueError("unaligned bit writer")
+        return bytes(self.buf)
+
+
+def _crc8(data: bytes) -> int:
+    """CRC-8, polynomial x^8 + x^2 + x + 1 (the frame header's)."""
+    crc = 0
+    for b in data:
+        crc ^= b
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x07) & 0xFF if crc & 0x80 else (crc << 1) & 0xFF
+    return crc
+
+
+def _crc16(data: bytes) -> int:
+    """CRC-16, polynomial x^16 + x^15 + x^2 + 1 (the frame footer's)."""
+    crc = 0
+    for b in data:
+        crc ^= b << 8
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x8005) & 0xFFFF if crc & 0x8000 else (crc << 1) & 0xFFFF
+    return crc
+
+
+def _utf8_code(n: int) -> bytes:
+    """The frame number in FLAC's extended UTF-8 coding."""
+    if n < 0x80:
+        return bytes([n])
+    nbytes = 2
+    while n >= (1 << (5 * nbytes + 1)) and nbytes < 6:
+        nbytes += 1
+    shift = 6 * (nbytes - 1)
+    out = [((0xFF << (8 - nbytes)) & 0xFF) | (n >> shift)]
+    for _ in range(nbytes - 1):
+        shift -= 6
+        out.append(0x80 | ((n >> shift) & 0x3F))
+    return bytes(out)
+
+
+def _encode_subframe(w: _BitWriter, x: np.ndarray, depth: int):
+    """One channel of a block: CONSTANT when every sample is equal, else
+    the cheapest FIXED order of 0-2 with one Rice partition, or VERBATIM
+    when Rice would cost more bits."""
+    n = len(x)
+    if np.all(x == x[0]):                       # CONSTANT
+        w.write(0, 1)
+        w.write(0, 6)
+        w.write(0, 1)
+        w.write_signed(int(x[0]), depth)
+        return
+    best_order, best_res, best_cost = 0, x, np.abs(x).sum()
+    cur = x
+    for order in (1, 2):
+        cur = np.diff(cur)
+        cost = np.abs(cur).sum() + (1 << depth)  # a small warm-up penalty
+        if len(cur) and cost < best_cost:
+            best_order, best_res, best_cost = order, cur, cost
+    order, res = best_order, best_res
+    mean = max(1.0, float(np.abs(res).mean()) if len(res) else 1.0)
+    param = min(14, max(0, int(np.ceil(np.log2(mean + 1)))))
+    rice_bits = sum(int(((abs(int(v)) << 1) >> param) + 1 + param) for v in res)
+    if rice_bits > n * depth:                   # VERBATIM beats Rice
+        w.write(0, 1)
+        w.write(1, 6)
+        w.write(0, 1)
+        for v in x:
+            w.write_signed(int(v), depth)
+        return
+    w.write(0, 1)
+    w.write(8 + order, 6)                       # FIXED(order)
+    w.write(0, 1)
+    for v in x[:order]:
+        w.write_signed(int(v), depth)
+    w.write(0, 2)                               # 4-bit Rice parameters
+    w.write(0, 4)                               # partition order 0
+    w.write(param, 4)
+    for v in res:
+        v = int(v)
+        zz = (abs(v) << 1) - 1 if v < 0 else (v << 1)
+        w.write_unary(zz >> param)
+        if param:
+            w.write(zz & ((1 << param) - 1), param)
+
+
+def write_flac(path: str | Path, data: np.ndarray, sr: int, *,
+               depth: int = 16, block_size: int = 4096) -> None:
+    """Encode float32 [-1, 1) (T,) or (T, C) to a spec-valid FLAC file:
+    STREAMINFO, then fixed-size frames of `block_size` samples (the last
+    shorter), each channel independent."""
+    if data.ndim == 1:
+        data = data[:, None]
+    T, C = data.shape
+    full = 1 << (depth - 1)
+    ints = np.clip(np.round(data.astype(np.float64) * full), -full,
+                   full - 1).astype(np.int64)
+    out = io.BytesIO()
+    out.write(b"fLaC")
+    si = bytearray(34)
+    struct.pack_into(">HH", si, 0, block_size, block_size)
+    # min/max frame size: 0 = unknown
+    si[10] = (sr >> 12) & 0xFF
+    si[11] = (sr >> 4) & 0xFF
+    si[12] = ((sr & 0xF) << 4) | (((C - 1) & 0x7) << 1) | ((depth - 1) >> 4)
+    si[13] = (((depth - 1) & 0xF) << 4) | ((T >> 32) & 0xF)
+    struct.pack_into(">I", si, 14, T & 0xFFFFFFFF)
+    out.write(bytes([0x80, 0, 0, 34]))          # the last metadata block: STREAMINFO
+    out.write(bytes(si))
+
+    depth_code = {v: k for k, v in _DEPTH_CODE.items() if v}
+    for fi, st in enumerate(range(0, T, block_size)):
+        blk = ints[st:st + block_size]
+        w = _BitWriter()
+        w.write(0x3FFE, 14)                     # sync code
+        w.write(0, 1)                           # reserved
+        w.write(0, 1)                           # fixed-blocksize strategy
+        w.write(7, 4)                           # block size: explicit 16-bit
+        w.write(0, 4)                           # sample rate: STREAMINFO's
+        w.write(C - 1, 4)                       # independent channels
+        w.write(depth_code[depth], 3)
+        w.write(0, 1)                           # reserved
+        hdr = w.getvalue() + _utf8_code(fi) + struct.pack(">H", len(blk) - 1)
+        hdr += bytes([_crc8(hdr)])
+        w2 = _BitWriter()
+        for c in range(C):
+            _encode_subframe(w2, blk[:, c], depth)
+        w2.align()
+        frame = hdr + w2.getvalue()
+        frame += struct.pack(">H", _crc16(frame))
+        out.write(frame)
+    Path(path).write_bytes(out.getvalue())

@@ -71,6 +71,7 @@ import torch.nn.functional as F
 
 from fseend_tpu_torch.kernels import _build
 from fseend_tpu_torch.kernels._dtype import build_defines, compute, rounding
+from fseend_tpu_torch.parallel.collectives import gathered
 
 # launches of the CUDA forward / backward since the counts were last set to
 # 0: their float32 forms, their bf16 forms
@@ -103,15 +104,19 @@ class FusionWeights(NamedTuple):
 
 def pack_fusion(layer) -> FusionWeights:
     """A `FusionLayer` module's weights as one tuple; the packing is part
-    of the autograd graph, so gradients reach the module's parameters."""
+    of the autograd graph, so gradients reach the module's parameters.
+    Tensor-parallel shards are gathered whole (`collectives.gathered`, its
+    backward this rank's slice): the kernels take whole matrices."""
     tr, at = layer.time_ret, layer.spk_attn
     projs = (tr.q_proj, tr.k_proj, tr.v_proj, tr.g_proj)
     norms = (layer.norm11, layer.norm21, layer.norm22)
+    w = gathered
     return FusionWeights(
-        torch.cat([p.weight for p in projs]), torch.cat([p.bias for p in projs]),
-        tr.out_proj.weight, tr.out_proj.bias, at.in_proj.weight, at.in_proj.bias,
-        at.out_proj.weight, at.out_proj.bias, layer.linear1.weight, layer.linear1.bias,
-        layer.linear2.weight, layer.linear2.bias,
+        torch.cat([w(p, "weight") for p in projs]), torch.cat([w(p, "bias") for p in projs]),
+        w(tr.out_proj, "weight"), tr.out_proj.bias, w(at.in_proj, "weight"),
+        w(at.in_proj, "bias"), w(at.out_proj, "weight"), at.out_proj.bias,
+        w(layer.linear1, "weight"), w(layer.linear1, "bias"), w(layer.linear2, "weight"),
+        layer.linear2.bias,
         torch.stack([m.weight for m in norms]), torch.stack([m.bias for m in norms]))
 
 

@@ -48,6 +48,7 @@ from fseend_tpu_torch.kernels.chunk_retention import (aligned, chunk_retention_p
                                                       recompute_grads)
 from fseend_tpu_torch.kernels._dtype import build_defines, check_dtypes, compute, rounding
 from fseend_tpu_torch.ops import nn as tnn
+from fseend_tpu_torch.parallel.collectives import gathered
 
 # launches of the CUDA kernel since the count was last set to 0: its
 # float32 form, its bf16 form
@@ -68,11 +69,13 @@ class RetLayerWeights(NamedTuple):
 def pack_retention(ret) -> RetLayerWeights:
     """Stack a `Retention` module's projections, transposed to (in, out) (a
     server packs once, under no_grad; in training the packing is part of
-    the graph)."""
+    the graph).  Tensor-parallel shards are gathered whole
+    (`collectives.gathered`): the kernel takes whole matrices."""
     projs = (ret.q_proj, ret.k_proj, ret.v_proj, ret.g_proj)
-    return RetLayerWeights(torch.cat([p.weight.T for p in projs], dim=1),
-                           torch.cat([p.bias for p in projs]),
-                           ret.out_proj.weight.T.contiguous(), ret.out_proj.bias)
+    w = gathered
+    return RetLayerWeights(torch.cat([w(p, "weight").T for p in projs], dim=1),
+                           torch.cat([w(p, "bias") for p in projs]),
+                           w(ret.out_proj, "weight").T.contiguous(), ret.out_proj.bias)
 
 
 def retention_layer(gammas: torch.Tensor, x: torch.Tensor, w: RetLayerWeights,

@@ -95,6 +95,7 @@ class LSEENDConfig:
     use_fused_dec: bool = False        # chunkwise decoder through the fusion-layer kernels
     fused_dec_chunk: int | None = None  # their internal chunk; None: chunk_size (exact)
     remat: bool = False                # training: recompute each conformer block
+    use_xpos: bool = False             # xpos on retention's q and k (ops/retention.py)
 
     def __post_init__(self):
         self.ret_cfg                   # validates `kernel`
@@ -106,7 +107,7 @@ class LSEENDConfig:
     @property
     def ret_cfg(self) -> R.RetentionConfig:
         return R.RetentionConfig(self.n_units, self.n_heads, 1, self.chunk_size,
-                                 kernel=self.kernel)
+                                 use_xpos=self.use_xpos, kernel=self.kernel)
 
     @property
     def ff_factor(self) -> float:
@@ -280,9 +281,9 @@ def _lin(m: nn.Linear, x):
 
 def _ff(p: FeedForward, x, rate: float = 0.0, gen=None):
     """FeedForwardModule: LN -> Linear -> swish -> dropout -> Linear ->
-    dropout (dropout in training only)."""
-    h = tnn.dropout(F.silu(_lin(p.linear1, _ln(p.norm, x))), rate, gen)
-    return tnn.dropout(_lin(p.linear2, h), rate, gen)
+    dropout (dropout in training only); tensor parallel on shards
+    (`ops/nn.py:ffn`)."""
+    return tnn.ffn(_ln(p.norm, x), p.linear1, p.linear2, F.silu, rate, gen)
 
 
 def _conv_module(p: ConvModule, x, cache=None, *, train: bool = False, rate: float = 0.0,
@@ -291,8 +292,10 @@ def _conv_module(p: ConvModule, x, cache=None, *, train: bool = False, rate: flo
     causal depthwise(k) -> BatchNorm -> swish -> pointwise -> dropout.
     `cache` (B, k-1, D) is the post-GLU history before x (None: zeros, the
     batch form).  Returns (y, the history after x, the BatchNorm's updated
-    running statistics in training, else None)."""
-    h = _lin(p.pw1, _ln(p.norm, x))
+    running statistics in training, else None).  Tensor-parallel shards of
+    pw1 and pw2 are gathered whole: the GLU pairs the two halves of pw1's
+    output."""
+    h = tnn.full_linear(p.pw1, _ln(p.norm, x))
     a, b = h.chunk(2, dim=-1)
     h = a * torch.sigmoid(b)
     k = p.dw.weight.shape[-1]
@@ -304,7 +307,7 @@ def _conv_module(p: ConvModule, x, cache=None, *, train: bool = False, rate: flo
         y, bn_state = tnn.batch_norm_train(y, p.bn)
     else:
         y = tnn.batch_norm(y, p.bn)
-    y = tnn.dropout(_lin(p.pw2, F.silu(y)), rate, gen)
+    y = tnn.dropout(tnn.full_linear(p.pw2, F.silu(y)), rate, gen)
     return y, torch.cat([cache, h], dim=1)[:, -(k - 1):], bn_state
 
 
@@ -422,8 +425,12 @@ def _decode_fused(model: LSEEND, emb: torch.Tensor, n_slots: int, train: bool, g
     (`fused_dec_chunk`, default `chunk_size`): every per-frame op is causal,
     so the first T frames are exact.  Each layer's dropout seed is one draw
     from `gen`; eval and rate 0 run with seed 0 and rate 0.  Returns
-    (B, T, C, D), the `decode` contract."""
+    (B, T, C, D), the `decode` contract.  Tensor-parallel shards are
+    gathered whole (`DTF.pack_fusion`)."""
     cfg = model.cfg
+    if cfg.use_xpos:
+        raise ValueError("use_fused_dec: the fusion-layer kernels run without xpos, as the "
+                         "JAX package's (dec_train_fusion_pallas.py: no-xpos only)")
     B, T, D = emb.shape
     pe = tnn.sinusoidal_table(cfg.pe_max_len, D, device=emb.device)[:n_slots].to(emb.dtype)
     x = torch.cat([emb[:, None].expand(B, n_slots, T, D),

@@ -34,6 +34,56 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x, weight, bias)
 
 
+def full_linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x through the linear module `m`, its weight and bias gathered whole
+    where they are tensor-parallel shards (`collectives.gathered`)."""
+    return linear(x, C.gathered(m, "weight"), C.gathered(m, "bias"))
+
+
+def column_shard(m: nn.Linear) -> C.Shard | None:
+    """The shard of a column-parallel module (its outputs split), else None."""
+    s = C.shards_of(m).get("weight")
+    return s if s is not None and s.dim == 0 else None
+
+
+def column_linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x (replicated) -> this rank's columns of the output when `m` is
+    column parallel (`collectives.column_linear`: *f* on x), else the whole
+    output."""
+    if column_shard(m) is None:
+        return full_linear(m, x)
+    return C.column_linear(x, m.weight, m.bias)
+
+
+def row_linear(m: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+    """h, this rank's slice of the inputs when `m` is row parallel: the
+    partial products summed over the model group (*g*), then the bias
+    (replicated); else `m` on the whole h.  bf16 partial sums are carried in
+    float32 and rounded once, as one product accumulates them."""
+    s = C.shards_of(m).get("weight")
+    if s is None or s.dim != 1:
+        return full_linear(m, h)
+    if h.dtype == torch.bfloat16:
+        y = C.reduce_from_model(linear(h.float(), m.weight.float()))
+        return (y + m.bias.float()).to(h.dtype)
+    return C.reduce_from_model(linear(h, m.weight)) + m.bias
+
+
+def ffn(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear, act, rate: float = 0.0,
+        generator: torch.Generator | None = None) -> torch.Tensor:
+    """linear2(dropout(act(linear1(x)))), then dropout: the feed-forward of
+    the transformer layers and the conformer.  Tensor parallel when both
+    linears are shards (Megatron's pair: linear1 column parallel, the
+    activation and its dropout on this rank's columns, linear2 row
+    parallel)."""
+    shard = column_shard(linear1)
+    if shard is None or C.shards_of(linear2).get("weight") is None:
+        h = act(full_linear(linear1, x))
+        return dropout(full_linear(linear2, dropout(h, rate, generator)), rate, generator)
+    h = dropout(act(column_linear(linear1, x)), rate, generator, shard)
+    return dropout(row_linear(linear2, h), rate, generator)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
                bias: torch.Tensor | None = None, eps: float = 1e-5) -> torch.Tensor:
     mu = x.mean(dim=-1, keepdim=True)
@@ -49,14 +99,20 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
     return x / torch.sqrt(x.square().sum(dim=dim, keepdim=True) + eps)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            shard: C.Shard | None = None) -> torch.Tensor:
     """Inverted dropout: x / keep where kept, 0 elsewhere; the identity when
     rate is 0 or there is no generator (eval).  The mask is drawn from
-    `generator`, which must live on x's device."""
+    `generator`, which must live on x's device.  With `shard`, x is this
+    rank's slice of the last axis of a tensor-parallel hidden: the mask is
+    drawn at full width and sliced, so it is the one-process mask."""
     if rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if shard is None else x.shape[:-1] + (x.shape[-1] * shard.n,)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask.narrow(-1, shard.index * x.shape[-1], x.shape[-1])
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -109,7 +165,7 @@ def mha_project_qkv(p: "MultiheadAttention", query: torch.Tensor, key: torch.Ten
     """The packed in-projection split into per-head q, k, v: (..., H, T, hd)
     each."""
     D = query.shape[-1]
-    w, b = p.in_proj.weight, p.in_proj.bias
+    w, b = C.gathered(p.in_proj, "weight"), C.gathered(p.in_proj, "bias")
     q = linear(query, w[:D], b[:D])
     k = linear(key, w[D:2 * D], b[D:2 * D])
     v = linear(value, w[2 * D:], b[2 * D:])
@@ -149,7 +205,7 @@ def mha(p: "MultiheadAttention", query: torch.Tensor, key: torch.Tensor,
     post-softmax weights.  query/key/value: (..., T, D) -> (..., T, D)."""
     q, k, v = mha_project_qkv(p, query, key, value)
     out = merge_heads(mha_core(q, k, v, mask, rate, generator))
-    return linear(out, p.out_proj.weight, p.out_proj.bias)
+    return full_linear(p.out_proj, out)
 
 
 def causal_mask(T: int, mask_delay: int = 0, device=None) -> torch.Tensor:
@@ -165,8 +221,7 @@ def ff_block(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear, rate: floa
              generator: torch.Generator | None = None) -> torch.Tensor:
     """relu feed-forward of a transformer layer, dropout after the
     activation and after the second linear in training."""
-    h = dropout(torch.relu(linear(x, linear1.weight, linear1.bias)), rate, generator)
-    return dropout(linear(h, linear2.weight, linear2.bias), rate, generator)
+    return ffn(x, linear1, linear2, torch.relu, rate, generator)
 
 
 def transformer_layer(p: "TransformerLayer", x: torch.Tensor,

@@ -7,7 +7,11 @@ data-dependent renormalizers (parallel row sum, chunkwise inner scale, the
 max-abs-sum kv scale) are clamped to >= 1; the output group norm is a
 non-affine layer norm over head_dim with eps 1e-6; silu(g) gating; out
 projection.  The xpos rotation, which the reference computes and never
-applies, is not ported (`use_xpos=True` raises).  The renormalizers are
+applies, runs with `use_xpos=True` where the JAX package applies it: on q
+and k at positions 0..T-1 of the call, in the parallel and chunkwise forms
+(the "core" route's kernel input too), not in the recurrent step (JAX
+applies none there either); the "fused" route then runs the plain one, as
+JAX's fused layer skips itself.  The renormalizers are
 detached where the JAX package stops their gradient (the parallel row sum,
 the chunkwise inner scale and the recomputed kv scale), so a backward pass
 gives its gradients.
@@ -28,6 +32,14 @@ routes train: their backward recomputes the pure route the JAX package
 differentiates (for the whole layer `retention_layer_pure`, the plain route
 on the packed weights; for the core `chunk_retention_plain(..., pure=True)`),
 in float32 the kernel's plain version.
+
+Tensor parallelism (the q/k/v/g projections column-parallel shards, the
+out projection row parallel: `parallel/mesh.py:shard_model_`): on the
+"plain" and "core" routes each model rank projects its own heads, runs the
+core and the per-head group norm on them and adds its share of the out
+projection (`ops/nn.py:row_linear`); this needs the heads to divide over
+the model ranks, else the weights are gathered whole.  The "fused" route
+takes the gathered weights (`kernels/retention_layer.py:pack_retention`).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from torch import nn
 from fseend_tpu_torch.kernels import chunk_retention as CR
 from fseend_tpu_torch.kernels import retention_layer as RL
 from fseend_tpu_torch.ops import nn as tnn
+from fseend_tpu_torch.parallel import collectives as C
 
 ROUTES = ("fused", "core", "plain")
 
@@ -60,9 +73,6 @@ class RetentionConfig:
     kernel: str = "fused"
 
     def __post_init__(self):
-        if self.use_xpos:
-            raise NotImplementedError(
-                "xpos rotation is not ported: the reference disables it")
         if self.kernel not in ROUTES:
             raise ValueError(f"kernel must be one of {ROUTES}, got {self.kernel!r}")
 
@@ -96,35 +106,89 @@ def decay_gammas(cfg: RetentionConfig, device=None) -> torch.Tensor:
     return torch.ones(cfg.num_heads, dtype=torch.float32, device=device)
 
 
+def _xpos_angles(cfg: RetentionConfig, device=None) -> torch.Tensor:
+    """(dk,) rotation rates, each repeated for its pair of key dims."""
+    half = cfg.key_dim // 2
+    angle = 1.0 / (10000 ** torch.linspace(0, 1, half, dtype=torch.float32, device=device))
+    return angle.repeat_interleave(2)
+
+
+def _rotate_every_two(x: torch.Tensor) -> torch.Tensor:
+    """(x0, x1, x2, x3, ...) -> (-x1, x0, -x3, x2, ...) over the last axis."""
+    return torch.stack([-x[..., 1::2], x[..., ::2]], dim=-1).reshape(x.shape)
+
+
+def _theta_shift(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    return x * cos + _rotate_every_two(x) * sin
+
+
+def head_split(p: Retention, cfg: RetentionConfig) -> C.Shard | None:
+    """The model rank's share of the heads when the projections are
+    tensor-parallel shards and the heads divide over the ranks, else None
+    (the weights are then gathered whole)."""
+    shard = tnn.column_shard(p.q_proj)
+    out = C.shards_of(p.out_proj).get("weight")
+    if (shard is None or cfg.num_heads % shard.n or out is None
+            or not all(tnn.column_shard(m) for m in (p.k_proj, p.v_proj, p.g_proj))):
+        return None
+    return shard
+
+
+def local_gammas(p: Retention, cfg: RetentionConfig, device=None) -> torch.Tensor:
+    """`decay_gammas` of the heads this rank computes (all without a split)."""
+    gammas = decay_gammas(cfg, device)
+    split = head_split(p, cfg)
+    return gammas if split is None else split.take(gammas)
+
+
 def _project_qkv(p: Retention, x: torch.Tensor, cfg: RetentionConfig):
-    """x: (B, T, D) -> q, k: (B, H, T, dk), v: (B, H, T, dv), g: (B, T, D*F)."""
+    """x: (B, T, D) -> q, k: (B, H, T, dk), v: (B, H, T, dv), g: (B, T, H*dv),
+    H this rank's heads under a tensor-parallel split (`head_split`); q and
+    k rotated by xpos at positions 0..T-1 with `use_xpos`."""
     B, T, _ = x.shape
-    H, dk, dv = cfg.num_heads, cfg.key_dim, cfg.head_dim
+    dk, dv = cfg.key_dim, cfg.head_dim
     # k scaled in x's dtype by dk**-0.5 rounded to it, as JAX scales by a
     # weak-typed constant
     kscale = float(torch.tensor(dk ** -0.5).to(x.dtype)) if x.dtype == torch.bfloat16 \
         else dk ** -0.5
-    q = tnn.linear(x, p.q_proj.weight, p.q_proj.bias)
-    k = tnn.linear(x, p.k_proj.weight, p.k_proj.bias) * kscale
-    v = tnn.linear(x, p.v_proj.weight, p.v_proj.bias)
-    g = tnn.linear(x, p.g_proj.weight, p.g_proj.bias)
+    lin = tnn.full_linear if head_split(p, cfg) is None else tnn.column_linear
+    q = lin(p.q_proj, x)
+    k = lin(p.k_proj, x) * kscale
+    v = lin(p.v_proj, x)
+    g = lin(p.g_proj, x)
+    H = q.shape[-1] // dk
     q = q.reshape(B, T, H, dk).transpose(1, 2)
     k = k.reshape(B, T, H, dk).transpose(1, 2)
     v = v.reshape(B, T, H, dv).transpose(1, 2)
+    if cfg.use_xpos:
+        angle = _xpos_angles(cfg, x.device)
+        idx = torch.arange(T, dtype=torch.float32, device=x.device)
+        sin = torch.sin(idx[:, None] * angle[None, :])
+        cos = torch.cos(idx[:, None] * angle[None, :])
+        q = _theta_shift(q, sin, cos)
+        k = _theta_shift(k, sin, cos)
     return q, k, v, g
 
 
-def _finish(p: Retention, out_heads: torch.Tensor, g: torch.Tensor):
-    """out_heads: (B, H, T, dv) -> group norm -> gate -> out proj (B, T, D)."""
-    return _finish_w(out_heads, g, p.out_proj.weight, p.out_proj.bias)
+def _gate(out_heads: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """out_heads: (B, H, T, dv) -> group norm -> silu(g) gate: (B, T, H*dv)."""
+    B, H, T, dv = out_heads.shape
+    out = tnn.layer_norm(out_heads.transpose(1, 2), eps=1e-6)   # non-affine, over dv
+    return F.silu(g) * out.reshape(B, T, H * dv)
+
+
+def _finish(p: Retention, out_heads: torch.Tensor, g: torch.Tensor, cfg: RetentionConfig):
+    """out_heads: (B, H, T, dv) -> group norm -> gate -> out proj (B, T, D);
+    row parallel over this rank's heads under a split."""
+    out = _gate(out_heads, g)
+    if head_split(p, cfg) is None:
+        return tnn.full_linear(p.out_proj, out)
+    return tnn.row_linear(p.out_proj, out)
 
 
 def _finish_w(out_heads: torch.Tensor, g: torch.Tensor, weight, bias):
     """_finish with the out projection's weight (out, in) and bias given."""
-    B, H, T, dv = out_heads.shape
-    out = tnn.layer_norm(out_heads.transpose(1, 2), eps=1e-6)   # non-affine, over dv
-    out = F.silu(g) * out.reshape(B, T, H * dv)
-    return tnn.linear(out, weight, bias)
+    return tnn.linear(_gate(out_heads, g), weight, bias)
 
 
 def _decay_mask(T: int, gammas: torch.Tensor):
@@ -145,10 +209,10 @@ def _decay_mask(T: int, gammas: torch.Tensor):
 def retention_parallel(p: Retention, x: torch.Tensor, cfg: RetentionConfig) -> torch.Tensor:
     """(B, T, D) -> (B, T, D), the (T x T) decay-masked form."""
     q, k, v, g = _project_qkv(p, x, cfg)
-    mask, _ = _decay_mask(x.shape[1], decay_gammas(cfg, x.device))
+    mask, _ = _decay_mask(x.shape[1], local_gammas(p, cfg, x.device))
     qk = (q @ k.transpose(-1, -2)) * mask
     qk = qk / qk.detach().sum(-1, keepdim=True).abs().clamp(min=1.0)
-    return _finish(p, qk @ v, g)
+    return _finish(p, qk @ v, g, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -179,33 +243,37 @@ def retention_chunkwise_stateful(p: Retention, x: torch.Tensor, state: dict | No
     fresh).  Returns (out (B, T, D), new_state); `state` is left as it was.
     The engine of blockwise serving: every arriving block is one or more
     chunks.  `packed` is `RL.pack_retention(p)` for the "fused" route (made
-    here when None; a server packs once)."""
+    here when None; a server packs once).  Under xpos the "fused" route
+    runs the plain one (the JAX package's fused layer skips itself)."""
     B, T, _ = x.shape
     L = cfg.chunk_size
     if T % L:
         raise ValueError(f"T={T} must be a multiple of chunk_size={L}")
-    H, dk, dv = cfg.num_heads, cfg.key_dim, cfg.head_dim
-    if state is None:
-        state = chunk_state_init(cfg, B, x.dtype, x.device)
-    gammas = decay_gammas(cfg, x.device)
+    dk, dv = cfg.key_dim, cfg.head_dim
 
-    if cfg.kernel == "fused":
+    if cfg.kernel == "fused" and not cfg.use_xpos:
+        if state is None:
+            state = chunk_state_init(cfg, B, x.dtype, x.device)
         y, kv_f, s_f = RL.retention_layer(
-            gammas, x, RL.pack_retention(p) if packed is None else packed,
+            decay_gammas(cfg, x.device), x, RL.pack_retention(p) if packed is None else packed,
             state["kv"], state["scale"], L)
         return y, {"kv": kv_f, "scale": s_f}
 
-    q, k, v, g = _project_qkv(p, x, cfg)             # (B, H, T, d*)
+    q, k, v, g = _project_qkv(p, x, cfg)             # (B, H, T, d*), H this rank's heads
+    H = q.shape[1]
+    gammas = local_gammas(p, cfg, x.device)
+    if state is None:                                 # chunk_state_init over these heads
+        state = {"kv": x.new_zeros(B, H, dk, dv), "scale": x.new_ones(B, H, 1, 1)}
     if cfg.kernel == "core":
         out, kv_f, s_f = CR.chunk_retention(
             gammas.repeat(B),                         # row bh = b*H + h
             q.reshape(B * H, T, dk), k.reshape(B * H, T, dk), v.reshape(B * H, T, dv),
             state["kv"].reshape(B * H, dk, dv), state["scale"].reshape(B * H, 1, 1), L)
-        return _finish(p, out.reshape(B, H, T, dv), g), {
+        return _finish(p, out.reshape(B, H, T, dv), g, cfg), {
             "kv": kv_f.reshape(B, H, dk, dv), "scale": s_f.reshape(B, H, 1, 1)}
 
     out, kv_f, s_f = _plain_core(q, k, v, state, gammas, L)
-    return _finish(p, out.to(x.dtype), g), {
+    return _finish(p, out.to(x.dtype), g, cfg), {
         "kv": kv_f.to(state["kv"].dtype), "scale": s_f.to(state["scale"].dtype)}
 
 
@@ -290,13 +358,15 @@ def retention_recurrent_step(p: Retention, x_t: torch.Tensor, state: dict,
       scale' = scale*gamma + 1
       kv'    = kv * (sqrt(scale)*gamma/sqrt(scale')) + (v k)/sqrt(scale')
       out    = sum_k q_k * kv'[v, k]
+    No xpos rotation, with `use_xpos` or without (as the JAX package's
+    step); tensor-parallel shards are gathered whole.
     """
     B = x_t.shape[0]
     H, dk, dv = cfg.num_heads, cfg.key_dim, cfg.head_dim
-    q = tnn.linear(x_t, p.q_proj.weight, p.q_proj.bias).reshape(B, H, dk)
-    k = (tnn.linear(x_t, p.k_proj.weight, p.k_proj.bias) * dk ** -0.5).reshape(B, H, dk)
-    v = tnn.linear(x_t, p.v_proj.weight, p.v_proj.bias).reshape(B, H, dv)
-    g = tnn.linear(x_t, p.g_proj.weight, p.g_proj.bias)
+    q = tnn.full_linear(p.q_proj, x_t).reshape(B, H, dk)
+    k = (tnn.full_linear(p.k_proj, x_t) * dk ** -0.5).reshape(B, H, dk)
+    v = tnn.full_linear(p.v_proj, x_t).reshape(B, H, dv)
+    g = tnn.full_linear(p.g_proj, x_t)
     gammas = decay_gammas(cfg, x_t.device)[None]          # (1, H)
 
     prev_scale = state["scale"]
@@ -308,7 +378,7 @@ def retention_recurrent_step(p: Retention, x_t: torch.Tensor, state: dict,
 
     out = tnn.layer_norm(out, eps=1e-6).reshape(B, H * dv).to(x_t.dtype)
     out = torch.nn.functional.silu(g) * out
-    out = tnn.linear(out, p.out_proj.weight, p.out_proj.bias)
+    out = tnn.full_linear(p.out_proj, out)
     return out, {"kv": kv.to(state["kv"].dtype),
                  "scale": scale.to(state["scale"].dtype)}
 

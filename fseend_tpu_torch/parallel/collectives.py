@@ -24,17 +24,37 @@ carries and gloo carries on CPU tensors and on CUDA tensors alike.
 batch and the losses of `train/losses.py` divide by counts summed over the
 group (`batch_sum`, `batch_mean`).  Outside it they are the single-process
 functions, bit for bit.
+
+Tensor parallelism over the "model" axis needs other transposes.  There
+the activations are replicated: every model rank holds the same value and
+backpropagates the same full cotangent, so a sum over ranks would count it
+n times.  Megatron's pair and a weight gather carry it instead:
+  * *f*: the identity forward, an all-reduce backward, at the input of a
+    column-parallel product (each rank's cotangent covers only its own
+    columns' share); `column_linear` runs it and the product as one
+    function, whose backward sums the ranks' partial input gradients in
+    float32 and rounds them once, as one product does in bf16;
+  * `reduce_from_model` (*g*): an all-reduce forward, the identity
+    backward, at the output of a row-parallel product;
+  * `gather_weight`: a parameter's shards concatenated forward; backward,
+    this rank's slice of the full gradient, not summed (every rank computed
+    the same full gradient).
+`model_parallel(group)` names the model group for a step; a module whose
+parameters are shards (`Shard`, set by `parallel/mesh.py:shard_model_`)
+is run through these (`gathered`, `ops/nn.py:column_linear`, `row_linear`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 
 import torch
 import torch.distributed as dist
 
 _DATA = contextvars.ContextVar("fseend_data_parallel_group", default=None)
+_MODEL = contextvars.ContextVar("fseend_model_parallel_group", default=None)
 
 
 def axis_index(group=None) -> int:
@@ -210,3 +230,116 @@ def batch_moments(x: torch.Tensor, group):
     mean = (psum(x.sum(dim=axes, dtype=torch.float32), group) / n).to(x.dtype)
     var = (psum((x - mean).square().sum(dim=axes, dtype=torch.float32), group) / n).to(x.dtype)
     return mean, var, n
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the "model" axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A parameter held as slice `index` of `n` equal contiguous slices
+    along dim `dim` of its torch layout (0: a linear's outputs, column
+    parallel; 1: its inputs, row parallel)."""
+    dim: int
+    n: int
+    index: int
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor."""
+        k = full.shape[self.dim] // self.n
+        return full.narrow(self.dim, self.index * k, k)
+
+
+def shards_of(module) -> dict:
+    """{parameter attribute: Shard} of one module ({} when whole)."""
+    return getattr(module, "tp_shards", {})
+
+
+def param_shards(model) -> dict:
+    """{parameter name: Shard or None} over `model.named_parameters()`."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for attr, _ in mod.named_parameters(recurse=False):
+            out[f"{prefix}.{attr}" if prefix else attr] = shards_of(mod).get(attr)
+    return {n: out[n] for n, _ in model.named_parameters()}
+
+
+@contextlib.contextmanager
+def model_parallel(group):
+    """Within: sharded modules run their products over `group` (None: no
+    model axis; a sharded module then raises)."""
+    token = _MODEL.set(group)
+    try:
+        yield
+    finally:
+        _MODEL.reset(token)
+
+
+def model_group():
+    """The group of `model_parallel`; raises outside it."""
+    group = _MODEL.get()
+    if group is None:
+        raise RuntimeError("a module holds tensor-parallel shards: run it inside "
+                           "collectives.model_parallel(mesh.model_group)")
+    return group
+
+
+class _ColumnLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, group):
+        ctx.group, ctx.has_bias = group, b is not None
+        ctx.save_for_backward(x, w)
+        return torch.nn.functional.linear(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = _all_reduce(dy.float() @ w.float(), ctx.group).to(x.dtype)
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dw = dy2.t() @ x.reshape(-1, x.shape[-1])
+        return dx, dw, dy2.sum(0) if ctx.has_bias else None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return torch.cat(_stacked(w, group).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // axis_size(ctx.group)
+        return g.narrow(ctx.dim, axis_index(ctx.group) * n, n).contiguous(), None, None
+
+
+def column_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """x (replicated) @ w.T + b with w, b this rank's output columns: *f*
+    and the product over the model group (module docstring)."""
+    return _ColumnLinear.apply(x, w, b, model_group())
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *g* over the model group (module docstring)."""
+    return _ReduceFromModel.apply(x, model_group())
+
+
+def gathered(module, name: str) -> torch.Tensor:
+    """The module's parameter `name` whole: its shards gathered over the
+    model group (backward: this rank's slice), or the parameter itself."""
+    t = getattr(module, name)
+    shard = shards_of(module).get(name)
+    if shard is None:
+        return t
+    return _GatherWeight.apply(t, shard.dim, model_group())

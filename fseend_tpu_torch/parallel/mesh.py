@@ -12,13 +12,25 @@ collectives are explicit (`parallel/collectives.py`):
     backend follows the device: NCCL for the card, gloo when the caller
     passes device="cpu" (the tests) or names `backend`.  Nothing falls back
     from one backend to the other.
+  * "model": tensor parallelism by `param_pspec`'s rules (the JAX
+    package's, on the same parameter names).  The ranks form an n_data x
+    n_model grid in the JAX package's device order
+    (`devices.reshape(n_data, n_model)`): global rank r = d * n_model + m,
+    with one process group per grid row (the "model" group of the ranks
+    that share d) and one per column (the "data" group of the ranks that
+    share m).  `shard_model_` leaves each rank its slice of every split
+    parameter (`param_partition`; a dimension that does not divide stays
+    whole, as the JAX package's `param_shardings`), and the model code runs
+    the products through the model group (`parallel/collectives.py`,
+    `ops/nn.py:ffn`, `ops/retention.py`); `gather_model` makes the whole
+    model again (checkpoints, validation).
   * A one-process mesh over a list of devices (`make_mesh(devices=...)`)
     is what lane-sharded serving runs on (`serving/runtime.py:
     shard_server_over_mesh`): every stream-state leaf is lane-major, so the
-    shards need no collective.
-  * "model" (tensor parallelism, `param_pspec`'s rules) is ROADMAP A11
-    part 2: `make_mesh(n_model > 1)` raises.  The rules are kept, held to
-    the JAX package's on the same parameter names, and used by nothing yet.
+    shards need no collective.  Its lanes are sharded over "data" and the
+    parameters replicated over "model" (the JAX package's
+    `shard_server_over_mesh`): a data shard runs on the first device of its
+    grid row, so n_model > 1 serves what n_model = 1 serves.
 
 The process group is read from the environment torchrun sets (RANK,
 WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK) unless the caller has
@@ -27,6 +39,7 @@ initialized it already.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import re
@@ -34,29 +47,52 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from fseend_tpu_torch.models.ls_eend import resolve_device
-
-_TP_PART_2 = ("tensor parallelism over the \"model\" axis is not ported yet (ROADMAP A11 "
-              "part 2): every projection would be split into column and row halves with "
-              "their all-reduces, and the B3 and B4 kernels take whole weight matrices")
+from fseend_tpu_torch.parallel import collectives as C
+from fseend_tpu_torch.utils import convert
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """n_data x n_model.  `devices`: the devices this process drives along
     "data" (one per rank of `group` when the mesh spans processes, then
-    only this rank's); `group`: the "data" axis' process group, None for a
-    one-process mesh."""
+    only this rank's; on a one-process mesh the first device of each grid
+    row); `group` (also `data_group`): the "data" axis' process group, the
+    ranks of this rank's column, None for a one-process mesh; `rank` (also
+    `d`): this rank's data coordinate; `model_group` and `m`: the "model"
+    axis' group (this rank's row) and coordinate; `world`: every rank's
+    group."""
     n_data: int
     n_model: int
     devices: tuple
     group: Any = None
     rank: int = 0
+    model_group: Any = None
+    m: int = 0
+    world: Any = None
 
     @property
     def device(self) -> torch.device:
         return self.devices[0]
+
+    @property
+    def data_group(self):
+        return self.group
+
+    @property
+    def d(self) -> int:
+        return self.rank
+
+    @property
+    def global_rank(self) -> int:
+        return self.rank * self.n_model + self.m
+
+    @property
+    def main(self) -> bool:
+        """Global rank 0: the rank that logs and writes."""
+        return self.global_rank == 0
 
 
 def _rank_device(device) -> torch.device:
@@ -72,39 +108,53 @@ def _rank_device(device) -> torch.device:
 def make_mesh(n_data: int | None = None, n_model: int = 1, device=None, *,
               devices=None, backend: str | None = None) -> Mesh:
     """A ("data", "model") mesh; "data" takes every rank (or every device
-    of `devices`) by default.  With `devices`, a one-process mesh over
-    them.  Otherwise one rank per process: the process group is
-    initialized from the environment when it is not yet, with NCCL for a
-    CUDA device (the default) and gloo for device="cpu", or `backend`;
-    this rank runs on `device` (default cuda:LOCAL_RANK)."""
-    if n_model != 1:
-        raise NotImplementedError(f"n_model={n_model}: {_TP_PART_2}")
+    of `devices`) not on "model" by default.  With `devices`, a one-process
+    mesh over them.  Otherwise one rank per process, n_data x n_model of
+    them: the process group is initialized from the environment when it is
+    not yet, with NCCL for a CUDA device (the default) and gloo for
+    device="cpu", or `backend`; this rank runs on `device` (default
+    cuda:LOCAL_RANK).  Every rank makes every group, in one order."""
+    if n_model < 1:
+        raise ValueError(f"n_model={n_model}")
     if devices is not None:
         devs = tuple(resolve_device(d) for d in devices)
-        n_data = len(devs) if n_data is None else n_data
-        if not 1 <= n_data <= len(devs):
-            raise ValueError(f"n_data={n_data} over {len(devs)} devices")
-        return Mesh(n_data, 1, devs[:n_data])
+        n_data = len(devs) // n_model if n_data is None else n_data
+        if n_data < 1 or n_data * n_model > len(devs):
+            raise ValueError(f"{n_data} data x {n_model} model over {len(devs)} devices")
+        return Mesh(n_data, n_model, devs[:n_data * n_model:n_model])
     want = backend or ("gloo" if torch.device(device or "cuda").type == "cpu" else "nccl")
     if not dist.is_initialized():
         dist.init_process_group(want, init_method="env://")
     elif dist.get_backend() != want:
         raise ValueError(f"the process group runs {dist.get_backend()}, the mesh asks for {want}")
     world = dist.get_world_size()
-    n_data = world if n_data is None else n_data
-    if n_data != world:
-        raise ValueError(f"n_data={n_data} with {world} processes: launch one process per "
-                         f"rank (torchrun --nproc_per_node {n_data})")
+    n_data = world // n_model if n_data is None else n_data
+    if n_data * n_model != world:
+        raise ValueError(f"{n_data} data x {n_model} model with {world} processes: launch "
+                         f"one process per rank (torchrun --nproc_per_node "
+                         f"{n_data * n_model})")
     dev = _rank_device(device)
     if want == "nccl":
         torch.cuda.set_device(dev)
-    return Mesh(n_data, 1, (dev,), dist.group.WORLD, dist.get_rank())
+    r = dist.get_rank()
+    d, m = divmod(r, n_model)
+    if n_model == 1:
+        return Mesh(n_data, 1, (dev,), dist.group.WORLD, d, world=dist.group.WORLD)
+    data_group = model_group = None
+    for j in range(n_model):                  # the columns: "data" groups
+        g = dist.new_group([i * n_model + j for i in range(n_data)])
+        data_group = g if j == m else data_group
+    for i in range(n_data):                   # the rows: "model" groups
+        g = dist.new_group([i * n_model + j for j in range(n_model)])
+        model_group = g if i == d else model_group
+    return Mesh(n_data, n_model, (dev,), data_group, d, model_group, m, dist.group.WORLD)
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
     """This rank's rows of a global batch (its leading axis split evenly
     over "data"; the JAX package's `shard_batch` places the same rows on
-    the same mesh position)."""
+    the same mesh position).  The ranks of one model group take the same
+    rows."""
     out = {}
     for k, v in batch.items():
         n = len(v)
@@ -148,3 +198,82 @@ def param_pspec(path: str, ndim: int) -> tuple:
             if re.search(pat, path):
                 return spec
     return ()
+
+
+# ---------------------------------------------------------------------------
+# the model's partition over "model"
+# ---------------------------------------------------------------------------
+
+
+def param_partition(model: nn.Module, mesh: Mesh) -> dict:
+    """{torch parameter name: the torch dim split over "model", or None}:
+    `param_pspec` on each parameter's JAX-layout name, whole where the
+    split dimension does not divide n_model (the JAX package's
+    `param_shardings`)."""
+    n_model = mesh.n_model
+    params = dict(model.named_parameters())
+    out = {}
+    for name, (jax_name, axes) in convert.jax_param_layout(model).items():
+        dim = None
+        for axis, ax in enumerate(param_pspec(jax_name, len(axes))):
+            if ax == "model":
+                dim = axes[axis]
+        if n_model <= 1 or (dim is not None and params[name].shape[dim] % n_model):
+            dim = None
+        out[name] = dim
+    return out
+
+
+@torch.no_grad()
+def shard_model_(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """Leave this rank its slice of every parameter `param_partition`
+    splits (in place; the module is tagged with each `collectives.Shard`).
+    A mesh without a model axis leaves the model whole.  Returns `model`."""
+    if mesh.n_model == 1:
+        return model
+    mods = dict(model.named_modules())
+    for name, dim in param_partition(model, mesh).items():
+        if dim is None:
+            continue
+        prefix, attr = name.rsplit(".", 1)
+        mod = mods[prefix]
+        shard = C.Shard(dim, mesh.n_model, mesh.m)
+        p = getattr(mod, attr)
+        setattr(mod, attr, nn.Parameter(shard.take(p).clone(), requires_grad=p.requires_grad))
+        mod.tp_shards = {**C.shards_of(mod), attr: shard}
+    return model
+
+
+@torch.no_grad()
+def gather_full(tensors: list, shards: list, mesh: Mesh) -> list:
+    """Each tensor whole: a shard's slices gathered over the model group
+    (every model rank calls this, with the same tensors in the same order);
+    a whole one as it is."""
+    out = []
+    for t, s in zip(tensors, shards):
+        if s is None:
+            out.append(t)
+            continue
+        out.append(torch.cat(C._stacked(t, mesh.model_group).unbind(0), dim=s.dim))
+    return out
+
+
+@torch.no_grad()
+def gather_model(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """A whole copy of a sharded model (`shard_model_`'s inverse); the model
+    itself when nothing is sharded.  Every model rank calls it."""
+    shards = C.param_shards(model)
+    if not any(shards.values()):
+        return model
+    full = copy.deepcopy(model)
+    mods = dict(full.named_modules())
+    names = list(shards)
+    whole = gather_full([p for _, p in model.named_parameters()], list(shards.values()), mesh)
+    for name, t in zip(names, whole):
+        if shards[name] is None:
+            continue
+        prefix, attr = name.rsplit(".", 1)
+        setattr(mods[prefix], attr, nn.Parameter(t))
+    for mod in mods.values():
+        mod.__dict__.pop("tp_shards", None)
+    return full

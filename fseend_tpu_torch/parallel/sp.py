@@ -48,11 +48,11 @@ from fseend_tpu_torch.train import trainer as trainer_lib
 
 
 def _group(mesh, axis: str):
-    if axis != "data":
-        raise NotImplementedError(f"axis {axis!r}: sequence parallelism runs over \"data\"; "
-                                  f"the \"model\" axis is ROADMAP A11 part 2")
+    """The process group of the mesh axis SP runs over ("data" or "model")."""
+    if axis not in ("data", "model"):
+        raise ValueError(f"axis {axis!r}: a mesh has the axes \"data\" and \"model\"")
     trainer_lib.check_mesh(mesh)
-    return mesh.group
+    return mesh.group if axis == "data" else mesh.model_group
 
 
 def _local(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
@@ -101,8 +101,9 @@ def sp_retention_parallel(p: R.Retention, x: torch.Tensor, cfg: R.RetentionConfi
     """γ = 1 parallel retention of x (B, T, D) with the time axis sharded:
     row i's decay normalization and its clamped row sum depend on row-local
     quantities only, so each rank computes its rows exactly."""
-    if cfg.use_decay:
-        raise ValueError("sequence-parallel retention implements γ = 1 (use_decay=False)")
+    if cfg.use_decay or cfg.use_xpos:
+        raise ValueError("sequence-parallel retention implements γ = 1 without xpos "
+                         "(use_decay=False, use_xpos=False)")
     group = _group(mesh, axis)
     xl = _local(x, group)
     Tl = xl.shape[1]
@@ -114,7 +115,7 @@ def sp_retention_parallel(p: R.Retention, x: torch.Tensor, cfg: R.RetentionConfi
     mask = torch.where(tri, 1.0, 0.0) / torch.sqrt(qpos.float() + 1.0)
     qk = (q @ k_all.transpose(-1, -2)) * mask
     qk = qk / qk.detach().sum(-1, keepdim=True).abs().clamp(min=1.0)
-    return C.all_gather(R._finish(p, qk @ v_all, g), group, dim=1)
+    return C.all_gather(R._finish(p, qk @ v_all, g, cfg), group, dim=1)
 
 
 def _halo_causal_conv(weight: torch.Tensor, h: torch.Tensor, group) -> torch.Tensor:
@@ -138,9 +139,10 @@ def _sp_retention_chunkwise(p: R.Retention, x: torch.Tensor, cfg: R.RetentionCon
     multiple of the chunk: the rank's chunk kv summaries are summed, one
     all-gather shares the sums, and the rank's scan starts from the sum over
     the earlier ranks (module docstring) on the route `cfg.kernel` picks."""
-    if cfg.use_decay:
-        raise ValueError("sequence-parallel chunkwise retention needs γ = 1 "
-                         "(use_decay=False): the prefix-sum carry holds only there")
+    if cfg.use_decay or cfg.use_xpos:
+        raise ValueError("sequence-parallel chunkwise retention needs γ = 1 without xpos "
+                         "(use_decay=False, use_xpos=False): the prefix-sum carry holds "
+                         "only there, as the JAX package asserts")
     B, Tl, _ = x.shape
     L = cfg.chunk_size
     if Tl % L:
@@ -292,7 +294,7 @@ def _make_train_step_sp(task, cfg, tx, mesh, axis: str, forward, device):
         (loss / n).backward()
         return bn_state, metrics
 
-    return trainer_lib.optimizer_step(forward_backward, tx, device, mesh)
+    return trainer_lib.optimizer_step(forward_backward, tx, device, mesh, axis)
 
 
 def make_fs_train_step_sp(task, cfg, tx, mesh, axis: str = "data", device=None):

@@ -45,7 +45,10 @@ lanes and the shards' probabilities are gathered on the mesh's first
 device.  The shards' kernels see fewer rows than the whole server's, and
 `kernels/csrc/tc_f32.cuh` picks its split of a product's k axis from the
 row count, so a sharded server equals the unsharded one to float32
-rounding, not bit for bit.
+rounding, not bit for bit.  A mesh with a "model" axis shards the lanes
+over "data" and replicates the parameters over "model", as the JAX
+function does: each data shard runs on the first device of its grid row,
+so it serves what the mesh without the model axis serves.
 """
 
 from __future__ import annotations

@@ -21,6 +21,15 @@ validates (on the whole validation set, as the JAX package's replicated
 validation batches) and writes the checkpoints, in the JAX layout; the
 validation DER and a SIGTERM on any rank reach every rank, so they stop
 together.  A resume loads on every rank.
+
+With a model axis (`make_mesh(n_model > 1)`) the sampler, the batch and
+the dropout stream follow the data coordinate (the ranks of one model
+group read the same rows), the model is sharded after any warm start or
+resume has loaded it whole (`parallel/mesh.py:shard_model_`; the resumed
+moments are sliced alike), and global rank 0 logs, validates and writes.
+The checkpoints stay whole, in the JAX layout: at each epoch's end every
+rank gathers the parameters and the moments over its model group
+(`whole_state`) before rank 0 validates and writes.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from fseend_tpu_torch.data.loader import Prefetcher, batched
 from fseend_tpu_torch.data.sampler import ShardedSampler
 from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
 from fseend_tpu_torch.parallel import collectives as C
+from fseend_tpu_torch.parallel import mesh as pmesh
 from fseend_tpu_torch.train import trainer as trainer_lib
 from fseend_tpu_torch.utils import checkpoint as ckpt_lib
 from fseend_tpu_torch.utils import convert
@@ -95,6 +105,20 @@ def save_train_state(path, state: trainer_lib.TrainState, extra: dict) -> None:
                          extra)
 
 
+def whole_state(state: trainer_lib.TrainState, mesh) -> trainer_lib.TrainState:
+    """The train state with every tensor-parallel shard gathered whole (the
+    model and the optimizer's per-parameter tensors); `state` itself when
+    nothing is split.  Every rank of the model group calls it."""
+    shards = list(C.param_shards(state.model).values())
+    if mesh is None or not any(shards):
+        return state
+    opt = dict(state.opt_state)
+    for key in ("mu", "nu", "acc"):
+        if key in opt:
+            opt[key] = pmesh.gather_full(opt[key], shards, mesh)
+    return trainer_lib.TrainState(pmesh.gather_model(state.model, mesh), opt, state.step)
+
+
 @torch.no_grad()
 def load_weights(model, path) -> None:
     """A checkpoint's params (and model_state, when it has one) into
@@ -134,14 +158,15 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
     `debug:` section).  With `mesh` the run is data parallel (module
     docstring): `batch_size` is the global batch, the device is the mesh's,
     and ranks other than 0 take `logger=None` and return None for the
-    checkpoint dir."""
+    checkpoint dir; with a model axis the returned state holds this rank's
+    shards (`whole_state` gathers them)."""
     if mesh is not None:
         trainer_lib.check_mesh(mesh)
         if batch_size % mesh.n_data:
             raise ValueError(f"global batch {batch_size} must divide over the "
                              f"{mesh.n_data} data-parallel ranks")
         device = mesh.device
-    if (logger is None) != (mesh is not None and mesh.rank != 0):
+    if (logger is None) != (mesh is not None and not mesh.main):
         raise ValueError("rank 0 (or a run without a mesh) logs; the other ranks take "
                          "logger=None")
     device = ls_eend.resolve_device(device)
@@ -149,14 +174,17 @@ def run_training(*, task: trainer_lib.TaskConfig, model_cfg,
     model = _INIT[task.model](model_cfg, gen, device=device)
     if init_ckpt:
         load_weights(model, init_ckpt)
-    state = trainer_lib.TrainState.create(model, tx)
     start_epoch = 0
     if resume_from:
-        # weights, BatchNorm statistics, Adam moments and the step (the
-        # Noam schedule's position); a file without the port's opt_state
-        # resumes with fresh moments
-        extra = ckpt_lib.load_extra(resume_from)
         load_weights(model, resume_from)
+    if mesh is not None:
+        pmesh.shard_model_(model, mesh)
+    state = trainer_lib.TrainState.create(model, tx)
+    if resume_from:
+        # weights (above), BatchNorm statistics, Adam moments and the step
+        # (the Noam schedule's position); a file without the port's
+        # opt_state resumes with fresh moments
+        extra = ckpt_lib.load_extra(resume_from)
         if "opt_state/count" in ckpt_lib.load_flat(resume_from):
             state.opt_state = ckpt_lib.load_opt_state(resume_from, model, state.opt_state)
         state.step = int(extra.get("step", 0))
@@ -196,17 +224,17 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
     train_step = trainer_lib.make_train_step(task, model_cfg, tx, mesh=mesh, device=device)
     eval_step = trainer_lib.make_eval_step(task, model_cfg)
     n_ranks, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.rank)
-    main = rank == 0
+    main = mesh is None or mesh.main
 
-    def save(path, epoch, val_der=None):
-        save_train_state(path, state, {"epoch": epoch, "step": state.step,
+    def save(path, whole, epoch, val_der=None):
+        save_train_state(path, whole, {"epoch": epoch, "step": whole.step,
                                        "val_der": val_der if val_der is not None else np.nan})
 
     def any_rank(flag: bool) -> bool:
         if mesh is None:
             return flag
         return bool(C.sum_scalars({"f": torch.tensor(float(flag), device=device)},
-                                  mesh.group)["f"] > 0)
+                                  mesh.world)["f"] > 0)
 
     # drop_last: the ranks' shares hold the one-process run's items, step by step
     sampler = ShardedSampler(len(train_dataset), n_ranks, rank, shuffle=True, seed=seed,
@@ -229,8 +257,9 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
             state, metrics = train_step(state, _to_device(batch, device), seed)
             n_steps += 1
             if any_rank(preempt["flag"]):
+                whole = whole_state(state, mesh)
                 if main:
-                    save(logger.dir / "ckpt_preempt.npz", epoch - 1)
+                    save(logger.dir / "ckpt_preempt.npz", whole, epoch - 1)
                     print(f"SIGTERM: saved {logger.dir}/ckpt_preempt.npz at step {state.step} "
                           f"(epoch {epoch} will replay on resume)", flush=True)
                 return state, logger.dir if main else None
@@ -243,6 +272,7 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
         dt = time.time() - t0
 
         val_der = None
+        whole = whole_state(state, mesh)
         validate = val_dataset is not None and (epoch + 1) % val_interval == 0
         if validate and main:
             vms = []
@@ -250,7 +280,7 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
                                  max_speakers, input_dim, drop_last=False):
                 batch.pop("recs")
                 vms.append({k: float(v) for k, v in
-                            eval_step(state, _to_device(batch, device)).items()})
+                            eval_step(whole, _to_device(batch, device)).items()})
                 if limit_val_batches and len(vms) >= limit_val_batches:
                     break
             agg = trainer_lib.aggregate_metrics(vms)
@@ -260,14 +290,14 @@ def _run_training_body(*, task, model_cfg, state, tx, logger, train_dataset, val
             # rank 0's DER decides the early stop on every rank
             v = torch.tensor(np.nan if val_der is None else val_der, dtype=torch.float64,
                              device=device)
-            torch.distributed.broadcast(v, 0, group=mesh.group)
+            torch.distributed.broadcast(v, 0, group=mesh.world)
             val_der = float(v)
 
         if main:
             loss = float(metrics["tot_loss"]) if metrics else float("nan")
             print(f"epoch {epoch}: {n_steps} steps in {dt:.1f}s loss={loss:.4f}"
                   + (f" val/DER={val_der:.4f}" if val_der is not None else ""), flush=True)
-            save(logger.dir / f"ckpt_epoch={epoch}.npz", epoch, val_der)
+            save(logger.dir / f"ckpt_epoch={epoch}.npz", whole, epoch, val_der)
         if val_der is not None and val_der < best[0]:
             best = (val_der, epoch)
         if (early_stop_patience is not None and val_der is not None

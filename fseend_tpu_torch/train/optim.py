@@ -12,6 +12,12 @@ gradients and keeps its state in a dict of tensors:
     the mean of the k gradients).
 Clipping is optax's `clip_by_global_norm`: each gradient becomes
 (g / norm) * max_norm when norm >= max_norm, else stays as it is.
+
+Under tensor parallelism the parameters, gradients and moments are this
+rank's shards (`parallel/mesh.py:shard_model_`): Adam and SGD are
+elementwise, so they run on the shards as they are, and the global norm
+sums a split parameter's squares over the model group once
+(`global_norm(..., shards, group)`, passed to `step` as `norm`).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import dataclasses
 import math
 
 import torch
+
+from fseend_tpu_torch.parallel import collectives as C
 
 
 def noam_schedule(d_model: int, warmup_steps: int, scale: float = 1.0,
@@ -34,10 +42,17 @@ def noam_schedule(d_model: int, warmup_steps: int, scale: float = 1.0,
     return schedule
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, shards=None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32 (optax's
-    `global_norm`)."""
-    return torch.sqrt(sum(t.detach().square().sum() for t in tensors))
+    `global_norm`).  With `shards` (a `collectives.Shard` or None per
+    tensor) and the model `group`, the split tensors are this rank's slices:
+    their squares are summed over the group, each whole tensor counted
+    once."""
+    if shards is None or not any(shards):
+        return torch.sqrt(sum(t.detach().square().sum() for t in tensors))
+    whole = sum(t.detach().square().sum() for t, s in zip(tensors, shards) if s is None)
+    split = sum(t.detach().square().sum() for t, s in zip(tensors, shards) if s is not None)
+    return torch.sqrt(whole + C.psum(split, group))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +81,11 @@ class Optimizer:
         return self.lr(count) if callable(self.lr) else self.lr
 
     @torch.no_grad()
-    def step(self, params: list, grads: list, state: dict) -> bool:
+    def step(self, params: list, grads: list, state: dict, norm=global_norm) -> bool:
         """Apply one call's gradients; returns whether the parameters
-        changed (False on the accumulating micro-steps)."""
+        changed (False on the accumulating micro-steps).  `norm(grads)` is
+        the clip's global norm (under tensor parallelism `global_norm` over
+        the model group)."""
         if self.grad_accum > 1:
             n = state["mini_step"]
             for a, g in zip(state["acc"], grads):
@@ -81,9 +98,9 @@ class Optimizer:
                 a.zero_()
             state["mini_step"] = 0
         if self.grad_clip:
-            norm = global_norm(grads)
-            if not bool(norm < self.grad_clip):
-                grads = [(g / norm) * self.grad_clip for g in grads]
+            total = norm(grads)
+            if not bool(total < self.grad_clip):
+                grads = [(g / total) * self.grad_clip for g in grads]
         count = state["count"]
         lr = self._lr(count)
         if self.kind == "sgd":

@@ -29,6 +29,16 @@ equal.  The DER counters and the losses are summed over the ranks.  At
 dropout > 0 each rank draws its own stream (the seed, the step and the
 rank), as the JAX package's sequence parallelism folds the shard index into
 its key; equality with one process holds at dropout 0.
+
+Tensor parallelism (a mesh with n_model > 1, the model sharded by
+`parallel/mesh.py:shard_model_`): the ranks of one model group take the
+same rows and the same dropout generator (the data coordinate's), and run
+the step inside `collectives.model_parallel`, where the split products
+exchange their partial sums and the gathered weights their slices.  The
+gradients of whole and of split parameters alike are summed over the data
+group only (the model axis has split them already), BatchNorm statistics
+and loss denominators too, and the clip's norm counts a split parameter
+once (`optim.global_norm` over the model group).
 """
 
 from __future__ import annotations
@@ -174,7 +184,8 @@ def _compute_loss_eda(task: TaskConfig, model, batch: dict, generator, *, train:
 def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The dropout generator of one step: `seed` and the step count decide
     it (the JAX step folds the step into its key), and on a data-parallel
-    rank other than 0 the rank too."""
+    rank other than 0 the rank too (its data coordinate: the ranks of one
+    model group draw the same masks)."""
     return torch.Generator(device=device).manual_seed(
         int(seed) * 1_000_003 + int(step) + (int(rank) << 40))
 
@@ -218,14 +229,18 @@ def make_train_step(task: TaskConfig, cfg, tx: Optimizer, mesh=None, device=None
     another), with `cfg` (the family's config) deciding the model's routes
     and dropout.  The state is updated in place and returned.  With `mesh`
     (`parallel/mesh.py:make_mesh()`) the batch is this rank's rows of the
-    global batch and the step is the global batch's (module docstring)."""
+    global batch and the step is the global batch's (module docstring);
+    with a model axis the model is this rank's shards
+    (`parallel/mesh.py:shard_model_`)."""
     _check_family(task, cfg)
     if mesh is not None:
         check_mesh(mesh)
-    group = None if mesh is None else mesh.group
+    # one data rank (a 1 x n grid) runs the one-process BatchNorm and losses
+    group = None if mesh is None or mesh.n_data == 1 else mesh.group
+    model_group = None if mesh is None else mesh.model_group
 
     def forward_backward(model, batch, gen):
-        with C.data_parallel(group):
+        with C.data_parallel(group), C.model_parallel(model_group):
             loss, (bn_state, metrics) = compute_loss(task, ls_eend.with_cfg(model, cfg), batch,
                                                      gen, train=True)
             loss.backward()
@@ -236,13 +251,16 @@ def make_train_step(task: TaskConfig, cfg, tx: Optimizer, mesh=None, device=None
     return optimizer_step(forward_backward, tx, device, mesh)
 
 
-def optimizer_step(forward_backward, tx: Optimizer, device, mesh=None):
+def optimizer_step(forward_backward, tx: Optimizer, device, mesh=None, axis: str = "data"):
     """step(state, batch, seed) -> (state, metrics) around
     `forward_backward(model, batch, generator) -> (BatchNorm state,
     metrics)`, which leaves this rank's gradients in the parameters; with a
-    mesh they are summed over its ranks before the clip and the update."""
+    mesh they are summed over the ranks of its `axis` ("data"; "model" for
+    sequence parallelism over the model axis) before the clip and the
+    update, and the dropout generator is that axis' coordinate's."""
     device = ls_eend.resolve_device(device)
-    rank = 0 if mesh is None else mesh.rank
+    rank = 0 if mesh is None else (mesh.rank if axis == "data" else mesh.m)
+    group = None if mesh is None else (mesh.group if axis == "data" else mesh.model_group)
 
     def step(state: TrainState, batch: dict, seed: int):
         model = state.model
@@ -255,9 +273,12 @@ def optimizer_step(forward_backward, tx: Optimizer, device, mesh=None):
         bn_state, metrics = forward_backward(model, batch, gen)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if mesh is not None:
-            C.all_reduce_(grads, mesh.group)
-        metrics["grad_norm"] = global_norm(grads)
-        tx.step(params, grads, state.opt_state)
+            C.all_reduce_(grads, group)
+        shards = list(C.param_shards(model).values())
+        norm = functools.partial(global_norm, shards=shards,
+                                 group=None if mesh is None else mesh.model_group)
+        metrics["grad_norm"] = norm(grads)
+        tx.step(params, grads, state.opt_state, norm=norm)
         _set_bn(model, bn_state)
         state.step += 1
         return state, metrics

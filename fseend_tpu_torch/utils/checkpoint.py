@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from fseend_tpu_torch.models import eend_eda, fs_eend, ls_eend
+from fseend_tpu_torch.parallel import collectives as C
 from fseend_tpu_torch.utils import convert
 
 
@@ -145,14 +146,19 @@ def opt_state_tree(model, opt_state: dict) -> dict:
 
 def load_opt_state(path: str | Path, model, opt_state: dict) -> dict:
     """`opt_state` (from `Optimizer.init`) filled from the file's
-    "opt_state/" leaves, on the module's device."""
+    "opt_state/" leaves, on the module's device.  The file holds whole
+    tensors; a tensor-parallel shard of the module
+    (`parallel/mesh.py:shard_model_`) takes its slice of each."""
     flat = load_flat(path)
-    names = [n for n, _ in model.named_parameters()]
+    shards = C.param_shards(model)
     out = dict(opt_state, count=int(flat["opt_state/count"]))
     for key in ("mu", "nu", "acc"):
         if key in opt_state:
-            out[key] = [torch.as_tensor(flat[f"opt_state/{key}/{n}"]).to(t.device)
-                        for n, t in zip(names, opt_state[key])]
+            out[key] = []
+            for (n, s), t in zip(shards.items(), opt_state[key]):
+                whole = torch.as_tensor(flat[f"opt_state/{key}/{n}"])
+                out[key].append((whole if s is None else s.take(whole)).contiguous()
+                                .to(t.device))
     if "mini_step" in opt_state:
         out["mini_step"] = int(flat["opt_state/mini_step"])
     return out

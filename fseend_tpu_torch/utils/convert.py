@@ -325,6 +325,30 @@ def _params_tree(mod: nn.Module):
     return {name: _params_tree(child) for name, child in mod.named_children()}
 
 
+def jax_param_layout(model: nn.Module) -> dict:
+    """{torch parameter name: (its dotted JAX-layout name, the torch dim of
+    each JAX axis)} as `_params_tree` lays the tree out: a linear's
+    kernel (in, out) is the weight transposed, a convolution's (width,
+    in/groups, out) its weight reversed, a norm's weight its "scale"."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, nn.Linear):
+            names = {"weight": ("kernel", (1, 0)), "bias": ("bias", (0,))}
+        elif isinstance(mod, nn.Conv1d):
+            names = {"weight": ("kernel", (2, 1, 0)), "bias": ("bias", (0,))}
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+            names = {"weight": ("scale", (0,)), "bias": ("bias", (0,))}
+        elif isinstance(mod, eend_eda.LSTM):
+            names = {"weight_ih": ("w_ih", (1, 0)), "weight_hh": ("w_hh", (1, 0)),
+                     "bias_ih": ("b_ih", (0,)), "bias_hh": ("b_hh", (0,))}
+        else:
+            continue
+        for attr, (leaf, axes) in names.items():
+            if getattr(mod, attr, None) is not None:
+                out[f"{prefix}.{attr}"] = (f"{prefix}.{leaf}", axes)
+    return out
+
+
 @torch.no_grad()
 def ls_params_to_jax(model: ls_eend.LSEEND):
     """The JAX package's (params, model_state) pytrees, numpy leaves, from

@@ -1,7 +1,7 @@
 """PyTorch port, the entry points (`fseend_tpu_torch/cli/`), their cheap
 half: `build_model` field by field against the JAX CLI's for every
-`configs/*.yaml`, the routes the yaml picks, `precision: bf16` and the A11
-raise, the bf16 default of `cli.export` for FS-EEND, the
+`configs/*.yaml`, the routes the yaml picks, `precision: bf16` and the
+`mesh:` block, the bf16 default of `cli.export` for FS-EEND, the
 reference-checkpoint loaders and `cli.convert` bit for bit against the JAX
 package's, the keyword arguments both `cli.train` hand `run_training` and
 `build_optimizer`, a real two-step training run on the CPU, both
@@ -111,13 +111,26 @@ def test_bf16_and_multi_gpu_raise(world, monkeypatch, capsys):
     with pytest.raises(Stop):
         TT.main(["--configs", str(ddp), "--device", "cpu"])
     assert "dist requested but only 1 device visible; single-chip run" in capsys.readouterr().out
-    # two processes train data parallel (tests/test_torch_port_parallel.py);
-    # a tensor-parallel "model" axis is not ported (ROADMAP A11 part 2)
+    # two processes train data parallel (tests/test_torch_port_parallel.py),
+    # and with `mesh: {model: 2}` on a 1 x 2 grid (tests/test_torch_port_tp.py):
+    # the block asks make_mesh for it, n_data the process count over n_model
+    from fseend_tpu_torch.parallel import mesh as PM
+
+    asked, make_mesh = [], PM.make_mesh
+
+    def grid(**kw):
+        asked.append(kw)
+        return make_mesh(n_data=kw["n_data"], n_model=kw["n_model"],
+                            devices=["cpu"] * (kw["n_data"] * kw["n_model"]))
+
     monkeypatch.setattr(TT, "_n_devices", lambda: 2)
+    monkeypatch.setattr(PM, "make_mesh", grid)
     configs["training"]["mesh"] = {"model": 2}
     ddp.write_text(yaml.safe_dump(configs))
-    with pytest.raises(NotImplementedError, match="A11 part 2"):
+    with pytest.raises(Stop):
         TT.main(["--configs", str(ddp), "--device", "cpu"])
+    assert asked == [{"n_data": 1, "n_model": 2, "device": torch.device("cpu")}]
+    assert "mesh: 1 data x 2 model (2 processes)" in capsys.readouterr().out
 
 
 def test_load_torch_ckpt_and_average_equal_jax(tmp_path):

@@ -156,8 +156,9 @@ def test_collectives_match_their_single_process_identities(world):
 
 
 def test_param_pspec_matches_jax(world):
-    """The tensor-parallel rules (used by nothing yet: ROADMAP A11 part 2)
-    give the JAX package's spec on every parameter name."""
+    """The tensor-parallel rules (`parallel/mesh.py:param_partition` reads
+    them, tests/test_torch_port_tp.py) give the JAX package's spec on every
+    parameter name."""
     split = 0
     for params, _ in world["jax"].values():
         for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
@@ -176,15 +177,17 @@ def test_mesh_batch_rows_and_the_model_axis(world):
         np.testing.assert_array_equal(got["lens"], b["lens"][2 * r:2 * r + 2])
         np.testing.assert_array_equal(got["feats"], b["feats"][2 * r:2 * r + 2])
         kinds = {k: v[0] for k, v in got["errors"].items()}
-        assert kinds == {"model": "NotImplementedError", "data": "ValueError",
-                         "backend": "ValueError"}
-        assert "A11 part 2" in got["errors"]["model"][1]
+        assert kinds == {"model": "ValueError", "data": "ValueError", "backend": "ValueError"}
+        assert "3 model with 2 processes" in got["errors"]["model"][1]
         assert "torchrun --nproc_per_node 3" in got["errors"]["data"][1]
+        # the two processes as a 1 x 2 grid: one model group, a data group each
+        assert got["model_axis"] == {"shape": (1, 2), "d": 0, "m": r, "global": r,
+                                     "main": r == 0, "model": [0, 1], "data": [r]}
     # a one-process mesh, and what takes none
     mesh = pmesh.make_mesh(devices=["cpu", "cpu"])
     assert (mesh.n_data, mesh.group, mesh.device) == (2, None, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A11 part 2"):
-        pmesh.make_mesh(n_model=2, devices=["cpu", "cpu"])
+    grid = pmesh.make_mesh(n_model=2, devices=["cpu", "cpu"])
+    assert (grid.n_data, grid.n_model, grid.devices, grid.group) == (1, 2, (mesh.device,), None)
     with pytest.raises(TypeError, match="mesh of processes"):
         TRN.make_train_step(TRN.TaskConfig(), K.LS, TO.Optimizer(), mesh=mesh, device="cpu")
     model = torch.load(world["out"] / "models.pt", weights_only=False)["ls"]

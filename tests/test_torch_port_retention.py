@@ -195,8 +195,14 @@ def test_reference_goldens(kernel):
 
 
 def test_unported_and_unknown_settings_raise():
-    with pytest.raises(NotImplementedError, match="xpos"):
-        TR.RetentionConfig(D, H, use_xpos=True)
+    # xpos is ported (tests/test_torch_port_a19.py): the "fused" route runs
+    # the plain one under it, as the JAX package's fused layer skips itself
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal((2, T, D)).astype(np.float32))
+    _, m = _pair()
+    fused, plain = (TR.retention_chunkwise(m, x, TR.RetentionConfig(D, H, 1, L, use_xpos=True,
+                                                                   kernel=k))
+                    for k in ("fused", "plain"))
+    assert torch.equal(fused, plain)
     with pytest.raises(ValueError, match="kernel"):
         TR.RetentionConfig(D, H, kernel="pallas")
     _, m = _pair()

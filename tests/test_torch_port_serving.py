@@ -150,15 +150,23 @@ def test_unported_modes_say_where_they_are_queued(setup):
                                 device="cpu")
     # training is ported for LS-EEND, FS-EEND (tests/test_torch_port_fs_train.py)
     # and EEND-EDA (tests/test_torch_port_eda.py); data-parallel training and
-    # lane-sharded serving too (tests/test_torch_port_parallel.py), not the
-    # tensor-parallel "model" axis
+    # lane-sharded serving too (tests/test_torch_port_parallel.py), and the
+    # tensor-parallel "model" axis (tests/test_torch_port_tp.py)
     assert TRN.TaskConfig(model="fs").model == "fs"
     assert TRN.TaskConfig(model="eda", label_mode="pit").model == "eda"
     with pytest.raises(TypeError, match="mesh of processes"):
         TRN.make_train_step(TRN.TaskConfig(), dataclasses.replace(TCFG, use_fused_dec=True),
                             None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11 part 2"):
-        PM.make_mesh(n_model=2, devices=["cpu", "cpu"])
+    # a server on a mesh with a model axis shards its lanes over "data" and
+    # replicates the model over "model": the same outputs as without the axis
+    frames = np.random.default_rng(4).standard_normal((2, 6, TCFG.in_size)).astype(np.float32)
+    outs = []
+    for mesh in (PM.make_mesh(n_model=2, devices=["cpu"] * 4), PM.make_mesh(devices=["cpu"] * 2)):
+        assert mesh.n_data == 2 and len(mesh.devices) == 2
+        srv = RT.StreamingServer(kind="ls", cfg=TCFG, model=model, n_lanes=2, n_slots=C,
+                                 device="cpu", mesh=mesh)
+        outs.append(srv.process_block(frames)[0])
+    assert torch.equal(outs[0], outs[1])
     # LS serving in bf16 is ported (ROADMAP B9 part 1; tests/test_torch_port_bf16.py):
     # the server builds, with a bf16 state and a bf16 copy of the model
     srv = _server(model, dtype=torch.bfloat16)

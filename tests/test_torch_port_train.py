@@ -263,12 +263,15 @@ def test_unported_families_say_where_they_are_queued():
     assert TRN.TaskConfig(compute_dtype="bf16").compute_dtype == "bf16"
     with pytest.raises(ValueError, match="compute_dtype"):
         TRN.TaskConfig(compute_dtype="f16")
-    # data-parallel training is ported (tests/test_torch_port_parallel.py); it
-    # takes a mesh of processes, and the tensor-parallel axis is not ported
+    # data-parallel and tensor-parallel training are ported
+    # (tests/test_torch_port_parallel.py, tests/test_torch_port_tp.py); they
+    # take a mesh of processes, and a model axis needs its devices
     with pytest.raises(TypeError, match="mesh of processes"):
         TRN.make_train_step(TASK, CFG, TO.Optimizer(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11 part 2"):
+    with pytest.raises(ValueError, match="2 model over 1 devices"):
         PM.make_mesh(n_model=2, devices=["cpu"])
+    grid = PM.make_mesh(n_model=2, devices=["cpu", "cpu"])
+    assert (grid.n_data, grid.n_model, len(grid.devices)) == (1, 2, 1)
 
 
 def test_remat_recomputes_the_same_masks(golden):

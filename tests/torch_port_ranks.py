@@ -1,6 +1,8 @@
-"""Rank-side helpers of tests/test_torch_port_parallel.py and
-tests/test_torch_port_sp.py: a 2-rank gloo group on the CPU, spawned once
-per test file, runs that file's cases and saves each rank's results; the
+"""Rank-side helpers of tests/test_torch_port_parallel.py,
+tests/test_torch_port_sp.py and tests/test_torch_port_tp.py: a 2-rank gloo
+group on the CPU (for the tensor-parallel file a 2 x 2 grid of 4 ranks, then
+a 1 x 2 grid of the first two), spawned once per test file, runs that
+file's cases and saves each rank's results; the
 test process then holds them against the JAX package and the port's
 single-process functions.  The test process makes the models (from the
 JAX package's init, through the port's converters) and saves them where
@@ -219,7 +221,7 @@ def mesh_case(mesh, out_dir):
     from fseend_tpu_torch.parallel import mesh as pmesh
 
     errors = {}
-    for name, kw in (("model", dict(n_model=2)), ("data", dict(n_data=3)),
+    for name, kw in (("model", dict(n_model=3)), ("data", dict(n_data=3)),
                      ("backend", dict(device="cuda"))):
         try:
             pmesh.make_mesh(**{"device": "cpu", **kw})
@@ -228,7 +230,18 @@ def mesh_case(mesh, out_dir):
     local = pmesh.shard_batch(tensors(batch()), mesh)
     return {"shape": (mesh.n_data, mesh.n_model), "rank": mesh.rank,
             "device": str(mesh.device), "lens": local["lens"].numpy(),
-            "feats": local["feats"].numpy(), "errors": errors}
+            "feats": local["feats"].numpy(), "errors": errors,
+            "model_axis": grid_fields(pmesh.make_mesh(device="cpu", n_model=2))}
+
+
+def grid_fields(mesh) -> dict:
+    """A mesh of processes' coordinates and the global ranks of its groups."""
+    import torch.distributed as dist
+
+    return {"shape": (mesh.n_data, mesh.n_model), "d": mesh.d, "m": mesh.m,
+            "global": mesh.global_rank, "main": mesh.main,
+            "model": dist.get_process_group_ranks(mesh.model_group),
+            "data": dist.get_process_group_ranks(mesh.data_group)}
 
 
 def dp_cases() -> dict:
@@ -271,21 +284,27 @@ class ToyData:
         return self.items[i]
 
 
-def run_training(mesh, root, max_epochs: int, resume_from=None):
-    """LS `run_training` (SGD) on ToyData, batch 4: with `mesh` over its
-    ranks, rank 0 logging under `root`."""
+def run_training(mesh, root, max_epochs: int, resume_from=None, family: str = "ls",
+                 tx=None):
+    """`run_training` of the family's toy config (LS by default; SGD unless
+    `tx`) on ToyData, batch 4: with `mesh` over its ranks, global rank 0
+    logging under `root`.  Returns the whole model (JAX layout) and the
+    checkpoint dir."""
     from fseend_tpu_torch.train import loop as LOOP
     from fseend_tpu_torch.train import optim
     from fseend_tpu_torch.train.trainer import TaskConfig
 
-    logger = LOOP.MetricsLogger(str(root), "toy") if mesh is None or mesh.rank == 0 else None
+    logger = LOOP.MetricsLogger(str(root), "toy") if mesh is None or mesh.main else None
+    task = TaskConfig(model="ls", masked_emb_loss=True) if family == "ls" else \
+        TaskConfig(model=family)
     state, ckpt_dir = LOOP.run_training(
-        task=TaskConfig(model="ls", masked_emb_loss=True), model_cfg=LS,
+        task=task, model_cfg=CFGS[family],
         train_dataset=ToyData(10, 1), val_dataset=ToyData(3, 2),
-        tx=optim.build_optimizer("sgd", 0.05, grad_clip=5.0), logger=logger, batch_size=4,
-        chunk_size=T, max_speakers=S, input_dim=LS.in_size, max_epochs=max_epochs, seed=3,
-        mesh=mesh, resume_from=resume_from, log_every=1, device="cpu")
-    return to_jax(state.model), ckpt_dir
+        tx=tx or optim.build_optimizer("sgd", 0.05, grad_clip=5.0), logger=logger,
+        batch_size=4, chunk_size=T, max_speakers=S, input_dim=LS.in_size,
+        max_epochs=max_epochs, seed=3, mesh=mesh, resume_from=resume_from, log_every=1,
+        device="cpu")
+    return to_jax(LOOP.whole_state(state, mesh).model), ckpt_dir
 
 
 def training_case(mesh, out_dir):
@@ -481,3 +500,216 @@ def sp_model_case(mesh, out_dir):
 
 
 SP_CASES = [sp_ops_case, sp_model_case]
+
+
+# ---------------------------------------------------------------------------
+# cases of tests/test_torch_port_tp.py: a 2 x 2 grid, then 1 x 2
+# ---------------------------------------------------------------------------
+
+GRIDS = ((2, 2), (1, 2))          # (n_data, n_model)
+
+
+def _grid_main(rank: int, phases, out_dir: str) -> None:
+    """Each phase ((n_data, n_model), port, cases) whose grid holds this rank:
+    a process group of its own, the mesh over it, the cases, results saved
+    under "<n_data>x<n_model>/<case>"."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from fseend_tpu_torch.parallel import mesh as pmesh
+
+    results = {}
+    for (n_data, n_model), port, cases in phases:
+        world = n_data * n_model
+        if rank >= world:
+            continue
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                          WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+        mesh = pmesh.make_mesh(n_data, n_model, device="cpu")
+        for fn in cases:
+            try:
+                results[f"{n_data}x{n_model}/{fn.__name__}"] = fn(mesh, out_dir)
+            except Exception:    # reported by the test that reads the case
+                results[f"{n_data}x{n_model}/{fn.__name__}"] = {"error": traceback.format_exc()}
+        dist.destroy_process_group()
+    torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+
+
+def start_grid_ranks(phases, out_dir) -> list:
+    """`start_ranks` for grids: phases [((n_data, n_model), cases)], run in
+    order by the ranks each grid holds, in one set of spawned processes."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    phases = [(grid, _free_port(), cases) for grid, cases in phases]
+    world = max(nd * nm for (nd, nm), _, _ in phases)
+    procs = [ctx.Process(target=_grid_main, args=(r, phases, str(out_dir)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def tp_cases() -> dict:
+    """name -> (family, config, TaskConfig) of the tensor-parallel steps: LS
+    on the "plain" and "core" retention routes and on "fused" with the
+    fused decoder (B4's and B3's plain versions here), FS, EEND-EDA."""
+    from fseend_tpu_torch.train.trainer import TaskConfig
+
+    ls_task = TaskConfig(model="ls", masked_emb_loss=True)
+    return {"ls_plain": ("ls", LS, ls_task),
+            "ls_core": ("ls", replace(LS, kernel="core"), ls_task),
+            "ls_fused": ("ls", replace(LS, kernel="fused", use_fused_dec=True), ls_task),
+            "fs": ("fs", FS, TaskConfig(model="fs", label_mode="spk_pit")),
+            "eda": ("eda", EDA, TaskConfig(model="eda"))}
+
+
+ADAM_CLIP = dict(kind="adam", lr=1e-3, eps=1e-3, grad_clip=0.05)
+
+
+def tp_train_step(mesh, m, cfg, task, b: dict, steps: int = 1, opt=None):
+    """`train_step` with `m` sharded over the mesh's model axis first: the
+    gradients and the model gathered whole (JAX layout), each step's
+    metrics, and how many parameters were split."""
+    from fseend_tpu_torch.parallel import collectives as C
+    from fseend_tpu_torch.parallel import mesh as pmesh
+    from fseend_tpu_torch.train import optim
+    from fseend_tpu_torch.train import trainer as TRN
+
+    pmesh.shard_model_(m, mesh)
+    tx = opt or optim.Optimizer("sgd", 1.0)
+    state = TRN.TrainState.create(m, tx)
+    step = TRN.make_train_step(task, cfg, tx, mesh=mesh, device="cpu")
+    local = pmesh.shard_batch(tensors(b), mesh)
+    metrics = [{k: float(v) for k, v in step(state, local, 0)[1].items()} for _ in range(steps)]
+    shards = list(C.param_shards(m).values())
+    whole = pmesh.gather_model(m, mesh)
+    grads = pmesh.gather_full([torch.zeros_like(p) if p.grad is None else p.grad
+                               for p in m.parameters()], shards, mesh)
+    g = copy.deepcopy(whole)
+    with torch.no_grad():
+        for p, q in zip(g.parameters(), grads):
+            p.copy_(q)
+    return {"grads": to_jax(g)[0], "after": to_jax(whole), "metrics": metrics,
+            "split": sum(s is not None for s in shards)}
+
+
+def tp_step_case(mesh, out_dir):
+    """One SGD step (lr 1) of each `tp_cases` entry, and two Adam steps
+    with an active clip (LS "plain")."""
+    from fseend_tpu_torch.train import optim
+
+    ms = models(out_dir)
+    res = {name: tp_train_step(mesh, copy.deepcopy(ms[fam]), cfg, task, batch())
+           for name, (fam, cfg, task) in tp_cases().items()}
+    fam, cfg, task = tp_cases()["ls_plain"]
+    res["adam_clip"] = tp_train_step(mesh, copy.deepcopy(ms[fam]), cfg, task, batch(), 2,
+                                     optim.Optimizer(**ADAM_CLIP))
+    return res
+
+
+FFN_X = (2, 5, 32)
+
+
+def ffn_pair(ms):
+    """The FFN of FS encoder layer 0 with its input and the objective's
+    weights."""
+    gen = torch.Generator().manual_seed(11)
+    layer = ms["fs"].enc.layers[0]
+    x = torch.randn(FFN_X, generator=gen)
+    w = torch.randn(FFN_X, generator=gen)
+    return layer, x, w
+
+
+def sp_model_axis_case(mesh, out_dir):
+    """The FS sequence-parallel step over the "model" axis (the time axis
+    split over the model group), one SGD step at lr 1."""
+    from fseend_tpu_torch.parallel import sp as SP
+    from fseend_tpu_torch.train.trainer import TaskConfig
+
+    def make(task, cfg, tx, mesh, device):
+        return SP.make_fs_train_step_sp(task, cfg, tx, mesh, axis="model", device=device)
+
+    return train_step(mesh, copy.deepcopy(models(out_dir)["fs"]), FS, TaskConfig(model="fs"),
+                      batch(), sp=make)
+
+
+def tp_transpose_case(mesh, out_dir):
+    """Megatron's FFN pair on this rank's shards against an objective of its
+    (replicated) output: the gradients of x and of the whole linears, with
+    the model-axis transposes and with a psum's (the data axis' transpose:
+    its backward sums the cotangents over the ranks) at the row-parallel
+    output."""
+    from fseend_tpu_torch.ops import nn as tnn
+    from fseend_tpu_torch.parallel import collectives as C
+    from fseend_tpu_torch.parallel import mesh as pmesh
+
+    layer, x0, w = ffn_pair(models(out_dir))
+    out = {}
+    for name in ("megatron", "psum"):
+        lay = pmesh.shard_model_(copy.deepcopy(layer), mesh)
+        x = x0.clone().requires_grad_()
+        orig = C.reduce_from_model
+        if name == "psum":
+            C.reduce_from_model = lambda t: C.psum(t, C.model_group())
+        try:
+            with C.model_parallel(mesh.model_group):
+                y = tnn.ff_block(x, lay.linear1, lay.linear2)
+                (y * w).sum().backward()
+        finally:
+            C.reduce_from_model = orig
+        ps = [lay.linear1.weight, lay.linear1.bias, lay.linear2.weight, lay.linear2.bias]
+        shards = [C.shards_of(m).get(a) for m, a in ((lay.linear1, "weight"),
+                                                   (lay.linear1, "bias"),
+                                                   (lay.linear2, "weight"),
+                                                   (lay.linear2, "bias"))]
+        out[name] = {"y": y.detach(), "x": x.grad,
+                     "params": pmesh.gather_full([p.grad for p in ps], shards, mesh)}
+    return out
+
+
+def grid_case(mesh, out_dir):
+    """The grid's fields and groups, this rank's rows and the partition."""
+    from fseend_tpu_torch.parallel import mesh as pmesh
+
+    local = pmesh.shard_batch(tensors(batch()), mesh)
+    ms = models(out_dir)
+    return {**grid_fields(mesh), "lens": local["lens"].numpy(),
+            "partition": {fam: pmesh.param_partition(m, mesh) for fam, m in ms.items()}}
+
+
+def tp_training_case(mesh, out_dir):
+    """FS `run_training` over the grid (Adam as ADAM_CLIP without the clip,
+    2 epochs), then a resume from the first epoch's checkpoint to a third."""
+    import torch.distributed as dist
+
+    from fseend_tpu_torch.train import optim
+
+    tx = optim.Optimizer(**{**ADAM_CLIP, "grad_clip": 5.0})
+    root = Path(out_dir) / "tp_fs"
+    final, ckpt_dir = run_training(mesh, root, 2, family="fs", tx=tx)
+    dist.barrier()                       # global rank 0 has written the checkpoints
+    ckpt = root / "toy" / "version_0" / "ckpt_epoch=0.npz"
+    resumed, _ = run_training(mesh, Path(out_dir) / "tp_fs_resumed", 3, resume_from=str(ckpt),
+                              family="fs", tx=tx)
+    return {"final": final, "resumed": resumed,
+            "dir": None if ckpt_dir is None else str(ckpt_dir)}
+
+
+def tp_cli_case(mesh, out_dir):
+    """`cli.train` on a `mesh: {model: 2}` config (the test process wrote
+    it): each rank's standard output."""
+    import contextlib
+    import io
+
+    from fseend_tpu_torch.cli import train as TT
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        TT.main(["--configs", str(Path(out_dir) / "ls_tp.yaml"), "--device", "cpu"])
+    return {"stdout": buf.getvalue()}
+
+
+TP_PHASES = [((2, 2), [grid_case, tp_step_case, tp_training_case]),
+             ((1, 2), [grid_case, tp_step_case, tp_transpose_case, sp_model_axis_case,
+                       tp_cli_case])]
