@@ -23,15 +23,22 @@ the servers and the steps.
     python3 chip_smoke.py            (--profile adds a torch.profiler window
                                       over the blockwise server's process_block;
                                       --parent DIR builds the float32
-                                      cached_attention.cu,
+                                      cached_attention.cu, dec_frame_scan.cu,
                                       dec_train_fusion_{fwd,bwd}.cu,
                                       chunk_retention.cu and retention_layer.cu
-                                      found in DIR, an earlier commit's
-                                      kernels/csrc with this tree's entry
-                                      points (others are refused), times them
-                                      against this tree's in turns, and holds
-                                      every output of B3-B7 to theirs bit for
-                                      bit)
+                                      and the bf16 cached_attention.cu and
+                                      dec_frame_scan.cu found in DIR, an
+                                      earlier commit's kernels/csrc with this
+                                      tree's entry points (others are
+                                      refused), times them against this
+                                      tree's in turns, and holds every output
+                                      of the float32 B1 and B3-B7 to theirs
+                                      bit for bit)
+    python3 chip_smoke.py --bf16-only (phases 1-2 and H1-H6 alone on fresh
+                                      models: the bf16 serving kernels
+                                      checked and timed, with --parent
+                                      against the earlier bf16 B1, B6 and
+                                      B7; prints no result)
     python3 chip_smoke.py --mesh-only (phases 1-2 and M1-M5 alone; prints
                                       no result)
     python3 chip_smoke.py --tp-only  (phases 1-2 and M5 alone; prints no
@@ -104,7 +111,7 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      it), both frame scans at K=1, the device time by kernel per call (over
      five profiled calls) of each frame scan, of both chunkwise kernels and
      of the fusion layer's forward and backward (the *_parts lines); with
-     --parent, the earlier
+     --parent, the earlier float32 B1 at K=128 and K=1 and the earlier
      fusion-layer forward and backward (the same bits) and both chunkwise
      kernels at each of their main-path shapes against this tree's
      (earlier, this, this, earlier)
@@ -131,7 +138,9 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      step(); the stream state's bytes in both dtypes; each bf16 kernel at
      its main-path shape beside its bf16 plain version and its bound (bf16
      bytes over 3.35 TB/s or operations over the bf16 peak, 989 TFLOP/s),
-     both frame scans also at step()'s K 1
+     both frame scans also at step()'s K 1; B1 bf16's device time by kernel
+     (the dec_frame_scan_bf16_parts line; with --parent also the earlier
+     build's, and B1 bf16 at K 128 and K 1 against it in turns)
  H5 (LS), H4 and H6 for B5: the blockwise server on the "core" route in
      bf16 (128 lanes x 4 blocks of 128 + flush; chunk_retention_bf16 6 a
      block, 2 on the flush, counted from 0) against the float32 server
@@ -212,7 +221,8 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      bf16 against float32 in turns (the three blocks, step(), the last
      blockwise block; the state's bytes); each bf16 kernel at its main-path
      shapes beside its bf16 plain version, its bound and
-     scaled_dot_product_attention in bf16
+     scaled_dot_product_attention in bf16 (with --parent, first against the
+     earlier bf16 build in turns)
  17. F6, tests/goldens/fs_train_ref.npz (the reference's FS training run,
      B 2, T 16) through the port's state-dict reader on the card: step-0
      losses rtol 1e-4, every gradient atol 1e-5 + rtol 1e-3, its three Adam
@@ -518,16 +528,24 @@ def phase_build():
 # them), built in float32 beside this tree's and timed against them in
 # turns; their C entry points must be this tree's float32 ones (88db5c2 on),
 # recognised by these signatures, so this tree's wrappers call them
-PARENT_SOURCES = {
-    "cached_attention": ({"CA_HD": FS_HD}, (
-        "out, float* part, int R, int K, int cap, int rows_per_lane, int min_pos, void* stream",
-        "out, int R, int K, int cap, void* stream")),
-    "dec_train_fusion_fwd": (DTF, (("dtf_forward(const float* x, const float* tqkvg, "
-                                    "const float* bqkvg",
-                                    "dtf_forward(const E* x, const E* tqkvg, const E* bqkvg"),)),
-    "dec_train_fusion_bwd": (DTF, ("unsigned seed, unsigned thr, float mult, void* stream_",)),
-    "chunk_retention": (HEAD, ("sf, float* scratch, int BH, int T, int L, void* stream)",)),
-    "retention_layer": (HEAD, ("ws, float* scratch,", "int B, int T, int L, int H, float kscale")),
+CA_ENTRY = ("out, float* part, int R, int K, int cap, int rows_per_lane, int min_pos, void* stream",
+            "out, int R, int K, int cap, void* stream")
+DFS_ENTRY = ("T* s, float* ws, int B, int K, int C, int L, int F, void* stream",)
+PARENT_SOURCES = {   # key: (source, defines, entry points)
+    "cached_attention": ("cached_attention", {"CA_HD": FS_HD}, CA_ENTRY),
+    "dec_frame_scan": ("dec_frame_scan", DTF, DFS_ENTRY),
+    "dec_train_fusion_fwd": ("dec_train_fusion_fwd", DTF, (
+        ("dtf_forward(const float* x, const float* tqkvg, const float* bqkvg",
+         "dtf_forward(const E* x, const E* tqkvg, const E* bqkvg"),)),
+    "dec_train_fusion_bwd": ("dec_train_fusion_bwd", DTF,
+                             ("unsigned seed, unsigned thr, float mult, void* stream_",)),
+    "chunk_retention": ("chunk_retention", HEAD,
+                        ("sf, float* scratch, int BH, int T, int L, void* stream)",)),
+    "retention_layer": ("retention_layer", HEAD,
+                        ("ws, float* scratch,", "int B, int T, int L, int H, float kscale")),
+    # the bf16 forms of B1, B6 and B7, timed against this tree's
+    "cached_attention_bf16": ("cached_attention", {"CA_HD": FS_HD, "FS_BF16": 1}, CA_ENTRY),
+    "dec_frame_scan_bf16": ("dec_frame_scan", dict(DTF, FS_BF16=1), DFS_ENTRY),
 }
 PARENT = {}
 # the blockwise blocks' ms of this run ("ls": the fused route, "fs": the
@@ -548,16 +566,16 @@ def start_parent_build(src):
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (defines, signatures) in PARENT_SOURCES.items():
-        text = " ".join((src / f"{name}.cu").read_text().split())
+    for name, (source, defines, signatures) in PARENT_SOURCES.items():
+        text = " ".join((src / f"{source}.cu").read_text().split())
         for signature in signatures:       # a tuple: one of its forms
             forms = signature if isinstance(signature, tuple) else (signature,)
             if not any(form in text for form in forms):
-                raise SystemExit(f"--parent: {src}/{name}.cu lacks the entry point this "
+                raise SystemExit(f"--parent: {src}/{source}.cu lacks the entry point this "
                                  f"script calls (... {forms[0]})")
         lib = out / f"lib{name}.so"
         cmd = ([_build._nvcc()] + _build.NVCC_FLAGS + [f"-D{k}={v}" for k, v in defines.items()]
-               + ["-o", str(lib), str(src / f"{name}.cu")])
+               + ["-o", str(lib), str(src / f"{source}.cu")])
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     return procs
@@ -570,6 +588,7 @@ def finish_parent_build(procs):
     from fseend_tpu_torch.kernels import _build
     from fseend_tpu_torch.kernels import cached_attention as CA
     from fseend_tpu_torch.kernels import chunk_retention as CR
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
     from fseend_tpu_torch.kernels import dec_train_fusion as DT
     from fseend_tpu_torch.kernels import retention_layer as RL
 
@@ -598,6 +617,11 @@ def finish_parent_build(procs):
                   dec_train_fusion_bwd=on("dec_train_fusion_bwd", launch_bwd),
                   cached_attention=on("cached_attention", CA.cached_attention),
                   cached_attention_perlane=on("cached_attention", CA.cached_attention_perlane),
+                  cached_attention_bf16=on("cached_attention_bf16", CA.cached_attention),
+                  cached_attention_perlane_bf16=on("cached_attention_bf16",
+                                                   CA.cached_attention_perlane),
+                  dec_frame_scan=on("dec_frame_scan", DFS.dec_frame_scan),
+                  dec_frame_scan_bf16=on("dec_frame_scan_bf16", DFS.dec_frame_scan),
                   chunk_retention=on("chunk_retention", CR.chunk_retention),
                   retention_layer=on("retention_layer", RL.retention_layer))
 
@@ -1671,6 +1695,27 @@ def hold_on_main_path(server, xs, got):
     return errs, step_got
 
 
+def scan_outputs(name, fn, args, kw):
+    """A frame scan's result and the state it updates in place, run on
+    clones of args."""
+    a = clone_args(args)
+    with torch.no_grad():
+        y = fn(*a, **kw)
+    state = [t for t in a if torch.is_tensor(t)][-(len(FRAME_SCAN_LEAVES[name]) - 1):]
+    return [y] + state
+
+
+def scan_vs_parent(name, this, earlier, args, kw, shape, card, same_bits=True):
+    """A frame scan of this tree against the earlier build's on one call:
+    every output and state leaf bit for bit (`same_bits`), then in turns."""
+    if same_bits:
+        same_bits_as_parent(f"{name} [{shape}]", scan_outputs(name, earlier, args, kw),
+                            scan_outputs(name, this, args, kw))
+    a_old, a_this = clone_args(args), clone_args(args)
+    in_turns(f"{name} {shape}", lambda: earlier(*a_old, **kw), lambda: this(*a_this, **kw), 5,
+             card, rounds=1 if args[0].shape[1] > 1 else 3)
+
+
 def phase_times(cfg, model, rng, card, main_path_args):
     from fseend_tpu_torch.kernels import chunk_retention as CR
     from fseend_tpu_torch.kernels import retention_layer as RL
@@ -1699,6 +1744,10 @@ def phase_times(cfg, model, rng, card, main_path_args):
         args, kw = step_got[name]
         time_kernel(name, f"step() B={B} K=1", getattr(mod, name),
                     getattr(mod, name + "_plain"), args, kw, cfg, card)
+        if name in PARENT:
+            # the float32 B1 of the earlier build: the same bits, timed in turns
+            for shape, (a, k) in ((f"B={B} K={K}", got[name]), (f"step() B={B} K=1", step_got[name])):
+                scan_vs_parent(name, getattr(mod, name), PARENT[name], a, k, shape, card)
         # where the scan's time goes: device time by kernel per call
         a = clone_args(got[name][0])
         busy = device_ms_by_kernel(lambda: getattr(mod, name)(*a, **got[name][1]),
@@ -4021,6 +4070,7 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
     plain version and its bound (bf16 bytes, bf16 tensor-core peak), B1 and
     B2 also at step()'s K 1; the stream state's bytes in both dtypes.
     Returns the kernels line's rows of the bf16 forms."""
+    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
     from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
     xs = torch.as_tensor(rng.standard_normal((LANES, TIME_K, cfg.in_size)),
@@ -4064,6 +4114,23 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
         args, kw = step_got[name]
         time_kernel(name, f"bf16 step() B={LANES} K=1", getattr(mod, name),
                     getattr(mod, name + "_plain"), args, kw, cfg, card)
+    # B1 bf16 by kernel (and the earlier build's, with --parent), then in turns
+    args, kw = main["dec_frame_scan"]
+    versions = [("this", DFS.dec_frame_scan)]
+    if PARENT:
+        versions.insert(0, ("earlier", PARENT["dec_frame_scan_bf16"]))
+    for which, fn in versions:
+        a = clone_args(args)
+        busy = device_ms_by_kernel(lambda: fn(*a, **kw), reps=PARTS_REPS)
+        log(json.dumps({"dec_frame_scan_bf16_parts": {
+            "kernel": which, "shape": f"B={LANES} K={TIME_K}", "device_busy_ms": sum(busy.values()),
+            "top": top_kernels(busy, 1, n=14)}, "card": card}))
+        del a
+    if PARENT:
+        for shape, (a, k) in ((f"bf16 B={LANES} K={TIME_K}", main["dec_frame_scan"]),
+                              (f"bf16 step() B={LANES} K=1", step_got["dec_frame_scan"])):
+            scan_vs_parent("dec_frame_scan", DFS.dec_frame_scan, PARENT["dec_frame_scan_bf16"],
+                           a, k, shape, card, same_bits=False)
     for key, label in (("retention_layer", "decoder"), ("retention_layer_enc", "encoder")):
         args, kw = rl_calls[key]
         _, kern, plain = chunk_kernels()["retention_layer"]
@@ -4367,7 +4434,8 @@ def phase_fs_bf16(fcfg, model, rng, card):
         got = kern(*args)
         torch.cuda.synchronize()
         q, k = args[:2]
-        want16 = plain(*args, **CA.kernel_tiling(q.shape[0], q.shape[1], k.shape[1]))
+        want16 = plain(*args, **CA.kernel_tiling(q.shape[0], q.shape[1], k.shape[1], q.dtype,
+                                                 perlane=name.endswith("perlane")))
         want32 = plain(*to_f32(args))
         e = bf16_guard(f"{name} bf16 [{label}]", got, want16, want32, CA_BF16_CLOSE)
         errs[name + "_bf16"] = max(errs[name + "_bf16"], e)
@@ -4446,6 +4514,13 @@ def phase_fs_bf16(fcfg, model, rng, card):
     rows = {}
     for what in ("decoder K=125", "encoder K=125", "decoder K=1", "encoder K=1"):
         args = main[what]
+        if PARENT:
+            K = args[0].shape[1]
+            in_turns(f"cached_attention_perlane bf16 main path {what} R={args[0].shape[0]} "
+                     f"start={int(args[3][0])}",
+                     lambda: PARENT["cached_attention_perlane_bf16"](*args),
+                     lambda: CA.cached_attention_perlane(*args), 20 if K > 1 else 100, card,
+                     rounds=1 if K > 1 else 3)
         row = time_kernel("cached_attention_perlane",
                           f"bf16 main path {what} R={args[0].shape[0]} start={int(args[3][0])} "
                           f"min_pos={args[5]}", CA.cached_attention_perlane,
@@ -4453,6 +4528,11 @@ def phase_fs_bf16(fcfg, model, rng, card):
                           library=sdpa_call(args, "cached_attention_perlane"))
         if what == "decoder K=125":
             rows["cached_attention_perlane_bf16"] = row
+    if PARENT:
+        in_turns(f"cached_attention bf16 main path encoder R={last[0].shape[0]} "
+                 f"K={last[0].shape[1]} start={int(last[3])}",
+                 lambda: PARENT["cached_attention_bf16"](*last),
+                 lambda: CA.cached_attention(*last), 20, card)
     rows["cached_attention_bf16"] = time_kernel(
         "cached_attention", f"bf16 main path encoder R={last[0].shape[0]} K={last[0].shape[1]} "
         f"start={int(last[3])}", CA.cached_attention, CA.cached_attention_plain, last, {},
@@ -5437,6 +5517,25 @@ def phase_tensor_parallel(card):
     return total
 
 
+def phase_bf16_only(card):
+    """H1-H6 alone on fresh models: the bf16 forms of the frame scans, the
+    retention layer, the chunkwise core and both cached-attention kernels
+    against their plain versions, on their servers' main paths, and timed
+    (with --parent, B1, B6 and B7 also against the earlier bf16 build)."""
+    from fseend_tpu_torch.models import fs_eend, ls_eend
+
+    cfg, fcfg = ls_eend.LSEENDConfig(), fs_eend.FSEENDConfig()
+    rng = np.random.default_rng(SEED)
+    model = make_model(cfg, rng)
+    _, rl_calls = phase_bf16_kernels(cfg, model, rng)
+    _, main = phase_bf16_serve(cfg, model, rng)
+    phase_bf16_times(cfg, model, rng, card, main, rl_calls)
+    phase_bf16_core(cfg, model, rng, card)
+    del model, main, rl_calls
+    torch.cuda.empty_cache()
+    phase_fs_bf16(fcfg, fs_make_model(fcfg, rng), rng, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -5455,6 +5554,10 @@ def main() -> int:
         return 0
     if "--tp-only" in sys.argv[1:]:
         phase_tensor_parallel(card)
+        log(f"total: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if "--bf16-only" in sys.argv[1:]:
+        phase_bf16_only(card)
         log(f"total: {time.perf_counter() - t0:.1f} s")
         return 0
     cfg = ls_eend.LSEENDConfig()

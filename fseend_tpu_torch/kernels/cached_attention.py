@@ -68,7 +68,7 @@ MAX_HD = 128
 _NEG = -1e30     # the kernels' finite stand-in for -inf
 # csrc/cached_attention.cu: positions per online-softmax tile at K > 1
 # (kTcKV) and at K = 1 (kSplitT), and the blocks that fill the card, below
-# which the K = 1 path splits the cache (kFillBlocks)
+# which the K = 1 path splits the cache (kFillBlocks); both forms
 TC_TILE, SPLIT_TILE, FILL_BLOCKS = 64, 128, 132 * 8
 
 
@@ -188,12 +188,18 @@ def _launch(q, k, v, start, rows_per_lane, min_pos, perlane):
     return out
 
 
-def kernel_tiling(R: int, K: int, cap: int) -> dict:
-    """The kv tiling of the CUDA kernel's online softmax at (R, K, cap), as
-    the bf16 plain versions' `tile` and `split`: tiles of 64 positions at
-    K > 1; at K = 1 tiles of 128, in splits of whole tiles when R rows alone
-    do not fill the card (`csrc/cached_attention.cu:split_count`)."""
-    if K > 1:
+def kernel_tiling(R: int, K: int, cap: int, dtype=torch.bfloat16, perlane: bool = True) -> dict:
+    """The kv tiling of the CUDA kernel's online softmax at (R, K, cap) for
+    data of `dtype`, as the bf16 plain versions' `tile` and `split`: tiles
+    of 64 positions at K > 1 and for the shared-head form (`perlane`
+    False) at any K; the per-lane form's K = 1 calls take tiles of 128, in
+    splits of whole tiles when R rows alone do not fill the card
+    (`csrc/cached_attention.cu:split_count`).  The bf16 form streams its
+    tiles through a deeper ring of copies than the float32 form, but over
+    the same tiles and splits, so the plan is one for both dtypes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel_tiling: no kernel form for {dtype}")
+    if K > 1 or not perlane:
         return {"tile": TC_TILE}
     tiles = -(-cap // SPLIT_TILE)
     n = min(1 if R >= FILL_BLOCKS else -(-FILL_BLOCKS // R), tiles)

@@ -81,19 +81,28 @@
 // of 1024 positions and this kernel over tiles of 64 (or 128 at K = 1, and
 // per split), so a probability can round an ulp apart where a later tile
 // raises the max (the online-softmax drift the Pallas source notes).
-//   K > 1 (tc_body_bf16): the tiles of the float32 body in bf16 rows of
-//   CA_HD + 8 elements (16-byte cp.async copies; each 8-row ldmatrix phase
-//   hits distinct banks); q k^T and p v are one bf16 mma.sync.m16n8k16 pass
-//   each with float32 accumulation (tc_bf16.cuh).  q and k fragments come by
+//   K > 1 (tc_body_bf16): the float32 body's blocks and 64-position tiles
+//   in bf16 rows of CA_HD + 8 elements (16-byte cp.async copies; each 8-row
+//   ldmatrix phase hits distinct banks), streamed through a ring of kRing =
+//   4 stages in pairs, the next pair in flight while one is multiplied, one
+//   barrier a pair; q k^T and p v are one bf16 mma.sync.m16n8k16 pass each
+//   with float32 accumulation (tc_bf16.cuh).  q and k fragments come by
 //   ldmatrix, v's by ldmatrix.trans; the probabilities of two adjacent
-//   8-position accumulator tiles are the A fragment of one 16-deep k step of
-//   p v directly (the FlashAttention-2 layout: no permutation of the
-//   positions, unlike the float32 body's m16n8k8 A fragment).  CA_HD % 16
-//   == 0.
-//   K = 1: the float32 split kernel reading bf16 rows into its float32
-//   tiles with plain loads, every load of a thread issued before its first
-//   store (load_kv_b16), p rounded to bf16 before the p v sum; the partials
-//   and the combine stay float32.
+//   8-position accumulator tiles are the A fragment of one 16-deep k step
+//   of p v directly (the FlashAttention-2 layout: no permutation of the
+//   positions, unlike the float32 body's m16n8k8 A fragment); a tile that
+//   every row of a warp reads whole skips the mask; the exponentials are
+//   the SFU's 2^x on scores scaled by one fma.  Its pace is the softmax
+//   and mma.sync's issue, not the copies.  CA_HD % 16 == 0.
+//   K = 1: the float32 split kernel's blocks, splits and 128-position
+//   tiles, the tiles copied as bf16 rows by 16-byte cp.async into a ring of
+//   three stages (two in flight while one is scored) and widened to float32
+//   in registers; p rounded to bf16 before the p v sum; the partials and
+//   the combine stay float32.
+// At K = 1 with a tile's copy waited for before it is scored, two blocks
+// an SM hold at most one tile's copy in flight, and the kernel is bound by
+// the copies' latency at about a third of its bytes bound; the ring keeps
+// it within 1.2 times its bytes bound.
 // Bound at the decoder's fast-block shape: the same 70 GFLOP on the bf16
 // tensor cores (989 TFLOP/s, 0.07 ms) against 0.55 GB of bf16 cache (0.17
 // ms): bytes.  At K = 1, bytes, half the float32 form's.
@@ -142,36 +151,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int n, i
   }
 }
 
-// NT rows of k and of v from bf16 (rows, CA_HD) matrices, read to float32
-// into tiles of row stride LD by NT threads (rows at or past `valid` are
-// zero): every thread issues all its plain loads before its first store,
-// so their latencies overlap (the float32 form's cp.async does that in
-// hardware); landed at the caller's next barrier.  CA_HD % 4 == 0.
 // four bf16 values (8 bytes, the first in the lowest half) as float32
 __device__ __forceinline__ float4 b16x4(uint2 u) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <int LD, int NT>
-__device__ __forceinline__ void load_kv_b16(float* ks, float* vs, const fs::bf16* k,
-                                            const fs::bf16* v, int valid) {
-  constexpr int kChunks = CA_HD / 4;  // 8-byte chunks of a row: NT rows take kChunks a thread
-  uint2 bk[kChunks], bv[kChunks];
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int idx = threadIdx.x + i * NT, r = idx / kChunks, c = (idx % kChunks) * 4;
-    const bool ok = r < valid;
-    bk[i] = ok ? *reinterpret_cast<const uint2*>(k + (size_t)r * CA_HD + c) : make_uint2(0u, 0u);
-    bv[i] = ok ? *reinterpret_cast<const uint2*>(v + (size_t)r * CA_HD + c) : make_uint2(0u, 0u);
-  }
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int idx = threadIdx.x + i * NT, r = idx / kChunks, c = (idx % kChunks) * 4;
-    *reinterpret_cast<float4*>(ks + r * LD + c) = b16x4(bk[i]);
-    *reinterpret_cast<float4*>(vs + r * LD + c) = b16x4(bv[i]);
-  }
 }
 
 // ---- K > 1, both forms, on the tensor cores ----
@@ -353,21 +337,31 @@ constexpr int tc_smem_bytes() { return (int)sizeof(float) * tc_smem_floats(); }
 static_assert(CA_HD % 16 == 0, "the bf16 form takes head dims that are multiples of 16");
 using fs::bf16;
 
-constexpr int kBLd = CA_HD + 8;  // row stride (elements) of the bf16 q, k and v tiles
-constexpr int kNB = CA_HD / 8;   // accumulator tiles along hd
+constexpr int kBLd = CA_HD + 8;               // row stride (elements) of the bf16 tiles
+constexpr int kNB = CA_HD / 8;                // accumulator tiles along hd
+constexpr int kRing = 4;                      // kv tiles of the ring: two pairs
+constexpr int kStageB = 2 * kTcKV * kBLd;     // bf16 elements of a stage: k, then v
 
-constexpr int tc_smem_bytes() { return (int)sizeof(bf16) * (kTcQ + 4 * kTcKV) * kBLd; }
+constexpr int tc_smem_bytes() { return (int)sizeof(bf16) * (kTcQ * kBLd + kRing * kStageB); }
 
 // n rows of a (rows, CA_HD) bf16 matrix into a tile of row stride kBLd by
-// 16-byte cp.async over kThreads threads; rows at or past `valid` are
-// zero-filled
+// 16-byte cp.async over NT threads; rows at or past `valid` are zero-filled
+template <int NT = kThreads>
 __device__ __forceinline__ void load_rows_b16(bf16* dst, const bf16* src, int n, int valid) {
   constexpr int kChunks = CA_HD / 8;
-  for (int idx = threadIdx.x; idx < n * kChunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < n * kChunks; idx += NT) {
     const int r = idx / kChunks, c = (idx % kChunks) * 8;
     const bool ok = r < valid;
     tc::cp_async16(dst + r * kBLd + c, ok ? src + (size_t)r * CA_HD + c : src, ok);
   }
+}
+
+// 2^x on the SFU in one instruction (a result under 2^-126 flushed to 0: a
+// probability that small is 0 in every sum it joins)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two floats as the bf16 pair of an mma fragment register (the first in
@@ -377,8 +371,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// tc_body's blocks, masks and online softmax on bf16 tiles: one bf16 pass
-// for q k^T and one for p v
+// tc_body's blocks, masks and online softmax on bf16 tiles, one bf16 pass
+// for q k^T and one for p v.  The kv tiles stream through a ring of kRing
+// stages in pairs: one barrier for every two tiles, the next pair's copies
+// in flight while a pair is multiplied (the float32 body takes a barrier
+// every tile, one tile's copy in flight).  A tile that every row of
+// a warp reads whole (past the floor, before the warp's first query,
+// inside the capacity) is scored without the mask, and the softmax takes
+// the unscaled scores: p = 2^(s sl2 - m sl2), sl2 = scale log2 e, one fma
+// and one exp2 a probability (the same exp((s - m) scale) to a few float32
+// ulps).
 template <bool PERLANE>
 __device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              const bf16* __restrict__ v,
@@ -387,7 +389,7 @@ __device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const b
                                              float scale) {
   extern __shared__ __align__(16) bf16 hsm[];
   bf16* qs = hsm;                        // (kTcQ, kBLd)
-  bf16* kvs = qs + kTcQ * kBLd;          // 2 stages x (k, v) x (kTcKV, kBLd)
+  bf16* kvs = qs + kTcQ * kBLd;          // kRing stages x (k, v) x (kTcKV, kBLd)
 
   const int row = blockIdx.x, q0 = blockIdx.y * kTcQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -399,17 +401,26 @@ __device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const b
   const int wr0 = warp * 16;                          // the warp's first query row
   const bool active = wr0 < nq;
   const int wlast = min(st + q0 + min(wr0 + 15, nq - 1), cap - 1);
+  // tiles [0, ... ] ending at or before wfull are read whole by every row
+  const int wfull = min(st + q0 + wr0, cap - 1);
 
   const bf16* kr = k + (size_t)row * cap * CA_HD;
   const bf16* vr = v + (size_t)row * cap * CA_HD;
   auto load_kv = [&](int it) {
-    bf16* ks = kvs + (it & 1) * 2 * kTcKV * kBLd;
+    bf16* ks = kvs + (it % kRing) * kStageB;
     const int j0 = it * kTcKV;
     load_rows_b16(ks, kr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
     load_rows_b16(ks + kTcKV * kBLd, vr + (size_t)j0 * CA_HD, kTcKV, cap - j0);
   };
+  // the tiles in pairs, pair p (tiles 2p, 2p + 1) in stages 2 (p % 2) and
+  // 2 (p % 2) + 1: one barrier a pair, the next pair's copies in flight
+  // while a pair is multiplied
+  auto load_pair = [&](int p) {
+    if (2 * p < ntile) load_kv(2 * p);
+    if (2 * p + 1 < ntile) load_kv(2 * p + 1);
+  };
   load_rows_b16(qs, q + ((size_t)row * K + q0) * CA_HD, kTcQ, nq);
-  load_kv(0);
+  load_pair(0);
   tc::cp_async_commit();
 
   // rows g and g + 8 of the warp's 16: running max, sum and accumulator
@@ -420,19 +431,20 @@ __device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const b
   for (int n = 0; n < kNB; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // p = 2^(s sl2 - m sl2) from the unscaled scores s and their running
+  // max m: exp((s - m) scale) with the scale folded into one fma
+  const float sl2 = scale * 1.4426950408889634f;
 
   for (int it = 0; it < ntile; ++it) {
-    if (it + 1 < ntile) {
-      load_kv(it + 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
+    if (it % 2 == 0) {
       tc::cp_async_wait<0>();
+      __syncthreads();  // pair it / 2 (and q) landed; every warp is done with the pair before
+      load_pair(it / 2 + 1);
+      tc::cp_async_commit();
     }
-    __syncthreads();  // tile it (and q) have landed for every thread
     const int j0 = it * kTcKV;
     if (active && j0 <= wlast) {
-      const bf16* ks = kvs + (it & 1) * 2 * kTcKV * kBLd;
+      const bf16* ks = kvs + (it % kRing) * kStageB;
       const bf16* vs = ks + kTcKV * kBLd;
       // s = q k^T over the tile: 16 rows x 64 positions, 8 accumulator tiles
       float s[8][4];
@@ -456,20 +468,23 @@ __device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const b
           tc::mma_bf16(s[n + 1], fa, b1);
         }
       }
-      // mask, scale and the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+      // mask and the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+      const bool whole = j0 + kTcKV - 1 <= wfull && (!PERLANE || j0 >= min_pos);
       float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int p = j0 + n * 8 + 2 * t + (e & 1);
-          const int qp = e < 2 ? qp0 : qp1;
-          bool ok;
-          if constexpr (PERLANE)
-            ok = p < cap && ((p <= qp && p >= min_pos) || p == qp);
-          else
-            ok = p < cap && p <= qp;
-          s[n][e] = ok ? s[n][e] * scale : kNeg;
+          bool ok = true;
+          if (!whole) {
+            const int p = j0 + n * 8 + 2 * t + (e & 1);
+            const int qp = e < 2 ? qp0 : qp1;
+            if constexpr (PERLANE)
+              ok = p < cap && ((p <= qp && p >= min_pos) || p == qp);
+            else
+              ok = p < cap && p <= qp;
+          }
+          if (!ok) s[n][e] = kNeg;
           if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
           else mx1 = fmaxf(mx1, s[n][e]);
         }
@@ -479,31 +494,44 @@ __device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const b
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
       const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-      const float c0 = expf(m0 - n0), c1 = expf(m1 - n1);
+      const float c0 = ex2((m0 - n0) * sl2), c1 = ex2((m1 - n1) * sl2);
+      const float mb0 = n0 * sl2, mb1 = n1 * sl2;
       float sum0 = 0.f, sum1 = 0.f;
+      if (whole) {  // no masked entry
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mref = e < 2 ? n0 : n1;
-          const float pr = s[n][e] > 0.5f * kNeg ? expf(s[n][e] - mref) : 0.f;
-          s[n][e] = pr;  // unrounded: the row sum adds these
-          if (e < 2) sum0 += pr;
-          else sum1 += pr;
-        }
+          for (int e = 0; e < 4; ++e) {
+            const float pr = ex2(fmaf(s[n][e], sl2, -(e < 2 ? mb0 : mb1)));
+            s[n][e] = pr;  // unrounded: the row sum adds these
+            if (e < 2) sum0 += pr;
+            else sum1 += pr;
+          }
+      } else {
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pr = s[n][e] > 0.5f * kNeg
+                                 ? ex2(fmaf(s[n][e], sl2, -(e < 2 ? mb0 : mb1)))
+                                 : 0.f;
+            s[n][e] = pr;
+            if (e < 2) sum0 += pr;
+            else sum1 += pr;
+          }
       }
+      // l holds this lane's share of the row sum (its quad's shares are
+      // added at the end: the rescale is the same for the whole quad)
       l0 = l0 * c0 + sum0;
       l1 = l1 * c1 + sum1;
       m0 = n0;
       m1 = n1;
+      if (c0 != 1.f || c1 != 1.f) {  // a max that did not move rescales by exactly 1
 #pragma unroll
-      for (int n = 0; n < kNB; ++n) {
-        o[n][0] *= c0, o[n][1] *= c0;
-        o[n][2] *= c1, o[n][3] *= c1;
+        for (int n = 0; n < kNB; ++n) {
+          o[n][0] *= c0, o[n][1] *= c0;
+          o[n][2] *= c1, o[n][3] *= c1;
+        }
       }
       // o += p v, p rounded to bf16: k step kk covers positions 16kk ..
       // 16kk + 15, accumulator tiles 2kk and 2kk + 1 as they are
@@ -522,10 +550,15 @@ __device__ __forceinline__ void tc_body_bf16(const bf16* __restrict__ q, const b
         }
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
   }
+  tc::cp_async_wait<0>();  // no copy outlives the block (the ring's last groups are empty)
 
   if (!active) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
   bf16* orow = out + ((size_t)row * K + q0) * CA_HD;
   const float i0 = 1.f / l0, i1 = 1.f / l1;
 #pragma unroll
@@ -568,7 +601,10 @@ constexpr int kPad4Div = kPad4 > 0 ? kPad4 : 1;
 // blocks that fill the card: at fewer rows the cache is split
 constexpr int kFillBlocks = 132 * 8;
 
+#ifndef FS_BF16
 constexpr int split_smem_floats() { return 2 * kSplitT * kSLd + kHd4 + kSplitT + 8 + kGrp * kHd4; }
+constexpr size_t split_smem_bytes() { return sizeof(float) * split_smem_floats(); }
+#endif
 
 // the splits of each row's cache at R rows: rows alone when they fill the
 // card, else about kFillBlocks / R splits of whole tiles
@@ -580,11 +616,11 @@ inline int split_count(int R, int cap, int* per_tiles) {
   return (tiles + *per_tiles - 1) / *per_tiles;
 }
 
+#ifndef FS_BF16
 // q, out (R, 1, CA_HD); k, v (R, cap, CA_HD).  Block (row, z) takes the
 // positions [z per kSplitT, (z + 1) per kSplitT) up to the row's last
 // readable one.  nsplit == 1: out = acc / sum; else part[row][z] = (max,
-// sum, acc[CA_HD]).  bf16: p rounded to bf16 before it multiplies v (the
-// sum adds it unrounded), out rounded to bf16.
+// sum, acc[CA_HD]).
 __global__ void __launch_bounds__(kSplitT)
     perlane_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
                          const E* __restrict__ v, const int* __restrict__ start,
@@ -619,12 +655,8 @@ __global__ void __launch_bounds__(kSplitT)
     for (int j0 = j_begin; j0 < j_end; j0 += kSplitT) {
       const int nv = min(kSplitT, j_end - j0);
       __syncthreads();  // the previous tile's ks, vs, ps and wred are consumed
-#ifdef FS_BF16
-      load_kv_b16<kSLd, kSplitT>(ks, vs, kr + (size_t)j0 * CA_HD, vr + (size_t)j0 * CA_HD, nv);
-#else
       load_rows<kSLd, kSplitT>(ks, kr + (size_t)j0 * CA_HD, kSplitT, nv);
       load_rows<kSLd, kSplitT>(vs, vr + (size_t)j0 * CA_HD, kSplitT, nv);
-#endif
       tc::cp_async_commit();
       tc::cp_async_wait<0>();
       __syncthreads();
@@ -685,6 +717,137 @@ __global__ void __launch_bounds__(kSplitT)
   }
 }
 
+#else
+// The bf16 form: perlane_split_kernel's blocks, splits, tiles and online
+// softmax (kernel_tiling's plan is the float32 form's), with its tiles kept
+// in bf16.  The float32 form copies a tile and waits for it before scoring
+// it; here each tile of kSplitT positions is copied as bf16 rows (k, then v,
+// row stride kBLd: eight threads' 16-byte reads of eight rows hit 32 banks)
+// by 16-byte cp.async into a ring of kSRing stages, so kSRing - 1 tiles'
+// copies are in flight while one is scored, and widened to float32 in
+// registers.  p is rounded to bf16 before it multiplies v (the sum adds it
+// unrounded); out is rounded to bf16.
+constexpr int kSRing = 3;
+constexpr int kSStage = 2 * kSplitT * kBLd;  // bf16 elements of a stage
+constexpr size_t split_ring_bytes() { return sizeof(bf16) * kSRing * kSStage; }
+constexpr size_t split_smem_bytes() {
+  return split_ring_bytes() + sizeof(float) * (CA_HD + kSplitT + 8);
+}
+static_assert(sizeof(float) * kGrp * CA_HD <= split_ring_bytes(), "the groups' sums fit the ring");
+
+__global__ void __launch_bounds__(kSplitT)
+    perlane_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const int* __restrict__ start,
+                         bf16* __restrict__ out, float* __restrict__ part, int cap,
+                         int rows_per_lane, int min_pos, float scale, int per, int nsplit) {
+  extern __shared__ __align__(16) bf16 rsm[];
+  bf16* ring = rsm;                                                // kSRing x (k, v) x (kSplitT, kBLd)
+  float* qs = reinterpret_cast<float*>(rsm + kSRing * kSStage);    // (CA_HD)
+  float* ps = qs + CA_HD;                                          // (kSplitT) the tile's probabilities
+  float* wred = ps + kSplitT;                                      // (8) the warps' max, then sum
+  float* racc = reinterpret_cast<float*>(rsm);                     // (kGrp, CA_HD) once the ring is done
+
+  const int row = blockIdx.x, z = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int qpos = start[row / rows_per_lane];
+  const int j_begin = z * per * kSplitT;
+  // positions [j_begin, j_end) are this split's, every one <= qpos and < cap
+  const int j_end = min((z + 1) * per * kSplitT, min(qpos, cap - 1) + 1);
+  const int c = tid % kNC4, grp = tid / kNC4;
+
+  float m = kNeg, l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j_begin < j_end) {
+    const bf16* kr = k + (size_t)row * cap * CA_HD;
+    const bf16* vr = v + (size_t)row * cap * CA_HD;
+    const int ntile = (j_end - j_begin + kSplitT - 1) / kSplitT;
+    auto load = [&](int it) {  // tile it into stage it % kSRing; rows past j_end are zero
+      bf16* ks = ring + (it % kSRing) * kSStage;
+      const int j0 = j_begin + it * kSplitT;
+      load_rows_b16<kSplitT>(ks, kr + (size_t)j0 * CA_HD, kSplitT, j_end - j0);
+      load_rows_b16<kSplitT>(ks + kSplitT * kBLd, vr + (size_t)j0 * CA_HD, kSplitT, j_end - j0);
+    };
+#pragma unroll
+    for (int s = 0; s < kSRing - 1; ++s) {
+      if (s < ntile) load(s);
+      tc::cp_async_commit();
+    }
+    for (int d = tid; d < CA_HD; d += kSplitT) qs[d] = fs::f32(q[(size_t)row * CA_HD + d]);
+    for (int it = 0; it < ntile; ++it) {
+      const int j0 = j_begin + it * kSplitT, nv = min(kSplitT, j_end - j0);
+      tc::cp_async_wait<kSRing - 2>();
+      __syncthreads();  // tile it (and qs) landed; every thread is done with tile it - 1, ps, wred
+      if (it + kSRing - 1 < ntile) load(it + kSRing - 1);  // into tile it - 1's stage
+      tc::cp_async_commit();
+      const bf16* ks = ring + (it % kSRing) * kSStage;
+      const bf16* vs = ks + kSplitT * kBLd;
+      // the score of position j0 + tid, its k row widened in registers
+      const int p = j0 + tid;
+      float s = 0.f;
+      const uint4* kk = reinterpret_cast<const uint4*>(ks + tid * kBLd);
+#pragma unroll
+      for (int cc = 0; cc < CA_HD / 8; ++cc) {
+        const uint4 u = kk[cc];
+        const float4 ka = b16x4(make_uint2(u.x, u.y)), kb = b16x4(make_uint2(u.z, u.w));
+        const float4 qa = *reinterpret_cast<const float4*>(qs + 8 * cc);
+        const float4 qb = *reinterpret_cast<const float4*>(qs + 8 * cc + 4);
+        s = fmaf(qa.x, ka.x, s);
+        s = fmaf(qa.y, ka.y, s);
+        s = fmaf(qa.z, ka.z, s);
+        s = fmaf(qa.w, ka.w, s);
+        s = fmaf(qb.x, kb.x, s);
+        s = fmaf(qb.y, kb.y, s);
+        s = fmaf(qb.z, kb.z, s);
+        s = fmaf(qb.w, kb.w, s);
+      }
+      const bool ok = tid < nv && (p >= min_pos || p == qpos);
+      s = ok ? s * scale : kNeg;
+      float mx = s;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) wred[warp] = mx;
+      __syncthreads();
+      const float m_new = fmaxf(m, fmaxf(fmaxf(wred[0], wred[1]), fmaxf(wred[2], wred[3])));
+      const float corr = expf(m - m_new);
+      const float pr = ok ? expf(s - m_new) : 0.f;
+      ps[tid] = pr;
+      const float sum = fs::warp_sum(pr);
+      if (lane == 0) wred[4 + warp] = sum;
+      __syncthreads();
+      l = l * corr + (((wred[4] + wred[5]) + wred[6]) + wred[7]);
+      m = m_new;
+      acc = make_float4(acc.x * corr, acc.y * corr, acc.z * corr, acc.w * corr);
+      if (grp < kGrp) {
+        for (int j = grp; j < nv; j += kGrp) {
+          const float pj = fs::rnd<bf16>(ps[j]);
+          const float4 vv = b16x4(*reinterpret_cast<const uint2*>(vs + j * kBLd + 4 * c));
+          acc.x = fmaf(pj, vv.x, acc.x);
+          acc.y = fmaf(pj, vv.y, acc.y);
+          acc.z = fmaf(pj, vv.z, acc.z);
+          acc.w = fmaf(pj, vv.w, acc.w);
+        }
+      }
+    }
+    tc::cp_async_wait<0>();
+  }
+  __syncthreads();  // every thread is done with the ring, which racc takes over
+  // the groups' accumulators added in the order of the group
+  if (grp < kGrp) *reinterpret_cast<float4*>(racc + grp * CA_HD + 4 * c) = acc;
+  __syncthreads();
+  for (int d = tid; d < CA_HD; d += kSplitT) {
+    float o = 0.f;
+    for (int gi = 0; gi < kGrp; ++gi) o += racc[gi * CA_HD + d];
+    if (nsplit == 1) {
+      out[(size_t)row * CA_HD + d] = __float2bfloat16_rn(o / l);
+    } else {
+      float* pz = part + ((size_t)row * nsplit + z) * (CA_HD + 2);
+      pz[2 + d] = o;
+      if (d == 0) pz[0] = m, pz[1] = l;
+    }
+  }
+}
+#endif
+
 // out[row][d] = sum_z w_z acc_z[d] / sum_z w_z sum_z, w_z = exp(max_z - the
 // row's max), the splits added in the order of z
 __global__ void combine_kernel(const float* __restrict__ part, E* __restrict__ out, int R,
@@ -734,7 +897,7 @@ inline int launch_split(const E* q, const E* k, const E* v, const int* start, E*
   int per;
   const int nsplit = split_count(R, cap, &per);
   if (nsplit > 1 && !part) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * split_smem_floats();
+  const size_t smem = split_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(perlane_split_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

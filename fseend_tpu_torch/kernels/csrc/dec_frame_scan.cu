@@ -58,10 +58,17 @@
 // FFN's second product stay float32 into the residual add.  The state is
 // carried in float32 within a call (frame_ret.cuh).  The logits are float32.
 // Bound: 1.1 TFLOP a block at 128 lanes x 128 frames, 1.1 ms of the bf16
-// tensor cores.
+// tensor cores.  At D = 256 over a block of at least kFusedRows rows the
+// bf16 form runs dec_scan16.cuh's layer instead (its products on wgmma with
+// the residual add and LayerNorm in their epilogues, the FFN pair fused,
+// the recurrence on the tensor cores with the group norm and gate in its
+// epilogue, the slot attention without bank conflicts); a step() (B*C rows)
+// and other widths keep the sequence above, whose products split along k
+// when they have few rows.
 #include "frame_ret.cuh"
 #include "tc_f32.cuh"
 #ifdef FS_BF16
+#include "dec_scan16.cuh"
 #include "tc_bf16.cuh"
 using T = fs::bf16;
 #else
@@ -81,6 +88,9 @@ struct DecWeights {
   const T *lns, *lnb;                  // (L, 3, D): norm11, norm21, norm22
 };
 constexpr int kNumWeights = 14;
+#ifdef FS_BF16
+constexpr long long kFusedRows = 2048;
+#endif
 
 // x[(bc*Kc + k)*D + d] = embp[(b*Kt + k0 + k)*D + d] + pe[c*D + d]
 __global__ void x0_kernel(const T* __restrict__ embp, const T* __restrict__ pe,
@@ -115,7 +125,16 @@ logits_kernel(const T* __restrict__ x, const T* __restrict__ embn,
 
 struct Bufs {
   float *x0, *x1, *t1, *t2, *big, *s0, *part;
+  float* wt;  // the bf16 form's transposed weights (wg16_kernel's operands), or null
 };
+
+#ifdef FS_BF16
+// dec_scan16.cuh's layer takes D = 256 and F a multiple of 64, and the
+// weights transposed once a call
+inline bool layer16(int F) { return D == 256 && F % d16::kFS == 0; }
+// bf16 elements of one layer's transposed weights: qkvg, ro, mi, mo, f1, f2
+inline size_t wt_layer(int F) { return (size_t)9 * D * D + 2 * (size_t)D * F; }
+#endif
 
 size_t carve(float* base, int B, int K, int C, int L, int F, Bufs* b) {
   const size_t R = (size_t)B * C * (K < kSlice ? K : kSlice);
@@ -127,6 +146,10 @@ size_t carve(float* base, int B, int K, int C, int L, int F, Bufs* b) {
   b->big = c.take(R * (F > 4 * D ? F : 4 * D));
   b->s0 = c.take((size_t)L * B * C);
   b->part = c.take(tc::kSplitFloats);  // a product of few rows split along k
+  b->wt = nullptr;
+#ifdef FS_BF16
+  if (layer16(F) && (long long)R >= kFusedRows) b->wt = c.take((L * wt_layer(F) + 1) / 2);
+#endif
   return c.used;
 }
 
@@ -170,12 +193,32 @@ extern "C" int dec_frame_scan_launch(const void* const* weights, const T* embp, 
   if ((err = (call)) != 0) return err
   DFS_TRY(cudaFuncSetAttribute(ret_block_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rsmem));
+#ifdef FS_BF16
+  DFS_TRY(cudaFuncSetAttribute(d16::ret_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               d16::ret_tc_smem_bytes()));
+#endif
   // the workspace's row buffers: x0, x1 and big hold T; t1 and t2 hold a
   // float32 product on its way into an add (a*) or T (h*)
   T *x0 = reinterpret_cast<T*>(bf.x0), *x1 = reinterpret_cast<T*>(bf.x1);
   T* big = reinterpret_cast<T*>(bf.big);
   float *at1 = bf.t1, *at2 = bf.t2;
   T *ht1 = reinterpret_cast<T*>(bf.t1), *ht2 = reinterpret_cast<T*>(bf.t2);
+#ifdef FS_BF16
+  // the transposed weights, one (L, N, K) block each: qkvg, ro, mi, mo, f1, f2
+  T* wt[6] = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (bf.wt) {
+    const T* src[6] = {w.wqkvg, w.wro, w.wmi, w.wmo, w.wf1, w.wf2};
+    const int kin[6] = {D, D, D, D, D, F}, nout[6] = {4 * D, D, 3 * D, D, F, D};
+    T* p = reinterpret_cast<T*>(bf.wt);
+    for (int i = 0; i < 6; ++i) {
+      wt[i] = p;
+      DFS_TRY(d16::transpose16(src[i], p, L, kin[i], nout[i], st));
+      p += (size_t)L * kin[i] * nout[i];
+    }
+  }
+  // layer l's slice of wt[i]
+  auto wtl = [&](int i, int l, size_t per) -> const T* { return wt[i] + l * per; };
+#endif
   for (int k0 = 0; k0 < K; k0 += kSlice) {
     const int Kc = K - k0 < kSlice ? K - k0 : kSlice;
     const long long R = (long long)BC * Kc;
@@ -187,7 +230,34 @@ extern "C" int dec_frame_scan_launch(const void* const* weights, const T* embp, 
                                                                       n4);
     DFS_TRY(cudaGetLastError());
     T *x = x0, *y = x1;
+#ifdef FS_BF16
+    const bool fused = bf.wt && R >= kFusedRows;
+    for (int l = 0; fused && l < L; ++l) {
+      const T* lns = w.lns + (size_t)l * 3 * D;
+      const T* lnb = w.lnb + (size_t)l * 3 * D;
+      DFS_TRY(d16::linear16(x, wtl(0, l, (size_t)D * 4 * D), w.bqkvg + (size_t)l * 4 * D, big,
+                            (int)R, 4 * D, st, D, 2 * D, kscale));
+      d16::ret_tc_kernel<<<BC * H, 128, d16::ret_tc_smem_bytes(), st>>>(
+          big, valid, ht1, kv + l * kvl, s + (size_t)l * BC * H, bf.s0 + l * BC, C, Kc, K, k0);
+      DFS_TRY(cudaGetLastError());
+      DFS_TRY(d16::linear16_ln(ht1, wtl(1, l, (size_t)D * D), w.bro + (size_t)l * D, x, lns, lnb,
+                               y, (int)R, st));
+      DFS_TRY(d16::linear16(y, wtl(2, l, (size_t)D * 3 * D), w.bmi + (size_t)l * 3 * D, big,
+                            (int)R, 3 * D, st));
+      DFS_TRY(d16::slot_attn16(big, ht2, B, C, Kc, st));
+      DFS_TRY(d16::linear16_ln(ht2, wtl(3, l, (size_t)D * D), w.bmo + (size_t)l * D, y, lns + D,
+                               lnb + D, x, (int)R, st));
+      DFS_TRY(d16::ffn16(x, wtl(4, l, (size_t)D * F), w.bf1 + (size_t)l * F,
+                         wtl(5, l, (size_t)F * D), w.bf2 + (size_t)l * D, lns + 2 * D, lnb + 2 * D,
+                         y, (int)R, F, st));
+      T* tmp = x;
+      x = y;
+      y = tmp;
+    }
+    for (int l = 0; !fused && l < L; ++l) {
+#else
     for (int l = 0; l < L; ++l) {
+#endif
       const T* lns = w.lns + (size_t)l * 3 * D;
       const T* lnb = w.lnb + (size_t)l * 3 * D;
       DFS_TRY(tc::launch_linear(x, D, w.wqkvg + (size_t)l * D * 4 * D, 4 * D,

@@ -22,10 +22,16 @@ state in place.
 Float32 or bf16 (the JAX package serves in bf16): the data tensors (embp,
 embn, pe, the weights, kv, s) share one dtype, valid is float32.  The bf16
 form is the same source built with FS_BF16: bf16 in device memory, one
-bf16 tensor-core pass per product (`csrc/tc_bf16.cuh`), the data rounded
-to bf16 where the TPU kernel rounds it, the state carried in float32
-within a call and rounded when it is stored (`csrc/frame_ret.cuh`); the
-plain version follows the same rounding points.  The logits are float32.
+bf16 tensor-core pass per product, the data rounded to bf16 where the TPU
+kernel rounds it, the state carried in float32 within a call and rounded
+when it is stored; the plain version follows the same rounding points.
+At D = 256 over a block of at least 2,048 (lane, slot, frame) rows the
+bf16 form runs the layer of `csrc/dec_scan16.cuh` (the products on
+`wgmma`, from weights it transposes into its workspace, with the residual
+add and LayerNorm in their epilogues; the FFN pair fused; the recurrence
+on the tensor cores with the group norm and gate in its epilogue); a
+step() and other widths keep `csrc/tc_bf16.cuh`'s products and the row
+kernels.  The logits are float32.
 
 Layouts (lane-major, as the port's stream state holds them):
   embp (B, K, D) = emb @ Wc[:D], the embedding's part of the decoder's

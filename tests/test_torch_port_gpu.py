@@ -329,10 +329,14 @@ def _bf16_close(got, want16, want32, what, close):
 
 
 @pytest.mark.parametrize("D,F", [(64, 48), (256, 2048)])
-@pytest.mark.parametrize("K", [1, 128])
+@pytest.mark.parametrize("K", [1, 7, 125, 128])
 def test_dec_frame_scan_bf16_kernel_matches_plain(cuda, D, F, K):
     """B1's bf16 form against its bf16 plain version over two calls: logits,
-    the stored state bf16 (the counts the same)."""
+    the stored state bf16 (the counts the same).  K 1 and 7 (40 and 280
+    rows) run the sequence a step() runs; K 125 and 128 (5,000 and 5,120
+    rows, over kFusedRows) the layer with the fused epilogues: a partial
+    retention chunk, a row tile cut short, F 48 in one partial column
+    tile, head dims 16 and 64."""
     a32 = _dec_case(cuda, D, F, 10, K, seed=D + K)
     a16 = _bf16(a32, 2)
     a32 = [t.float() if torch.is_tensor(t) else DFS.DecWeights(*(u.float() for u in t))
@@ -809,21 +813,23 @@ CA_CLOSE = 0.01
 
 
 @pytest.mark.parametrize("hd", [16, 64])
-@pytest.mark.parametrize("K,cap,start", [(8, 200, 150), (125, 256, 131), (128, 2048, 1920),
-                                         (200, 256, 10)])
+@pytest.mark.parametrize("K,cap,start", [(1, 300, 299), (7, 260, 64), (8, 200, 150),
+                                         (125, 256, 131), (128, 2048, 1920), (200, 256, 10)])
 def test_cached_attention_bf16_kernel_matches_plain(cuda, hd, K, cap, start):
     """B7's bf16 form against its bf16 plain version (the Pallas kernel's
     arithmetic over the kernel's tiles; the normalized-weight form fails
-    the same guard): a cache not a multiple of the tile, more than one
-    query tile, start + K past the capacity, the blockwise encoder's
-    2048-position cache."""
+    the same guard): one and seven queries, a cache not a multiple of the
+    tile (the ring's last tile short), more tiles than the ring's stages,
+    more than one query tile, start + K past the capacity, the blockwise
+    encoder's 2048-position cache."""
     rng = np.random.default_rng(hd + K + start)
     q, k, v = (_randn(rng, 6, n, hd, dev=cuda).to(torch.bfloat16) for n in (K, cap, cap))
     n0 = CA.launches_bf16
     got = CA.cached_attention(q, k, v, start)
     torch.cuda.synchronize()
     assert CA.launches_bf16 == n0 + 1 and got.dtype == torch.bfloat16
-    want16 = CA.cached_attention_plain(q, k, v, start, **CA.kernel_tiling(6, K, cap))
+    want16 = CA.cached_attention_plain(q, k, v, start, **CA.kernel_tiling(
+        6, K, cap, torch.bfloat16, perlane=False))
     want32 = CA.cached_attention_plain(q.float(), k.float(), v.float(), start)
     _bf16_close(got, want16, want32, "out", CA_CLOSE)
     with pytest.raises(AssertionError):
@@ -833,13 +839,17 @@ def test_cached_attention_bf16_kernel_matches_plain(cuda, hd, K, cap, start):
 
 @pytest.mark.parametrize("hd", [16, 64])
 @pytest.mark.parametrize("K,min_pos,lanes,cap", [
-    (1, 0, 7, 260), (1, 9, 7, 260), (125, 9, 7, 260), (129, 0, 7, 260), (1, 9, 64, 2048)])
+    (1, 0, 7, 260), (1, 9, 7, 260), (1, 300, 7, 2048), (7, 9, 7, 260), (125, 9, 7, 260),
+    (128, 0, 7, 2048), (129, 0, 7, 260), (1, 9, 64, 2048)])
 def test_cached_attention_perlane_bf16_kernel_matches_plain(cuda, hd, K, min_pos, lanes, cap):
     """B6's bf16 form against its bf16 plain version over the kernel's
     tiles and splits (the normalized-weight form fails the same guard):
     lanes before warm-up, mid-way, near the capacity and past it; K > 1 on
-    the bf16 tensor cores; K = 1 at 28 rows (the cache split over blocks)
-    and at 256 rows, two calls the same bits."""
+    the bf16 tensor cores (7, 125, 128 and 129 queries, a cache not a
+    multiple of the tile, more tiles than the ring's stages); K = 1 at 28
+    rows (the cache split over blocks: splits with no readable position,
+    and at min_pos 300 splits whose positions are all masked) and at 256
+    rows, two calls the same bits."""
     rng = np.random.default_rng(hd + K + min_pos + 1)
     starts = [0, 2, 8, 9, 70, cap - 5, cap + 40]
     starts += list(rng.integers(0, cap, lanes - len(starts)))
@@ -851,7 +861,7 @@ def test_cached_attention_perlane_bf16_kernel_matches_plain(cuda, hd, K, min_pos
     torch.cuda.synchronize()
     assert CA.perlane_launches_bf16 == n0 + 1 and got.dtype == torch.bfloat16
     want16 = CA.cached_attention_perlane_plain(q, k, v, starts, 4, min_pos,
-                                              **CA.kernel_tiling(R, K, cap))
+                                              **CA.kernel_tiling(R, K, cap, torch.bfloat16))
     want32 = CA.cached_attention_perlane_plain(q.float(), k.float(), v.float(), starts, 4,
                                               min_pos)
     _bf16_close(got, want16, want32, "out", CA_CLOSE)
@@ -860,6 +870,30 @@ def test_cached_attention_perlane_bf16_kernel_matches_plain(cuda, hd, K, min_pos
                     want16, want32, "normalized weights", CA_CLOSE)
     if K == 1:
         assert torch.equal(CA.cached_attention_perlane(q, k, v, starts, 4, min_pos), got)
+
+
+@pytest.mark.parametrize("rows_per_lane", [4, 24])
+def test_cached_attention_perlane_bf16_step_gives_the_same_bits_twice(cuda, rows_per_lane):
+    """B6's bf16 K = 1 call at the FS per-frame server's step() shapes (64
+    lanes, capacity 2048, hd 64: the encoder's 256 rows split the cache,
+    the decoder's 1,536 do not), lanes at different starts: two calls give
+    the same bits (the splits combined in a fixed order), and the result
+    passes the guard."""
+    rng = np.random.default_rng(rows_per_lane)
+    lanes, cap, hd = 64, 2048, 64
+    R = lanes * rows_per_lane
+    starts = torch.as_tensor(rng.integers(0, cap, lanes), dtype=torch.int32, device=cuda)
+    starts[0] = 1519
+    q, k, v = (_randn(rng, R, n, hd, dev=cuda).to(torch.bfloat16) for n in (1, cap, cap))
+    got = CA.cached_attention_perlane(q, k, v, starts, rows_per_lane, 9)
+    again = CA.cached_attention_perlane(q, k, v, starts, rows_per_lane, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want16 = CA.cached_attention_perlane_plain(q, k, v, starts, rows_per_lane, 9,
+                                              **CA.kernel_tiling(R, 1, cap, torch.bfloat16))
+    want32 = CA.cached_attention_perlane_plain(q.float(), k.float(), v.float(), starts,
+                                              rows_per_lane, 9)
+    _bf16_close(got, want16, want32, "out", CA_CLOSE)
 
 
 FS_CFG = fs_eend.FSEENDConfig(in_size=23, n_units=32, n_heads=4, enc_n_layers=2,
