@@ -24,21 +24,22 @@ the servers and the steps.
                                       over the blockwise server's process_block;
                                       --parent DIR builds the float32
                                       cached_attention.cu, dec_frame_scan.cu,
+                                      enc_frame_scan.cu,
                                       dec_train_fusion_{fwd,bwd}.cu,
                                       chunk_retention.cu and retention_layer.cu
-                                      and the bf16 cached_attention.cu and
-                                      dec_frame_scan.cu found in DIR, an
-                                      earlier commit's kernels/csrc with this
-                                      tree's entry points (others are
-                                      refused), times them against this
-                                      tree's in turns, and holds every output
-                                      of the float32 B1 and B3-B7 to theirs
-                                      bit for bit)
+                                      and the bf16 cached_attention.cu,
+                                      dec_frame_scan.cu and enc_frame_scan.cu
+                                      found in DIR, an earlier commit's
+                                      kernels/csrc with this tree's entry
+                                      points (others are refused), times them
+                                      against this tree's in turns, and holds
+                                      every output of the float32 B1-B7 and
+                                      the bf16 B1 to theirs bit for bit)
     python3 chip_smoke.py --bf16-only (phases 1-2 and H1-H6 alone on fresh
                                       models: the bf16 serving kernels
                                       checked and timed, with --parent
-                                      against the earlier bf16 B1, B6 and
-                                      B7; prints no result)
+                                      against the earlier bf16 B1, B2, B6
+                                      and B7; prints no result)
     python3 chip_smoke.py --mesh-only (phases 1-2 and M1-M5 alone; prints
                                       no result)
     python3 chip_smoke.py --tp-only  (phases 1-2 and M5 alone; prints no
@@ -111,7 +112,7 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      it), both frame scans at K=1, the device time by kernel per call (over
      five profiled calls) of each frame scan, of both chunkwise kernels and
      of the fusion layer's forward and backward (the *_parts lines); with
-     --parent, the earlier float32 B1 at K=128 and K=1 and the earlier
+     --parent, the earlier float32 B1 and B2 at K=128 and K=1 and the earlier
      fusion-layer forward and backward (the same bits) and both chunkwise
      kernels at each of their main-path shapes against this tree's
      (earlier, this, this, earlier)
@@ -138,9 +139,13 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      step(); the stream state's bytes in both dtypes; each bf16 kernel at
      its main-path shape beside its bf16 plain version and its bound (bf16
      bytes over 3.35 TB/s or operations over the bf16 peak, 989 TFLOP/s),
-     both frame scans also at step()'s K 1; B1 bf16's device time by kernel
-     (the dec_frame_scan_bf16_parts line; with --parent also the earlier
-     build's, and B1 bf16 at K 128 and K 1 against it in turns)
+     both frame scans also at step()'s K 1; B1's and B2's bf16 device time
+     by kernel at K 128 and K 1 (the dec_frame_scan_bf16_parts and
+     enc_frame_scan_bf16_parts lines; with --parent also the earlier
+     build's, and both at K 128 and K 1 against it in turns, B1 bf16 the
+     earlier build's bits; B2 bf16 also over 5, 16 and 40 lanes, and the
+     bf16 per-frame server's block and step() with the earlier B2 against
+     this tree's, in turns)
  H5 (LS), H4 and H6 for B5: the blockwise server on the "core" route in
      bf16 (128 lanes x 4 blocks of 128 + flush; chunk_retention_bf16 6 a
      block, 2 on the flush, counted from 0) against the float32 server
@@ -531,9 +536,11 @@ def phase_build():
 CA_ENTRY = ("out, float* part, int R, int K, int cap, int rows_per_lane, int min_pos, void* stream",
             "out, int R, int K, int cap, void* stream")
 DFS_ENTRY = ("T* s, float* ws, int B, int K, int C, int L, int F, void* stream",)
+EFS_ENTRY = ("float* ws, int B, int K, int L, int F, int kc, float ffac, int graph, void* stream",)
 PARENT_SOURCES = {   # key: (source, defines, entry points)
     "cached_attention": ("cached_attention", {"CA_HD": FS_HD}, CA_ENTRY),
     "dec_frame_scan": ("dec_frame_scan", DTF, DFS_ENTRY),
+    "enc_frame_scan": ("enc_frame_scan", DTF, EFS_ENTRY),
     "dec_train_fusion_fwd": ("dec_train_fusion_fwd", DTF, (
         ("dtf_forward(const float* x, const float* tqkvg, const float* bqkvg",
          "dtf_forward(const E* x, const E* tqkvg, const E* bqkvg"),)),
@@ -543,9 +550,10 @@ PARENT_SOURCES = {   # key: (source, defines, entry points)
                         ("sf, float* scratch, int BH, int T, int L, void* stream)",)),
     "retention_layer": ("retention_layer", HEAD,
                         ("ws, float* scratch,", "int B, int T, int L, int H, float kscale")),
-    # the bf16 forms of B1, B6 and B7, timed against this tree's
+    # the bf16 forms of B1, B2, B6 and B7, timed against this tree's
     "cached_attention_bf16": ("cached_attention", {"CA_HD": FS_HD, "FS_BF16": 1}, CA_ENTRY),
     "dec_frame_scan_bf16": ("dec_frame_scan", dict(DTF, FS_BF16=1), DFS_ENTRY),
+    "enc_frame_scan_bf16": ("enc_frame_scan", dict(DTF, FS_BF16=1), EFS_ENTRY),
 }
 PARENT = {}
 # the blockwise blocks' ms of this run ("ls": the fused route, "fs": the
@@ -590,6 +598,7 @@ def finish_parent_build(procs):
     from fseend_tpu_torch.kernels import chunk_retention as CR
     from fseend_tpu_torch.kernels import dec_frame_scan as DFS
     from fseend_tpu_torch.kernels import dec_train_fusion as DT
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
     from fseend_tpu_torch.kernels import retention_layer as RL
 
     libs = {}
@@ -622,6 +631,8 @@ def finish_parent_build(procs):
                                                    CA.cached_attention_perlane),
                   dec_frame_scan=on("dec_frame_scan", DFS.dec_frame_scan),
                   dec_frame_scan_bf16=on("dec_frame_scan_bf16", DFS.dec_frame_scan),
+                  enc_frame_scan=on("enc_frame_scan", EFS.enc_frame_scan),
+                  enc_frame_scan_bf16=on("enc_frame_scan_bf16", EFS.enc_frame_scan),
                   chunk_retention=on("chunk_retention", CR.chunk_retention),
                   retention_layer=on("retention_layer", RL.retention_layer))
 
@@ -1481,6 +1492,20 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps=10):
+    """The host's time to enqueue one call of fn(), without a synchronize in
+    the window: where it is above the call's device time, the host sets the
+    pace of back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e3
+
+
 def pipe_bounds(name, t_bytes, flops, tensor_cores=None, bf16=False):
     """(bound_ms, bound_by, pipe, fma_bound_ms): the operations over the
     peak of the pipe the kernel's products run on -- the FMA pipe's float32
@@ -1745,7 +1770,7 @@ def phase_times(cfg, model, rng, card, main_path_args):
         time_kernel(name, f"step() B={B} K=1", getattr(mod, name),
                     getattr(mod, name + "_plain"), args, kw, cfg, card)
         if name in PARENT:
-            # the float32 B1 of the earlier build: the same bits, timed in turns
+            # the float32 B1 and B2 of the earlier build: the same bits, timed in turns
             for shape, (a, k) in ((f"B={B} K={K}", got[name]), (f"step() B={B} K=1", step_got[name])):
                 scan_vs_parent(name, getattr(mod, name), PARENT[name], a, k, shape, card)
         # where the scan's time goes: device time by kernel per call
@@ -4068,9 +4093,11 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
     server's process_block at 128 lanes x K 128 and its step(), the blockwise
     server's block; each bf16 kernel at its main-path shape beside its bf16
     plain version and its bound (bf16 bytes, bf16 tensor-core peak), B1 and
-    B2 also at step()'s K 1; the stream state's bytes in both dtypes.
-    Returns the kernels line's rows of the bf16 forms."""
-    from fseend_tpu_torch.kernels import dec_frame_scan as DFS
+    B2 also at step()'s K 1; the stream state's bytes in both dtypes; with
+    --parent, B1 and B2 bf16 against the earlier build (B2 also over fewer
+    lanes and inside the per-frame server).  Returns the kernels line's rows
+    of the bf16 forms."""
+    from fseend_tpu_torch.kernels import enc_frame_scan as EFS
     from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
     xs = torch.as_tensor(rng.standard_normal((LANES, TIME_K, cfg.in_size)),
@@ -4104,6 +4131,15 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
             line["step()"] = {"ms_in_turns": ms, "float32_ms": float(np.median(ms[0::4] + ms[3::4])),
                               "bf16_ms": float(np.median(ms[1::4] + ms[2::4]))}
             step_got = capture_kernel_inputs(lambda: s16.step(xs[:, 0]))
+            if PARENT:
+                # the bf16 server with the earlier build's B2 and with this
+                # tree's, all else the same, in turns: B2's share end to end
+                for call, reps, rounds in ((lambda: s16.process_block(xs), 5, 2),
+                                           (lambda: s16.step(xs[:, 0]), 20, 3)):
+                    in_turns(f"bf16 per-frame {'step()' if reps == 20 else 'process_block'}, "
+                             "the earlier B2", via(EFS, "enc_frame_scan",
+                                                   PARENT["enc_frame_scan_bf16"], call),
+                             call, reps, card, rounds=rounds)
         del s32, s16
     log(json.dumps({"bf16_vs_float32": line, "card": card}))
     rows = {}
@@ -4114,23 +4150,39 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
         args, kw = step_got[name]
         time_kernel(name, f"bf16 step() B={LANES} K=1", getattr(mod, name),
                     getattr(mod, name + "_plain"), args, kw, cfg, card)
-    # B1 bf16 by kernel (and the earlier build's, with --parent), then in turns
-    args, kw = main["dec_frame_scan"]
-    versions = [("this", DFS.dec_frame_scan)]
+    # B1 and B2 bf16 by kernel at K 128 and at step()'s K 1 (and the earlier
+    # build's, with --parent), then in turns: B1's layer (scan16.cuh, shared
+    # with B2's) the earlier build's bits, B2's redesigned
+    for mod, name in frame_scans():
+        for label, (args, kw) in ((f"B={LANES} K={TIME_K}", main[name]),
+                                  (f"step() B={LANES} K=1", step_got[name])):
+            versions = [("this", getattr(mod, name))]
+            if PARENT:
+                versions.insert(0, ("earlier", PARENT[name + "_bf16"]))
+            for which, fn in versions:
+                a = clone_args(args)
+                busy = device_ms_by_kernel(lambda: fn(*a, **kw), reps=PARTS_REPS)
+                log(json.dumps({f"{name}_bf16_parts": {
+                    "kernel": which, "shape": label, "device_busy_ms": sum(busy.values()),
+                    "host_ms_per_call": host_ms(lambda: fn(*a, **kw)),
+                    "top": top_kernels(busy, 1, n=14)}, "card": card}))
+                del a
+        if PARENT:
+            for shape, (a, k) in ((f"bf16 B={LANES} K={TIME_K}", main[name]),
+                                  (f"bf16 step() B={LANES} K=1", step_got[name])):
+                scan_vs_parent(name, getattr(mod, name), PARENT[name + "_bf16"], a, k, shape,
+                               card, same_bits=name == "dec_frame_scan")
     if PARENT:
-        versions.insert(0, ("earlier", PARENT["dec_frame_scan_bf16"]))
-    for which, fn in versions:
-        a = clone_args(args)
-        busy = device_ms_by_kernel(lambda: fn(*a, **kw), reps=PARTS_REPS)
-        log(json.dumps({"dec_frame_scan_bf16_parts": {
-            "kernel": which, "shape": f"B={LANES} K={TIME_K}", "device_busy_ms": sum(busy.values()),
-            "top": top_kernels(busy, 1, n=14)}, "card": card}))
-        del a
-    if PARENT:
-        for shape, (a, k) in ((f"bf16 B={LANES} K={TIME_K}", main["dec_frame_scan"]),
-                              (f"bf16 step() B={LANES} K=1", step_got["dec_frame_scan"])):
-            scan_vs_parent("dec_frame_scan", DFS.dec_frame_scan, PARENT["dec_frame_scan_bf16"],
-                           a, k, shape, card, same_bits=False)
+        # B2 bf16 over fewer lanes (640, 2,048 and 5,120 rows: its half FFs
+        # and 256-wide products in 16, 8 and 2 runs on 132 SMs) against the
+        # earlier build in turns
+        args, kw = main["enc_frame_scan"]
+        for lanes in (5, 16, 40):
+            a = [t[:lanes] if i < 2 else t[:, :lanes] if torch.is_tensor(t) else t
+                 for i, t in enumerate(args)]
+            a = [t.contiguous() if torch.is_tensor(t) else t for t in a]
+            scan_vs_parent("enc_frame_scan", EFS.enc_frame_scan, PARENT["enc_frame_scan_bf16"], a,
+                           kw, f"bf16 B={lanes} K={TIME_K}", card, same_bits=False)
     for key, label in (("retention_layer", "decoder"), ("retention_layer_enc", "encoder")):
         args, kw = rl_calls[key]
         _, kern, plain = chunk_kernels()["retention_layer"]
@@ -5521,7 +5573,7 @@ def phase_bf16_only(card):
     """H1-H6 alone on fresh models: the bf16 forms of the frame scans, the
     retention layer, the chunkwise core and both cached-attention kernels
     against their plain versions, on their servers' main paths, and timed
-    (with --parent, B1, B6 and B7 also against the earlier bf16 build)."""
+    (with --parent, B1, B2, B6 and B7 also against the earlier bf16 build)."""
     from fseend_tpu_torch.models import fs_eend, ls_eend
 
     cfg, fcfg = ls_eend.LSEENDConfig(), fs_eend.FSEENDConfig()

@@ -194,7 +194,7 @@ extern "C" int dec_frame_scan_launch(const void* const* weights, const T* embp, 
   DFS_TRY(cudaFuncSetAttribute(ret_block_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rsmem));
 #ifdef FS_BF16
-  DFS_TRY(cudaFuncSetAttribute(d16::ret_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  DFS_TRY(cudaFuncSetAttribute(d16::ret_tc_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                d16::ret_tc_smem_bytes()));
 #endif
   // the workspace's row buffers: x0, x1 and big hold T; t1 and t2 hold a
@@ -237,7 +237,7 @@ extern "C" int dec_frame_scan_launch(const void* const* weights, const T* embp, 
       const T* lnb = w.lnb + (size_t)l * 3 * D;
       DFS_TRY(d16::linear16(x, wtl(0, l, (size_t)D * 4 * D), w.bqkvg + (size_t)l * 4 * D, big,
                             (int)R, 4 * D, st, D, 2 * D, kscale));
-      d16::ret_tc_kernel<<<BC * H, 128, d16::ret_tc_smem_bytes(), st>>>(
+      d16::ret_tc_kernel<3><<<BC * H, 128, d16::ret_tc_smem_bytes(), st>>>(
           big, valid, ht1, kv + l * kvl, s + (size_t)l * BC * H, bf.s0 + l * BC, C, Kc, K, k0);
       DFS_TRY(cudaGetLastError());
       DFS_TRY(d16::linear16_ln(ht1, wtl(1, l, (size_t)D * D), w.bro + (size_t)l * D, x, lns, lnb,

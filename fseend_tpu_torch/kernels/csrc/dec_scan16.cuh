@@ -1,25 +1,18 @@
 // The bf16 form of the decoder frame scan's layer at the production width
-// D = 256 (dec_frame_scan.cu built with FS_BF16, over a block of many rows;
-// nothing else includes this header, so the encoder scan and the fusion
-// layer keep their kernels).  Run as dec_frame_scan.cu's sequence of
-// kernels (tc_bf16.cuh's products, float32 products written out for a row
-// kernel's residual add and LayerNorm, the recurrence on the FMA pipe, the
-// group norm and gate in a pass of their own), a 128-lane x 128-frame block
-// takes 10.8 ms on an H100, 5.5 of it in the products at a fifth of the
-// bf16 peak.  Here:
-//   wg16_kernel     the products whose inner dimension is D on wgmma,
-//                   with the epilogue of its place in the layer:
-//                   bias (and the k columns' scale) rounded to bf16
-//                   (kRound), or bias, the residual add and the LayerNorm,
-//                   rounded (kLn: add_drop_ln fused away, the float32
-//                   product never stored), written out through shared
-//                   memory in 16-byte chunks;
-//   ffn16_kernel    the FFN pair and its LayerNorm, the hidden layer kept
-//                   in shared memory 64 units at a time;
-//   ret_tc_kernel   the exact gamma = 1 recurrence of frame_ret.cuh on the
-//                   tensor cores (the float32 operands as three bf16 terms), with
-//                   the group norm and the silu gate in its epilogue,
-//                   writing the gated value in bf16;
+// D = 256 (dec_frame_scan.cu built with FS_BF16, over a block of many rows).
+// Run as dec_frame_scan.cu's sequence of kernels (tc_bf16.cuh's products,
+// float32 products written out for a row kernel's residual add and
+// LayerNorm, the recurrence on the FMA pipe, the group norm and gate in a
+// pass of their own), a 128-lane x 128-frame block takes 10.8 ms on an
+// H100, 5.5 of it in the products at a fifth of the bf16 peak.  Here, from
+// scan16.cuh's tools (shared with the encoder scan's bf16 layer):
+//   wg16_kernel     the products whose inner dimension is D on wgmma, with
+//                   kRound (q | k | v | g, the slot attention's q | k | v)
+//                   or kLn (the out projections: add_drop_ln fused away);
+//   ffn16_kernel    the relu FFN pair and its LayerNorm (kLn);
+//   ret_tc_kernel   the recurrence on the tensor cores with the group norm
+//                   and gate in its epilogue;
+// and, here:
 //   slot_attn16_kernel  the slot attention of one (lane, frame, head) per
 //                   warp on bf16 pairs (a rounded product is one bf16x2
 //                   multiply), its rows read four bytes a lane into shared
@@ -31,771 +24,10 @@
 // cores); the slot attention runs on the FMA pipe.
 #pragma once
 
-#include "frame_ret.cuh"
-#include "tc_bf16.cuh"
+#include "scan16.cuh"
 
 namespace d16 {
 
-using namespace dtf;
-using fs::bf16;
-
-enum Epi { kRound = 0, kLn = 1 };
-
-struct Epi16 {
-  const bf16* bias;            // (N), or null
-  int s_lo, s_hi;              // kRound: columns [s_lo, s_hi) rounded, times s, rounded
-  float s;
-  const bf16* res;             // kLn: the residual, (M, N) rows of stride N
-  const bf16 *lns, *lnb;       // kLn: the norm's scale and bias (N)
-};
-
-// ---------------------------------------------------------------------------
-// The products at the production width D = 256 on Hopper's warpgroup
-// tensor-core instruction (wg16_kernel, ffn16_kernel below), from the
-// weights transposed once a call (W^T: both operands K-major): each
-// warpgroup issues wgmma.mma_async (m64n128k16, m64n64k16) on 64 rows, both
-// operands read by the tensor cores from shared memory.  The 64-deep k
-// tiles are copied with 16-byte cp.async in the 128-byte swizzle (a row's
-// 128 bytes, its k tile, in eight 16-byte chunks, chunk c of row r at c ^
-// (r % 8): the tensor core's reads of eight rows hit 32 banks; without the
-// swizzle every 8-row group's chunks lie 1024 bytes apart on the same banks,
-// at a third of the rate).  A row's 256 output columns
-// lie in one quad of lanes, so the LayerNorm's sums are two shuffles.
-// ---------------------------------------------------------------------------
-
-constexpr int kWBM = 128, kWBK = 64;  // rows a block; a swizzled tile's k
-
-// element offset of the 16-byte chunk c (k 8c .. 8c + 7) of row r of a
-// K-major 64-deep tile in the 128-byte swizzle
-__device__ __forceinline__ int sw_off(int r, int c) { return r * kWBK + ((c ^ (r & 7)) << 3); }
-
-// the shared-memory matrix descriptor of such a tile (1024-byte aligned)
-// from p, the address of its k step's first column in row 0: 128-byte
-// swizzle, the stride (8-row group) byte offset 1024
-__device__ __forceinline__ uint64_t wg_desc(const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// cp.async's writes (the generic proxy) made visible to wgmma's reads (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// the accumulators pinned in place: no use of them moves across this point
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d += a b for a 64 x 128 x 16 step: A (64 x 16) and B (128 x 16, as Wt's
-// rows) K-major in shared memory
-__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// the 1024-byte aligned start of a kernel's dynamic shared memory (the
-// swizzle's period; the kernel asks for 1 KB of slack)
-__device__ __forceinline__ bf16* align1k(bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return p + ((1024 - (a & 1023)) & 1023) / sizeof(bf16);
-}
-
-// The epilogues of a block's 128 x 128 NH output tile, rows m0 .., columns
-// n0 .. (C rows of stride N), through shared memory at `so` (free by now,
-// 128 rows of 128 NH + 8 elements): each thread puts its values (warpgroup
-// wgi's rows wgi 64 + 16 warp + g (+ 8), columns 128h + 8j + 2t (+ 1)) in
-// the tile, and the block writes it out in 16-byte chunks along the rows.
-// Written straight from the accumulators, a warp's four-byte stores cover 8
-// rows x 16 bytes each and ran at under 1 TB/s: with qkvg's and the slot
-// attention's outputs (1.2 GB a block of 128 lanes x 128 frames) they set
-// the products' pace.  kLn (N == 128 NH) copies the residual rows into the
-// tile first, and a row's columns lie in one quad of lanes.
-template <int EPI, int NH>
-__device__ __forceinline__ void staged_epilogue(float (&acc)[NH][64], const Epi16& ep, bf16* C,
-                                                int M, int N, int m0, int n0, bf16* so) {
-  constexpr int BN = 128 * NH, LDO = BN + 8;
-  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3;
-  const int g = tc::lane_g(), t = tc::lane_t();
-  const int rows = min(128, M - m0);
-  __syncthreads();  // both warpgroups' products are done with the shared tiles
-  if constexpr (EPI == kLn) {
-    for (int idx = tid; idx < 128 * (BN / 8); idx += 256) {
-      const int r = idx / (BN / 8), c8 = (idx % (BN / 8)) * 8;
-      const bool ok = r < rows;
-      tc::cp_async16(so + r * LDO + c8, ok ? ep.res + (size_t)(m0 + r) * N + c8 : ep.res, ok);
-    }
-    tc::cp_async_commit();
-    tc::cp_async_wait<0>();
-    __syncthreads();
-  }
-  const int rb = wgi * 64 + warp * 16 + g;  // the thread's first row in the tile
-  if constexpr (EPI != kLn) {
-#pragma unroll
-    for (int h = 0; h < NH; ++h)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = 128 * h + 8 * j + 2 * t, n = n0 + c;
-        const float b0 = ep.bias ? fs::ldg(ep.bias + n) : 0.f;
-        const float b1 = ep.bias ? fs::ldg(ep.bias + n + 1) : 0.f;
-        const bool in0 = n >= ep.s_lo && n < ep.s_hi, in1 = n + 1 >= ep.s_lo && n + 1 < ep.s_hi;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float v0 = acc[h][4 * j + 2 * hh] + b0, v1 = acc[h][4 * j + 2 * hh + 1] + b1;
-          if (in0) v0 = fs::rnd<bf16>(v0) * ep.s;
-          if (in1) v1 = fs::rnd<bf16>(v1) * ep.s;
-          fs::store2(so + (rb + 8 * hh) * LDO + c, v0, v1);
-        }
-      }
-  } else {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      bf16* row = so + (rb + 8 * hh) * LDO;
-      float s = 0.f;
-#pragma unroll
-      for (int h = 0; h < NH; ++h)
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int c = 128 * h + 8 * j + 2 * t;
-          const float2 r = fs::load2(row + c);
-          float& v0 = acc[h][4 * j + 2 * hh];
-          float& v1 = acc[h][4 * j + 2 * hh + 1];
-          v0 = r.x + (v0 + fs::ldg(ep.bias + c));
-          v1 = r.y + (v1 + fs::ldg(ep.bias + c + 1));
-          s += v0 + v1;
-        }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      const float mu = s / N;
-      float d2 = 0.f;
-#pragma unroll
-      for (int h = 0; h < NH; ++h)
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const float a = acc[h][4 * j + 2 * hh] - mu, b = acc[h][4 * j + 2 * hh + 1] - mu;
-          d2 += a * a + b * b;
-        }
-      d2 += __shfl_xor_sync(0xffffffffu, d2, 1);
-      d2 += __shfl_xor_sync(0xffffffffu, d2, 2);
-      const float rs = rsqrtf(d2 / N + 1e-5f);
-#pragma unroll
-      for (int h = 0; h < NH; ++h)
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int c = 128 * h + 8 * j + 2 * t;
-          fs::store2(row + c,
-                     (acc[h][4 * j + 2 * hh] - mu) * rs * fs::ldg(ep.lns + c) + fs::ldg(ep.lnb + c),
-                     (acc[h][4 * j + 2 * hh + 1] - mu) * rs * fs::ldg(ep.lns + c + 1) +
-                         fs::ldg(ep.lnb + c + 1));
-        }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < rows * (BN / 8); idx += 256) {
-    const int r = idx / (BN / 8), c8 = (idx % (BN / 8)) * 8;
-    *reinterpret_cast<uint4*>(C + (size_t)(m0 + r) * N + n0 + c8) =
-        *reinterpret_cast<const uint4*>(so + r * LDO + c8);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// wg16_kernel: C = epi(A W) at D = 256 (K = D, N a multiple of 128 NH),
-// from Wt = W^T (N, K).  A block of two warpgroups takes 128 rows x 128 NH
-// columns; each warpgroup issues wgmma.mma_async m64n128k16 NH times a
-// 16-deep k step on its 64 rows.  The 64-deep k tiles are copied by all 256
-// threads in a ring of stages whose copies run St - 2 tiles ahead while one
-// tile's products are in flight as the next tile's are issued
-// (wgmma.wait_group 1).  NH = 1 (the general products): three stages, two
-// blocks an SM, so that one block's fill and epilogue overlap the other's
-// products (at K = 256 a tile is four k tiles); NH = 2 (the LayerNorm's
-// 256-wide rows): four stages, one block an SM.
-// ---------------------------------------------------------------------------
-
-template <int NH>
-struct WGeo {
-  static constexpr int BN = 128 * NH, St = NH == 2 ? 4 : 3;
-  static constexpr int StageA = kWBM * kWBK, StageB = BN * kWBK;  // bf16 elements
-  // the stages, and 1 KB to align them to the swizzle's 1024-byte period
-  static constexpr int Bytes = (int)sizeof(bf16) * St * (StageA + StageB) + 1024;
-  static_assert((int)sizeof(bf16) * 128 * (BN + 8) <= St * (StageA + StageB) * (int)sizeof(bf16),
-                "the staged output tile fits the stages");
-};
-
-template <int EPI, int NH>
-__global__ void __launch_bounds__(256, 3 - NH)
-wg16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wt, bf16* __restrict__ C, int M,
-            int N, int K, Epi16 ep) {
-  using G = WGeo<NH>;
-  extern __shared__ __align__(16) bf16 wsm_raw[];
-  bf16* wsm = align1k(wsm_raw);
-  const int tid = threadIdx.x, wgi = tid >> 7;
-  const int m0 = blockIdx.y * kWBM, n0 = blockIdx.x * G::BN;
-  const int ntiles = K / kWBK;
-
-  auto load_stage = [&](int stage, int kt) {
-    bf16* As = wsm + stage * (G::StageA + G::StageB);
-    bf16* Bs = As + G::StageA;
-    const int k0 = kt * kWBK;
-#pragma unroll
-    for (int idx = tid; idx < kWBM * 8; idx += 256) {  // 16-byte chunks: (row, chunk)
-      const int r = idx >> 3, c = idx & 7;
-      const bool ok = m0 + r < M;
-      tc::cp_async16(As + sw_off(r, c), ok ? A + (size_t)(m0 + r) * K + k0 + 8 * c : A, ok);
-    }
-#pragma unroll
-    for (int idx = tid; idx < G::BN * 8; idx += 256) {
-      const int r = idx >> 3, c = idx & 7;
-      tc::cp_async16(Bs + sw_off(r, c), Wt + (size_t)(n0 + r) * K + k0 + 8 * c, true);
-    }
-  };
-
-  float acc[NH][64];
-#pragma unroll
-  for (int h = 0; h < NH; ++h) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-    fence_acc(acc[h]);
-  }
-#pragma unroll
-  for (int st = 0; st < G::St - 2; ++st) {
-    if (st < ntiles) load_stage(st, st);
-    tc::cp_async_commit();
-  }
-  for (int kt = 0; kt < ntiles; ++kt) {
-    tc::cp_async_wait<G::St - 3>();
-    fence_async_smem();
-    __syncthreads();  // tile kt has landed for the tensor cores; tile kt - 2's products are done
-    const int nxt = kt + G::St - 2;
-    if (nxt < ntiles) load_stage(nxt % G::St, nxt);  // into tile kt - 2's stage
-    tc::cp_async_commit();
-    const bf16* As = wsm + (kt % G::St) * (G::StageA + G::StageB) + wgi * 64 * kWBK;
-    const bf16* Bs = wsm + (kt % G::St) * (G::StageA + G::StageB) + G::StageA;
-    wg_fence();
-#pragma unroll
-    for (int s = 0; s < kWBK / 16; ++s) {  // a 16-deep step is 32 bytes into the swizzled rows
-      const uint64_t da = wg_desc(As + 16 * s);
-#pragma unroll
-      for (int h = 0; h < NH; ++h) wgmma128(acc[h], da, wg_desc(Bs + h * 128 * kWBK + 16 * s));
-    }
-    wg_commit();
-    wg_wait<1>();  // tile kt - 1's products are done
-  }
-  wg_wait<0>();
-#pragma unroll
-  for (int h = 0; h < NH; ++h) fence_acc(acc[h]);
-  tc::cp_async_wait<0>();
-  staged_epilogue<EPI, NH>(acc, ep, C, M, N, m0, n0, wsm);
-}
-
-// kLn on 256-wide tiles (N == 256), the others on 128-wide ones
-template <int EPI>
-inline int wg16(const bf16* A, const bf16* Wt, bf16* C, int M, int N, int K, const Epi16& ep,
-                cudaStream_t st) {
-  constexpr int NH = EPI == kLn ? 2 : 1;
-  using G = WGeo<NH>;
-  if (N % G::BN || K % kWBK || (EPI == kLn && N != G::BN)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(wg16_kernel<EPI, NH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, G::Bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(N / G::BN, (M + kWBM - 1) / kWBM);
-  wg16_kernel<EPI, NH><<<grid, 256, G::Bytes, st>>>(A, Wt, C, M, N, K, ep);
-  return cudaGetLastError();
-}
-
-// d += a b for a 64 x 64 x 16 step, both operands K-major in shared memory
-__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// ---------------------------------------------------------------------------
-// ffn16_kernel: the layer's feed-forward pair and its LayerNorm in one
-// kernel, for D = 256 (ffn16 refuses other widths): y = LN(x + (round(relu(x W1 + b1)) W2 + b2)), rounded,
-// 128 rows a block (two warpgroups of 64).  The block's x rows stay in
-// shared memory; the hidden layer is taken kFS = 64 units at a time: each
-// warpgroup computes its 64 x 64 slice on the tensor cores (16 m64n64k16
-// steps against W1's slice), adds b1, applies relu, rounds to bf16 and
-// writes it to its own swizzled tile, then adds that slice times W2's slice
-// to its 64 x 256 output (four 16-deep steps of two m64n128k16).  W1^T's
-// and W2^T's slices (32 KB each) are double-buffered in shared memory, the
-// next slice's copies in flight while one is multiplied.  So the 2048-wide
-// hidden layer never reaches device memory (0.67 GB each way a layer at 128
-// lanes x 128 frames).  The hidden values are rounded where the plain
-// version rounds them, and the second product sums over the slices in order.
-// ---------------------------------------------------------------------------
-
-constexpr int kFS = 64;
-constexpr int kFX = kWBM * D;             // x rows: D / 64 swizzled 128 x 64 tiles
-constexpr int kFW = 2 * kFS * D;          // a stage: W1^T's slice (4 tiles of 64 x 64), W2^T's (256 x 64)
-constexpr int kFH = 64 * kFS;             // a warpgroup's hidden slice
-constexpr int kFBytes = (int)sizeof(bf16) * (kFX + 2 * kFW + 2 * kFH) + 1024;
-
-__global__ void __launch_bounds__(256, 1)
-ffn16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1t, const bf16* __restrict__ b1,
-             const bf16* __restrict__ w2t, Epi16 ep, bf16* __restrict__ y, int M, int F) {
-  extern __shared__ __align__(16) bf16 fsm_raw[];
-  bf16* xs = align1k(fsm_raw);
-  bf16* ws = xs + kFX;              // 2 stages
-  bf16* hs = ws + 2 * kFW;          // 2 warpgroups
-  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3;
-  const int g = tc::lane_g(), t = tc::lane_t();
-  const int m0 = blockIdx.x * kWBM;
-  const int nslice = F / kFS;
-
-  auto load_slice = [&](int c) {
-    bf16* w1s = ws + (c & 1) * kFW;
-    bf16* w2s = w1s + kFS * D;
-#pragma unroll
-    for (int idx = tid; idx < kFS * (D / 8); idx += 256) {  // W1^T rows c*64 .., all D
-      const int r = idx / (D / 8), ch = idx % (D / 8);
-      tc::cp_async16(w1s + (ch >> 3) * (kFS * 64) + sw_off(r, ch & 7),
-                     w1t + (size_t)(c * kFS + r) * D + 8 * ch, true);
-    }
-#pragma unroll
-    for (int idx = tid; idx < D * 8; idx += 256) {          // W2^T rows n, columns c*64 ..
-      const int r = idx >> 3, ch = idx & 7;
-      tc::cp_async16(w2s + sw_off(r, ch), w2t + (size_t)r * F + c * kFS + 8 * ch, true);
-    }
-  };
-#pragma unroll
-  for (int idx = tid; idx < kWBM * (D / 8); idx += 256) {   // the block's x rows
-    const int r = idx / (D / 8), ch = idx % (D / 8);
-    const bool ok = m0 + r < M;
-    tc::cp_async16(xs + (ch >> 3) * (kWBM * 64) + sw_off(r, ch & 7),
-                   ok ? x + (size_t)(m0 + r) * D + 8 * ch : x, ok);
-  }
-  load_slice(0);
-  tc::cp_async_commit();
-
-  float acc[2][64];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-    fence_acc(acc[h]);
-  }
-  bf16* hw = hs + wgi * kFH;
-  for (int c = 0; c < nslice; ++c) {
-    tc::cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();  // slice c (and x) landed; both warpgroups are done with slice c - 1
-    if (c + 1 < nslice) load_slice(c + 1);
-    tc::cp_async_commit();
-    const bf16* w1s = ws + (c & 1) * kFW;
-    const bf16* w2s = w1s + kFS * D;
-    // the hidden slice: 64 rows x 64 units, over D in 16-deep steps
-    float hacc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) hacc[i] = 0.f;
-    fence_acc(hacc);
-    wg_fence();
-#pragma unroll
-    for (int s = 0; s < D / 16; ++s) {
-      const int kt = s >> 2, ko = (s & 3) * 16;
-      wgmma64(hacc, wg_desc(xs + kt * (kWBM * 64) + wgi * 64 * 64 + ko),
-              wg_desc(w1s + kt * (kFS * 64) + ko));
-    }
-    wg_commit();
-    wg_wait<0>();
-    fence_acc(hacc);
-    // relu(h + b1) rounded to bf16, into the warpgroup's swizzled tile
-#pragma unroll
-    for (int j = 0; j < kFS / 8; ++j) {
-      const int u = 8 * j + 2 * t;
-      const float c0 = fs::ldg(b1 + c * kFS + u), c1 = fs::ldg(b1 + c * kFS + u + 1);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = warp * 16 + g + 8 * hh;
-        const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(hacc[4 * j + 2 * hh] + c0, 0.f),
-                                                      fmaxf(hacc[4 * j + 2 * hh + 1] + c1, 0.f));
-        *reinterpret_cast<__nv_bfloat162*>(hw + r * 64 + ((j ^ (r & 7)) << 3) + 2 * t) = v;
-      }
-    }
-    fence_async_smem();
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");  // the warpgroup's tile is written
-    // out += hidden slice . W2's slice
-    wg_fence();
-#pragma unroll
-    for (int s = 0; s < kFS / 16; ++s) {
-      const uint64_t da = wg_desc(hw + 16 * s);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) wgmma128(acc[h], da, wg_desc(w2s + h * 128 * 64 + 16 * s));
-    }
-    wg_commit();
-    wg_wait<0>();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) fence_acc(acc[h]);
-  }
-  tc::cp_async_wait<0>();
-
-  // y = LN(x + (out + b2)), through the weight stages
-  staged_epilogue<kLn, 2>(acc, ep, y, M, D, m0, 0, ws);
-}
-
-// y = LN(x + round(relu(x W1 + b1)) W2 + b2) from W1^T (F, D), W2^T (D, F)
-inline int ffn16(const bf16* x, const bf16* w1t, const bf16* b1, const bf16* w2t, const bf16* b2,
-                 const bf16* lns, const bf16* lnb, bf16* y, int M, int F, cudaStream_t st) {
-  if (D != 256 || F % kFS) return cudaErrorInvalidValue;
-  const Epi16 ep{b2, 0, 0, 1.f, x, lns, lnb};
-  cudaError_t err = cudaFuncSetAttribute(ffn16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kFBytes);
-  if (err != cudaSuccess) return err;
-  ffn16_kernel<<<(M + kWBM - 1) / kWBM, 256, kFBytes, st>>>(x, w1t, b1, w2t, ep, y, M, F);
-  return cudaGetLastError();
-}
-
-// Wt = W^T for each of `count` stacked (K, N) bf16 matrices, through
-// 32 x 32 shared tiles
-__global__ void transpose16_kernel(const bf16* __restrict__ W, bf16* __restrict__ Wt, int K,
-                                   int N) {
-  __shared__ bf16 tile[32][34];
-  const size_t off = (size_t)blockIdx.z * K * N;
-  const int k0 = blockIdx.y * 32, n0 = blockIdx.x * 32;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int k = k0 + i, n = n0 + threadIdx.x;
-    if (k < K && n < N) tile[i][threadIdx.x] = W[off + (size_t)k * N + n];
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int n = n0 + i, k = k0 + threadIdx.x;
-    if (n < N && k < K) Wt[off + (size_t)n * K + k] = tile[threadIdx.x][i];
-  }
-}
-
-inline int transpose16(const bf16* W, bf16* Wt, int count, int K, int N, cudaStream_t st) {
-  transpose16_kernel<<<dim3((N + 31) / 32, (K + 31) / 32, count), dim3(32, 8), 0, st>>>(W, Wt, K, N);
-  return cudaGetLastError();
-}
-
-// C = round((A W + bias) sc), A (M, D), W^T given (N, D), N % 128 == 0
-inline int linear16(const bf16* A, const bf16* Wt, const bf16* bias, bf16* C, int M, int N,
-                    cudaStream_t st, int s_lo = 0, int s_hi = 0, float s = 1.f) {
-  return wg16<kRound>(A, Wt, C, M, N, D, Epi16{bias, s_lo, s_hi, s, nullptr, nullptr, nullptr},
-                      st);
-}
-
-// y = round(LN(res + (A W + bias))), A (M, D), W^T given (D, D)
-inline int linear16_ln(const bf16* A, const bf16* Wt, const bf16* bias, const bf16* res,
-                       const bf16* lns, const bf16* lnb, bf16* y, int M, cudaStream_t st) {
-  return wg16<kLn>(A, Wt, y, M, D, D, Epi16{bias, 0, 0, 1.f, res, lns, lnb}, st);
-}
-
-// ---------------------------------------------------------------------------
-// ret_tc_kernel: the exact gamma = 1 recurrence of frame_ret.cuh's
-// ret_block_kernel (its chunks of kT frames, its gates and counts, the state
-// carried in float32 within the call and stored in bf16) on the tensor
-// cores, with gate_fwd's group norm (eps 1e-6, non-affine) and silu gate in
-// its epilogue: gated = silu(g) * round(norm), rounded where it is written.
-// One block of 4 warps per (lane, slot, head); warp w takes the chunk's
-// frames 16w .. 16w + 15 and, for w < DK / 16, the state's rows 16w ..
-// 16w + 15.  Per chunk, with the q, k~ and v rows in bf16 tiles:
-//   S = q k~^T                      one bf16 pass (exact products)
-//   S *= (j < i: g_j, j == i: 1, j > i: 0)
-//   out = (q KV^T + S v) ns          KV and S in float32, each taken as
-//                                    three bf16 terms hi + mid + lo (to
-//                                    float32's 2^-24): three bf16 passes a
-//                                    product, small terms first
-//   KV += (g v)^T k~                 one pass (g is 0 or 1: g v is bf16),
-//                                    into the float32 accumulator that
-//                                    holds KV for the whole slice
-// where the FMA form's four 64 x 64 x 64 float32 products took 2.3 ms of a
-// 128-lane block on the FMA pipe.  Tiles past a warp's last frame are
-// skipped (S is causal).  The group norm of frame i sums the DK columns its
-// four lanes hold (shuffles).
-// ---------------------------------------------------------------------------
-
-constexpr int kRT = frs::kT;       // frames a chunk: 4 warps x 16
-constexpr int kRLd = DK + 8;       // bf16 row stride of the tiles (ldmatrix phases hit 32 banks)
-constexpr int kDN = DK / 8;        // 8-column accumulator tiles across a head
-static_assert(kRT == 64 && DK % 16 == 0 && DK <= 64, "4 warps x 16 frames; DK a multiple of 16");
-
-constexpr int ret_tc_smem_bytes() {
-  return (int)sizeof(bf16) * (4 * kRT + 3 * DK) * kRLd + (int)sizeof(float) * kRT;
-}
-
-// x0, x1 as three bf16 pairs, hi = round(x), mid = round(x - hi), lo =
-// round(x - hi - mid) (each difference exact in float32): hi + mid + lo is
-// x to 2^-24 of it, float32's own rounding
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// the B fragments (k 16, n 16) of X^T for a row-major tile X (rows n, columns
-// k) at p: b0 for rows 0-7, b1 for rows 8-15
-__device__ __forceinline__ void load_bt16x2(uint32_t (&b0)[2], uint32_t (&b1)[2], const bf16* p,
-                                            int ld) {
-  const int lane = threadIdx.x & 31;
-  uint32_t r[4];
-  tc::ldsm_x4(r, p + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
-  b0[0] = r[0], b0[1] = r[1], b1[0] = r[2], b1[1] = r[3];
-}
-
-// rows r = bc * Kc + k of qkvg (stride 4D: q | k~ | v | g) and gated (stride
-// D); the state's layout, gates and counts as ret_block_kernel's.  Three
-// blocks an SM (170 registers a thread at most)
-__global__ void __launch_bounds__(128, 3)
-ret_tc_kernel(const bf16* __restrict__ qkvg, const float* __restrict__ valid,
-              bf16* __restrict__ gated, bf16* __restrict__ kv, bf16* __restrict__ s,
-              const float* __restrict__ s0, int C, int Kc, int Kt, int k0) {
-  extern __shared__ __align__(16) bf16 rsm[];
-  bf16* Qs = rsm;                  // (kRT, kRLd)
-  bf16* Ks = Qs + kRT * kRLd;      // k~
-  bf16* Vs = Ks + kRT * kRLd;
-  bf16* Vg = Vs + kRT * kRLd;      // g_j v_j: zero rows where frame j is invalid
-  bf16* KVh = Vg + kRT * kRLd;     // (DK, kRLd) the state [v][k], hi
-  bf16* KVm = KVh + DK * kRLd;     // mid
-  bf16* KVl = KVm + DK * kRLd;     // lo
-  float* gs = reinterpret_cast<float*>(KVl + DK * kRLd);  // (kRT) the chunk's gates
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = tc::lane_g(), t = tc::lane_t();
-  const int seq = blockIdx.x, bc = seq / H, h = seq % H, b = bc / C;
-  const bool owns_state = warp < DK / 16;  // the state's rows 16 warp .. 16 warp + 15
-  float srun = s0[bc];
-  float kva[kDN][4];  // KV[v][k], v = 16 warp + g (+ 8), k = 8n + 2t (+ 1)
-  auto put_state = [&]() {  // KVh, KVm, KVl from kva
-#pragma unroll
-    for (int n = 0; n < kDN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int v = 16 * warp + g + 4 * e, k = 8 * n + 2 * t;
-        uint32_t hi, mid, lo;
-        split3(kva[n][e], kva[n][e + 1], hi, mid, lo);
-        *reinterpret_cast<uint32_t*>(KVh + v * kRLd + k) = hi;
-        *reinterpret_cast<uint32_t*>(KVm + v * kRLd + k) = mid;
-        *reinterpret_cast<uint32_t*>(KVl + v * kRLd + k) = lo;
-      }
-  };
-  bf16* kvs = kv + (size_t)seq * DK * DK;
-  if (owns_state) {
-    const float sc = sqrtf(srun);
-#pragma unroll
-    for (int n = 0; n < kDN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int v = 16 * warp + g + 4 * e, k = 8 * n + 2 * t;
-        const float2 x = fs::load2(kvs + v * DK + k);
-        kva[n][e] = x.x * sc, kva[n][e + 1] = x.y * sc;
-      }
-    put_state();
-  }
-  const int r0 = 16 * warp;  // the warp's first frame of a chunk
-  for (int n0 = 0; n0 < Kc; n0 += kRT) {
-    const int nr = min(kRT, Kc - n0);
-    __syncthreads();  // the previous chunk is done with the tiles; KVh, KVm, KVl are written
-    const bf16* rows = qkvg + ((size_t)bc * Kc + n0) * 4 * D + h * DK;
-    const float* vrow = valid + (size_t)b * Kt + k0 + n0;
-    for (int idx = tid; idx < kRT * (DK / 8); idx += 128) {
-      const int i = idx / (DK / 8), c = (idx % (DK / 8)) * 8;
-      const bool in = i < nr, gi = in && vrow[i] != 0.f;
-      const bf16* p = rows + (size_t)(in ? i : 0) * 4 * D + c;
-      tc::cp_async16(Qs + i * kRLd + c, p, in);
-      tc::cp_async16(Ks + i * kRLd + c, p + D, in);
-      tc::cp_async16(Vs + i * kRLd + c, p + 2 * D, in);
-      tc::cp_async16(Vg + i * kRLd + c, p + 2 * D, gi);
-    }
-    tc::cp_async_commit();
-    if (tid < kRT) gs[tid] = tid < nr ? vrow[tid] : 0.f;
-    tc::cp_async_wait<0>();
-    __syncthreads();
-    // the counts frames 16 warp + g and + 8 divide by, summed in frame order
-    const int i0 = r0 + g, i1 = i0 + 8;
-    float run = srun, ns0 = 0.f, gsum = 0.f;
-    for (int j = 0; j < nr; ++j) {
-      if (j == i0) ns0 = rsqrtf(run + 1.f);
-      if (j == i1) break;
-      run += gs[j];
-    }
-    const float ns1 = rsqrtf(run + 1.f);
-    for (int j = 0; j < nr; ++j) gsum += gs[j];
-    if (r0 < nr) {
-      // S = q k~^T over the causal tiles, masked by the gates
-      const int nS = 2 * warp + 2;  // 8-frame tiles at or before the warp's last frame
-      float sa[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sa[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk) {
-        uint32_t fa[4];
-        tc::load_a16(fa, Qs + r0 * kRLd + kk * 16, kRLd);
-#pragma unroll
-        for (int n = 0; n < 8; n += 2) {
-          if (n >= nS) break;
-          uint32_t b0[2], b1[2];
-          load_bt16x2(b0, b1, Ks + n * 8 * kRLd + kk * 16, kRLd);
-          tc::mma_bf16(sa[n], fa, b0);
-          tc::mma_bf16(sa[n + 1], fa, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e < 2 ? i0 : i1, j = 8 * n + 2 * t + (e & 1);
-          sa[n][e] *= j < i ? gs[j] : (j == i ? 1.f : 0.f);
-        }
-      // out = q KV^T (KV as hi + mid + lo) + S v (S as hi + mid + lo)
-      float o[kDN][4];
-#pragma unroll
-      for (int n = 0; n < kDN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk) {
-        uint32_t fa[4];
-        tc::load_a16(fa, Qs + r0 * kRLd + kk * 16, kRLd);
-#pragma unroll
-        for (int n = 0; n < kDN; n += 2) {
-          uint32_t b0[2], b1[2];
-          load_bt16x2(b0, b1, KVl + n * 8 * kRLd + kk * 16, kRLd);
-          tc::mma_bf16(o[n], fa, b0);
-          tc::mma_bf16(o[n + 1], fa, b1);
-          load_bt16x2(b0, b1, KVm + n * 8 * kRLd + kk * 16, kRLd);
-          tc::mma_bf16(o[n], fa, b0);
-          tc::mma_bf16(o[n + 1], fa, b1);
-          load_bt16x2(b0, b1, KVh + n * 8 * kRLd + kk * 16, kRLd);
-          tc::mma_bf16(o[n], fa, b0);
-          tc::mma_bf16(o[n + 1], fa, b1);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (kk > warp) break;  // frames past the warp's last
-        uint32_t ah[4], am[4], al[4];
-        split3(sa[2 * kk][0], sa[2 * kk][1], ah[0], am[0], al[0]);
-        split3(sa[2 * kk][2], sa[2 * kk][3], ah[1], am[1], al[1]);
-        split3(sa[2 * kk + 1][0], sa[2 * kk + 1][1], ah[2], am[2], al[2]);
-        split3(sa[2 * kk + 1][2], sa[2 * kk + 1][3], ah[3], am[3], al[3]);
-#pragma unroll
-        for (int n = 0; n < kDN; n += 2) {
-          uint32_t b0[2], b1[2];
-          tc::load_b16x2(b0, b1, Vs + kk * 16 * kRLd + n * 8, kRLd);
-          tc::mma_bf16(o[n], al, b0);
-          tc::mma_bf16(o[n + 1], al, b1);
-          tc::mma_bf16(o[n], am, b0);
-          tc::mma_bf16(o[n + 1], am, b1);
-          tc::mma_bf16(o[n], ah, b0);
-          tc::mma_bf16(o[n + 1], ah, b1);
-        }
-      }
-      // ns, then the group norm of each frame over its head's DK columns and the gate
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < kDN; ++n) {
-        o[n][0] *= ns0, o[n][1] *= ns0, o[n][2] *= ns1, o[n][3] *= ns1;
-        sum0 += o[n][0] + o[n][1];
-        sum1 += o[n][2] + o[n][3];
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-      }
-      const float mu0 = sum0 / DK, mu1 = sum1 / DK;
-      float d0 = 0.f, d1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < kDN; ++n) {
-        d0 += (o[n][0] - mu0) * (o[n][0] - mu0) + (o[n][1] - mu0) * (o[n][1] - mu0);
-        d1 += (o[n][2] - mu1) * (o[n][2] - mu1) + (o[n][3] - mu1) * (o[n][3] - mu1);
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        d0 += __shfl_xor_sync(0xffffffffu, d0, off);
-        d1 += __shfl_xor_sync(0xffffffffu, d1, off);
-      }
-      const float rs0 = rsqrtf(d0 / DK + 1e-6f), rs1 = rsqrtf(d1 / DK + 1e-6f);
-#pragma unroll
-      for (int n = 0; n < kDN; ++n) {
-        const int v = 8 * n + 2 * t;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = hh ? i1 : i0;
-          if (i >= nr) continue;
-          const float mu = hh ? mu1 : mu0, rs = hh ? rs1 : rs0;
-          const size_t r = (size_t)bc * Kc + n0 + i;
-          const float2 gv = fs::load2(qkvg + r * 4 * D + 3 * D + h * DK + v);
-          fs::store2(gated + r * D + h * DK + v,
-                     fs::silu(gv.x) * fs::rnd<bf16>((o[n][2 * hh] - mu) * rs),
-                     fs::silu(gv.y) * fs::rnd<bf16>((o[n][2 * hh + 1] - mu) * rs));
-        }
-      }
-    }
-    // the carry: KV[v][k] += sum_j (g v)[j][v] k~[j][k] over the chunk
-    if (owns_state) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (16 * kk >= nr) break;
-        uint32_t fa[4];
-        tc::load_a16_t(fa, Vg + kk * 16 * kRLd + r0, kRLd);
-#pragma unroll
-        for (int n = 0; n < kDN; n += 2) {
-          uint32_t b0[2], b1[2];
-          tc::load_b16x2(b0, b1, Ks + kk * 16 * kRLd + n * 8, kRLd);
-          tc::mma_bf16(kva[n], fa, b0);
-          tc::mma_bf16(kva[n + 1], fa, b1);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done reading KVh, KVm and KVl
-    if (owns_state) put_state();
-    srun += gsum;
-  }
-  if (owns_state) {
-    const float norm = rsqrtf(fmaxf(srun, 1.f));
-#pragma unroll
-    for (int n = 0; n < kDN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int v = 16 * warp + g + 4 * e, k = 8 * n + 2 * t;
-        fs::store2(kvs + v * DK + k, kva[n][e] * norm, kva[n][e + 1] * norm);
-      }
-  }
-  if (tid == 0) s[seq] = __float2bfloat16_rn(srun);
-}
 
 // ---------------------------------------------------------------------------
 // slot_attn16_kernel: dec_train_fusion_common.cuh's slot_attn_fwd_kernel<bf16>

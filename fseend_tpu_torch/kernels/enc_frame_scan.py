@@ -18,9 +18,14 @@ at 128 lanes x 128 frames, D 256, F 1024); a longer K is walked in slices
 of 128 frames that carry the state.  A K = 1 call (`step()`, bound by the
 launches' host time) runs as a CUDA graph in a workspace the wrapper keeps
 for each shape, so that every call with the same weights and state replays
-one graph (one per dtype: the two forms are two builds).  On a CPU
-tensor it runs `enc_frame_scan_plain`, which repeats the arithmetic frame
-by frame with batched tensor ops.  Both update the carried state in place.
+one graph (one per dtype: the two forms are two builds).  The bf16 form at
+D 256 runs its layer on `wgmma` products with fused epilogues
+(`csrc/scan16.cuh`) from weights transposed into the workspace: once a
+call, or for the K = 1 graph once per set of weights, outside the graph
+(again when a weight is changed in place).  On
+a CPU tensor it runs `enc_frame_scan_plain`, which repeats the arithmetic
+frame by frame with batched tensor ops.  Both update the carried state in
+place.
 
 Float32 or bf16, as `dec_frame_scan` (the data tensors h0, the weights,
 kv, s and ring share one dtype; flush is float32): the bf16 form rounds to
@@ -36,6 +41,7 @@ Layouts (lane-major, as the port's stream state holds them):
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -50,9 +56,22 @@ from fseend_tpu_torch.ops import nn as tnn
 launches = 0
 launches_bf16 = 0
 
-# per (device, dtype, B, L, D, H, F, kc): the workspace of the K = 1 calls,
-# which run as a captured CUDA graph keyed by it
-_graph_ws: dict = {}
+# the K = 1 calls' workspaces, one per shape (device, dtype, B, L, D, H, F,
+# kc, workspace floats) and set of weights (by identity), the most recent
+# last: each as (the workspace, which the call's CUDA graph is keyed by; the
+# weights, held so that no other set takes their memory; their versions
+# when their transposed copies were written into the workspace)
+_graph_ws: OrderedDict = OrderedDict()
+_MAX_GRAPH_WS = 8   # as many as the CUDA source keeps graphs
+
+
+def _version(t: torch.Tensor) -> int:
+    """The tensor's in-place version counter (0 for an inference tensor,
+    which has none and cannot be changed in place)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return 0
 
 
 class EncWeights(NamedTuple):
@@ -176,23 +195,37 @@ def _launch(h0, flush, w, kv, s, ring, ffac):
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     graph = K == 1
-    key = (h0.device, h0.dtype, B, L, D, H, Fh, kc)
-    ws = _graph_ws.get(key) if graph else None
-    if ws is None:
-        n = size(B, K, L, D, H, Fh, kc, int(graph))
-        if n == 0:
-            raise ValueError(f"enc_frame_scan: the build for D={D}, dk={dk} does not take "
-                             f"{H} heads")
-        ws = torch.empty(n, device=h0.device, dtype=torch.float32)
-        if graph:
-            _graph_ws[key] = ws
     hout = torch.empty_like(h0)
     ptrs = (ctypes.c_void_p * len(w))(*[t.data_ptr() for t in w])
     with torch.cuda.device(h0.device):
+        n = size(B, K, L, D, H, Fh, kc, int(graph))   # depends on the card's SM count
+        if n == 0:
+            raise ValueError(f"enc_frame_scan: the build for D={D}, dk={dk} does not take "
+                             f"{H} heads")
+        key = (h0.device, h0.dtype, B, L, D, H, Fh, kc, n) + tuple(id(t) for t in w)
+        mode, held = int(graph), _graph_ws.get(key) if graph else None
+        versions = tuple(_version(t) for t in w)
+        if held is None:
+            ws = torch.empty(n, device=h0.device, dtype=torch.float32)
+            if graph:
+                # a new workspace: the graph is captured anew, and the bf16
+                # layer's transposed weights are written into it first (mode 2)
+                mode = 2
+                _graph_ws[key] = (ws, tuple(w), versions)
+                if len(_graph_ws) > _MAX_GRAPH_WS:
+                    _graph_ws.popitem(last=False)
+        else:
+            ws = held[0]
+            _graph_ws.move_to_end(key)
+            if held[2] != versions:        # a weight changed in place: copied again
+                mode = 2
+                _graph_ws[key] = (ws, held[1], versions)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ptrs, h0.data_ptr(), flush.data_ptr(), hout.data_ptr(), kv.data_ptr(),
-                 s.data_ptr(), ring.data_ptr(), ws.data_ptr(), B, K, L, Fh, kc, ffac, int(graph),
+                 s.data_ptr(), ring.data_ptr(), ws.data_ptr(), B, K, L, Fh, kc, ffac, mode,
                  stream)
+    if err != 0 and graph:
+        _graph_ws.pop(key, None)
     _build.check(lib, err, "enc_frame_scan")
     if h0.dtype == torch.bfloat16:
         launches_bf16 += 1

@@ -228,14 +228,15 @@ def test_dec_frame_scan_refuses_what_it_does_not_take(cuda):
         DFS.dec_frame_scan(*args)
 
 
-def _enc_case(dev, D, kc, K, seed):
+def _enc_case(dev, D, kc, K, seed, lanes=5):
     """Random conformer-block weights (2 layers, F 4D, 4 heads, BatchNorm
-    folded to a non-trivial (a, b)) and one call's inputs over 5 lanes: lane
-    0 never flushed, lane 1 flushed for its first frames, lane 2 in the
-    middle, lane 3 from a frame to the end, lane 4 in a random pattern;
-    incoming counts 0, 3, 40, 1000 and 1 per lane."""
+    folded to a non-trivial (a, b)) and one call's inputs over `lanes`
+    lanes: lane 0 never flushed, lane 1 flushed for its first frames, lane 2
+    in the middle, lane 3 from a frame to the end, lane 4 and any further
+    lanes in random patterns; incoming counts 0, 3, 40, 1000 and 1, then 7
+    per lane."""
     rng = np.random.default_rng(seed)
-    nl, H, Fh, lanes = 2, 4, 4 * D, 5
+    nl, H, Fh = 2, 4, 4 * D
 
     def r(*shape, scale=1.0):
         return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
@@ -256,21 +257,22 @@ def _enc_case(dev, D, kc, K, seed):
     fl[1, :min(3, K)] = 1.0
     fl[2, K // 3:2 * K // 3 + 1] = 1.0
     fl[3, K // 2:] = 1.0
-    fl[4] = rng.integers(0, 2, K)
-    s0 = np.array([0.0, 3.0, 40.0, 1000.0, 1.0], np.float32)
+    fl[4:] = rng.integers(0, 2, (lanes - 4, K))
+    s0 = np.array([0.0, 3.0, 40.0, 1000.0, 1.0] + [7.0] * (lanes - 5), np.float32)
     s = torch.as_tensor(np.broadcast_to(s0[None, :, None], (nl, lanes, H)).copy(), device=dev)
     return [r(lanes, K, D), torch.as_tensor(fl, device=dev), w,
             r(nl, lanes, H, D // H, D // H, scale=0.2), s,
             r(nl, lanes, kc - 1, D, scale=0.5)]
 
 
-@pytest.mark.parametrize("D,kc", [(64, 4), (256, 16)])
+@pytest.mark.parametrize("D,kc", [(64, 4), (192, 4), (256, 16)])
 @pytest.mark.parametrize("K", [1, 7, 128, 200])
 def test_enc_frame_scan_kernel_matches_plain_over_two_calls(cuda, D, kc, K):
     """The layer-major kernel against the frame-by-frame plain version: h and
     the state (kv, s, ring) after each of two consecutive calls (the second
     reads the state the first left, with other flush patterns); K 200 walks
-    two slices."""
+    two slices.  D 192 takes the conv's channels 64 a block (three groups,
+    not a power of two)."""
     args = _enc_case(cuda, D, kc, K, seed=D + K)
     ak = [t.clone() if torch.is_tensor(t) else t for t in args]
     ap = [t.clone() if torch.is_tensor(t) else t for t in args]
@@ -357,16 +359,29 @@ def test_dec_frame_scan_bf16_kernel_matches_plain(cuda, D, F, K):
         torch.testing.assert_close(ak[6], ap[6], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("D,kc", [(64, 4), (256, 16)])
-@pytest.mark.parametrize("K", [1, 128])
-def test_enc_frame_scan_bf16_kernel_matches_plain(cuda, D, kc, K):
-    """B2's bf16 form (K = 1: its bf16 CUDA graph) against its bf16 plain
-    version over two calls: h and the stored state (kv, ring; the counts
-    the same)."""
-    a32 = _enc_case(cuda, D, kc, K, seed=D + K)
-    a16 = _bf16(a32, 1)
+def _enc_bf16_case(dev, D, kc, K, seed, lanes=5):
+    """_enc_case in bf16 (the flush float32), and the same values in float32."""
+    a16 = _bf16(_enc_case(dev, D, kc, K, seed, lanes), 1)
     a32 = [t.float() if torch.is_tensor(t) else EFS.EncWeights(*(u.float() for u in t))
            for t in a16]
+    return a16, a32
+
+
+@pytest.mark.parametrize("D,kc,K,lanes", [(64, 4, 1, 5), (64, 4, 128, 5), (192, 4, 1, 5),
+                                          (192, 4, 128, 5), (256, 16, 1, 5), (256, 16, 128, 5),
+                                          (256, 16, 125, 17), (256, 16, 125, 40),
+                                          (256, 16, 125, 70)])
+def test_enc_frame_scan_bf16_kernel_matches_plain(cuda, D, kc, K, lanes):
+    """B2's bf16 form (K = 1: its bf16 CUDA graph) against its bf16 plain
+    version over two calls: h and the stored state (kv, ring; the counts
+    the same).  At D 256 every call runs the layer on scan16.cuh's kernels;
+    on an H100's 132 SMs the half FFs take 16, 16, 4, 2 and 1 runs of their
+    hidden slices at K 1 (the graph replayed on the second call), 5 x 128
+    (640 rows), 17 x 125, 40 x 125 and 70 x 125 (8,750 rows: the whole
+    hidden layer a block), the last three with a partial 128-row tile and a
+    partial retention chunk, every flush pattern.  D 64 and D 192 (the
+    conv's channels 64 a block) run the earlier sequence."""
+    a16, a32 = _enc_bf16_case(cuda, D, kc, K, seed=D + K, lanes=lanes)
     ak, ap = ([t.clone() if torch.is_tensor(t) else t for t in a16] for _ in range(2))
     for call in range(2):
         if call:
@@ -382,6 +397,133 @@ def test_enc_frame_scan_bf16_kernel_matches_plain(cuda, D, kc, K):
         _bf16_close(ak[3], ap[3], a32[3], "kv", close)
         _bf16_close(ak[5], ap[5], a32[5], "ring", close)
         torch.testing.assert_close(ak[4], ap[4], atol=0, rtol=0)
+
+
+def test_enc_frame_scan_bf16_step_gives_the_same_bits_twice(cuda):
+    """A step()'s bf16 call at the production width (128 lanes, D 256, kc
+    16): its CUDA graph replayed twice from the same state and inputs gives
+    the same h, kv, s and ring bit for bit (the FFN's runs are added in a
+    fixed order)."""
+    a16, _ = _enc_bf16_case(cuda, 256, 16, 1, seed=3, lanes=128)
+    h0, fl, w, kv0, s0, ring0 = a16
+    kv, s, ring = kv0.clone(), s0.clone(), ring0.clone()
+    outs = []
+    for _ in range(3):                           # the first call captures the graph
+        kv.copy_(kv0), s.copy_(s0), ring.copy_(ring0)
+        h = EFS.enc_frame_scan(h0, fl, w, kv, s, ring, ffac=0.5)
+        torch.cuda.synchronize()
+        outs.append([t.clone() for t in (h, kv, s, ring)])
+    for a, b in zip(outs[1], outs[2]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+
+
+def test_enc_frame_scan_bf16_step_alternating_weights_matches_plain(cuda):
+    """Two weight sets of one shape in turns at K 1, each with the
+    workspace (and graph) of its own that holds its transposed weights,
+    then a third set, which may take a freed set's memory and must not read
+    the old copies."""
+    cases = [_enc_bf16_case(cuda, 256, 16, 1, seed=20 + i) for i in range(2)]
+    for rnd in range(2):
+        for a16, a32 in cases:
+            ak, ap = ([t.clone() if torch.is_tensor(t) else t for t in a16] for _ in range(2))
+            got = EFS.enc_frame_scan(*ak, ffac=0.5)
+            torch.cuda.synchronize()
+            want16 = EFS.enc_frame_scan_plain(*ap, ffac=0.5)
+            want32 = EFS.enc_frame_scan_plain(*[t.clone() if torch.is_tensor(t) else t
+                                                for t in a32], ffac=0.5)
+            _bf16_close(got, want16, want32, f"h, round {rnd}", 0.5)
+            _bf16_close(ak[3], ap[3], a32[3], f"kv, round {rnd}", 0.5)
+    del cases
+    a16, a32 = _enc_bf16_case(cuda, 256, 16, 1, seed=30)       # may take a freed set's memory
+    ak, ap = ([t.clone() if torch.is_tensor(t) else t for t in a16] for _ in range(2))
+    got = EFS.enc_frame_scan(*ak, ffac=0.5)
+    want16 = EFS.enc_frame_scan_plain(*ap, ffac=0.5)
+    want32 = EFS.enc_frame_scan_plain(*a32, ffac=0.5)
+    _bf16_close(got, want16, want32, "h, a new set", 0.5)
+
+
+def test_enc_frame_scan_bf16_steps_match_plain_past_256(cuda):
+    """300 step() calls (K 1, D 256, one graph replayed) against the bf16
+    plain version frame by frame: the counts stop at 256, bf16's last exact
+    integer, on both (lane 3 starts at 1,000, which bf16 keeps); h over all
+    steps and the state at the end by the bf16 guards at the 128-frame
+    blocks' share, over which the recurrence compounds rounding flips."""
+    n = 300
+    a16, a32 = _enc_bf16_case(cuda, 256, 16, 1, seed=11)
+    rng = np.random.default_rng(11)
+    xs = torch.as_tensor(rng.standard_normal((n, 5, 1, 256)), dtype=torch.float32, device=cuda)
+    fl = torch.as_tensor(rng.random((n, 5, 1)) < 0.1, dtype=torch.float32, device=cuda)
+    fl[:, :4] = 0.0                                # lane 4 flushes a tenth of its steps
+    ak, ap, a3 = ([t.clone() if torch.is_tensor(t) else t for t in a] for a in (a16, a16, a32))
+    hs = ([], [], [])
+    for k in range(n):
+        x16 = xs[k].to(torch.bfloat16)
+        hs[0].append(EFS.enc_frame_scan(x16, fl[k], ak[2], *ak[3:], ffac=0.5))
+        hs[1].append(EFS.enc_frame_scan_plain(x16, fl[k], ap[2], *ap[3:], ffac=0.5))
+        hs[2].append(EFS.enc_frame_scan_plain(x16.float(), fl[k], a3[2], *a3[3:], ffac=0.5))
+    torch.cuda.synchronize()
+    got, want16, want32 = (torch.cat(h, dim=1) for h in hs)
+    _bf16_close(got, want16, want32, "h", 1.0)
+    _bf16_close(ak[3], ap[3], a3[3], "kv", 1.0)
+    _bf16_close(ak[5], ap[5], a3[5], "ring", 1.0)
+    torch.testing.assert_close(ak[4], ap[4], atol=0, rtol=0)
+    assert bool((ak[4][:, :3] == 256.0).all()) and bool((ak[4][:, 3] == 1000.0).all())
+
+
+_SILU_SWEEP = r"""
+#include "frame_ret.cuh"
+#include "tc_f32.cuh"
+#include "scan16.cuh"
+
+// every float h: mismatches of d16::silu_rn against fs::silu's bits where
+// h >= -86.5, and values other than -0 below it
+__global__ void silu_sweep(unsigned long long* bad) {
+  const unsigned long long n = 1ull << 32, step = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    const float h = __uint_as_float((unsigned)i);
+    if (h != h) continue;
+    const float want = h < -86.5f ? -0.f : fs::silu(h);
+    if (__float_as_uint(d16::silu_rn(h)) != __float_as_uint(want)) atomicAdd(bad, 1ull);
+  }
+}
+
+extern "C" int silu_rn_mismatches(unsigned long long* out) {
+  unsigned long long* bad = nullptr;
+  cudaError_t e = cudaMalloc(&bad, sizeof *bad);
+  if (e == cudaSuccess) e = cudaMemset(bad, 0, sizeof *bad);
+  if (e == cudaSuccess) {
+    silu_sweep<<<132 * 16, 256>>>(bad);
+    e = cudaMemcpy(out, bad, sizeof *bad, cudaMemcpyDeviceToHost);
+  }
+  cudaFree(bad);
+  return e;
+}
+"""
+
+
+def test_ffn16_silu_has_the_plain_silu_bits(cuda, tmp_path):
+    """The encoder's half FF takes silu through `d16::silu_rn` (the IEEE
+    reciprocal's fast path without its branch): the same bits as
+    `fs::silu`, the plain form's, at every float h >= -86.5 (below it
+    |silu| < 2^-118 and silu_rn gives -0), built as the kernels are."""
+    import ctypes
+    import subprocess
+
+    from fseend_tpu_torch.kernels import _build
+
+    src, lib = tmp_path / "silu_sweep.cu", tmp_path / "libsilu_sweep.so"
+    src.write_text(_SILU_SWEEP)
+    subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS
+                   + ["-I", str(_build.CSRC), "-DDTF_D=256", "-DCR_DK=64", "-DCR_DV=64",
+                      "-DFS_BF16=1", "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).silu_rn_mismatches
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_ulonglong)], ctypes.c_int
+    bad = ctypes.c_ulonglong(1)
+    assert fn(ctypes.byref(bad)) == 0
+    assert bad.value == 0
 
 
 def test_retention_layer_bf16_kernel_matches_plain(cuda):
