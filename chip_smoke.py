@@ -28,7 +28,8 @@ the servers and the steps.
                                       dec_train_fusion_{fwd,bwd}.cu,
                                       chunk_retention.cu and retention_layer.cu
                                       and the bf16 cached_attention.cu,
-                                      dec_frame_scan.cu and enc_frame_scan.cu
+                                      dec_frame_scan.cu, enc_frame_scan.cu
+                                      and dec_train_fusion_{fwd,bwd}.cu
                                       found in DIR, an earlier commit's
                                       kernels/csrc with this tree's entry
                                       points (others are refused), times them
@@ -40,6 +41,12 @@ the servers and the steps.
                                       checked and timed, with --parent
                                       against the earlier bf16 B1, B2, B6
                                       and B7; prints no result)
+    python3 chip_smoke.py --b3-only  (phases 1-2 and H7-H8's LS part alone on
+                                      a fresh model: B3's bf16 forms checked
+                                      and timed at T1 and on the bf16 main
+                                      path, with --parent against the
+                                      earlier bf16 B3 and the bf16 T3 step
+                                      on it; prints no result)
     python3 chip_smoke.py --mesh-only (phases 1-2 and M1-M5 alone; prints
                                       no result)
     python3 chip_smoke.py --tp-only  (phases 1-2 and M5 alone; prints no
@@ -537,15 +544,15 @@ CA_ENTRY = ("out, float* part, int R, int K, int cap, int rows_per_lane, int min
             "out, int R, int K, int cap, void* stream")
 DFS_ENTRY = ("T* s, float* ws, int B, int K, int C, int L, int F, void* stream",)
 EFS_ENTRY = ("float* ws, int B, int K, int L, int F, int kc, float ffac, int graph, void* stream",)
+B3_ENTRY = {"fwd": (("dtf_forward(const float* x, const float* tqkvg, const float* bqkvg",
+                      "dtf_forward(const E* x, const E* tqkvg, const E* bqkvg"),),
+            "bwd": ("unsigned seed, unsigned thr, float mult, void* stream_",)}
 PARENT_SOURCES = {   # key: (source, defines, entry points)
     "cached_attention": ("cached_attention", {"CA_HD": FS_HD}, CA_ENTRY),
     "dec_frame_scan": ("dec_frame_scan", DTF, DFS_ENTRY),
     "enc_frame_scan": ("enc_frame_scan", DTF, EFS_ENTRY),
-    "dec_train_fusion_fwd": ("dec_train_fusion_fwd", DTF, (
-        ("dtf_forward(const float* x, const float* tqkvg, const float* bqkvg",
-         "dtf_forward(const E* x, const E* tqkvg, const E* bqkvg"),)),
-    "dec_train_fusion_bwd": ("dec_train_fusion_bwd", DTF,
-                             ("unsigned seed, unsigned thr, float mult, void* stream_",)),
+    "dec_train_fusion_fwd": ("dec_train_fusion_fwd", DTF, B3_ENTRY["fwd"]),
+    "dec_train_fusion_bwd": ("dec_train_fusion_bwd", DTF, B3_ENTRY["bwd"]),
     "chunk_retention": ("chunk_retention", HEAD,
                         ("sf, float* scratch, int BH, int T, int L, void* stream)",)),
     "retention_layer": ("retention_layer", HEAD,
@@ -554,6 +561,10 @@ PARENT_SOURCES = {   # key: (source, defines, entry points)
     "cached_attention_bf16": ("cached_attention", {"CA_HD": FS_HD, "FS_BF16": 1}, CA_ENTRY),
     "dec_frame_scan_bf16": ("dec_frame_scan", dict(DTF, FS_BF16=1), DFS_ENTRY),
     "enc_frame_scan_bf16": ("enc_frame_scan", dict(DTF, FS_BF16=1), EFS_ENTRY),
+    "dec_train_fusion_fwd_bf16": ("dec_train_fusion_fwd", dict(DTF, FS_BF16=1),
+                                  B3_ENTRY["fwd"]),
+    "dec_train_fusion_bwd_bf16": ("dec_train_fusion_bwd", dict(DTF, FS_BF16=1),
+                                  B3_ENTRY["bwd"]),
 }
 PARENT = {}
 # the blockwise blocks' ms of this run ("ls": the fused route, "fs": the
@@ -624,6 +635,8 @@ def finish_parent_build(procs):
 
     PARENT.update(dec_train_fusion_fwd=on("dec_train_fusion_fwd", fusion_layer_fwd),
                   dec_train_fusion_bwd=on("dec_train_fusion_bwd", launch_bwd),
+                  dec_train_fusion_fwd_bf16=on("dec_train_fusion_fwd_bf16", fusion_layer_fwd),
+                  dec_train_fusion_bwd_bf16=on("dec_train_fusion_bwd_bf16", launch_bwd),
                   cached_attention=on("cached_attention", CA.cached_attention),
                   cached_attention_perlane=on("cached_attention", CA.cached_attention_perlane),
                   cached_attention_bf16=on("cached_attention_bf16", CA.cached_attention),
@@ -3173,6 +3186,7 @@ STREAM_CHECK_ATOL = 1e-3
 # the kernels' dispatch through their custom ops, against the direct
 # launch: at most this share of the blockwise block they serve
 OP_DISPATCH_SHARE = 0.02
+OP_HOST_PAIRS = 7    # direct-then-op host readings of 50 calls each, medians of each side
 # the LS blockwise block on the card before the ops (PERF.md section 5)
 LS_BLOCK_MS_RECORDED = 54.34
 
@@ -3745,8 +3759,10 @@ def phase_op_dispatch(cfg, card, rl_dec, b7_args):
         ms = []
         for _ in range(2):
             ms += [cuda_ms(direct, 10), cuda_ms(op, 10), cuda_ms(op, 10), cuda_ms(direct, 10)]
-        host = [host_us(direct), host_us(op), host_us(op), host_us(direct)]
-        d_us, o_us = float(np.median(host[0::3])), float(np.median(host[1:3]))
+        host = []  # OP_HOST_PAIRS readings of each, in turns: one stalled reading decides nothing
+        for _ in range(OP_HOST_PAIRS):
+            host += [host_us(direct), host_us(op)]
+        d_us, o_us = float(np.median(host[0::2])), float(np.median(host[1::2]))
         extra_us[kind] += n * max(0.0, o_us - d_us)
         log(json.dumps({"op_vs_direct": {
             "kernel": name, "call": label, "shape": list(x.shape), "calls_per_block": n,
@@ -4820,6 +4836,13 @@ def phase_bf16_train(cfg, model, rng, card):
     torch.cuda.synchronize()
     line = bf16_vs_f32("LS T3 train step, fused decoder", steps["f32"], steps["bf16"],
                        TRAIN_B * TRAIN_T, card)
+    if PARENT:  # the bf16 step on the earlier B3 bf16 forms, in turns; each one's idle share
+        earlier = via(DT, "_launch_fwd", PARENT["dec_train_fusion_fwd_bf16"],
+                      via(DT, "_launch_bwd", PARENT["dec_train_fusion_bwd_bf16"], steps["bf16"]))
+        in_turns("LS T3 bf16 train step, fused decoder", earlier, steps["bf16"], 3, card,
+                 rounds=2)
+        profile_window(earlier, 2, card, "bf16 train step, earlier fusion layer")
+        profile_window(steps["bf16"], 2, card, "bf16 train step")
     del steps
 
     # the loss falls over a few Adam steps at dropout 0 in bf16 (beside the
@@ -4863,9 +4886,19 @@ def phase_bf16_train(cfg, model, rng, card):
         kern, plain = getattr(DT, fn_name), getattr(DT, fn_name + "_plain")
         rows[name] = time_kernel(name, f"main path {shape} L={args[-2]}", kern, plain, args, kw,
                                  cfg, card)
-        busy = device_ms_by_kernel(lambda: kern(*args, **kw), reps=PARTS_REPS)
-        log(json.dumps({f"{name}_parts": {"kernel": "this", "device_busy_ms": sum(busy.values()),
-                                          "top": top_kernels(busy, 1, n=16)}, "card": card}))
+        versions = [("this", kern)]
+        if PARENT:
+            versions.insert(0, ("earlier", PARENT[name]))
+        for which, fn in versions:
+            busy = device_ms_by_kernel(lambda: fn(*args, **kw), reps=PARTS_REPS)
+            log(json.dumps({f"{name}_parts": {
+                "kernel": which, "device_busy_ms": sum(busy.values()),
+                "host_ms_per_call": host_ms(lambda: fn(*args, **kw)),
+                "top": top_kernels(busy, 1, n=16)}, "card": card}))
+        if PARENT:
+            old = PARENT[name]
+            in_turns(f"{name} main path {shape}", lambda: old(*args, **kw),
+                     lambda: kern(*args, **kw), 10, card)
     log("library_ms: null for the bf16 fusion-layer forms, as for the float32 ones")
     return launches, errs, rows
 
@@ -5610,6 +5643,12 @@ def main() -> int:
         return 0
     if "--bf16-only" in sys.argv[1:]:
         phase_bf16_only(card)
+        log(f"total: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if "--b3-only" in sys.argv[1:]:
+        cfg = ls_eend.LSEENDConfig()
+        phase_bf16_train(cfg, make_model(cfg, np.random.default_rng(SEED)),
+                         np.random.default_rng(SEED + 14), card)
         log(f"total: {time.perf_counter() - t0:.1f} s")
         return 0
     cfg = ls_eend.LSEENDConfig()

@@ -244,7 +244,7 @@ extern "C" int dec_frame_scan_launch(const void* const* weights, const T* embp, 
                                y, (int)R, st));
       DFS_TRY(d16::linear16(y, wtl(2, l, (size_t)D * 3 * D), w.bmi + (size_t)l * 3 * D, big,
                             (int)R, 3 * D, st));
-      DFS_TRY(d16::slot_attn16(big, ht2, B, C, Kc, st));
+      DFS_TRY(d16::slot_attn16(big, ht2, B, Drop{0u, 0u, 1.f, C, Kc, Kc}, st));
       DFS_TRY(d16::linear16_ln(ht2, wtl(3, l, (size_t)D * D), w.bmo + (size_t)l * D, y, lns + D,
                                lnb + D, x, (int)R, st));
       DFS_TRY(d16::ffn16(x, wtl(4, l, (size_t)D * F), w.bf1 + (size_t)l * F,

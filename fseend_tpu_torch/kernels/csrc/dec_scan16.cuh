@@ -16,7 +16,9 @@
 //   slot_attn16_kernel  the slot attention of one (lane, frame, head) per
 //                   warp on bf16 pairs (a rounded product is one bf16x2
 //                   multiply), its rows read four bytes a lane into shared
-//                   rows of DK / 2 + 1 words (no bank conflicts).
+//                   rows of DK / 2 + 1 words (no bank conflicts); with its
+//                   dropout, the fusion layer's training forward's too
+//                   (dtf_tc16.cuh).
 // The rounding points are the sequence's (dec_frame_scan.cu's list), at
 // the same places of the same arithmetic; only float32 summation orders
 // differ.  What bounds the layer: the products' operations
@@ -31,16 +33,20 @@ namespace d16 {
 
 // ---------------------------------------------------------------------------
 // slot_attn16_kernel: dec_train_fusion_common.cuh's slot_attn_fwd_kernel<bf16>
-// at dropout 0 (its multiplier is 1: round(round(w) * 1) = round(w)), one
-// warp per (lane, frame, head), the same bits: each product q k rounded to
-// bf16 before the float32 sum, the softmax weights rounded, each product
-// w v rounded, the sum rounded where it is written
-// (dec_frame_scan_pallas.py:149-157).  A product of two bf16 values rounded
-// to bf16 is one bf16x2 multiply (mul.rn: one rounding of the exact
-// product) for two of them.  q, k and v of the C slots stay bf16 pairs in
-// shared rows of DK / 2 + 1 words, read a pair a lane (a row of DK = 64 is
-// one 128-byte read of the warp), so the (query, key) pairs of a warp,
-// which read different key rows at one column, hit different banks.
+// on bf16 pairs, one warp per (lane or batch row, frame, head), the same
+// bits: each product q k rounded to bf16 before the float32 sum, the
+// softmax weights rounded, times their dropout multipliers rounded (site
+// kAttnW + 16 h; the fusion layer's training forward, dtf_tc16.cuh: at
+// dropout 0, the frame scan's, the multiplier is 1 and round(round(w) * 1)
+// = round(w)), rounded, each product w v rounded, the sum rounded where it
+// is written (dec_frame_scan_pallas.py:149-157,
+// dec_train_fusion_pallas.py:255-266).  A product of two bf16 values
+// rounded to bf16 is one bf16x2 multiply (mul.rn: one rounding of the
+// exact product) for two of them.  q, k and v of the C slots stay bf16
+// pairs in shared rows of DK / 2 + 1 words, read a pair a lane (a row of
+// DK = 64 is one 128-byte read of the warp), so the (query, key) pairs of
+// a warp, which read different key rows at one column, hit different
+// banks.  Rows ((b C + c) T + t) of qkv (stride 3D) and attn (stride D).
 // ---------------------------------------------------------------------------
 
 constexpr int kSlotWarps = 4;     // warps a block
@@ -51,17 +57,18 @@ __host__ __device__ constexpr int slot16_smem_words(int C) {
 }
 
 __global__ void __launch_bounds__(32 * kSlotWarps)
-slot_attn16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int B, int C, int Kc) {
+slot_attn16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int B, Drop dp) {
   extern __shared__ __align__(16) uint32_t wsm32[];
+  const int C = dp.C, T = dp.T;
   const int gw = blockIdx.x * kSlotWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (gw >= B * Kc * H) return;
-  const int h = gw % H, tk = (gw / H) % Kc, b = gw / (H * Kc);
+  if (gw >= B * T * H) return;
+  const int h = gw % H, t = (gw / H) % T, b = gw / (H * T);
   uint32_t* qs = wsm32 + (threadIdx.x >> 5) * (3 * C * kSW + C * C);
   uint32_t *ks = qs + C * kSW, *vs = ks + C * kSW;
   float* W = reinterpret_cast<float*>(vs + C * kSW);
   for (int c = 0; c < C; ++c) {
-    const uint32_t* row = reinterpret_cast<const uint32_t*>(
-        qkv + (((size_t)b * C + c) * Kc + tk) * 3 * D + h * DK);
+    const uint32_t* row =
+        reinterpret_cast<const uint32_t*>(qkv + (((size_t)b * C + c) * T + t) * 3 * D + h * DK);
     for (int i = lane; i < DK / 2; i += 32) {
       qs[c * kSW + i] = row[i];
       ks[c * kSW + i] = row[D / 2 + i];
@@ -83,7 +90,8 @@ slot_attn16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int B,
     W[p] = s * inv;
   }
   __syncwarp();
-  if (lane < C) {  // softmax of row c = lane, the weights rounded to bf16
+  if (lane < C) {  // softmax of row c = lane; the weights rounded, times their mask, rounded
+    const unsigned base = hash_base(dp, b, t / dp.L, kAttnW + 16 * h);
     float m = W[lane * C];
     for (int j = 1; j < C; ++j) m = fmaxf(m, W[lane * C + j]);
     float sum = 0.f;
@@ -92,12 +100,18 @@ slot_attn16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int B,
       W[lane * C + j] = e;
       sum += e;
     }
-    for (int j = 0; j < C; ++j) W[lane * C + j] = fs::rnd<bf16>(W[lane * C + j] / sum);
+    for (int j = 0; j < C; ++j) {
+      const float w = fs::rnd<bf16>(W[lane * C + j] / sum);
+      W[lane * C + j] =
+          dp.thr ? fs::rnd<bf16>(
+                       w * fs::rnd<bf16>(keep(dp, base, (unsigned)((lane * dp.L + t % dp.L) * C + j))))
+                 : w;
+    }
   }
   __syncwarp();
   for (int c = 0; c < C; ++c) {
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
-        attn + (((size_t)b * C + c) * Kc + tk) * D + h * DK);
+    __nv_bfloat162* out =
+        reinterpret_cast<__nv_bfloat162*>(attn + (((size_t)b * C + c) * T + t) * D + h * DK);
     for (int i = lane; i < DK / 2; i += 32) {
       float o0 = 0.f, o1 = 0.f;
       for (int j = 0; j < C; ++j) {
@@ -111,13 +125,14 @@ slot_attn16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ attn, int B,
   }
 }
 
-inline int slot_attn16(const bf16* qkv, bf16* attn, int B, int C, int Kc, cudaStream_t st) {
-  const int smem = (int)sizeof(uint32_t) * slot16_smem_words(C);
+// B batch rows (or lanes) of dp.T frames and dp.C slots; dropout off: dp.thr 0
+inline int slot_attn16(const bf16* qkv, bf16* attn, int B, const Drop& dp, cudaStream_t st) {
+  const int smem = (int)sizeof(uint32_t) * slot16_smem_words(dp.C);
   cudaError_t e = cudaFuncSetAttribute(slot_attn16_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const int grid = (B * Kc * H + kSlotWarps - 1) / kSlotWarps;
-  slot_attn16_kernel<<<grid, 32 * kSlotWarps, smem, st>>>(qkv, attn, B, C, Kc);
+  const int grid = (B * dp.T * H + kSlotWarps - 1) / kSlotWarps;
+  slot_attn16_kernel<<<grid, 32 * kSlotWarps, smem, st>>>(qkv, attn, B, dp);
   return cudaGetLastError();
 }
 

@@ -63,6 +63,10 @@
 // mma.sync pass (warp_mma16).  The same bits from run to run, as the
 // float32 form.
 #include "dec_train_fusion_seq.cuh"
+#if defined(FS_BF16) && DTF_D == 256 && CR_DK == 64
+#define DTF_TC16 1
+#include "dtf_tc16.cuh"
+#endif
 
 using namespace dtf;
 
@@ -502,6 +506,37 @@ struct BwdBufs16 {
   bf16 *g2lo, *gFlo, *dqkvlo, *dqkvglo;
 };
 
+#ifdef DTF_TC16
+// At the production width (D 256, head dim 64, F a multiple of 128) the
+// bf16 backward is dtf_tc16.cuh's: the recompute from the checkpoints, then
+// wgmma input and weight gradients with the masks, roundings and bias
+// sums in their epilogues, the chunk-parallel core backward, and no
+// rounding pass but the outputs' own.  Other widths keep the sequence below.
+inline bool tc16_width(int F) { return F % 128 == 0; }
+
+size_t carve_bwd_tc16(float* base, int BC, int T, int L, int F, t16::BwdBufs16* b) {
+  const size_t R = (size_t)BC * T;
+  Carve c{base};
+  *b = t16::BwdBufs16{};
+  t16::Bufs16& f = b->fw;
+  for (bf16** p : {&f.qkv, &f.mqkv}) *p = c.take16(R * 3 * D);
+  for (bf16** p : {&f.gated, &f.x1lo, &f.attn, &f.x2lo, &b->g2lo}) *p = c.take16(R * D);
+  for (float** p : {&f.g, &f.x1, &f.x2, &f.r1, &f.r2, &f.r3, &f.oh, &b->dxf, &b->d32, &b->doh})
+    *p = c.take(R * D);
+  f.inr = c.take(R * H);
+  for (bf16** p : {&f.hdrop, &b->gFlo}) *p = c.take16(R * F);
+  f.bits = reinterpret_cast<uint32_t*>(c.take(t16::bits_words((long long)R, F)));
+  b->dqkv = c.take(R * 3 * D);
+  b->dqkvlo = c.take16(R * 3 * D);
+  b->dqkvg = c.take(R * 4 * D);
+  b->dqkvglo = c.take16(R * 4 * D);
+  b->dS = c.take((size_t)BC * H * (T / L) * DK * DK);
+  b->colpart = c.take((R + t16::kBM - 1) / t16::kBM * 8 * F);  // a row per warp of each block
+  b->part = c.take(tc::kSplitFloats);
+  return c.used;
+}
+#endif
+
 // the 14 gradients' float32 sums, packed in FusionWeights order
 size_t grad_floats(int F) {
   return (size_t)4 * D * D + 4 * D + 2 * (D * D + D) + 3 * D * D + 3 * D + 2 * (size_t)F * D + F +
@@ -540,6 +575,12 @@ size_t carve_bwd16(float* base, int BC, int T, int L, int F, BwdBufs16* b) {
 
 // floats of workspace dtf_backward needs
 extern "C" size_t dtf_bwd_workspace(int BC, int T, int L, int H_, int F) {
+#ifdef DTF_TC16
+  if (tc16_width(F)) {
+    t16::BwdBufs16 b;
+    return H_ == H ? carve_bwd_tc16(nullptr, BC, T, L, F, &b) : 0;
+  }
+#endif
   BwdBufs16 b;
   return H_ == H ? carve_bwd16(nullptr, BC, T, L, F, &b) : 0;
 }
@@ -560,6 +601,19 @@ extern "C" int dtf_backward(const E* x, const E* dy, const float* kvs, const flo
   const int BC = B * C, R = BC * T;
   const Drop dp{seed, thr, mult, C, T, L};
   const float kscale = (float)(1.0 / sqrt((double)DK));
+#ifdef DTF_TC16
+  if (tc16_width(F)) {
+    t16::BwdBufs16 tb;
+    carve_bwd_tc16(ws, BC, T, L, F, &tb);
+    tb.fw.kvs = const_cast<float*>(kvs);  // read only: the recompute's chunks read their states
+    tb.fw.ss = const_cast<float*>(ss);
+    const t16::W16 w{wqkvg, bqkvg, wro, bro, wmi, bmi, wmo, bmo, wf1, bf1, wf2, bf2, lns, lnb};
+    const t16::WT16 wt{tqkvg, tro, tmi, tmo, tf1, tf2};
+    const t16::Grads16 gr{gqkvg, gbqkvg, gro, gbro, gmi, gbmi, gmo, gbmo, gf1, gbf1, gf2, gbf2,
+                          glns, glnb};
+    return t16::backward_tc16(x, dy, kvs, ss, w, wt, gr, dx, tb, B, C, T, L, F, dp, st);
+  }
+#endif
   BwdBufs16 bb;
   carve_bwd16(ws, BC, T, L, F, &bb);
   const SeqBufs16& f = bb.fw;

@@ -280,12 +280,13 @@ gate_fwd_kernel(const float* __restrict__ oh, const TG* __restrict__ g, int ldg,
 // Backward of gate_fwd: from dgated, dg (stride ldg) = dgated * ohn *
 // silu'(g) and doh = the group-norm backward of dgated * silu(g).  T = bf16
 // reads g and the normalized ohn rounded to bf16, as the TPU kernel stashes
-// them (dec_train_fusion_pallas.py:229, 291, 477-481)
+// them (dec_train_fusion_pallas.py:229, 291, 477-481); dglo, when not null,
+// gets dg rounded to bf16 (stride lddg), the copy a bf16 product reads
 template <typename T>
 __global__ void __launch_bounds__(256)
 gate_bwd_kernel(const float* __restrict__ dgated, const float* __restrict__ oh,
                 const float* __restrict__ g, int ldg, float* __restrict__ dg, int lddg,
-                float* __restrict__ doh, long long R) {
+                float* __restrict__ doh, long long R, fs::bf16* __restrict__ dglo) {
   DTF_FOR_ROWS(r, R) {
     float v[NV], gv[NV], dv[NV], t[NV];
     load_row(oh + r * D, v);
@@ -311,6 +312,7 @@ gate_bwd_kernel(const float* __restrict__ dgated, const float* __restrict__ oh,
       s2 += dv[i] * v[i];
     }
     store_row(dg + r * lddg, t);
+    if (dglo) store_row(dglo + r * lddg, t);
     const float m1 = group_sum(s1) / DK, m2 = group_sum(s2) / DK;
 #pragma unroll
     for (int i = 0; i < NV; ++i) dv[i] = rs * (dv[i] - m1 - v[i] * m2);
@@ -443,10 +445,12 @@ __global__ void slot_attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ 
 // T = bf16 (qkv in bf16) as the TPU kernel's backward (:426-459): the scores'
 // products rounded, the softmax weights and the dropout multiplier rounded
 // to bf16, d(w * mask) from the products of dattn rounded to bf16 and v,
-// each rounded; dv from the unrounded dattn
+// each rounded; dv from the unrounded dattn.  dlo, when not null, gets
+// dqkv rounded to bf16 (the copy a bf16 product reads)
 template <typename T>
 __global__ void slot_attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ dattn,
-                                     float* __restrict__ dqkv, int B, Drop dp) {
+                                     float* __restrict__ dqkv, int B, Drop dp,
+                                     fs::bf16* __restrict__ dlo) {
   extern __shared__ __align__(16) float sm[];
   const SlotView s = slot_view(dp, B);
   if (!s.ok) return;
@@ -492,6 +496,12 @@ __global__ void slot_attn_bwd_kernel(const T* __restrict__ qkv, const float* __r
       out[d] = gq;
       out[D + d] = gk;
       out[2 * D + d] = gv;
+      if (dlo) {
+        fs::bf16* lo = dlo + slot_row(dp, s, c) * 3 * D + s.h * DK;
+        lo[d] = __float2bfloat16_rn(gq);
+        lo[D + d] = __float2bfloat16_rn(gk);
+        lo[2 * D + d] = __float2bfloat16_rn(gv);
+      }
     }
   }
 }
@@ -550,8 +560,9 @@ inline int gate_fwd(const float* oh, const TG* g, int ldg, TO* gated, long long 
 
 template <typename T = float>
 inline int gate_bwd(const float* dgated, const float* oh, const float* g, int ldg, float* dg,
-                    int lddg, float* doh, long long R, cudaStream_t st) {
-  gate_bwd_kernel<T><<<row_grid(R), 256, 0, st>>>(dgated, oh, g, ldg, dg, lddg, doh, R);
+                    int lddg, float* doh, long long R, cudaStream_t st,
+                    fs::bf16* dglo = nullptr) {
+  gate_bwd_kernel<T><<<row_grid(R), 256, 0, st>>>(dgated, oh, g, ldg, dg, lddg, doh, R, dglo);
   return cudaGetLastError();
 }
 
@@ -565,9 +576,10 @@ inline int relu_drop(const float* src, const float* hpre, TO* out, long long R, 
 }
 
 // forward: out in qkv's element type; backward (bwd): out float32 (dqkv)
+// and, when lo is not null, its bf16 copy
 template <typename T, typename TO>
 inline int slot_attn(const T* qkv, const float* dattn, TO* out, int B, const Drop& dp, bool bwd,
-                     cudaStream_t st) {
+                     cudaStream_t st, fs::bf16* lo = nullptr) {
   const int smem = (int)sizeof(float) * attn_smem_floats(dp.C, bwd);
   const int grid = (B * dp.T * H + kAttnWarps - 1) / kAttnWarps;
   if constexpr (std::is_same<TO, float>::value) {
@@ -575,7 +587,7 @@ inline int slot_attn(const T* qkv, const float* dattn, TO* out, int B, const Dro
       cudaError_t e = cudaFuncSetAttribute(slot_attn_bwd_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
-      slot_attn_bwd_kernel<T><<<grid, 32 * kAttnWarps, smem, st>>>(qkv, dattn, out, B, dp);
+      slot_attn_bwd_kernel<T><<<grid, 32 * kAttnWarps, smem, st>>>(qkv, dattn, out, B, dp, lo);
       return cudaGetLastError();
     }
   }

@@ -30,8 +30,17 @@
 // unchanged) takes bf16 x and weights and writes a bf16 y, with the
 // checkpoints float32 (dec_train_fusion_pallas.py:574-617): the sequence's
 // bf16 form (forward_seq16), its products one bf16 tensor-core pass each.
-// Bound: the same operations at the bf16 peak (989 TFLOP/s).
+// Bound: the same operations at the bf16 peak (989 TFLOP/s).  At the
+// production width (D 256, head dim 64, F a multiple of 128) the bf16 form
+// runs dtf_tc16.cuh's forward instead (wgmma products with fused
+// epilogues, the chunk-parallel core on the tensor cores), which needs the
+// checkpoint buffers (kvs, ss) on every call; other widths, whose rows the
+// 128-wide product tiles do not divide, keep forward_seq16.
 #include "dec_train_fusion_seq.cuh"
+#if defined(FS_BF16) && DTF_D == 256 && CR_DK == 64
+#define DTF_TC16 1
+#include "dtf_tc16.cuh"
+#endif
 
 using namespace dtf;
 
@@ -39,6 +48,25 @@ namespace {
 
 #ifdef FS_BF16
 using E = fs::bf16;
+
+#ifdef DTF_TC16
+inline bool tc16_width(int F) { return F % 128 == 0; }
+
+// the transposed weights (out, in), then the activations
+size_t carve_fwd_tc16(float* base, int BC, int T, int F, t16::Bufs16* b, bf16** wt) {
+  const size_t R = (size_t)BC * T;
+  Carve c{base};
+  *b = t16::Bufs16{};
+  const size_t n[6] = {(size_t)4 * D * D, (size_t)D * D, (size_t)3 * D * D, (size_t)D * D,
+                       (size_t)F * D, (size_t)D * F};
+  for (int i = 0; i < 6; ++i) wt[i] = c.take16(n[i]);
+  b->qkv = c.take16(R * 3 * D);
+  b->mqkv = c.take16(R * 3 * D);
+  for (bf16** p : {&b->gated, &b->x1lo, &b->attn, &b->x2lo}) *p = c.take16(R * D);
+  for (float** p : {&b->g, &b->x1, &b->x2}) *p = c.take(R * D);
+  return c.used;
+}
+#endif
 
 size_t carve_fwd16(float* base, int BC, int T, int F, SeqBufs16* b) {
   const size_t R = (size_t)BC * T, rows = (size_t)BC * H;
@@ -84,6 +112,13 @@ size_t carve_fwd(float* base, int BC, int T, int F, SeqBufs* b) {
 // floats of workspace dtf_forward needs for BC = B*C sequences of T frames
 extern "C" size_t dtf_fwd_workspace(int BC, int T, int H_, int F) {
 #ifdef FS_BF16
+#ifdef DTF_TC16
+  if (tc16_width(F)) {
+    t16::Bufs16 b;
+    bf16* wt[6];
+    return H_ == H ? carve_fwd_tc16(nullptr, BC, T, F, &b, wt) : 0;
+  }
+#endif
   SeqBufs16 b;
   return H_ == H ? carve_fwd16(nullptr, BC, T, F, &b) : 0;
 #else
@@ -94,7 +129,8 @@ extern "C" size_t dtf_fwd_workspace(int BC, int T, int H_, int F) {
 
 // x, y (B, C, T, D); t* the transposes (in, out) of wqkvg, wro, wmi, wmo,
 // wf1, wf2 and b* their biases; lns, lnb (3, D); kvs (B, T/L, H, C, DK, DK)
-// and ss (B, T/L, H, C), both null for no checkpoints; ws of
+// and ss (B, T/L, H, C), both null for no checkpoints (not on the bf16
+// production-width path, whose chunks read their states there); ws of
 // dtf_fwd_workspace floats.  x, y and the weights of the element type E
 // (bf16 with FS_BF16, else float); kvs, ss and ws float32.  T % L == 0, F %
 // 16 == 0.  Returns the first CUDA error of the launches.
@@ -105,6 +141,26 @@ extern "C" int dtf_forward(const E* x, const E* tqkvg, const E* bqkvg, const E* 
                            int T, int L, int F, unsigned seed, unsigned thr, float mult,
                            void* stream_) {
 #ifdef FS_BF16
+#ifdef DTF_TC16
+  if (tc16_width(F)) {
+    if (!kvs || !ss) return cudaErrorInvalidValue;  // the chunks read their states there
+    cudaStream_t st = static_cast<cudaStream_t>(stream_);
+    t16::Bufs16 b;
+    bf16* wt[6];
+    carve_fwd_tc16(ws, B * C, T, F, &b, wt);
+    b.y = y;
+    b.kvs = kvs;
+    b.ss = ss;
+    // the products read W^T, (out, in): the six weights transposed once a call
+    const E* t[6] = {tqkvg, tro, tmi, tmo, tf1, tf2};
+    const int K[6] = {D, D, D, D, D, F}, N[6] = {4 * D, D, 3 * D, D, F, D};
+    for (int i = 0; i < 6; ++i)
+      if (int err = d16::transpose16(t[i], wt[i], 1, K[i], N[i], st)) return err;
+    const t16::W16 w{wt[0], bqkvg, wt[1], bro, wt[2], bmi, wt[3], bmo, wt[4], bf1, wt[5], bf2,
+                     lns, lnb};
+    return t16::forward_tc16(x, w, b, B, C, T, L, F, Drop{seed, thr, mult, C, T, L}, true, st);
+  }
+#endif
   SeqBufs16 b;
   carve_fwd16(ws, B * C, T, F, &b);
   b.y = y;

@@ -545,9 +545,9 @@ def _lib(which: str, D: int, H: int, dtype=torch.float32):
     """The forward or backward library for model width D, H heads and the
     data dtype (bf16: the FS_BF16 build)."""
     dk = D // H
-    if D % 128 or D > 512 or 32 % H or dk % 16:
+    if D % 64 or D > 512 or 32 % H or dk % 16:
         raise ValueError(f"fusion layer kernels: D={D}, {H} heads unsupported (D a multiple "
-                         f"of 128 up to 512, H dividing 32)")
+                         f"of 64 up to 512, H dividing 32, head dim a multiple of 16)")
     return _build.load(f"dec_train_fusion_{which}",
                        build_defines(dtype, CR_DK=dk, CR_DV=dk, DTF_D=D))
 
@@ -591,7 +591,9 @@ def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt=None):
                                   wt[4], w.bf1, wt[5], w.bf2, w.lns, w.lnb)]
     y = torch.empty_like(x)
     kvs = ss = None
-    if checkpoints:
+    # the bf16 form's chunks read their states from the checkpoint buffers
+    # (dtf_tc16.cuh): it takes them on every call, scratch without checkpoints
+    if checkpoints or x.dtype == torch.bfloat16:
         kvs = x.new_empty(B, N, H, C, dk, dk, dtype=torch.float32)
         ss = x.new_empty(B, N, H, C, 1, 1, dtype=torch.float32)
     lib.dtf_fwd_workspace.restype = ctypes.c_size_t
@@ -605,14 +607,14 @@ def _launch_fwd(x, w, seed, n_heads, chunk, rate, checkpoints, wt=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), *_ptrs(w), y.data_ptr(),
-                 kvs.data_ptr() if checkpoints else None, ss.data_ptr() if checkpoints else None,
+                 None if kvs is None else kvs.data_ptr(), None if ss is None else ss.data_ptr(),
                  ws.data_ptr(), B, C, T, chunk, Fh, *_rate_args(seed, rate), stream)
     _build.check(lib, err, "fusion layer forward")
     if x.dtype == torch.bfloat16:
         fwd_launches_bf16 += 1
     else:
         fwd_launches += 1
-    return y, kvs, ss
+    return (y, kvs, ss) if checkpoints else (y, None, None)
 
 
 def _launch_bwd(x, dy, kvs, ss, w, seed, n_heads, chunk, rate, wt=None):

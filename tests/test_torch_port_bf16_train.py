@@ -206,6 +206,212 @@ def test_a_float32_body_fails_the_rounding_rule(fusion):
 
 
 # ---------------------------------------------------------------------------
+# B3's bf16 order of work at the production width (csrc/dtf_tc16.cuh): a
+# plain mirror, held to the plain version and to the JAX kernel
+# ---------------------------------------------------------------------------
+
+MIRROR_TILE = 3     # rows of the mirror's key and query tiles: L3 = 8 cuts into 3 + 3 + 2
+
+
+def _rnd(t):
+    return t.to(BF).float()
+
+
+def _mirror_core_fwd(q, k, v, L, tile=MIRROR_TILE, rnd=_rnd):
+    """dtf_tc16.cuh's core forward on q, k~, v (B, H, C, T, d), bf16 values
+    in float32: every chunk's summary k~^T v / sqrt(L) at once
+    (core_state16), the state and its scale carried over them in chunk order,
+    then every chunk's output from the state it reads (core_out16): the
+    row sums of |S| over the key tiles added tile by tile, S / inner
+    rounded (`rnd`) before it multiplies v, the cross read q (KV / c).  The
+    row sums and scales are constants, as the reference detaches them.
+    Returns (oh, the row sums, kvs (B, N, H, C, d, d), ss (B, N, H, C, 1,
+    1))."""
+    B, H, C, T, d = q.shape
+    N = T // L
+    qc, kc, vc = (t.reshape(B, H, C, N, L, d) for t in (q, k, v))
+    mask, idec, wlast = DT._consts(L, q.device)
+    summary = (kc.transpose(-1, -2) @ vc) * wlast               # (B, H, C, N, d, d)
+    kv, s = q.new_zeros(B, H, C, d, d), q.new_ones(B, H, C, 1, 1)
+    kvs, ss = [], []
+    for n in range(N):
+        kvs.append(kv)
+        ss.append(s)
+        kv = kv + summary[:, :, :, n]
+        s = kv.detach().abs().sum(-2, keepdim=True).amax(-1, keepdim=True).clamp(min=1.0)
+    KV, c = torch.stack(kvs, dim=3), torch.stack(ss, dim=3)     # the state each chunk reads
+    qk = (qc @ kc.transpose(-1, -2)) * mask                      # (B, H, C, N, L, L)
+    inner = sum(qk[..., j0:j0 + tile].detach().abs().sum(-1, keepdim=True)
+                for j0 in range(0, L, tile)).clamp(min=1.0)
+    o_in = rnd(qk / inner) @ vc
+    cross = (qc @ (KV / c)) * idec
+    all_ = torch.maximum(inner, c)
+    oh = o_in * (inner / all_) + cross * (c / all_)
+    return (oh.reshape(B, H, C, T, d), inner.reshape(B, H, C, T, 1), torch.stack(kvs, dim=1),
+            torch.stack(ss, dim=1))
+
+
+def _mirror_core_bwd(q, k, v, doh, inner, kvs, ss, L, rnd, tile=MIRROR_TILE):
+    """dtf_tc16.cuh's core backward: every chunk's increment q_id^T dcross /
+    c at once, the state cotangent after each chunk by the reverse prefix
+    over them (core_bwd_ds16), then every chunk's dq (query tiles) and dk,
+    dv (key tiles) from dS_n (core_bwd_chunk16), each tile's sum over the
+    other side's tiles added tile by tile, `rnd` at the core's bf16
+    rounding points.  All (B, H, C, T, d) but inner
+    (B, H, C, T, 1) and the checkpoints; returns dq, dk (before the k
+    scale), dv and the dS_n (B, H, C, N, d, d)."""
+    B, H, C, T, d = q.shape
+    N = T // L
+    qc, kc, vc, dc, ic = (t.reshape(B, H, C, N, L, -1) for t in (q, k, v, doh, inner))
+    KV = kvs.permute(0, 2, 3, 1, 4, 5)                           # (B, H, C, N, d, d)
+    c = ss.permute(0, 2, 3, 1, 4, 5)
+    mask, idec, wlast = DT._consts(L, q.device)
+    all_ = torch.maximum(ic, c)
+    din, dcr = rnd(dc * (ic / all_)), rnd(dc * (c / all_))
+    inc = (rnd(qc * idec).transpose(-1, -2) @ dcr) / c            # every chunk's increment
+    dS = torch.zeros_like(inc)
+    for n in range(N - 2, -1, -1):                                # dS_n: the chunks after n
+        dS[:, :, :, n] = dS[:, :, :, n + 1] + inc[:, :, :, n + 1]
+    dSr = rnd(dS)
+    S = (qc @ kc.transpose(-1, -2)) * mask
+    innin = rnd(S / ic)                                           # (.., i, j)
+    dqk = rnd((din @ vc.transpose(-1, -2)) / ic * mask)
+    tiles = range(0, L, tile)
+    dq = (dcr @ rnd(KV / c).transpose(-1, -2)) * idec + sum(
+        dqk[..., j0:j0 + tile] @ kc[..., j0:j0 + tile, :] for j0 in tiles)
+    dv = (kc @ dSr) * wlast + sum(innin[..., i0:i0 + tile, :].transpose(-1, -2)
+                                  @ din[..., i0:i0 + tile, :] for i0 in tiles)
+    dk = (vc @ dSr.transpose(-1, -2)) * wlast + sum(dqk[..., i0:i0 + tile, :].transpose(-1, -2)
+                                                     @ qc[..., i0:i0 + tile, :] for i0 in tiles)
+    return (*(t.reshape(B, H, C, T, d) for t in (dq, dk, dv)), dS)
+
+
+def _relu_bits(mask: np.ndarray) -> np.ndarray:
+    """relu' of an (M, F) hidden layer packed as dtf_tc16.cuh's FF1 epilogue
+    packs it: per 128 x 128 tile (blockIdx (F / 128 columns, M / 128 rows),
+    the last tile of each cut short here, where F is no multiple of 128)
+    a word per thread and row half, bit 2 j + e for the thread's column
+    8 j + 2 t + e; thread tid = 128 wgi + 32 warp + 4 g + t holds rows
+    64 wgi + 16 warp + g (+ 8)."""
+    M, F = mask.shape
+    m, n = np.meshgrid(np.arange(M), np.arange(F), indexing="ij")
+    r, cc = m % 128, n % 128
+    tid = 128 * (r // 64) + 32 * ((r % 64) // 16) + 4 * (r % 8) + (cc % 8) // 2
+    nx = (F + 127) // 128
+    word = (((m // 128) * nx + n // 128) * 256 + tid) * 2 + (r % 16) // 8
+    bit = (2 * (cc // 8) + cc % 2).astype(np.uint32)
+    words = np.zeros(((M + 127) // 128) * nx * 512, np.uint32)
+    np.bitwise_or.at(words, word.ravel(), mask.ravel().astype(np.uint32) << bit.ravel())
+    assert len(np.unique(word * 32 + bit)) == M * F      # every element its own bit
+    return (words[word] >> bit) & 1                      # as the FF2 epilogue reads it back
+
+
+def _mirror_fwd(x, w, seed, H, L, rate):
+    """The layer forward in dtf_tc16.cuh's order: q | k | v for every chunk,
+    the chunk states from the summaries (the mirror core), then each chunk's
+    layer from the state it reads.  Returns (y, kvs, ss, the core's oh and
+    row sums)."""
+    B, C, T, D = x.shape
+    xw = DT.FusionWeights(*(t.float() for t in w))
+    qkvg = x.float() @ xw.wqkvg.T + xw.bqkvg
+    dk = D // H
+    q = _rnd(DT._heads(qkvg[..., :D], H))
+    k = _rnd(_rnd(DT._heads(qkvg[..., D:2 * D], H)) * DT._kscale(dk, BF))
+    v = _rnd(DT._heads(qkvg[..., 2 * D:3 * D], H))
+    oh, inner, kvs, ss = _mirror_core_fwd(q, k, v, L)
+    ys = [DT._chunk_fwd(x[:, :, n * L:(n + 1) * L], kvs[:, n], ss[:, n], w, seed, n, H, rate)[0]
+          for n in range(T // L)]
+    return torch.cat(ys, dim=2).to(BF), kvs, ss, oh, inner
+
+
+def _mirror_bwd(x, dy, kvs, ss, w, seed, H, L, rate):
+    """The layer backward in dtf_tc16.cuh's order: every chunk recomputed
+    from its checkpoint, relu' read back from the packed bits (as the FF2
+    epilogue reads it), every chunk's state increment from a pass at dS = 0
+    (no chunk's increment reads another's dS), the reverse prefix, then
+    every chunk's gradients from its dS_n, in chunk order."""
+    B, C, T, D = x.shape
+    N, dk = T // L, D // H
+    w32 = DT.FusionWeights(*(t.float() for t in w))
+    stash = []
+    for n in range(N):
+        st = DT._chunk_fwd(x[:, :, n * L:(n + 1) * L], kvs[:, n], ss[:, n], w, seed, n, H, rate,
+                           collect=True)[3]
+        hpre = st["hpre"]
+        relu = (hpre > 0).reshape(-1, hpre.shape[-1]).numpy()
+        bits = _relu_bits(relu)
+        assert np.array_equal(bits.astype(bool), relu)
+        st["hpre"] = torch.as_tensor(bits.astype(np.float32)).reshape(hpre.shape)
+        stash.append(st)
+    zero = x.new_zeros(B, H, C, dk, dk, dtype=torch.float32)
+    junk = [torch.zeros_like(t) for t in w32]
+    inc = [DT._chunk_bwd(dy[:, :, n * L:(n + 1) * L].float(), stash[n], w32, zero, junk, H, BF)[1]
+           for n in range(N)]
+    dS = [zero] * N
+    for n in range(N - 2, -1, -1):
+        dS[n] = dS[n + 1] + inc[n + 1]
+    acc = [torch.zeros_like(t) for t in w32]
+    dx = torch.cat([DT._chunk_bwd(dy[:, :, n * L:(n + 1) * L].float(), stash[n], w32, dS[n], acc,
+                                  H, BF)[0] for n in range(N)], dim=2)
+    return dx.to(BF), DT.FusionWeights(*(a.to(BF) for a in acc))
+
+
+def test_chunk_parallel_order_of_work_matches_plain_and_the_jax_kernel(fusion):
+    """The mirror of dtf_tc16.cuh's order of work against the bf16 plain
+    version (which walks the chunks in sequence) and the JAX kernel in
+    interpret mode: the chunk states from the summaries and their prefix
+    equal the plain version's checkpoints to float32 rounding, the core's
+    tiled row sums and output its stash, and y, dx and the 14 weight
+    gradients meet the rounding rule against both; relu' from the packed
+    bits is the plain version's hpre > 0, which hdrop != 0 is not (a
+    positive float32 at or below 2^-134 rounds to a bf16 zero)."""
+    w, x, dy, want16, want32 = fusion
+    y16, kvs16, ss16 = DT.fusion_layer_fwd(x, w, SEED, H3, L3, RATE)
+    y, kvs, ss, oh, inner = _mirror_fwd(x, w, SEED, H3, L3, RATE)
+    torch.testing.assert_close(kvs, kvs16, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(ss, ss16, rtol=1e-6, atol=1e-6)
+    assert float(ss[:, 1:].max()) > 1.0
+    st = DT._chunk_fwd(x[:, :, L3:2 * L3], kvs16[:, 1], ss16[:, 1], w, SEED, 1, H3, RATE,
+                       collect=True)[3]
+    torch.testing.assert_close(inner[:, :, :, L3:2 * L3], st["is_"], rtol=1e-6, atol=0)
+    ohn = oh[:, :, :, L3:2 * L3]
+    ohn = (ohn - ohn.mean(-1, keepdim=True)) * st["grs"]
+    assert float((_rnd(ohn) - st["ohn"]).abs().max()) <= 2 ** -7 * float(st["ohn"].abs().max())
+    dx16, dw16 = DT.fusion_layer_bwd(x, dy, kvs16, ss16, w, SEED, H3, L3, RATE)
+    dx, dw = _mirror_bwd(x, dy, kvs, ss, w, SEED, H3, L3, RATE)
+    plain16 = [("y", y16), ("dx", dx16)] + list(zip(DT.FusionWeights._fields, dw16))
+    got = [("y", y), ("dx", dx)] + list(zip(DT.FusionWeights._fields, dw))
+    for (name, g), (_, p16), (_, j16), (_, j32) in zip(got, plain16, want16, want32):
+        _drift_ok(g, j32, j16, name)
+        assert _share(g, j16, j32) <= ROUND_SHARE, (name, _share(g, j16, j32))
+        assert _share(g, p16, j32) <= ROUND_SHARE, (name, _share(g, p16, j32))
+    tiny = torch.tensor([2.0 ** -140])
+    assert float(tiny) > 0 and float(tiny.to(BF)) == 0.0
+
+
+def test_mirror_core_backward_is_its_forward_s_gradient():
+    """Without the roundings, the mirror's chunk-parallel core backward (the
+    increments at once, the reverse prefix, tiles of 3 rows over 8-row
+    chunks) is the gradient torch takes of its core forward through the
+    carried state, in float64: the order of work computes the reference's
+    backward."""
+    rng = np.random.default_rng(7)
+    B, H, C, T, d, L = 1, 2, 2, 24, 8, 8
+    q, k, v = (torch.tensor(rng.standard_normal((B, H, C, T, d)) * 1.5, requires_grad=True)
+               for _ in range(3))
+    doh = torch.tensor(rng.standard_normal((B, H, C, T, d)))
+    same = lambda t: t                                          # noqa: E731
+    oh, inner, kvs, ss = _mirror_core_fwd(q, k, v, L, rnd=same)
+    assert float(ss[:, 1:].max()) > 1.0 and float(inner.max()) > 1.0
+    (oh * doh).sum().backward()
+    with torch.no_grad():
+        dq, dk, dv, dS = _mirror_core_bwd(q, k, v, doh, inner, kvs, ss, L, rnd=same)
+    for got, want in ((dq, q.grad), (dk, k.grad), (dv, v.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    assert float(dS[:, :, :, -1].abs().max()) == 0.0 and float(dS[:, :, :, 0].abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
 # compute_loss in bf16, every family, against the JAX package's
 # ---------------------------------------------------------------------------
 

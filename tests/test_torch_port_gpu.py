@@ -728,11 +728,14 @@ def test_chunk_kernels_are_forward_only(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _fusion_case(dev, rate, L=40, T=80, C=3):
+def _fusion_case(dev, rate, L=40, T=80, C=3, D=128, F=96):
     """Production-like proportions at a small width: D 128, 4 heads (head
-    dim 32), F 96, 3 slots; L = 40 leaves a partial 64-frame tile."""
+    dim 32), F 96, 3 slots; L = 40 leaves a partial 64-frame tile.  D 192
+    (head dim 48) is a width no 128-wide tile divides; D 256 with F a
+    multiple of 128 is the production width, where the bf16 forms run
+    csrc/dtf_tc16.cuh (with F 96 they keep forward_seq16's sequence)."""
     rng = np.random.default_rng(31)
-    B, D, F = 2, 128, 96
+    B = 2
     cfg = ls_eend.LSEENDConfig(in_size=8, n_units=D, n_heads=4, dec_n_layers=1,
                                dec_dim_feedforward=F, chunk_size=L)
     layer = ls_eend.init_ls_eend(cfg, torch.Generator().manual_seed(3), device=dev).dec.layers[0]
@@ -747,9 +750,10 @@ def _fusion_case(dev, rate, L=40, T=80, C=3):
     return x, w, 1234, 4, L, rate
 
 
+@pytest.mark.parametrize("D", [128, 192])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_fusion_forward_kernel_matches_plain(cuda, rate):
-    x, w, seed, H, L, rate = _fusion_case(cuda, rate)
+def test_fusion_forward_kernel_matches_plain(cuda, rate, D):
+    x, w, seed, H, L, rate = _fusion_case(cuda, rate, D=D)
     n0 = DTF.fwd_launches
     got = DTF.fusion_layer_fwd(x, w, seed, H, L, rate)
     torch.cuda.synchronize()
@@ -767,9 +771,10 @@ def test_fusion_forward_kernel_matches_plain(cuda, rate):
     torch.testing.assert_close(y, got[0], atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("D", [128, 192])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_fusion_backward_kernel_matches_plain(cuda, rate):
-    x, w, seed, H, L, rate = _fusion_case(cuda, rate)
+def test_fusion_backward_kernel_matches_plain(cuda, rate, D):
+    x, w, seed, H, L, rate = _fusion_case(cuda, rate, D=D)
     _, kvs, ss = DTF.fusion_layer_fwd_plain(x, w, seed, H, L, rate)
     dy = _randn(np.random.default_rng(32), *x.shape, dev=cuda)
     n0 = DTF.bwd_launches
@@ -820,10 +825,18 @@ def test_train_step_runs_the_fusion_kernels(cuda):
 B3_BF16_CLOSE = {"fwd": 0.6, "bwd": 0.8}
 
 
-@pytest.mark.parametrize("C,L,T", [(3, 40, 80), (10, 64, 192)])
+@pytest.mark.parametrize("C,L,T,D,F", [(3, 40, 80, 128, 96), (10, 64, 192, 128, 96),
+                                         (3, 40, 80, 192, 96), (3, 40, 80, 256, 96),
+                                         (3, 40, 80, 256, 256), (10, 128, 256, 256, 256),
+                                         (3, 200, 400, 256, 256)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_fusion_bf16_kernels_match_their_bf16_plain_version(cuda, C, L, T, rate):
-    x, w, seed, H, L, rate = _fusion_case(cuda, rate, L=L, T=T, C=C)
+def test_fusion_bf16_kernels_match_their_bf16_plain_version(cuda, C, L, T, D, F, rate):
+    """Head dims 32, 48 and 64; at D 256 with F 256 the production path
+    (dtf_tc16.cuh: L 40 leaves a partial 64-row tile, L 128 and C 10 are
+    the main path's, L 200 is four tiles, the last partial), with F 96 the
+    forward_seq16 sequence; every column of every output is compared, so a
+    tile that skips columns fails."""
+    x, w, seed, H, L, rate = _fusion_case(cuda, rate, L=L, T=T, C=C, D=D, F=F)
     bf = torch.bfloat16
     x16, w16 = x.to(bf), DTF.FusionWeights(*(t.to(bf) for t in w))
     w32 = DTF.FusionWeights(*(t.float() for t in w16))
