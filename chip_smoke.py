@@ -27,9 +27,7 @@ the servers and the steps.
                                       enc_frame_scan.cu,
                                       dec_train_fusion_{fwd,bwd}.cu,
                                       chunk_retention.cu and retention_layer.cu
-                                      and the bf16 cached_attention.cu,
-                                      dec_frame_scan.cu, enc_frame_scan.cu
-                                      and dec_train_fusion_{fwd,bwd}.cu
+                                      and the bf16 forms of all seven
                                       found in DIR, an earlier commit's
                                       kernels/csrc with this tree's entry
                                       points (others are refused), times them
@@ -39,8 +37,8 @@ the servers and the steps.
     python3 chip_smoke.py --bf16-only (phases 1-2 and H1-H6 alone on fresh
                                       models: the bf16 serving kernels
                                       checked and timed, with --parent
-                                      against the earlier bf16 B1, B2, B6
-                                      and B7; prints no result)
+                                      against the earlier bf16 B1, B2, B4,
+                                      B5, B6 and B7; prints no result)
     python3 chip_smoke.py --b3-only  (phases 1-2 and H7-H8's LS part alone on
                                       a fresh model: B3's bf16 forms checked
                                       and timed at T1 and on the bf16 main
@@ -152,7 +150,11 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      build's, and both at K 128 and K 1 against it in turns, B1 bf16 the
      earlier build's bits; B2 bf16 also over 5, 16 and 40 lanes, and the
      bf16 per-frame server's block and step() with the earlier B2 against
-     this tree's, in turns)
+     this tree's, in turns); B4's bf16 device time by kernel at the
+     blockwise server's decoder and encoder calls (the
+     retention_layer_bf16_parts lines; with --parent also the earlier
+     build's, both calls against it in turns, and the bf16 blockwise
+     server's block with the earlier B4 against this tree's, in turns)
  H5 (LS), H4 and H6 for B5: the blockwise server on the "core" route in
      bf16 (128 lanes x 4 blocks of 128 + flush; chunk_retention_bf16 6 a
      block, 2 on the flush, counted from 0) against the float32 server
@@ -163,7 +165,10 @@ Phases (any failure raises; the script exits non-zero and prints no result):
      encoder (8, 3000, 64) at L 500 from the fresh state, the blockwise
      calls from their carried state; every state bf16) against their bf16
      and float32 plain versions (`bf16_guard`, close 0.5); B5 bf16 timed
-     at the batch calls
+     at the batch calls and the blockwise calls (5120 and 512 rows, L 128)
+     beside its plain version and bound, its device time by kernel at each
+     (the chunk_retention_bf16_parts lines; with --parent also the earlier
+     build's, and each call against it in turns)
  H7. the fusion layer's bf16 forms (B3 forward and backward, FS_BF16)
      against their bf16 plain version and their float32 plain version on
      the same values (`bf16_guard`, close B3_BF16_CLOSE: 0.6 on y and the
@@ -544,6 +549,8 @@ CA_ENTRY = ("out, float* part, int R, int K, int cap, int rows_per_lane, int min
             "out, int R, int K, int cap, void* stream")
 DFS_ENTRY = ("T* s, float* ws, int B, int K, int C, int L, int F, void* stream",)
 EFS_ENTRY = ("float* ws, int B, int K, int L, int F, int kc, float ffac, int graph, void* stream",)
+CR_ENTRY = ("sf, float* scratch, int BH, int T, int L, void* stream)",)
+RL_ENTRY = ("ws, float* scratch,", "int B, int T, int L, int H, float kscale")
 B3_ENTRY = {"fwd": (("dtf_forward(const float* x, const float* tqkvg, const float* bqkvg",
                       "dtf_forward(const E* x, const E* tqkvg, const E* bqkvg"),),
             "bwd": ("unsigned seed, unsigned thr, float mult, void* stream_",)}
@@ -553,11 +560,9 @@ PARENT_SOURCES = {   # key: (source, defines, entry points)
     "enc_frame_scan": ("enc_frame_scan", DTF, EFS_ENTRY),
     "dec_train_fusion_fwd": ("dec_train_fusion_fwd", DTF, B3_ENTRY["fwd"]),
     "dec_train_fusion_bwd": ("dec_train_fusion_bwd", DTF, B3_ENTRY["bwd"]),
-    "chunk_retention": ("chunk_retention", HEAD,
-                        ("sf, float* scratch, int BH, int T, int L, void* stream)",)),
-    "retention_layer": ("retention_layer", HEAD,
-                        ("ws, float* scratch,", "int B, int T, int L, int H, float kscale")),
-    # the bf16 forms of B1, B2, B6 and B7, timed against this tree's
+    "chunk_retention": ("chunk_retention", HEAD, CR_ENTRY),
+    "retention_layer": ("retention_layer", HEAD, RL_ENTRY),
+    # the bf16 forms of B1-B7, timed against this tree's
     "cached_attention_bf16": ("cached_attention", {"CA_HD": FS_HD, "FS_BF16": 1}, CA_ENTRY),
     "dec_frame_scan_bf16": ("dec_frame_scan", dict(DTF, FS_BF16=1), DFS_ENTRY),
     "enc_frame_scan_bf16": ("enc_frame_scan", dict(DTF, FS_BF16=1), EFS_ENTRY),
@@ -565,6 +570,8 @@ PARENT_SOURCES = {   # key: (source, defines, entry points)
                                   B3_ENTRY["fwd"]),
     "dec_train_fusion_bwd_bf16": ("dec_train_fusion_bwd", dict(DTF, FS_BF16=1),
                                   B3_ENTRY["bwd"]),
+    "chunk_retention_bf16": ("chunk_retention", dict(HEAD, FS_BF16=1), CR_ENTRY),
+    "retention_layer_bf16": ("retention_layer", dict(HEAD, FS_BF16=1), RL_ENTRY),
 }
 PARENT = {}
 # the blockwise blocks' ms of this run ("ls": the fused route, "fs": the
@@ -647,7 +654,9 @@ def finish_parent_build(procs):
                   enc_frame_scan=on("enc_frame_scan", EFS.enc_frame_scan),
                   enc_frame_scan_bf16=on("enc_frame_scan_bf16", EFS.enc_frame_scan),
                   chunk_retention=on("chunk_retention", CR.chunk_retention),
-                  retention_layer=on("retention_layer", RL.retention_layer))
+                  retention_layer=on("retention_layer", RL.retention_layer),
+                  chunk_retention_bf16=on("chunk_retention_bf16", CR.chunk_retention),
+                  retention_layer_bf16=on("retention_layer_bf16", RL.retention_layer))
 
 
 def same_bits_as_parent(what, old, this):
@@ -4109,11 +4118,13 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
     server's process_block at 128 lanes x K 128 and its step(), the blockwise
     server's block; each bf16 kernel at its main-path shape beside its bf16
     plain version and its bound (bf16 bytes, bf16 tensor-core peak), B1 and
-    B2 also at step()'s K 1; the stream state's bytes in both dtypes; with
-    --parent, B1 and B2 bf16 against the earlier build (B2 also over fewer
-    lanes and inside the per-frame server).  Returns the kernels line's rows
-    of the bf16 forms."""
+    B2 also at step()'s K 1, B4 at both blockwise calls by kernel; the
+    stream state's bytes in both dtypes; with --parent, B1, B2 and B4 bf16
+    against the earlier build (B2 also over fewer lanes and inside the
+    per-frame server, B4 inside the blockwise server).  Returns the kernels
+    line's rows of the bf16 forms."""
     from fseend_tpu_torch.kernels import enc_frame_scan as EFS
+    from fseend_tpu_torch.kernels import retention_layer as RL
     from fseend_tpu_torch.serving.runtime import BlockStreamingServer, StreamingServer
 
     xs = torch.as_tensor(rng.standard_normal((LANES, TIME_K, cfg.in_size)),
@@ -4139,6 +4150,13 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
                       "bf16_frames_per_s": LANES * TIME_K / (bf_ms / 1e3),
                       "state_mb": {"float32": state_bytes(s32.state) / 1e6,
                                    "bf16": state_bytes(s16.state) / 1e6}}
+        if what.startswith("blockwise") and PARENT:
+            # the bf16 server with the earlier build's B4 and with this
+            # tree's, all else the same, in turns: B4's share end to end
+            call = lambda: s16.process_block(xs)          # noqa: E731
+            in_turns("bf16 blockwise process_block, the earlier B4",
+                     via(RL, "retention_layer", PARENT["retention_layer_bf16"], call), call, 5,
+                     card, rounds=2)
         if what.startswith("per-frame"):
             ms = []
             for _ in range(3):
@@ -4202,13 +4220,32 @@ def phase_bf16_times(cfg, model, rng, card, main, rl_calls):
     for key, label in (("retention_layer", "decoder"), ("retention_layer_enc", "encoder")):
         args, kw = rl_calls[key]
         _, kern, plain = chunk_kernels()["retention_layer"]
+        shape = f"bf16 {label} {tuple(args[1].shape)} L={args[-1]}"
         with torch.no_grad():                  # as the server calls it (its op)
-            row = time_kernel("retention_layer",
-                              f"bf16 {label} {tuple(args[1].shape)} L={args[-1]}", kern, plain,
-                              args, kw, cfg, card, plain_reps=3)
+            row = time_kernel("retention_layer", shape, kern, plain, args, kw, cfg, card,
+                              plain_reps=3)
+            bf16_versions_vs_parent("retention_layer", kern, args, kw, shape, card)
         if label == "decoder":
             rows["retention_layer_bf16"] = row
     return rows
+
+
+def bf16_versions_vs_parent(name, kern, args, kw, shape, card):
+    """B4 or B5 bf16 at one main-path call: device time by kernel per call
+    (the {name}_bf16_parts lines) of this build and, with --parent, of the
+    earlier one, then the two in turns (earlier, this, this, earlier)."""
+    versions = [("this", kern)]
+    if PARENT:
+        versions.insert(0, ("earlier", PARENT[name + "_bf16"]))
+    for which, fn in versions:
+        busy = device_ms_by_kernel(lambda: fn(*args, **kw), reps=PARTS_REPS)
+        log(json.dumps({f"{name}_bf16_parts": {
+            "kernel": which, "shape": shape, "device_busy_ms": sum(busy.values()),
+            "host_ms_per_call": host_ms(lambda: fn(*args, **kw)), "top": top_kernels(busy, 1)},
+            "card": card}))
+    if PARENT:
+        old = PARENT[name + "_bf16"]
+        in_turns(f"{name} {shape}", lambda: old(*args, **kw), lambda: kern(*args, **kw), 5, card)
 
 
 # ---------------------------------------------------------------------------
@@ -4266,8 +4303,9 @@ def phase_bf16_core(cfg, model, rng, card):
     route by the drift rule from the float32 "core" pass.  H4: the captured
     calls (the batch decoder (80, 3000, 64) and encoder (8, 3000, 64) at L
     500 from the fresh state; the blockwise decoder's from its carried
-    state) against their plain versions.  H6: B5 bf16 at the
-    batch decoder's call beside its plain version and bound.  Returns
+    state) against their plain versions.  H6: B5 bf16 at the batch calls
+    and the blockwise calls beside its plain version and bound, by kernel
+    and (with --parent) against the earlier build in turns.  Returns
     (launches, max distance from bf16 plain, the kernels line's row)."""
     from fseend_tpu_torch.kernels import chunk_retention as CR
     from fseend_tpu_torch.models import ls_eend
@@ -4351,11 +4389,14 @@ def phase_bf16_core(cfg, model, rng, card):
     for shape, (args, _) in sorted({**calls, **batch}.items(), key=lambda kv: -kv[0][0]):
         err = max(err, bf16_core_vs_plain(args, f"{shape} L={args[-1]}"))
     (args, _), row = batch[max(batch, key=lambda s: s[0])], None
-    for shape, (a, kw) in batch.items():
-        r = time_kernel("chunk_retention", f"bf16 batch {shape} L={a[-1]}", CR.chunk_retention,
-                        CR.chunk_retention_plain, a, kw, cfg, card)
-        if a is args:
-            row = r
+    for where, got in (("batch", batch), ("blockwise", calls)):
+        for shape, (a, kw) in sorted(got.items(), key=lambda kv: -kv[0][0]):
+            label = f"bf16 {where} {shape} L={a[-1]}"
+            r = time_kernel("chunk_retention", label, CR.chunk_retention,
+                            CR.chunk_retention_plain, a, kw, cfg, card)
+            bf16_versions_vs_parent("chunk_retention", CR.chunk_retention, a, kw, label, card)
+            if a is args:
+                row = r
     return launches, err, row
 
 
@@ -5606,7 +5647,8 @@ def phase_bf16_only(card):
     """H1-H6 alone on fresh models: the bf16 forms of the frame scans, the
     retention layer, the chunkwise core and both cached-attention kernels
     against their plain versions, on their servers' main paths, and timed
-    (with --parent, B1, B2, B6 and B7 also against the earlier bf16 build)."""
+    (with --parent, B1, B2, B4, B5, B6 and B7 also against the earlier bf16
+    build)."""
     from fseend_tpu_torch.models import fs_eend, ls_eend
 
     cfg, fcfg = ls_eend.LSEENDConfig(), fs_eend.FSEENDConfig()

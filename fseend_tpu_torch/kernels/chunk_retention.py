@@ -18,7 +18,10 @@ is float32.  The bf16 form (the same source built with FS_BF16) computes as
 `retention_pallas.py` does on bf16 data: the scores from the bf16 values in
 float32, the rest in float32, the state carried in float32 within the call
 and returned in bf16, the output rounded to bf16; so does the plain
-version.  The scratch is float32 in either form.
+version.  At head dims 64 the bf16 build is `csrc/ret16.cuh`'s core (its
+float32 operands as three bf16 terms on the tensor cores; its order of work
+mirrored in tests/test_torch_port_ret16_order.py).  The scratch is float32
+in either form.
 `chunk_retention_passes` is the kernel's algorithm (the state scanned over
 the chunks' summaries, the output per 64-query tile) in plain tensor ops,
 for the tests.

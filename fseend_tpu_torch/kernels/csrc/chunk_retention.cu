@@ -19,13 +19,24 @@
 // warp's accumulators stay in registers.
 //
 // The bf16 form (built with FS_BF16; the float32 build is the code above):
-// q, k, v, out and the state (kv, scale) in and out are bf16.  The
-// arithmetic is retention_pallas.py's on bf16 inputs: the scores a bf16
-// tensor-core pass, S V, the cross read and the state update 3xTF32 on
-// float32 operands, the state carried in float32 within the call and stored
-// in bf16, the output rounded to bf16 (chunk_retention_tc.cuh).  Bound: the
-// same operations, against half the float32 form's bytes.
+// q, k, v, out and the state (kv, scale) in and out are bf16, rounded where
+// retention_pallas.py rounds (the output, :94-95; the stored state,
+// :111-112), the state carried in float32 within the call.  Bound: the
+// bytes (bf16 q, k, v read and out written once), the operations a few
+// passes of 16 x 64 x 64 products per row on the bf16 tensor cores.  Which
+// widths take which path, at compile time by the head dims:
+//   - CR_DK = CR_DV = 64 (LS-EEND's, every main-path call): ret16.cuh's
+//     core, bf16 k/v tiles by cp.async read with ldmatrix, the scores on
+//     bf16 mma.sync, S V, the cross read and the state update with their
+//     float32 operand as three bf16 terms, the output and (at T = L) the
+//     new state from one launch; at T > L each chunk's summary on the same
+//     terms, the fixed-order scan, then the output; design notes there;
+//   - other head dims (the tests' 16 and 32): chunk_retention_tc.cuh's
+//     bf16 form (bf16 scores, 3xTF32 on float32 tiles for the rest).
 #include "chunk_retention_tc.cuh"
+#if defined(FS_BF16) && CR_DK == 64 && CR_DV == 64
+#include "ret16.cuh"
+#endif
 
 #ifndef CR_DK
 #error "define CR_DK and CR_DV (the key and value dims of a head)"
@@ -52,5 +63,9 @@ extern "C" int chunk_retention_launch(const float* gamma, const E* q, const E* k
   a.kvbuf = scratch;
   a.cbuf = scratch ? scratch + (size_t)BH * (T / L) * CR_DK * CR_DV : nullptr;
   a.H = 1, a.T = T, a.L = L;
+#if defined(FS_BF16) && CR_DK == 64 && CR_DV == 64
+  return r16::core16<false>(a, nullptr, 0, BH, static_cast<cudaStream_t>(stream));
+#else
   return crt::launch_core<CR_DK, CR_DV, false>(a, BH, static_cast<cudaStream_t>(stream));
+#endif
 }

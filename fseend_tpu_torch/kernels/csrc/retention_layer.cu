@@ -35,15 +35,26 @@
 // output and the gated output make none beyond the g columns.
 //
 // The bf16 form (built with FS_BF16; the float32 build is the code above
-// unchanged): x, the weights, y, the workspace (q | k | v | g) and the
-// incoming and stored state (kv, scale) are bf16.  Both projections are one
-// bf16 tensor-core pass with float32 accumulation (tc_bf16.cuh), rounded to
-// bf16 as the TPU kernel rounds them (retention_layer_pallas.py:66-73,
-// 150-152); the core is chunk_retention_tc.cuh's bf16 form (bf16 scores,
-// float32 arithmetic and state carry within the call, the state rounded to
-// bf16 when it is stored).  Bound: the same operations on the bf16 tensor
-// cores (989 TFLOP/s), against half the float32 form's bytes.
+// unchanged): x, the weights, y, the workspace and the incoming and stored
+// state (kv, scale) are bf16, rounded where retention_layer_pallas.py rounds
+// (its :66-80, 123-154).  Bound: the projections' operations at the bf16
+// peak (989 TFLOP/s) and the core's bytes.  Which widths take which path,
+// at compile time by the head dims and by shape (D) in the entry point,
+// which kernels/retention_layer.py's _launch sizes the workspace for:
+//   - CR_DK = CR_DV = 64 and D % 128 == 0 (the LS decoder's and encoder's
+//     D 256, H 4): ret16.cuh's layer, the products on wgmma (wg16.cuh),
+//     the core with bf16 tiles and its float32 operands as three bf16
+//     terms, the output and (at T = L) the new state from one launch, the
+//     gated value in a workspace of its own; design notes there;
+//   - any other head dims (value_factor 2's dv 128, the tests' 16 and 32)
+//     or D (192: the 192-wide out projection is no multiple of wgmma's
+//     128-wide tile): both projections one bf16 mma.sync pass with float32
+//     accumulation (tc_bf16.cuh) and chunk_retention_tc.cuh's bf16 core
+//     (bf16 scores, 3xTF32 on float32 tiles for the rest).
 #include "chunk_retention_tc.cuh"
+#if defined(FS_BF16) && CR_DK == 64 && CR_DV == 64
+#include "ret16.cuh"
+#endif
 
 #ifndef CR_DK
 #error "define CR_DK and CR_DV (the key and value dims of a head)"
@@ -60,8 +71,9 @@ using E = float;
 // CR_DV; ws (B*T, 2D + 2F) scratch; scratch (B * H * (T/L) * (CR_DK * CR_DV
 // + 1)) floats when T > L, else may be null; kv0, kvf (B, H, CR_DK, CR_DV);
 // s0, sf (B, H).  All but gamma and scratch of the element type E (bf16 with
-// FS_BF16, else float).  T % L == 0, B*T <= 128 * 65535.  Returns the first
-// CUDA error of the launches.
+// FS_BF16, else float).  T % L == 0, B*T <= 128 * 65535.  On ret16.cuh's
+// path ws holds (B*T, W) then (B*T, F), (W, D) and (D, F) more (see there).
+// Returns the first CUDA error of the launches.
 extern "C" int retention_layer_launch(const float* gamma, const E* x, const E* wqkvg,
                                       const E* bqkvg, const E* wo, const E* bo, E* ws,
                                       float* scratch, E* y, const E* kv0, const E* s0, E* kvf,
@@ -69,6 +81,11 @@ extern "C" int retention_layer_launch(const float* gamma, const E* x, const E* w
                                       void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int D = H * CR_DK, F = H * CR_DV, W = 2 * D + 2 * F, M = B * T;
+#if defined(FS_BF16) && CR_DK == 64 && CR_DV == 64
+  if (D % 128 == 0)  // retention_layer.py: _ret16
+    return r16::layer16(gamma, x, wqkvg, bqkvg, wo, bo, ws, scratch, y, kv0, s0, kvf, sf, B, T,
+                        L, H, kscale, stream);
+#endif
 #ifdef FS_BF16
   int err = tc::launch_linear(x, D, wqkvg, W, bqkvg, ws, W, M, W, D, stream, D, 2 * D, kscale);
 #else

@@ -28,8 +28,11 @@ float32.  The bf16 form (the same source built with FS_BF16) computes as
 bf16, the core in float32 on the bf16 values with the state carried in
 float32 within the call and stored in bf16, the core's output, the group
 norm's output, the gated value and y rounded to bf16; its products of bf16
-operands are bf16 tensor-core passes.  The plain version follows the same
-rounding points.
+operands are bf16 tensor-core passes, a float32 operand of the core's
+products three bf16 terms.  The plain version follows the same rounding
+points.  At head dims 64 and D a multiple of 128 (`_ret16`) the bf16 launch
+is `csrc/ret16.cuh`'s layer, whose workspace also holds the gated value and
+both weights transposed; other widths keep the mma.sync form.
 
 Layouts: gammas (H,); x (B, T, D); kv0 (B, H, dk, dv); s0 (B, H, 1, 1);
 T % chunk == 0.  Returns (y (B, T, D), kv_f, s_f).
@@ -187,7 +190,11 @@ def _launch(gammas, x, w, kv0, s0, chunk):
     fn.restype = ctypes.c_int
     gammas, x, kv0, s0 = (aligned(t.contiguous()) for t in (gammas, x, kv0, s0))
     w = RetLayerWeights(*(aligned(t.contiguous()) for t in w))
-    ws = torch.empty((B * T, 2 * D + 2 * Fv), dtype=x.dtype, device=x.device)
+    W = 2 * D + 2 * Fv
+    # q | k | v | g, and on csrc/ret16.cuh's path the gated value and both
+    # weights transposed
+    extra = B * T * Fv + W * D + D * Fv if _ret16(x.dtype, D, dk, dv) else 0
+    ws = torch.empty(B * T * W + extra, dtype=x.dtype, device=x.device)
     N = T // chunk
     # the chunks' summaries and scales, when there is more than one chunk
     scratch = (torch.empty(B * H * N * (dk * dv + 1), device=x.device, dtype=torch.float32)
@@ -208,6 +215,14 @@ def _launch(gammas, x, w, kv0, s0, chunk):
     else:
         launches += 1
     return y, kv_f, s_f
+
+
+def _ret16(dtype, D: int, dk: int, dv: int) -> bool:
+    """Whether the CUDA launch takes csrc/ret16.cuh's layer (retention_layer.cu
+    chooses by the same rule): the bf16 form at head dims 64 with D a
+    multiple of 128, the wgmma out projection's tile (the LS decoder's and
+    encoder's D 256).  Other widths keep the mma.sync form."""
+    return dtype == torch.bfloat16 and dk == dv == 64 and D % 128 == 0
 
 
 def _in(dtype, v: float) -> float:

@@ -556,6 +556,50 @@ def test_retention_layer_bf16_kernel_matches_plain(cuda):
         kv0, s0 = want16[1], want16[2]
 
 
+@pytest.mark.parametrize("D,vf,L,N", [
+    (256, 1, 128, 1),    # the main-path form: T = L = 128, csrc/ret16.cuh's layer
+    (256, 1, 128, 2),    # T = 2L: the chunks' summaries and the scan
+    (256, 1, 75, 2),     # a partial second k/v tile in each chunk
+    (256, 1, 150, 2),    # three k/v tiles a chunk, the last partial
+    (256, 1, 500, 1),    # four 128-query blocks, the last one partial, writing the state
+    (192, 1, 128, 1),    # D 192: the mma.sync form (its out projection is no 128 multiple)
+    (256, 2, 128, 1)])   # dv 128: the mma.sync form
+@pytest.mark.parametrize("use_decay", [False, True])
+def test_retention_layer_bf16_forms_match_plain(cuda, D, vf, L, N, use_decay):
+    """B4's bf16 form on either path (`RL._ret16` says which) against its
+    bf16 and float32 plain versions from a carried bf16 state, gamma = 1
+    and gamma < 1; two calls give the same bits and leave the incoming
+    state untouched."""
+    rng = np.random.default_rng(D + L + N + 7 * vf + use_decay)
+    B, H = 3, 4 if D == 256 else 3
+    cfg = TR.RetentionConfig(D, H, vf, L, use_decay=use_decay)
+    ret = TR.Retention(cfg).to(cuda)
+    with torch.no_grad():
+        for prm in ret.parameters():
+            prm.copy_(_randn(rng, *prm.shape, scale=0.1, dev=cuda))
+    w16 = RL.RetLayerWeights(*(t.detach().to(torch.bfloat16) for t in RL.pack_retention(ret)))
+    w32 = RL.RetLayerWeights(*(t.float() for t in w16))
+    gam = TR.decay_gammas(cfg, cuda)
+    dk, dv = cfg.key_dim, cfg.head_dim
+    assert RL._ret16(torch.bfloat16, D, dk, dv) == (D == 256 and vf == 1)
+    kv0 = _randn(rng, B, H, dk, dv, scale=0.5, dev=cuda).to(torch.bfloat16)
+    s0 = (1.0 + 3 * torch.rand(B, H, 1, 1, device=cuda)).to(torch.bfloat16)
+    given = (kv0.clone(), s0.clone())
+    x = _randn(rng, B, N * L, D, scale=2.0, dev=cuda).to(torch.bfloat16)
+    n0 = RL.launches_bf16
+    with torch.no_grad():
+        got = RL.retention_layer(gam, x, w16, kv0, s0, L)
+        again = RL.retention_layer(gam, x, w16, kv0, s0, L)
+    torch.cuda.synchronize()
+    assert RL.launches_bf16 == n0 + 2
+    assert torch.equal(kv0, given[0]) and torch.equal(s0, given[1])
+    want16 = RL.retention_layer_plain(gam, x, w16, kv0, s0, L)
+    want32 = RL.retention_layer_plain(gam, x.float(), w32, kv0.float(), s0.float(), L)
+    for g, a, b, c, what in zip(got, again, want16, want32, ("y", "kv", "scale")):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a), what
+        _bf16_close(g, b, c, what, 0.5)
+
+
 def test_wrappers_raise_on_unsupported_dtype(cuda):
     args, kw = _captured_block(cuda, 2)["enc"]
     bad = list(args)
@@ -642,6 +686,37 @@ def test_chunk_retention_bf16_kernel_matches_plain(cuda, gamma, L):
     for g, a, b, what in zip(got, want16, want32, ("out", "kv", "scale")):
         _bf16_close(g, a, b, what, 0.5)
     assert torch.equal(CR.chunk_retention(gam, q, k, v, kv0, s0, L)[0], got[0])
+
+
+@pytest.mark.parametrize("L,N", [(128, 1), (128, 2), (75, 1), (75, 2), (500, 2)])
+@pytest.mark.parametrize("gamma", [1.0, 0.97])
+def test_chunk_retention_bf16_ret16_matches_plain(cuda, gamma, L, N):
+    """B5's bf16 form at head dims 64 (csrc/ret16.cuh) against its bf16 and
+    float32 plain versions from a carried bf16 state: T = L (one launch
+    writes the output and the state: L 128, the blockwise calls' form, and
+    L 75, one query block cut short), T = 2L (the summaries and the scan),
+    L 500 (four query blocks, the last one partial, reading KV_1 as three
+    terms); two calls give the same bits, the incoming state untouched."""
+    rng = np.random.default_rng(int(L + 10 * N + 100 * gamma))
+    BH, dk = 12, 64
+    bf = torch.bfloat16
+    gam = torch.full((BH,), gamma, device=cuda)
+    q, k, v = (_randn(rng, BH, N * L, dk, scale=s, dev=cuda).to(bf) for s in (1.0, 0.125, 1.0))
+    kv0 = _randn(rng, BH, dk, dk, scale=0.5, dev=cuda).to(bf)
+    s0 = (1.0 + 3 * torch.rand(BH, 1, 1, device=cuda)).to(bf)
+    given = (kv0.clone(), s0.clone())
+    n0 = CR.launches_bf16
+    got = CR.chunk_retention(gam, q, k, v, kv0, s0, L)
+    again = CR.chunk_retention(gam, q, k, v, kv0, s0, L)
+    torch.cuda.synchronize()
+    assert CR.launches_bf16 == n0 + 2
+    assert torch.equal(kv0, given[0]) and torch.equal(s0, given[1])
+    want16 = CR.chunk_retention_plain(gam, q, k, v, kv0, s0, L)
+    want32 = CR.chunk_retention_plain(gam, q.float(), k.float(), v.float(), kv0.float(),
+                                      s0.float(), L)
+    for g, a, b, c, what in zip(got, again, want16, want32, ("out", "kv", "scale")):
+        assert g.dtype == bf and torch.equal(g, a), what
+        _bf16_close(g, b, c, what, 0.5)
 
 
 @pytest.mark.parametrize("use_decay", [False, True])
